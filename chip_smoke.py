@@ -1,0 +1,386 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's schedule-aware kernel path on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # needs one card
+
+It imports only ``repro_torch``, ``torch`` and numpy, builds the CUDA
+kernels from ``src/repro_torch/kernels/csrc`` on first use (into
+``build/repro_torch``), and prints one JSON line per phase:
+
+  env          the card, torch / CUDA versions, SM count, build seconds and
+               each kernel's registers / spills from ``ptxas -v``
+  main_path    launch counts set to 0, then the path a user calls at the
+               full layer width of qwen3-moe-30b-a3b: ``ops.flash_attention``
+               (32 q heads, 4 KV heads, head_dim 128, 8 ragged lanes of
+               4096, causal, schedule fac2, sched_p = SM count and 8) and
+               the expert FFN through ``ops.grouped_matmul`` (128 experts,
+               C 512, wi (128, 2048, 768), wo (128, 768, 2048), fac2); the
+               counts are read right after
+  small        both kernels against the plain oracles at small, ragged
+               shapes (partial blocks, a sliding window, dead tiles)
+  flash_sched  the kernel against its plain version at the main path's
+               shapes, bit-identity across schedules and sched_p, timing
+  gmm          the same for the grouped matmul (wi and wo shapes)
+  kernels      the summary line, one entry per kernel
+
+then the card's name and power limit as ``nvidia-smi`` prints them, and
+last ``{"ok": true, "device": {...}}``.  Any failed check raises and the
+script exits non-zero; it also exits non-zero, printing no result, when no
+CUDA device is present or ``src/repro_torch`` is missing beside it.
+
+The plain versions run with TF32 off (``torch.backends.cuda.matmul.
+allow_tf32`` and ``torch.backends.cudnn.allow_tf32`` False), in fp32.
+Tolerance for a bf16 kernel output against the plain version:
+|kernel - plain| <= 2^-7 + 2^-7 * |plain|, i.e. about two bf16 rounding
+steps: the kernels sum in another order (and split P into two bf16 terms)
+before the final rounding to bf16.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
+PEAK_BYTES = 3.35e12         # H100 SXM HBM3 rate
+ATOL = RTOL = 2.0 ** -7
+REPS = 20                    # timed calls per kernel measurement
+
+# main-path widths: qwen3-moe-30b-a3b (src/repro/configs/qwen3_moe_30b_a3b.py)
+B, S, H, KVH, HD = 8, 4096, 32, 4, 128
+E, C, D_MODEL, D_FF, BLOCK_ROWS = 128, 512, 2048, 768, 128
+IDENTITY_SCHEDULES = ("static", "ss", "gss", "fac2", "awf_b", "ws_rr",
+                      "dls_steal")
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} is missing; run "
+              "from a checkout of the repository", file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for log in _build.build_info().get("logs", {}).values()
+             for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    emit("env", gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0], sm_count=n_sm,
+         build_seconds=build_s, ptxas=ptxas)
+
+    import numpy as np
+    from repro_torch.balance.moe import plan_tiles
+    from repro_torch.core import REGISTRY, LoopRecorder
+    from repro_torch.core.torch_sched import worker_bounds
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+
+    def randn(*shape, scale=1.0):
+        x = torch.randn(*shape, generator=gen, device=dev,
+                        dtype=torch.float32) * scale
+        return x.to(torch.bfloat16)
+
+    def check_close(name, got, want):
+        diff = (got.float() - want.float()).abs()
+        bad = diff > ATOL + RTOL * want.float().abs()
+        err = float(diff.max())
+        assert not bool(bad.any()), (
+            f"{name}: {int(bad.sum())} elements outside tolerance, "
+            f"max abs err {err}")
+        return err
+
+    def cuda_ms(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    # ---- inputs ------------------------------------------------------------
+    q = randn(B, S, H, HD)
+    k = randn(B, S, KVH, HD)
+    v = randn(B, S, KVH, HD)
+    kv_lens = rng.integers(64, S + 1, size=B)
+    kv_lens[0] = S
+    counts = np.bincount((rng.zipf(1.3, size=E * C // 2) - 1) % E,
+                         minlength=E)
+    expert_rows = np.minimum(counts, C)
+    live = torch.arange(C, device=dev)[None, :] < torch.as_tensor(
+        expert_rows, device=dev)[:, None]
+    xe = randn(E, C, D_MODEL) * live[:, :, None]
+    wi = randn(E, D_MODEL, D_FF, scale=D_MODEL ** -0.5)
+    wo = randn(E, D_FF, D_MODEL, scale=D_FF ** -0.5)
+    torch.cuda.synchronize()
+
+    # ---- main path: counts from 0, the calls a user makes, counts read ----
+    rec = LoopRecorder()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    attn = flash_attention(q, k, v, causal=True, schedule="fac2",
+                           kv_lens=kv_lens, sched_p=n_sm, recorder=rec)
+    attn_p8 = flash_attention(q, k, v, causal=True, schedule="fac2",
+                              kv_lens=kv_lens, sched_p=8, recorder=rec)
+    hid = grouped_matmul(xe, wi, schedule="fac2", expert_rows=expert_rows,
+                         block_rows=BLOCK_ROWS, sched_p=n_sm, recorder=rec)
+    act = torch.nn.functional.silu(hid.float()).to(torch.bfloat16)
+    ffn = grouped_matmul(act, wo, schedule="fac2", expert_rows=expert_rows,
+                         block_rows=BLOCK_ROWS, sched_p=n_sm, recorder=rec)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
+    assert all(n > 0 for n in launches.values()), launches
+    for name, out, shape in (("attn", attn, (B, S, H, HD)),
+                             ("ffn", ffn, (E, C, D_MODEL))):
+        assert tuple(out.shape) == shape, (name, out.shape)
+        assert bool(torch.isfinite(out).all()), f"{name} is not finite"
+    assert torch.equal(attn, attn_p8), "sched_p=SM and sched_p=8 differ"
+    assert len(rec.records) == 4 and [r.loop for r in rec.records] == [
+        "flash_kv", "flash_kv", "grouped_matmul", "grouped_matmul"]
+    emit("main_path", seconds=main_s, launches=launches,
+         records=[{"loop": r.loop, "technique": r.technique, "p": r.p,
+                   "n": r.n, "n_chunks": r.n_chunks,
+                   "percent_imbalance": r.percent_imbalance}
+                  for r in rec.records])
+
+    # ---- small ragged shapes against the plain oracles -------------------
+    small = {}
+    for bs, ss, hs, kvhs, hd, win, bq in ((2, 300, 4, 2, 128, 0, 128),
+                                          (3, 200, 2, 1, 64, 70, 64),
+                                          (1, 96, 2, 2, 128, 0, 512)):
+        qs, ks, vs = randn(bs, ss, hs, hd), randn(bs, ss, kvhs, hd), \
+            randn(bs, ss, kvhs, hd)
+        lens = rng.integers(1, ss + 1, size=bs)
+        got = flash_attention(qs, ks, vs, causal=True, window=win,
+                              block_q=bq, block_k=bq, schedule="gss",
+                              kv_lens=lens, sched_p=5)
+        qf, kf, vf = fa.broadcast_flatten(qs, ks, vs)
+        want = attention_ref(qf, kf, vf, causal=True, window=win,
+                             kv_lens=np.repeat(lens, hs))
+        want = want.reshape(bs, hs, ss, hd).permute(0, 2, 1, 3)
+        small[f"flash_s{ss}_hd{hd}_w{win}"] = check_close("flash small",
+                                                          got, want)
+    es, cs, ds, fs = 4, 256, 96, 256
+    xs, ws = randn(es, cs, ds), randn(es, ds, fs, scale=ds ** -0.5)
+    rows = np.array([256, 0, 130, 7])
+    got = grouped_matmul(xs, ws, schedule="fac2", expert_rows=rows,
+                         block_rows=128, sched_p=3)
+    tpe = cs // 128
+    want = grouped_matmul_ref(xs.reshape(es * tpe, 128, ds), ws,
+                              torch.arange(es * tpe, device=dev) // tpe)
+    small["gmm_e4"] = check_close("gmm small", got,
+                                  want.reshape(es, cs, fs))
+    emit("small", max_abs_err=small)
+
+    # ---- flash_sched at the main path's shapes ---------------------------
+    qf, kf, vf = fa.broadcast_flatten(q, k, v)
+    lane_lens = np.repeat(kv_lens, H)
+    plain = fa.flash_attention_sched_plain(qf, kf, vf, kv_lens=lane_lens,
+                                           causal=True)
+    plain = plain.reshape(B, H, S, HD).permute(0, 2, 1, 3)
+    flash_err = check_close("flash_sched", attn, plain)
+    del plain
+    for sched in IDENTITY_SCHEDULES:
+        out = flash_attention(q, k, v, schedule=sched, kv_lens=kv_lens,
+                              sched_p=n_sm)
+        assert torch.equal(out, attn), f"flash output differs for {sched}"
+    s_small = 1024
+    qs, ks, vs = q[:, :s_small].contiguous(), k[:, :s_small].contiguous(), \
+        v[:, :s_small].contiguous()
+    lens_small = np.minimum(kv_lens, s_small)
+    base = None
+    for tech in REGISTRY:
+        out = flash_attention(qs, ks, vs, schedule=tech, kv_lens=lens_small,
+                              sched_p=n_sm)
+        base = out if base is None else base
+        assert torch.equal(out, base), f"flash output differs for {tech}"
+
+    def flash_plan(schedule, p):
+        d, pl = fa._plan_kv_descriptors(
+            B * H, S, 512, 512, causal=True, window=0, kv_lens=lane_lens,
+            schedule=schedule, p=p)
+        return d, fa.descriptor_bounds(d, pl), pl
+
+    def flash_kernel_ms(schedule, p, n):
+        d, bd, _ = flash_plan(schedule, p)
+        return cuda_ms(lambda: fa._flash_sched_cuda(
+            q, k, v, d, bd, block_q=512, block_k=512, causal=True,
+            window=0), n)
+
+    desc, _, plan = flash_plan("fac2", n_sm)
+    plan8 = flash_plan("fac2", 8)[2]
+    flash_ms = flash_kernel_ms("fac2", n_sm, REPS)
+    flash_ms_static = flash_kernel_ms("static", n_sm, REPS)
+    flash_ms_p8 = flash_kernel_ms("fac2", 8, max(3, REPS // 4))
+    flash_ms_p8_static = flash_kernel_ms("static", 8, max(3, REPS // 4))
+    call_ms = cuda_ms(lambda: flash_attention(
+        q, k, v, schedule="fac2", kv_lens=kv_lens, sched_p=n_sm), 3)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_sched_plain(
+        qf, kf, vf, kv_lens=lane_lens, causal=True), 3)
+    del qf, kf, vf
+    # yardstick only: one PyTorch call for the same function
+    qt = q.permute(0, 2, 1, 3)
+    kt, vt = (x.permute(0, 2, 1, 3).repeat_interleave(H // KVH, dim=1)
+              for x in (k, v))
+    idx = torch.arange(S, device=dev)
+    mask = (idx[None, :] <= idx[:, None])[None, None] & (
+        idx[None, None, None, :] < torch.as_tensor(
+            kv_lens, device=dev)[:, None, None, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def run_sdpa():
+        return sdpa(qt, kt, vt, attn_mask=mask)
+
+    library_ms = cuda_ms(run_sdpa, REPS)
+    sdpa_err = float((run_sdpa().permute(0, 2, 1, 3).float()
+                      - attn.float()).abs().max())
+    del mask, qt, kt, vt
+    pairs = sum(H * int(np.minimum(np.arange(1, S + 1), lim).sum())
+                for lim in kv_lens)
+    flash_flops = 4 * HD * pairs
+    flash_bytes = 2 * (2 * B * S * H * HD
+                       + 2 * KVH * HD * int(np.minimum(kv_lens, S).sum()))
+    flash_bound = 1e3 * max(flash_flops / PEAK_BF16_FLOPS,
+                            flash_bytes / PEAK_BYTES)
+    emit("flash_sched", shape=[B, S, H, KVH, HD], kv_lens=kv_lens.tolist(),
+         max_abs_err=flash_err, sdpa_max_abs_diff=sdpa_err,
+         identical_schedules=list(IDENTITY_SCHEDULES),
+         identical_techniques_s1024=len(REGISTRY),
+         ms=flash_ms, ms_static=flash_ms_static, ms_sched_p8=flash_ms_p8,
+         ms_sched_p8_static=flash_ms_p8_static, call_ms_with_planning=call_ms,
+         plain_ms=plain_ms, library_ms=library_ms, bound_ms=flash_bound,
+         flops=flash_flops, bytes=flash_bytes, groups=int(plan.n),
+         descriptors=int(desc[0].shape[0]),
+         percent_imbalance=plan.percent_imbalance,
+         percent_imbalance_p8=plan8.percent_imbalance)
+
+    # ---- gmm at the main path's shapes (wi and wo) -----------------------
+    gmm_rows = {}
+    for name, x, w, y in (("wi", xe, wi, hid), ("wo", act, wo, ffn)):
+        e_, c_, d_ = x.shape
+        f_ = w.shape[2]
+        tpe = c_ // BLOCK_ROWS
+        x_tiles = x.reshape(e_ * tpe, BLOCK_ROWS, d_)
+        tile_expert = torch.arange(e_ * tpe, device=dev,
+                                   dtype=torch.int32) // tpe
+        plain = gm.grouped_matmul_tiles_plain(x_tiles, w, tile_expert)
+        err = check_close(f"gmm {name}", y, plain.reshape(e_, c_, f_))
+        del plain
+        for sched in ("static", "ss", "gss", "awf_b", "dls_steal"):
+            out = grouped_matmul(x, w, schedule=sched,
+                                 expert_rows=expert_rows,
+                                 block_rows=BLOCK_ROWS, sched_p=n_sm)
+            assert torch.equal(out, y), f"gmm {name} differs for {sched}"
+        for kw in ({"schedule": "fac2", "expert_rows": expert_rows,
+                    "sched_p": 8}, {"sched_p": n_sm}):
+            out = grouped_matmul(x, w, block_rows=BLOCK_ROWS, **kw)
+            assert torch.equal(out, y), f"gmm {name} differs for {kw}"
+        xt = x_tiles.contiguous()
+
+        def gmm_kernel_ms(schedule):
+            order, gp = plan_tiles(expert_rows, BLOCK_ROWS, p=n_sm,
+                                   technique=schedule, capacity_rows=c_,
+                                   return_plan=True)
+            gb = worker_bounds(gp.step_worker, n_sm)
+            return cuda_ms(lambda: gm.gmm_cuda(xt, w, tile_expert, order, gb,
+                                               gp.n), REPS), gp
+
+        ms, gplan = gmm_kernel_ms("fac2")
+        ms_static = gmm_kernel_ms("static")[0]
+        p_ms = cuda_ms(lambda: gm.grouped_matmul_tiles_plain(
+            xt, w, tile_expert), 3)
+        lib_ms = cuda_ms(lambda: torch.bmm(x, w), REPS)
+        live_rows = int(np.minimum(expert_rows, c_).sum())
+        active = int((expert_rows > 0).sum())
+        flops = 2 * live_rows * d_ * f_
+        nbytes = 2 * (live_rows * d_ + active * d_ * f_ + e_ * c_ * f_)
+        gmm_rows[name] = dict(
+            max_abs_err=err, ms=ms, ms_static=ms_static, plain_ms=p_ms,
+            library_ms=lib_ms,
+            bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
+            flops=flops, bytes=nbytes, live_tiles=int(gplan.n),
+            tiles=int(e_ * tpe), percent_imbalance=gplan.percent_imbalance)
+    emit("gmm", expert_rows=expert_rows.tolist(), shapes={
+        "wi": [E, C, D_MODEL, D_FF], "wo": [E, C, D_FF, D_MODEL]},
+        **gmm_rows)
+
+    def total(key):
+        return sum(r[key] for r in gmm_rows.values())
+
+    gmm_flops = total("flops")
+    gmm_bytes = total("bytes")
+    kernels = [
+        {"name": "flash_sched", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_sched.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:168",
+         "launches": launches["flash_sched"], "max_abs_err": flash_err,
+         "tolerance": f"{ATOL} + {RTOL}*|plain|",
+         "ms": flash_ms, "plain_ms": plain_ms, "bound_ms": flash_bound,
+         "bound_by": ("operations" if flash_flops / PEAK_BF16_FLOPS
+                      >= flash_bytes / PEAK_BYTES else "bytes"),
+         "library_ms": library_ms,
+         "percent_imbalance": plan.percent_imbalance},
+        {"name": "gmm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gmm.cu",
+         "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:37",
+         "launches": launches["gmm"],
+         "max_abs_err": max(r["max_abs_err"] for r in gmm_rows.values()),
+         "tolerance": f"{ATOL} + {RTOL}*|plain|",
+         "ms": total("ms"), "plain_ms": total("plain_ms"),
+         "bound_ms": total("bound_ms"),
+         "bound_by": ("operations" if gmm_flops / PEAK_BF16_FLOPS
+                      >= gmm_bytes / PEAK_BYTES else "bytes"),
+         "library_ms": total("library_ms"),
+         "percent_imbalance": gmm_rows["wi"]["percent_imbalance"]},
+    ]
+    for kern in kernels:
+        assert all(math.isfinite(kern[x]) for x in
+                   ("max_abs_err", "ms", "plain_ms", "bound_ms"))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

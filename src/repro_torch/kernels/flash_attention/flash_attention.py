@@ -1,0 +1,265 @@
+"""Schedule-aware flash-attention forward: the plan, the kernel, the plain version.
+
+Port of ``src/repro/kernels/flash_attention/flash_attention.py``'s
+schedule-aware half.  The host side is kept byte-faithful: the live
+(lane, q block, kv block) triples are enumerated per (lane, q block) group
+(``flash_kv_group_costs``), the group order is DLS-planned from the
+per-group live-KV costs (``repro_torch.core.torch_sched``), and six int32
+descriptor arrays (bi, qi, kj, first, last, lim) list the triples in plan
+order (``_plan_kv_descriptors``).
+
+On a CUDA tensor the descriptors drive ``csrc/flash_sched.cu``: a
+persistent kernel with ``sched_p`` CTAs, CTA ``w`` walking its plan share in
+order; see the note at the top of that file.  On a CPU tensor the same
+function is computed by ``flash_attention_sched_plain`` (fp32 masked
+softmax).  Outputs are bit-identical for every schedule on either path: a
+schedule only permutes whole groups, and each group's kv blocks stay
+ascending inside one CTA.
+
+The dense ``_flash_kernel`` (``flash_attention_bhsd`` in the reference) is
+not ported yet (ROADMAP.md, port queue item 1).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ...core.torch_sched import plan_tiles_for_kernel, worker_bounds
+from ...device import check_device
+from .._build import Kernel
+from .ref import attention_ref
+
+#: head dims the CUDA kernel is instantiated for
+KERNEL_HEAD_DIMS = (64, 128)
+
+_c = ctypes
+FLASH_SCHED = Kernel(
+    "flash_sched", source="flash_sched", symbol="flash_sched_launch",
+    argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 10 + [_c.c_longlong] * 12
+    + [_c.c_float, _c.c_void_p])
+
+
+def broadcast_flatten(q, k, v):
+    """(b, s, h|kvh, hd) -> three (b*h, s, hd) lane-major tensors."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    if kvh != h:
+        g = h // kvh
+        k = k[:, :, :, None, :].expand(b, s, kvh, g, hd).reshape(b, s, h, hd)
+        v = v[:, :, :, None, :].expand(b, s, kvh, g, hd).reshape(b, s, h, hd)
+
+    def flat(x):
+        return x.permute(0, 2, 1, 3).reshape(b * h, s, hd)
+
+    return flat(q), flat(k), flat(v)
+
+
+def flash_kv_group_costs(bh: int, s: int, block_q: int, block_k: int, *,
+                         causal: bool = True, window: int = 0,
+                         kv_lens: Optional[np.ndarray] = None):
+    """Enumerate the live KV blocks per (lane, q block) group and their
+    live-column costs — the cost model of the schedule-aware kernel.
+
+    Returns (group_kjs, costs, lens): per-group ascending kv-block lists,
+    the per-group cost array the DLS planner consumes, and the clipped
+    per-lane lengths.
+    """
+    nq = -(-s // block_q)
+    nk = -(-s // block_k)
+    lens = (np.full(bh, s, np.int64) if kv_lens is None
+            else np.clip(np.asarray(kv_lens, np.int64), 0, s))
+    if lens.shape != (bh,):
+        raise ValueError(f"kv_lens must have shape ({bh},), got {lens.shape}")
+
+    group_kjs: list[list[int]] = []
+    costs: list[int] = []
+    for bi in range(bh):
+        lim = int(lens[bi])
+        for qi in range(nq):
+            q_end = min((qi + 1) * block_q, s) - 1
+            kjs = []
+            for kj in range(nk):
+                k_start = kj * block_k
+                if k_start >= lim:
+                    break                     # beyond this lane's ragged KV
+                if causal and k_start > q_end:
+                    break                     # above the causal diagonal
+                if window > 0 and (qi * block_q - (k_start + block_k - 1)
+                                   >= window):
+                    continue                  # below the sliding window
+                kjs.append(kj)
+            if not kjs:
+                # a fully-masked group (padding rows) still needs one step
+                # so its output block is initialized and written
+                kjs = [0]
+            group_kjs.append(kjs)
+            # a masked group's one step costs a whole block (the `or`),
+            # as in the reference cost model
+            costs.append(sum(min(lim, (kj + 1) * block_k) - kj * block_k
+                             or block_k for kj in kjs))
+    return group_kjs, np.asarray(costs, np.float64), lens
+
+
+def _plan_kv_descriptors(bh: int, s: int, block_q: int, block_k: int, *,
+                         causal: bool, window: int,
+                         kv_lens: Optional[np.ndarray], schedule, p: int):
+    """Host-side tile planning: enumerate live (lane, q block, kv block)
+    triples, DLS-plan the q-block group order, emit descriptor arrays.
+
+    Returns (descriptors, plan): six int32 arrays (bi, qi, kj, first,
+    last, lim) of length G = total live triples, plus the KernelTilePlan
+    over the (lane, q block) groups.
+    """
+    nq = -(-s // block_q)
+    group_kjs, costs, lens = flash_kv_group_costs(
+        bh, s, block_q, block_k, causal=causal, window=window,
+        kv_lens=kv_lens)
+    plan = plan_tiles_for_kernel(costs, p=p, technique=schedule)
+    bi_s, qi_s, kj_s, fst_s, lst_s, lim_s = [], [], [], [], [], []
+    for gid in plan.order.tolist():
+        bi, qi = divmod(gid, nq)
+        kjs = group_kjs[gid]
+        for j, kj in enumerate(kjs):
+            bi_s.append(bi)
+            qi_s.append(qi)
+            kj_s.append(kj)
+            fst_s.append(1 if j == 0 else 0)
+            lst_s.append(1 if j == len(kjs) - 1 else 0)
+            lim_s.append(int(lens[bi]))
+    desc = tuple(np.asarray(a, np.int32)
+                 for a in (bi_s, qi_s, kj_s, fst_s, lst_s, lim_s))
+    return desc, plan
+
+
+def descriptor_bounds(desc, plan) -> np.ndarray:
+    """(p + 1,) offsets into the descriptor arrays: CTA ``w`` runs
+    descriptors ``[b[w], b[w+1])``, the triples of its plan share.
+
+    Group ``i`` of the plan order starts at the i-th ``first`` flag, so a
+    descriptor's worker is the ``step_worker`` of its group.
+    """
+    group_of = np.cumsum(desc[3], dtype=np.int64) - 1
+    return worker_bounds(plan.step_worker[group_of], plan.p)
+
+
+def flash_attention_sched_plain(q, k, v, *,
+                                kv_lens: Optional[Sequence[int]] = None,
+                                causal: bool = True, window: int = 0,
+                                lane_chunk: int = 32):
+    """The plain PyTorch version of the kernel: q, k, v (bh, s, hd) ->
+    (bh, s, hd), fp32 masked softmax, dead rows 0, on any device.
+
+    Lanes are taken ``lane_chunk`` at a time so the fp32 (lanes, s, s)
+    scores stay bounded at long sequence lengths.
+    """
+    bh = q.shape[0]
+    lens = None if kv_lens is None else np.asarray(kv_lens, np.int64)
+    outs = []
+    for a in range(0, bh, lane_chunk):
+        z = slice(a, min(a + lane_chunk, bh))
+        outs.append(attention_ref(q[z], k[z], v[z], causal=causal,
+                                  window=window,
+                                  kv_lens=None if lens is None else lens[z]))
+    return torch.cat(outs, dim=0)
+
+
+def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
+                      causal: bool, window: int):
+    """Launch ``flash_sched`` on q (b, s, h, hd), k/v (b, s, kvh, hd) in
+    place of their strides; returns a new (b, s, h, hd) tensor."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    if k.shape != (b, s, kvh, hd) or v.shape != k.shape or h % kvh:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / "
+                         f"v {tuple(v.shape)} do not form a GQA layout")
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_sched takes bfloat16 q, k and v, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_sched supports head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name} needs a contiguous last dim, strides "
+                             f"that are multiples of 8 and 16-byte alignment")
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    g = int(desc[0].shape[0])
+    p = int(bounds.shape[0]) - 1
+    # freed when this returns: the caching allocator reuses it only for work
+    # queued after the kernel on the same stream
+    table = torch.from_numpy(np.concatenate([*desc, bounds]).astype(np.int32))
+    table = table.to(q.device)
+    d_ptr = table.data_ptr()
+    FLASH_SCHED.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        d_ptr, d_ptr + 6 * g * 4,
+        g, p, s, h, h // kvh, hd, block_q, block_k, int(causal), int(window),
+        *(t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)),
+        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def flash_attention_sched_bshd(q, k, v, *,
+                               schedule: Union[str, object] = "fac2",
+                               kv_lens: Optional[Sequence[int]] = None,
+                               causal: bool = True, window: int = 0,
+                               block_q: int = 512, block_k: int = 512,
+                               sched_p: int = 8, recorder=None,
+                               loop_name: str = "flash_kv"):
+    """Schedule-aware flash attention in the model layout:
+    q (b, s, h, hd), k/v (b, s, kvh, hd) -> (b, s, h, hd).
+
+    ``kv_lens`` is per lane (shape (b*h,), lane = batch * h + head).  The
+    plan is made as in the reference; a CUDA tensor then launches the
+    kernel with ``sched_p`` CTAs, a CPU tensor takes the plain version.
+    """
+    dev = check_device(q, k, v)
+    b, s, h, hd = q.shape
+    block_q = min(block_q, max(s, 8))
+    block_k = min(block_k, max(s, 8))
+    desc, plan = _plan_kv_descriptors(
+        b * h, s, block_q, block_k, causal=causal, window=window,
+        kv_lens=None if kv_lens is None else np.asarray(kv_lens),
+        schedule=schedule, p=sched_p)
+    if recorder is not None:
+        recorder.add(plan.to_record(
+            loop_name, instance=recorder.next_instance(loop_name)))
+    if dev.type == "cuda":
+        return _flash_sched_cuda(q, k, v, desc, descriptor_bounds(desc, plan),
+                                 block_q=block_q, block_k=block_k,
+                                 causal=causal, window=window)
+    qf, kf, vf = broadcast_flatten(q, k, v)
+    out = flash_attention_sched_plain(qf, kf, vf, kv_lens=kv_lens,
+                                      causal=causal, window=window)
+    return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+
+
+def flash_attention_sched_bhsd(q, k, v, *,
+                               schedule: Union[str, object] = "fac2",
+                               kv_lens: Optional[Sequence[int]] = None,
+                               causal: bool = True, window: int = 0,
+                               block_q: int = 512, block_k: int = 512,
+                               sched_p: int = 8, recorder=None,
+                               loop_name: str = "flash_kv"):
+    """Schedule-aware flash attention: q, k, v (bh, s, hd) -> (bh, s, hd).
+
+    The (lane, q block) group order is DLS-planned from per-group live-KV
+    costs with ``schedule`` (any registry technique / ScheduleSpec).
+    ``kv_lens`` gives each lane's valid KV prefix; columns at or beyond it
+    are masked and dead KV blocks are never visited.  ``sched_p`` is the
+    planner's worker count, and on the card the kernel's CTA count.
+    ``recorder`` (a ``LoopRecorder``) receives the plan's telemetry.
+    Output is bit-identical for every ``schedule``.
+    """
+    out = flash_attention_sched_bshd(
+        q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), schedule=schedule,
+        kv_lens=kv_lens, causal=causal, window=window, block_q=block_q,
+        block_k=block_k, sched_p=sched_p, recorder=recorder,
+        loop_name=loop_name)
+    return out.squeeze(2)

@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the ``cuda`` marker and skips without a GPU.  On a
+machine with one:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+The file imports only torch, numpy and ``repro_torch`` so that it runs
+where JAX is not installed.  Tolerance for bf16 outputs:
+|kernel - plain| <= 2^-7 + 2^-7 * |plain| (about two bf16 rounding steps;
+the kernels sum in another order than the fp32 plain versions before the
+final rounding).  Across schedules and ``sched_p`` the outputs must be
+bit-identical.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import REGISTRY
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+
+TOL = 2.0 ** -7
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(dev, *shape, seed=0, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+        torch.bfloat16)
+
+
+def _assert_close(got, want):
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= TOL + TOL * want.float().abs()).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("case", [
+    # b, s, h, kvh, hd, block, window, causal
+    (2, 300, 4, 2, 128, 128, 0, True),
+    (3, 200, 2, 1, 64, 64, 70, True),
+    (1, 96, 2, 2, 128, 512, 0, False),
+    (2, 1024, 8, 2, 128, 512, 0, True),
+])
+def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
+    b, s, h, kvh, hd, blk, window, causal = case
+    q, k, v = (_randn(dev, b, s, n, hd, seed=i)
+               for i, n in enumerate((h, kvh, kvh)))
+    lens = np.random.default_rng(s).integers(1, s + 1, size=b)
+    kw = dict(causal=causal, window=window, block_q=blk, block_k=blk,
+              kv_lens=lens)
+    before = fa.FLASH_SCHED.launches
+    out = flash_attention(q, k, v, schedule="static", sched_p=5, **kw)
+    assert fa.FLASH_SCHED.launches == before + 1
+    qf, kf, vf = fa.broadcast_flatten(q, k, v)
+    want = fa.flash_attention_sched_plain(qf, kf, vf, kv_lens=np.repeat(lens, h),
+                                          causal=causal, window=window)
+    _assert_close(out, want.reshape(b, h, s, hd).permute(0, 2, 1, 3))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for tech in REGISTRY:
+        for p in (8, n_sm):
+            assert torch.equal(
+                flash_attention(q, k, v, schedule=tech, sched_p=p, **kw), out)
+
+
+def test_flash_bhsd_entry_and_errors(dev):
+    q = _randn(dev, 4, 256, 64)
+    out = fa.flash_attention_sched_bhsd(q, q, q, schedule="gss", block_q=128,
+                                        block_k=128)
+    _assert_close(out, fa.flash_attention_sched_plain(q, q, q))
+    with pytest.raises(NotImplementedError, match="dense flash kernel"):
+        flash_attention(q[:, :, None], q[:, :, None], q[:, :, None])
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(*(q[:, :, None].float(),) * 3, schedule="fac2")
+    with pytest.raises(ValueError, match="head_dim"):
+        x = _randn(dev, 1, 64, 1, 32)
+        flash_attention(x, x, x, schedule="fac2")
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 96, 256, 128), (6, 384, 64, 128, 128),
+                                   (3, 256, 128, 128, 256)])
+def test_gmm_matches_plain_and_is_schedule_free(dev, shape):
+    e, c, d, f, bm = shape
+    x = _randn(dev, e, c, d, seed=1)
+    w = _randn(dev, e, d, f, seed=2, scale=d ** -0.5)
+    rows = np.random.default_rng(e).integers(0, c + 1, size=e)
+    before = gm.GMM.launches
+    out = grouped_matmul(x, w, block_rows=bm, schedule="fac2",
+                         expert_rows=rows, sched_p=3)
+    assert gm.GMM.launches == before + 1
+    t = e * (c // bm)
+    te = torch.arange(t, device=dev) // (c // bm)
+    want = gm.grouped_matmul_tiles_plain(x.reshape(t, bm, d), w, te)
+    _assert_close(out, want.reshape(e, c, f))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for tech in REGISTRY:
+        for p in (8, n_sm):
+            assert torch.equal(grouped_matmul(x, w, block_rows=bm, schedule=tech,
+                                              expert_rows=rows, sched_p=p), out)
+    assert torch.equal(grouped_matmul(x, w, block_rows=bm), out)
+    perm = np.random.default_rng(0).permutation(t)
+    assert torch.equal(grouped_matmul(x, w, tile_order=perm, block_rows=bm), out)
+
+
+def test_gmm_rejects_what_the_kernel_does_not_take(dev):
+    x = _randn(dev, 2, 128, 64)
+    with pytest.raises(ValueError, match="f %"):
+        grouped_matmul(x, _randn(dev, 2, 64, 96), block_rows=128)
+    with pytest.raises(TypeError, match="bfloat16"):
+        grouped_matmul(x.float(), _randn(dev, 2, 64, 128).float(),
+                       block_rows=128)
+
+
+def test_build_is_cached_and_counted(dev):
+    libs = _build.build_all()
+    assert set(libs) == {"flash_sched", "gmm"}
+    assert all(p.is_file() for p in libs.values())
+    _build.reset_launches()
+    assert all(k.launches == 0 for k in _build.KERNELS.values())
