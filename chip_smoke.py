@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's schedule-aware kernel path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's kernel paths, prefill and serving on one
+NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one card
 
@@ -21,12 +22,41 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
   flash_sched  the kernel against its plain version at the main path's
                shapes, bit-identity across schedules and sched_p, timing
   gmm          the same for the grouped matmul (wi and wo shapes)
+  flash_dense  the dense kernel against its plain version at the prefill's
+               shape (qwen3-4b: 1 x 4096, 32 q heads, 8 KV heads,
+               head_dim 128, causal) and at small ragged shapes (s not a
+               multiple of the tile, MQA, head_dim 64, windows 32 and 200);
+               its time, the plain version's, and
+               ``scaled_dot_product_attention(is_causal=True)``'s on the same
+               tensors as a yardstick (the port never calls it)
+  prefill      launch counts set to 0, then ``models.forward`` of full-width,
+               full-depth qwen3-4b (36 layers, random fp32 weights from seed
+               0, bf16 compute) on 1 x 4096 tokens from numpy seed 0; the
+               counts are read right after (flash_dense: 36).  Wall time,
+               tokens/s, a device profile of a second run, and at 2 layers
+               ``forward`` against ``decode_step`` fed the same 2560 tokens
+               one by one
+  serve        ``DecodeEngine`` through ``launch.serve``'s code path on
+               full-width qwen3-4b: 8 requests drawn as the launcher draws
+               them, 4 slots, max_len 256, fac2; again with the int8 KV
+               cache; a device profile of a short run
   kernels      the summary line, one entry per kernel
 
 then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; it also exits non-zero, printing no result, when no
 CUDA device is present or ``src/repro_torch`` is missing beside it.
+
+Tolerance of the 2-layer ``forward`` / ``decode_step`` comparison (bf16
+compute): max |logit difference| <= 0.25 and the same argmax at >= 80% of
+the positions.  Both paths keep the residual stream in bf16 (a step of
+2^-8 to 2^-7 near 1), and they differ in where they round: the prefill's
+attention is the dense kernel (fp32 scores and probabilities, one rounding
+of the output to bf16), the decode's rounds scores and probabilities to
+bf16 and multiplies a one-row GEMV where the prefill runs a GEMM.  The
+logits of random weights have a spread of about 1, so a difference of a
+few bf16 steps in the hidden state moves a logit by about 0.01-0.05 and
+flips the argmax where the two largest logits lie closer than that.
 
 The plain versions run with TF32 off (``torch.backends.cuda.matmul.
 allow_tf32`` and ``torch.backends.cudnn.allow_tf32`` False), in fp32.
@@ -53,6 +83,10 @@ REPS = 20                    # timed calls per kernel measurement
 
 # main-path widths: qwen3-moe-30b-a3b (src/repro/configs/qwen3_moe_30b_a3b.py)
 B, S, H, KVH, HD = 8, 4096, 32, 4, 128
+# this slice: qwen3-4b (src/repro/configs/qwen3_4b.py) at full width
+ARCH, PREFILL_S, PARITY_S, PARITY_LAYERS = "qwen3-4b", 4096, 2560, 2
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_LEN = 8, 4, 256
+PARITY_MAX_DIFF, PARITY_ARGMAX = 0.25, 0.80
 E, C, D_MODEL, D_FF, BLOCK_ROWS = 128, 512, 2048, 768, 128
 IDENTITY_SCHEDULES = ("static", "ss", "gss", "fac2", "awf_b", "ws_rr",
                       "dls_steal")
@@ -60,6 +94,247 @@ IDENTITY_SCHEDULES = ("static", "ss", "gss", "fac2", "awf_b", "ws_rr",
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check_close(name, got, want):
+    """Max abs error of a bf16 kernel output; raises outside
+    |got - want| <= ATOL + RTOL |want|."""
+    diff = (got.float() - want.float()).abs()
+    bad = diff > ATOL + RTOL * want.float().abs()
+    err = float(diff.max())
+    assert not bool(bad.any()), (
+        f"{name}: {int(bad.sum())} elements outside tolerance, "
+        f"max abs err {err}")
+    return err
+
+
+def cuda_ms(fn, n):
+    """Median device time of ``fn`` over ``n`` calls after one warm-up, in
+    ms (CUDA events)."""
+    import numpy as np
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of operations over the bf16 peak
+    and bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def device_profile(fn, top=8):
+    """Run ``fn`` under ``torch.profiler``: wall ms, the summed device time
+    of the kernels, the device's idle share of the wall time and the
+    ``top`` kernels by device time (the profiler's own overhead is in the
+    wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        kernels.append((us / 1e3, ev.count, ev.key[:90]))
+    kernels.sort(reverse=True)
+    busy_ms = sum(k[0] for k in kernels)
+    return dict(wall_ms=wall_ms, device_ms=busy_ms,
+                idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+                launches=sum(k[1] for k in kernels),
+                top=[{"kernel": k[2], "ms": k[0], "count": k[1]}
+                     for k in kernels[:top]])
+
+
+def phase_flash_dense(dev, randn):
+    """The dense kernel against its plain version at the prefill's shape and
+    at small ragged ones; its times and its bound.  Returns the fields of
+    its ``kernels`` entry (launches come from the prefill)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    def plain(q, k, v, causal=True, window=0):
+        b, s, h, hd = q.shape
+        out = fa.flash_attention_dense_plain(*fa.broadcast_flatten(q, k, v),
+                                             causal=causal, window=window)
+        return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+
+    small = {}
+    for b, s, h, kvh, hd, win, causal in ((2, 300, 4, 2, 128, 0, True),
+                                          (1, 200, 4, 1, 64, 32, True),
+                                          (2, 333, 8, 2, 128, 200, True),
+                                          (1, 1000, 4, 1, 64, 200, True),
+                                          (1, 96, 2, 2, 64, 0, False)):
+        qs, ks, vs = randn(b, s, h, hd), randn(b, s, kvh, hd), \
+            randn(b, s, kvh, hd)
+        got = flash_attention(qs, ks, vs, causal=causal, window=win)
+        key = f"s{s}_h{h}_kv{kvh}_hd{hd}_w{win}" + ("" if causal else "_full")
+        small[key] = check_close("flash_dense small", got,
+                                 plain(qs, ks, vs, causal, win))
+
+    cfg = get_arch(ARCH)
+    b, s = 1, PREFILL_S
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = randn(b, s, h, hd), randn(b, s, kvh, hd), randn(b, s, kvh, hd)
+    out = flash_attention(q, k, v, causal=True)
+    err = check_close("flash_dense", out, plain(q, k, v))
+    ms = cuda_ms(lambda: fa._flash_dense_cuda(q, k, v, causal=True,
+                                              window=0), REPS)
+    call_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), REPS)
+    plain_ms = cuda_ms(lambda: plain(q, k, v), 3)
+    # yardstick only: one PyTorch call for the same function
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.permute(0, 2, 1, 3)
+    kt, vt = (x.permute(0, 2, 1, 3).repeat_interleave(h // kvh, dim=1)
+              for x in (k, v))
+    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), REPS)
+    sdpa_err = float((sdpa(qt, kt, vt, is_causal=True).permute(0, 2, 1, 3)
+                      .float() - out.float()).abs().max())
+    flops = 4 * hd * b * h * (s * (s + 1) // 2)      # live (row, col) pairs
+    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+    bound_ms, bound_by = bound(flops, nbytes)
+    fields = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=library_ms)
+    emit("flash_dense", shape=[b, s, h, kvh, hd], causal=True,
+         small_max_abs_err=small, call_ms=call_ms, sdpa_max_abs_diff=sdpa_err,
+         flops=flops, bytes=nbytes, **fields)
+    return fields
+
+
+def phase_prefill(dev, cfg, params):
+    """``forward`` of the full model with the counts from 0 (the slice's
+    main path), then timing, a device profile and the 2-layer comparison
+    of ``forward`` with ``decode_step``.  Returns the launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import decode_step, forward, init_decode_state
+
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PREFILL_S))).to(dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
+    assert launches["flash_dense"] == cfg.num_layers, launches
+    assert tuple(logits.shape) == (1, PREFILL_S, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
+    del logits
+
+    def run():
+        forward(params, cfg, tokens)
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    prof = device_profile(run)
+
+    # forward against decode_step on the same tokens, 2 layers
+    cfg2 = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
+    params2 = dict(params, groups=tuple(
+        {k: (v[:PARITY_LAYERS] if torch.is_tensor(v) else
+             {kk: vv[:PARITY_LAYERS] for kk, vv in v.items()})
+         for k, v in grp.items()} for grp in params["groups"]))
+    tok2 = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, PARITY_S))).to(dev)
+    before = _build.KERNELS["flash_dense"].launches
+    full, _ = forward(params2, cfg2, tok2)
+    assert _build.KERNELS["flash_dense"].launches == before + PARITY_LAYERS
+    state = init_decode_state(cfg2, 1, max_len=PARITY_S, device=dev)
+    diff = torch.empty(PARITY_S, device=dev)
+    same = torch.empty(PARITY_S, dtype=torch.bool, device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(PARITY_S):
+            step, state = decode_step(params2, cfg2, state, tok2[:, i:i + 1])
+            diff[i] = (step[0, 0] - full[0, i]).abs().max()
+            same[i] = step[0, 0].argmax() == full[0, i].argmax()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    max_diff, agree = float(diff.max()), float(same.float().mean())
+    emit("prefill", arch=cfg.name, layers=cfg.num_layers,
+         tokens=PREFILL_S, launches=launches, first_s=first_s, warm_s=warm_s,
+         tokens_per_s=PREFILL_S / warm_s, profile=prof,
+         parity={"layers": PARITY_LAYERS, "s": PARITY_S,
+                 "max_abs_diff": max_diff, "argmax_agreement": agree,
+                 "tolerance": [PARITY_MAX_DIFF, PARITY_ARGMAX],
+                 "logit_abs_max": float(full.abs().max()),
+                 "decode_s": decode_s})
+    assert max_diff <= PARITY_MAX_DIFF and agree >= PARITY_ARGMAX, (
+        max_diff, agree)
+    return launches
+
+
+def phase_serve(dev, cfg, params):
+    """DecodeEngine through ``launch.serve``'s code path, bf16 and int8 KV
+    caches, then a device profile of a short run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import make_requests, run_engine
+
+    def serve(c, n, max_len, seed):
+        requests = make_requests(n, max_len, seed)
+        eng, stats = run_engine(c, params, requests, slots=SERVE_SLOTS,
+                                max_len=SERVE_MAX_LEN, technique="fac2",
+                                device=dev)
+        return requests, eng, stats
+
+    rows = {}
+    for name, c in (("bf16", cfg),
+                    ("kv8", dataclasses.replace(cfg, kv_cache_dtype="int8"))):
+        requests, eng, stats = serve(c, SERVE_REQUESTS, SERVE_MAX_LEN, 0)
+        assert stats.completed == SERVE_REQUESTS, (name, stats)
+        for r in requests:
+            out = eng.output(r.rid)
+            assert len(out) == min(r.max_new_tokens, SERVE_MAX_LEN // 2)
+            assert all(0 <= t < c.padded_vocab for t in out), (name, r.rid)
+        assert len(eng.kernel_records) == eng.plan_calls
+        rows[name] = dict(
+            completed=stats.completed, steps=stats.steps, tokens=stats.tokens,
+            tok_per_s=stats.tok_per_s, wall_s=stats.wall_s,
+            step_ms_median=float(np.median(stats.step_ms)),
+            step_ms_p90=float(np.percentile(stats.step_ms, 90)),
+            plan_calls=eng.plan_calls, plan_time_s=eng.plan_time_s,
+            plan_cache_hits=eng.plan_cache_hits,
+            sample_output=eng.output(0)[:8])
+        del eng
+        torch.cuda.empty_cache()
+    prof = device_profile(lambda: serve(cfg, 4, 64, 1))
+    emit("serve", arch=cfg.name, requests=SERVE_REQUESTS, slots=SERVE_SLOTS,
+         max_len=SERVE_MAX_LEN, technique="fac2", profile_4_requests=prof,
+         **rows)
 
 
 def main() -> int:
@@ -112,29 +387,6 @@ def main() -> int:
                         dtype=torch.float32) * scale
         return x.to(torch.bfloat16)
 
-    def check_close(name, got, want):
-        diff = (got.float() - want.float()).abs()
-        bad = diff > ATOL + RTOL * want.float().abs()
-        err = float(diff.max())
-        assert not bool(bad.any()), (
-            f"{name}: {int(bad.sum())} elements outside tolerance, "
-            f"max abs err {err}")
-        return err
-
-    def cuda_ms(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(n):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
-
     # ---- inputs ------------------------------------------------------------
     q = randn(B, S, H, HD)
     k = randn(B, S, KVH, HD)
@@ -167,7 +419,7 @@ def main() -> int:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
-    assert all(n > 0 for n in launches.values()), launches
+    assert launches["flash_sched"] > 0 and launches["gmm"] > 0, launches
     for name, out, shape in (("attn", attn, (B, S, H, HD)),
                              ("ffn", ffn, (E, C, D_MODEL))):
         assert tuple(out.shape) == shape, (name, out.shape)
@@ -345,6 +597,18 @@ def main() -> int:
     def total(key):
         return sum(r[key] for r in gmm_rows.values())
 
+    # ---- this slice: the dense kernel, prefill and serving of qwen3-4b ----
+    del q, k, v, xe, wi, wo, hid, act, ffn, attn, attn_p8, live
+    torch.cuda.empty_cache()
+    dense = phase_flash_dense(dev, randn)
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_decoder
+    cfg = get_arch(ARCH)
+    params, _ = init_decoder(0, cfg, device=dev)
+    prefill_launches = phase_prefill(dev, cfg, params)
+    phase_serve(dev, cfg, params)
+    del params
+
     gmm_flops = total("flops")
     gmm_bytes = total("bytes")
     kernels = [
@@ -370,6 +634,11 @@ def main() -> int:
                       >= gmm_bytes / PEAK_BYTES else "bytes"),
          "library_ms": total("library_ms"),
          "percent_imbalance": gmm_rows["wi"]["percent_imbalance"]},
+        {"name": "flash_dense", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_dense.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:51",
+         "launches": prefill_launches["flash_dense"],
+         "tolerance": f"{ATOL} + {RTOL}*|plain|", **dense},
     ]
     for kern in kernels:
         assert all(math.isfinite(kern[x]) for x in

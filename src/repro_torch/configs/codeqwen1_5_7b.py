@@ -1,0 +1,19 @@
+"""codeqwen1.5-7b — CodeQwen1.5-7B (qwen1.5 arch). [hf:Qwen/CodeQwen1.5-7B; hf]
+32L d_model=4096 32H (MHA kv=32, head_dim=128) d_ff=13440 vocab=92416."""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="codeqwen1.5-7b",
+    family="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=128,
+    d_ff=13440,
+    vocab_size=92416,
+    rope_theta=1_000_000.0,
+    activation="swiglu",
+    sharding_overrides=(("seq_cache", None),),
+)

@@ -1,10 +1,15 @@
-"""Parameter conversion: a JAX parameter pytree, as numpy arrays, -> torch.
+"""Conversion from the JAX reference's trees to the port's tensors.
 
-The port never imports JAX.  A caller hands over the tree with every leaf
-already turned into a numpy array (``np.asarray`` of each JAX leaf) and
-gets back a flat ``dict[str, Tensor]`` keyed by the pytree path, e.g.
-``{"wi": ..., "wo": ..., "router": ...}`` for ``repro.models.moe.init_moe``
-or ``{"layers/0/attn/wq": ...}`` for a nested tree.
+The port never imports JAX.  A caller hands over a tree whose leaves are
+arrays numpy can read (``np.asarray`` of each leaf; JAX arrays qualify):
+
+  * ``params_from_jax``: any parameter tree -> a flat ``dict[str, Tensor]``
+    keyed by the pytree path, e.g. ``{"wi": ..., "wo": ..., "router": ...}``
+    for ``repro.models.moe.init_moe``;
+  * ``decoder_params_from_jax``: ``repro.models.init_decoder``'s tree
+    (nested dicts, the stacked ``groups`` and the ``remainder`` tuples) ->
+    the same nesting of tensors, the port decoder's parameters;
+  * ``decode_state_from_jax``: a reference ``DecodeState`` -> the port's.
 """
 
 from __future__ import annotations
@@ -15,8 +20,11 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.attention import KVCache, KVCacheQ
+from .models.decoder import DecodeState, tree_map
 
-__all__ = ["params_from_jax", "flatten_tree"]
+__all__ = ["params_from_jax", "flatten_tree", "decoder_params_from_jax",
+           "decode_state_from_jax"]
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
@@ -45,16 +53,46 @@ def params_from_jax(tree: Any, *,
     are carried through float32, which is exact.
     """
     dev = resolve_device(device)
-    out: dict[str, torch.Tensor] = {}
-    for key, leaf in flatten_tree(tree).items():
-        arr = np.asarray(leaf)
-        bf16 = arr.dtype.name == "bfloat16"
-        if bf16:
-            arr = arr.astype(np.float32)
-        t = torch.from_numpy(np.array(arr, order="C"))   # a writable copy
-        if bf16:
-            t = t.to(torch.bfloat16)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        out[key] = t.to(dev)
-    return out
+    return {key: _tensor(leaf, dev, dtype)
+            for key, leaf in flatten_tree(tree).items()}
+
+
+def _tensor(leaf, dev: torch.device,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    bf16 = arr.dtype.name == "bfloat16"
+    if bf16:
+        arr = arr.astype(np.float32)
+    t = torch.from_numpy(np.array(arr, order="C"))   # a writable copy
+    if bf16:
+        t = t.to(torch.bfloat16)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(dev)
+
+
+def decoder_params_from_jax(tree: Any, *,
+                            device: Optional[Union[str, torch.device]] = None,
+                            dtype: Optional[torch.dtype] = None) -> Any:
+    """``repro.models.init_decoder``'s parameter tree -> the port decoder's
+    (the same nesting, tensors at the leaves).  ``device`` and ``dtype`` as
+    in :func:`params_from_jax`."""
+    dev = resolve_device(device)
+    return tree_map(lambda leaf: _tensor(leaf, dev, dtype), tree)
+
+
+def decode_state_from_jax(state: Any, *,
+                          device: Optional[Union[str, torch.device]] = None):
+    """A reference ``DecodeState`` (KVCache / KVCacheQ leaves) -> the
+    port's, field by field."""
+    dev = resolve_device(device)
+    classes = {"KVCache": KVCache, "KVCacheQ": KVCacheQ}
+
+    def cache(c):
+        cls = classes[type(c).__name__]
+        return cls(*(_tensor(getattr(c, f), dev) for f in cls._fields))
+
+    return DecodeState(
+        group_caches=tuple(cache(c) for c in state.group_caches),
+        rem_caches=tuple(cache(c) for c in state.rem_caches),
+        pos=_tensor(state.pos, dev))

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
 PyTorch version.
 
-flash_attention/  flash attention over DLS-ordered (lane, q, kv) descriptors
+flash_attention/  flash attention: the dense causal / sliding-window kernel
+                  and the one over DLS-ordered (lane, q, kv) descriptors
 grouped_matmul/   DLS-planned expert-tile matmul
 csrc/             the CUDA sources; _build.py compiles and binds them
 

@@ -44,18 +44,15 @@
 //   * GQA: the kernel indexes KV head hh / (H / KVH); the broadcast is never
 //     materialised.  Tensors are addressed through (batch, head, row)
 //     strides, so the model layout (b, s, h, hd) is read in place.
+//   * The sub-tile machinery (cp.async staging, ldmatrix, mma.sync, the
+//     online-softmax step, the epilogue) is shared with flash_dense.cu
+//     through flash_common.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 128;       // q rows per sub-tile: 8 warps x 16
-constexpr int BK = 64;        // kv columns per sub-tile
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
+using namespace flash;
 
 struct FlashParams {
   const __nv_bfloat16* q;
@@ -71,69 +68,6 @@ struct FlashParams {
   long long o_sb, o_sh, o_ss;
   float scale;
 };
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 b16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// two floats -> one register of two bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// split fp32 pairs into bf16 hi and lo parts: x ~= hi + lo
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  float2 hf = __bfloat1622float2(h);
-  __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = *reinterpret_cast<uint32_t*>(&l);
-}
 
 // the next kv sub-tile of the group, from (gg, c) on, that is live for some
 // row of the q sub-tile [row0, rlast]; uniform across the CTA
@@ -158,9 +92,7 @@ __device__ __forceinline__ bool seek_live(const FlashParams& P,
 template <int HD>
 __global__ void __launch_bounds__(NTHREADS)
 flash_sched_kernel(const FlashParams P) {
-  constexpr int KS = HD + 8;      // K / V row stride in shared memory (bf16)
-  constexpr int TILE = BK * KS;   // one K or V sub-tile
-  constexpr int VPR = HD / 8;     // 16-byte vectors per K/V row
+  constexpr int TILE = BK * (HD + 8);   // one K or V sub-tile (bf16)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // stage s: K at smem + 2 s TILE, V right after it
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -198,38 +130,13 @@ flash_sched_kernel(const FlashParams P) {
     const int qb0 = qi_a[g] * P.block_q;
     const int qb1 = min(qb0 + P.block_q, P.s);
 
-    // K and V rows [col0, col0 + BK) into stage st; rows >= kb1 are zeros
-    auto load_kv = [&](int st, int col0, int kb1) {
-      __nv_bfloat16* Ks = smem + 2 * st * TILE;
-      __nv_bfloat16* Vs = Ks + TILE;
-      for (int idx = tid; idx < BK * VPR; idx += NTHREADS) {
-        const int r = idx / VPR;
-        const int c = (idx % VPR) * 8;
-        const int col = col0 + r;
-        const bool ok = col < kb1;
-        cp_async16(Ks + r * KS + c, ok ? kb + col * P.k_ss + c : kb, ok);
-        cp_async16(Vs + r * KS + c, ok ? vb + col * P.v_ss + c : vb, ok);
-      }
-    };
-
     for (int row0 = qb0; row0 < qb1; row0 += BQ) {
       const int rlast = min(row0 + BQ, qb1) - 1;
       const int r_lo = row0 + warp * 16 + fr;
       const int r_hi = r_lo + 8;
 
-      // Q fragments (A operand, 16 rows x HD) straight from device memory
       uint32_t qf[HD / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = (i & 1) ? r_hi : r_lo;
-          const int col = kk * 16 + fc + ((i & 2) ? 8 : 0);
-          qf[kk][i] = row < qb1
-              ? *reinterpret_cast<const uint32_t*>(qb + row * P.q_ss + col)
-              : 0u;
-        }
-      }
+      load_q<HD>(qf, qb, P.q_ss, r_lo, r_hi, qb1, fc);
 
       float m[2] = {NEG_INF, NEG_INF};
       float l[2] = {0.f, 0.f};
@@ -240,7 +147,8 @@ flash_sched_kernel(const FlashParams P) {
 
       int gg = g, c = 0, col0 = 0, kb1 = 0;
       bool have = seek_live(P, kj_a, gend, lim, row0, rlast, gg, c, col0, kb1);
-      if (have) load_kv(0, col0, kb1);
+      if (have)
+        load_kv<HD>(smem, smem + TILE, kb, vb, P.k_ss, P.v_ss, col0, kb1, tid);
       cp_async_commit();
       int st = 0;
       while (have) {
@@ -248,103 +156,16 @@ flash_sched_kernel(const FlashParams P) {
         int ngg = gg, nc = c + BK, ncol0 = 0, nkb1 = 0;
         const bool next =
             seek_live(P, kj_a, gend, lim, row0, rlast, ngg, nc, ncol0, nkb1);
-        if (next) load_kv(st ^ 1, ncol0, nkb1);
+        if (next) {
+          __nv_bfloat16* Kn = smem + 2 * (st ^ 1) * TILE;
+          load_kv<HD>(Kn, Kn + TILE, kb, vb, P.k_ss, P.v_ss, ncol0, nkb1, tid);
+        }
         cp_async_commit();
         cp_async_wait<1>();   // this stage's group has landed
         __syncthreads();
         const __nv_bfloat16* Ks = smem + 2 * st * TILE;
-        const __nv_bfloat16* Vs = Ks + TILE;
-
-        // S = Q K^T for this warp's 16 rows x BK columns
-        float sacc[BK / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt)
-          sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-          for (int np = 0; np < BK / 16; ++np) {
-            // matrices: (n-tile 2np, d lo), (2np, d hi), (2np+1, lo), (2np+1, hi)
-            uint32_t bfr[4];
-            ldsm_x4(bfr, Ks + ((np * 2 + (lm >> 1)) * 8 + lr) * KS + kk * 16 +
-                             (lm & 1) * 8);
-            mma_bf16_16816(sacc[2 * np], qf[kk], bfr);
-            mma_bf16_16816(sacc[2 * np + 1], qf[kk], bfr + 2);
-          }
-        }
-
-        // scale, mask, and the row maxima
-        float mx[2] = {m[0], m[1]};
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int row = (i < 2) ? r_lo : r_hi;
-            const int col = col0 + nt * 8 + fc + (i & 1);
-            bool ok = col < lim && col < kb1;
-            if (P.causal) ok = ok && col <= row;
-            if (P.window > 0) ok = ok && (row - col) < P.window;
-            const float x = ok ? sacc[nt][i] * P.scale : NEG_INF;
-            sacc[nt][i] = x;
-            mx[i >> 1] = fmaxf(mx[i >> 1], x);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
-          mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
-        }
-        const float corr0 = expf(m[0] - mx[0]);
-        const float corr1 = expf(m[1] - mx[1]);
-
-        // P = exp(S - m_new) as bf16 hi/lo A fragments, and its row sums
-        uint32_t phi[BK / 16][4];
-        uint32_t plo[BK / 16][4];
-        float rs[2] = {0.f, 0.f};
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-          const float p0 = expf(sacc[nt][0] - mx[0]);
-          const float p1 = expf(sacc[nt][1] - mx[0]);
-          const float p2 = expf(sacc[nt][2] - mx[1]);
-          const float p3 = expf(sacc[nt][3] - mx[1]);
-          rs[0] += p0 + p1;
-          rs[1] += p2 + p3;
-          const int base = (nt & 1) * 2;
-          split_bf16(p0, p1, phi[nt / 2][base], plo[nt / 2][base]);
-          split_bf16(p2, p3, phi[nt / 2][base + 1], plo[nt / 2][base + 1]);
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 1);
-          rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 2);
-        }
-        l[0] = l[0] * corr0 + rs[0];
-        l[1] = l[1] * corr1 + rs[1];
-        m[0] = mx[0];
-        m[1] = mx[1];
-
-        // acc = acc * corr + P V
-#pragma unroll
-        for (int nt = 0; nt < HD / 8; ++nt) {
-          acc[nt][0] *= corr0;
-          acc[nt][1] *= corr0;
-          acc[nt][2] *= corr1;
-          acc[nt][3] *= corr1;
-        }
-#pragma unroll
-        for (int ks = 0; ks < BK / 16; ++ks) {
-#pragma unroll
-          for (int np = 0; np < HD / 16; ++np) {
-            // matrices: (kv lo, d-tile 2np), (kv hi, 2np), (lo, 2np+1), (hi, 2np+1)
-            uint32_t bfr[4];
-            ldsm_x4_trans(bfr, Vs + (ks * 16 + (lm & 1) * 8 + lr) * KS +
-                                   (np * 2 + (lm >> 1)) * 8);
-            mma_bf16_16816(acc[2 * np], phi[ks], bfr);
-            mma_bf16_16816(acc[2 * np], plo[ks], bfr);
-            mma_bf16_16816(acc[2 * np + 1], phi[ks], bfr + 2);
-            mma_bf16_16816(acc[2 * np + 1], plo[ks], bfr + 2);
-          }
-        }
+        tile_step<HD>(Ks, Ks + TILE, qf, m, l, acc, col0, min(lim, kb1), r_lo,
+                      r_hi, P.causal, P.window, P.scale, fc, lm, lr);
         __syncthreads();   // every warp is done with this stage
         gg = ngg;
         c = nc;
@@ -355,22 +176,7 @@ flash_sched_kernel(const FlashParams P) {
       }
 
       // the group's `last` descriptor: write acc / max(l, 1e-30), dead rows 0
-      const bool alive0 = m[0] > NEG_INF * 0.5f;
-      const bool alive1 = m[1] > NEG_INF * 0.5f;
-      const float l0 = fmaxf(l[0], 1e-30f);
-      const float l1 = fmaxf(l[1], 1e-30f);
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
-        const int col = nt * 8 + fc;
-        if (r_lo < qb1) {
-          *reinterpret_cast<uint32_t*>(ob + r_lo * P.o_ss + col) = pack_bf16(
-              alive0 ? acc[nt][0] / l0 : 0.f, alive0 ? acc[nt][1] / l0 : 0.f);
-        }
-        if (r_hi < qb1) {
-          *reinterpret_cast<uint32_t*>(ob + r_hi * P.o_ss + col) = pack_bf16(
-              alive1 ? acc[nt][2] / l1 : 0.f, alive1 ? acc[nt][3] / l1 : 0.f);
-        }
-      }
+      store_rows<HD>(ob, P.o_ss, acc, m, l, r_lo, r_hi, qb1, fc);
     }
     g = gend;
   }
@@ -378,7 +184,7 @@ flash_sched_kernel(const FlashParams P) {
 
 template <int HD>
 int launch_hd(const FlashParams& P, int p, cudaStream_t st) {
-  constexpr int bytes = 2 * 2 * BK * (HD + 8) * 2;   // 2 stages x (K, V)
+  constexpr int bytes = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_sched_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);

@@ -1,23 +1,30 @@
-"""Schedule-aware flash-attention forward: the plan, the kernel, the plain version.
+"""Flash-attention forward: the dense kernel, the schedule-aware kernel,
+their plans and their plain versions.
 
-Port of ``src/repro/kernels/flash_attention/flash_attention.py``'s
-schedule-aware half.  The host side is kept byte-faithful: the live
-(lane, q block, kv block) triples are enumerated per (lane, q block) group
-(``flash_kv_group_costs``), the group order is DLS-planned from the
-per-group live-KV costs (``repro_torch.core.torch_sched``), and six int32
-descriptor arrays (bi, qi, kj, first, last, lim) list the triples in plan
-order (``_plan_kv_descriptors``).
+Port of ``src/repro/kernels/flash_attention/flash_attention.py``.
 
-On a CUDA tensor the descriptors drive ``csrc/flash_sched.cu``: a
-persistent kernel with ``sched_p`` CTAs, CTA ``w`` walking its plan share in
-order; see the note at the top of that file.  On a CPU tensor the same
-function is computed by ``flash_attention_sched_plain`` (fp32 masked
-softmax).  Outputs are bit-identical for every schedule on either path: a
-schedule only permutes whole groups, and each group's kv blocks stay
-ascending inside one CTA.
+Dense (``flash_attention_bhsd``, the reference's ``_flash_kernel``): on a
+CUDA tensor ``csrc/flash_dense.cu`` runs one CTA per (lane, 128-row q tile)
+with the kv blocks as a loop inside it, skipping those above the causal
+diagonal or outside the sliding window; see the note at the top of that
+file.  On a CPU tensor ``flash_attention_dense_plain`` (fp32 masked
+softmax) computes the same function.
 
-The dense ``_flash_kernel`` (``flash_attention_bhsd`` in the reference) is
-not ported yet (ROADMAP.md, port queue item 1).
+Schedule-aware (``flash_attention_sched_bhsd``): the host side is kept
+byte-faithful: the live (lane, q block, kv block) triples are enumerated per
+(lane, q block) group (``flash_kv_group_costs``), the group order is
+DLS-planned from the per-group live-KV costs (``repro_torch.core.
+torch_sched``), and six int32 descriptor arrays (bi, qi, kj, first, last,
+lim) list the triples in plan order (``_plan_kv_descriptors``).  On a CUDA
+tensor the descriptors drive ``csrc/flash_sched.cu``: a persistent kernel
+with ``sched_p`` CTAs, CTA ``w`` walking its plan share in order.  On a CPU
+tensor ``flash_attention_sched_plain`` computes the same function.  Outputs
+are bit-identical for every schedule on either path: a schedule only
+permutes whole groups, and each group's kv blocks stay ascending inside one
+CTA.
+
+Both CUDA launchers read the model layout (b, s, h|kvh, hd) and the KV
+heads in place by strides.
 """
 
 from __future__ import annotations
@@ -41,6 +48,10 @@ _c = ctypes
 FLASH_SCHED = Kernel(
     "flash_sched", source="flash_sched", symbol="flash_sched_launch",
     argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 10 + [_c.c_longlong] * 12
+    + [_c.c_float, _c.c_void_p])
+FLASH_DENSE = Kernel(
+    "flash_dense", source="flash_dense", symbol="flash_dense_launch",
+    argtypes=[_c.c_void_p] * 4 + [_c.c_int] * 7 + [_c.c_longlong] * 12
     + [_c.c_float, _c.c_void_p])
 
 
@@ -168,26 +179,40 @@ def flash_attention_sched_plain(q, k, v, *,
     return torch.cat(outs, dim=0)
 
 
-def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
-                      causal: bool, window: int):
-    """Launch ``flash_sched`` on q (b, s, h, hd), k/v (b, s, kvh, hd) in
-    place of their strides; returns a new (b, s, h, hd) tensor."""
+def _check_kernel_inputs(name: str, q, k, v) -> None:
+    """Raise unless q (b, s, h, hd), k/v (b, s, kvh, hd) are what the CUDA
+    kernels take: a GQA layout, bfloat16, a head dim they are built for, a
+    contiguous last dim, 16-byte aligned rows."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     if k.shape != (b, s, kvh, hd) or v.shape != k.shape or h % kvh:
         raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / "
                          f"v {tuple(v.shape)} do not form a GQA layout")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_sched takes bfloat16 q, k and v, got "
+        raise TypeError(f"{name} takes bfloat16 q, k and v, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_sched supports head_dim in "
+        raise ValueError(f"{name} supports head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {hd}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for nm, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) \
                 or t.data_ptr() % 16:
-            raise ValueError(f"{name} needs a contiguous last dim, strides "
+            raise ValueError(f"{nm} needs a contiguous last dim, strides "
                              f"that are multiples of 8 and 16-byte alignment")
+
+
+def _strides(*tensors) -> list[int]:
+    """(batch, head, row) strides of each (b, s, h, hd) tensor, in order."""
+    return [t.stride(i) for t in tensors for i in (0, 2, 1)]
+
+
+def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
+                      causal: bool, window: int):
+    """Launch ``flash_sched`` on q (b, s, h, hd), k/v (b, s, kvh, hd) in
+    place of their strides; returns a new (b, s, h, hd) tensor."""
+    _check_kernel_inputs("flash_sched", q, k, v)
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     g = int(desc[0].shape[0])
     p = int(bounds.shape[0]) - 1
@@ -200,9 +225,59 @@ def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         d_ptr, d_ptr + 6 * g * 4,
         g, p, s, h, h // kvh, hd, block_q, block_k, int(causal), int(window),
-        *(t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)),
+        *_strides(q, k, v, out),
         1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     return out
+
+
+def _flash_dense_cuda(q, k, v, *, causal: bool, window: int):
+    """Launch ``flash_dense`` on q (b, s, h, hd), k/v (b, s, kvh, hd) in
+    place of their strides; returns a new (b, s, h, hd) tensor."""
+    _check_kernel_inputs("flash_dense", q, k, v)
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    FLASH_DENSE.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, s, h, h // kvh, hd, int(causal), int(window),
+        *_strides(q, k, v, out),
+        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def flash_attention_dense_plain(q, k, v, *, causal: bool = True,
+                                window: int = 0):
+    """The plain PyTorch version of the dense kernel: q, k, v (bh, s, hd)
+    -> (bh, s, hd), fp32 masked softmax, on any device."""
+    return flash_attention_sched_plain(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_dense_bshd(q, k, v, *, causal: bool = True,
+                               window: int = 0):
+    """Dense flash attention in the model layout: q (b, s, h, hd), k/v
+    (b, s, kvh, hd) -> (b, s, h, hd).  A CUDA tensor launches
+    ``flash_dense``; a CPU tensor takes the plain version."""
+    dev = check_device(q, k, v)
+    if dev.type == "cuda":
+        return _flash_dense_cuda(q, k, v, causal=causal, window=window)
+    b, s, h, hd = q.shape
+    out = flash_attention_dense_plain(*broadcast_flatten(q, k, v),
+                                      causal=causal, window=window)
+    return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+
+
+def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
+                         block_q: int = 512, block_k: int = 512):
+    """Dense flash attention: q, k, v (bh, s, hd) -> (bh, s, hd).
+
+    The reference's signature without ``interpret``.  ``block_q`` and
+    ``block_k`` name the TPU kernel's blocking; the result does not depend
+    on them (the card tiles by 128 x 64, the plain version does not tile).
+    """
+    out = flash_attention_dense_bshd(q.unsqueeze(2), k.unsqueeze(2),
+                                     v.unsqueeze(2), causal=causal,
+                                     window=window)
+    return out.squeeze(2)
 
 
 def flash_attention_sched_bshd(q, k, v, *,

@@ -5,12 +5,12 @@ kv-head counts (GQA/MQA), as the reference's ``ops.flash_attention`` does.
 The device of the inputs decides the path: a CUDA tensor launches the
 kernel, a CPU tensor takes the plain PyTorch version.
 
-Passing ``schedule=`` routes through the schedule-aware kernel: the
-(lane, q block) group order is produced by the DLS planner, ragged
-per-batch KV lengths (``kv_lens``) are supported, and on the card the
-kernel reads the model layout and the KV heads in place.  Without
-``schedule`` the dense kernel would run; it is not ported yet, so a CUDA
-tensor raises ``NotImplementedError`` there.
+Without ``schedule`` the dense kernel runs (``csrc/flash_dense.cu`` on the
+card): causal and sliding-window masks, no ragged lengths.  Passing
+``schedule=`` routes through the schedule-aware kernel: the (lane, q block)
+group order is produced by the DLS planner and ragged per-batch KV lengths
+(``kv_lens``) are supported.  On the card both kernels read the model
+layout and the KV heads in place.
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 
 from ...device import check_device
-from .flash_attention import broadcast_flatten, flash_attention_sched_bshd
-from .ref import attention_ref
+from .flash_attention import (flash_attention_dense_bshd,
+                              flash_attention_sched_bshd)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -37,23 +37,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``sched_p`` is the planner's worker count (the kernel's CTA count on
     the card) and ``recorder`` (LoopRecorder) collects the plan's telemetry.
     """
-    dev = check_device(q, k, v)
-    b, s, h, hd = q.shape
+    check_device(q, k, v)
     if schedule is None:
         if kv_lens is not None:
             raise ValueError("kv_lens requires schedule= (the DLS-planned "
                              "kernel); the dense grid has no ragged path")
-        if dev.type == "cuda":
-            raise NotImplementedError(
-                "the dense flash kernel (_flash_kernel) is not ported yet "
-                "(ROADMAP.md, port queue item 1); pass schedule= to use the "
-                "schedule-aware kernel")
-        qf, kf, vf = broadcast_flatten(q, k, v)
-        out = attention_ref(qf, kf, vf, causal=causal, window=window)
-        return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+        # block_q / block_k name the TPU's blocking; the result does not
+        # depend on them
+        return flash_attention_dense_bshd(q, k, v, causal=causal,
+                                          window=window)
     lane_lens = None
     if kv_lens is not None:
-        lane_lens = np.repeat(np.asarray(kv_lens, np.int64), h)  # per lane
+        lane_lens = np.repeat(np.asarray(kv_lens, np.int64),
+                              q.shape[2])  # per lane
     return flash_attention_sched_bshd(
         q, k, v, schedule=schedule, kv_lens=lane_lens, causal=causal,
         window=window, block_q=block_q, block_k=block_k, sched_p=sched_p,

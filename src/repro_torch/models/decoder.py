@@ -1,0 +1,272 @@
+"""Decoder LM for the attention-only block patterns.  Port of
+``src/repro/models/decoder.py``.
+
+Layer stacking as in the reference: the block pattern is tiled over
+num_layers as ``G full groups + R remainder layers``.  Group parameters are
+stacked with a leading G axis and run by a Python loop over the groups
+(the reference's ``lax.scan``); remainder layers are unrolled.
+
+Decode: per-layer KV caches are stacked per pattern position the same way.
+They are updated in place: a layer's cache is a view of its slice of the
+stacked tensors, written by indexed writes where the reference's
+``dynamic_update_index_in_dim`` returns a new array.  ``decode_step``
+returns the state it was given, advanced.
+
+Not here yet (ROADMAP.md, port queue, "The MoE model path, cluster,
+resilience and trials, training"): the MoE FFN and the ``mlstm`` /
+``slstm`` / ``rglru`` block kinds, which raise ``NotImplementedError``;
+``loss_fn`` and remat, which belong to the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from ..device import resolve_device
+from ..sharding import Ax
+from .attention import (
+    attention,
+    attention_decode,
+    init_attention,
+    init_kv_cache,
+    init_kv_cache_q,
+)
+from .layers import (
+    dtype_of,
+    embed_init,
+    embed_tokens,
+    norm_init,
+    rms_norm,
+    rope_tables,
+    softcap,
+    unembed_logits,
+)
+from .mlp import init_mlp, mlp
+
+_ATTN_KINDS = ("attn", "local_attn")
+_LATER = ("ROADMAP.md, port queue: 'The MoE model path, cluster, "
+          "resilience and trials, training'")
+
+
+def _check_supported(cfg, kinds) -> None:
+    """Raise for what this slice does not run: MoE and recurrent blocks."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE FFN is not ported yet ({_LATER})")
+    for kind in kinds:
+        if kind not in _ATTN_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {kind!r} is not ported yet "
+                f"({_LATER})")
+
+
+def tree_map(fn, *trees):
+    """Map ``fn`` over the leaves of nested dicts / tuples / NamedTuples."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
+        return type(t0)(*(tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t0, (tuple, list)):
+        return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+# ---------------------------------------------------------------------------
+# block init / apply
+# ---------------------------------------------------------------------------
+
+
+def init_block(gen: torch.Generator, cfg, kind: str):
+    _check_supported(cfg, (kind,))
+    mix_p, mix_a = init_attention(gen, cfg)
+    params = {"norm1": norm_init(cfg.d_model, device=gen.device)[0],
+              "mixer": mix_p}
+    axes = {"norm1": Ax("embed"), "mixer": mix_a}
+    if cfg.d_ff > 0:
+        ff_p, ff_a = init_mlp(gen, cfg)
+        params["norm2"] = norm_init(cfg.d_model, device=gen.device)[0]
+        params["ffn"] = ff_p
+        axes["norm2"] = Ax("embed")
+        axes["ffn"] = ff_a
+    return params, axes
+
+
+def block_apply(params, cfg, kind: str, x, sin, cos):
+    """Training/prefill block: returns (x, aux_loss)."""
+    _check_supported(cfg, (kind,))
+    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    window = cfg.window if kind == "local_attn" else 0
+    x = x + attention(params["mixer"], cfg, h, sin, cos, window=window)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.d_ff > 0:
+        h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
+        x = x + mlp(params["ffn"], cfg, h2)
+    return x, aux
+
+
+def block_decode(params, cfg, kind: str, x, sin, cos, cache):
+    """One-token block; ``cache`` is updated in place and returned."""
+    _check_supported(cfg, (kind,))
+    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    window = cfg.window if kind == "local_attn" else 0
+    mix, cache = attention_decode(params["mixer"], cfg, h, sin, cos, cache,
+                                  window=window)
+    x = x + mix
+    if cfg.d_ff > 0:
+        h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
+        x = x + mlp(params["ffn"], cfg, h2)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# decoder init
+# ---------------------------------------------------------------------------
+
+
+def _group_split(cfg) -> tuple[int, tuple[str, ...], tuple[str, ...]]:
+    period = len(cfg.block_pattern)
+    g = cfg.num_layers // period
+    return g, cfg.block_pattern, cfg.pattern_layers[g * period:]
+
+
+def _stack_init(init_fn, n: int):
+    outs = [init_fn() for _ in range(n)]
+    params = tree_map(lambda *a: torch.stack(a), *[p for p, _ in outs])
+    axes = tree_map(lambda ax: Ax("stack", *ax.names), outs[0][1])
+    return params, axes
+
+
+def init_decoder(seed: int, cfg, *, device=None):
+    """(params, axes) of the decoder, drawn from ``torch.Generator`` seeded
+    with ``seed`` on ``device`` (the card unless ``"cpu"``)."""
+    _check_supported(cfg, cfg.pattern_layers)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    g, pattern, remainder = _group_split(cfg)
+    params: dict[str, Any] = {}
+    axes: dict[str, Any] = {}
+    params["embed"], axes["embed"] = embed_init(gen, cfg.padded_vocab,
+                                                cfg.d_model)
+    if not cfg.tie_embeddings:
+        params["unembed"], axes["unembed"] = embed_init(
+            gen, cfg.padded_vocab, cfg.d_model)
+    params["final_norm"] = norm_init(cfg.d_model, device=dev)[0]
+    axes["final_norm"] = Ax("embed")
+
+    grp_p, grp_a = [], []
+    if g > 0:
+        for kind in pattern:
+            p, a = _stack_init(lambda kind=kind: init_block(gen, cfg, kind), g)
+            grp_p.append(p)
+            grp_a.append(a)
+    params["groups"] = tuple(grp_p)
+    axes["groups"] = tuple(grp_a)
+
+    rem_p, rem_a = [], []
+    for kind in remainder:
+        p, a = init_block(gen, cfg, kind)
+        rem_p.append(p)
+        rem_a.append(a)
+    params["remainder"] = tuple(rem_p)
+    axes["remainder"] = tuple(rem_a)
+    return params, axes
+
+
+def _layers(params, cfg):
+    """(kind, layer params, group index, pattern position) in depth order;
+    group layers are views into the stacked tensors (index -1: remainder)."""
+    g, pattern, remainder = _group_split(cfg)
+    for gi in range(g):
+        for pi, kind in enumerate(pattern):
+            yield kind, tree_map(lambda a: a[gi], params["groups"][pi]), gi, pi
+    for ri, kind in enumerate(remainder):
+        yield kind, params["remainder"][ri], -1, ri
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _hidden_states(params, cfg, tokens, prefix_embed=None):
+    """Shared trunk of forward() up to the final norm (no unembed)."""
+    compute = dtype_of(cfg.compute_dtype)
+    x = embed_tokens(params["embed"], tokens, compute)
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(compute), x], dim=1)
+    s = x.shape[1]
+    sin, cos = rope_tables(torch.arange(s, device=x.device),
+                           cfg.resolved_head_dim, cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, layer, _, _ in _layers(params, cfg):
+        x, a = block_apply(layer, cfg, kind, x, sin, cos)
+        aux = aux + a
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, aux
+
+
+def forward(params, cfg, tokens, prefix_embed=None):
+    """tokens (b, s_body) [+ prefix (b, P, d)] -> logits (b, s, v), aux."""
+    x, aux = _hidden_states(params, cfg, tokens, prefix_embed)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    logits = unembed_logits(x, table, cfg)
+    return softcap(logits, cfg.logit_softcap), aux
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+class DecodeState(NamedTuple):
+    group_caches: tuple      # per pattern position: stacked (G, ...) caches
+    rem_caches: tuple        # per remainder layer
+    pos: torch.Tensor        # (b,) int32 absolute position per lane
+
+
+def _cache_for(cfg, kind: str, batch: int, max_len: int,
+               device: Optional[torch.device]):
+    _check_supported(cfg, (kind,))
+    window = cfg.window if kind == "local_attn" else 0
+    init = init_kv_cache_q if cfg.kv_cache_dtype == "int8" else init_kv_cache
+    return init(cfg, batch, max_len, window=window, device=device)
+
+
+def init_decode_state(cfg, batch: int, max_len: int, *,
+                      device=None) -> DecodeState:
+    dev = resolve_device(device)
+    g, pattern, remainder = _group_split(cfg)
+    group_caches = tuple(
+        tree_map(lambda *a: torch.stack(a),
+                  *[_cache_for(cfg, kind, batch, max_len, dev)
+                    for _ in range(g)])
+        for kind in pattern) if g > 0 else ()
+    rem = tuple(_cache_for(cfg, kind, batch, max_len, dev)
+                for kind in remainder)
+    return DecodeState(group_caches=group_caches, rem_caches=rem,
+                       pos=torch.zeros((batch,), dtype=torch.int32,
+                                       device=dev))
+
+
+def decode_step(params, cfg, state: DecodeState, tokens):
+    """tokens (b, 1) -> (logits (b, 1, v), state).  The caches and ``pos``
+    of ``state`` are advanced in place; the same state is returned."""
+    compute = dtype_of(cfg.compute_dtype)
+    x = embed_tokens(params["embed"], tokens, compute)
+    # per-lane rope phase: (b, 1, hd/2)
+    sin, cos = rope_tables(state.pos[:, None], cfg.resolved_head_dim,
+                           cfg.rope_theta)
+    for kind, layer, gi, pi in _layers(params, cfg):
+        if gi >= 0:
+            cache = tree_map(lambda c: c[gi], state.group_caches[pi])
+        else:
+            cache = state.rem_caches[pi]
+        x, _ = block_decode(layer, cfg, kind, x, sin, cos, cache)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    logits = softcap(unembed_logits(x, table, cfg), cfg.logit_softcap)
+    state.pos.add_(1)
+    return logits, state

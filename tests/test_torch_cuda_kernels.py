@@ -81,13 +81,52 @@ def test_flash_bhsd_entry_and_errors(dev):
     out = fa.flash_attention_sched_bhsd(q, q, q, schedule="gss", block_q=128,
                                         block_k=128)
     _assert_close(out, fa.flash_attention_sched_plain(q, q, q))
-    with pytest.raises(NotImplementedError, match="dense flash kernel"):
-        flash_attention(q[:, :, None], q[:, :, None], q[:, :, None])
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(*(q[:, :, None].float(),) * 3, schedule="fac2")
     with pytest.raises(ValueError, match="head_dim"):
         x = _randn(dev, 1, 64, 1, 32)
         flash_attention(x, x, x, schedule="fac2")
+
+
+@pytest.mark.parametrize("case", [
+    # b, s, h, kvh, hd, window, causal
+    (1, 300, 4, 2, 128, 0, True),      # GQA, s not a multiple of the tile
+    (2, 200, 2, 1, 64, 32, True),      # MQA, window narrower than a tile
+    (1, 520, 4, 4, 128, 200, True),    # MHA, window 200
+    (1, 96, 2, 2, 128, 0, False),      # non-causal, one partial tile
+    (2, 257, 6, 3, 64, 0, False),      # non-causal GQA, ragged tail
+    (1, 1000, 8, 2, 128, 70, False),   # non-causal window
+    (1, 2560, 8, 2, 128, 0, True),     # the 2-layer prefill's length
+])
+def test_flash_dense_matches_plain(dev, case):
+    b, s, h, kvh, hd, window, causal = case
+    q, k, v = (_randn(dev, b, s, n, hd, seed=i)
+               for i, n in enumerate((h, kvh, kvh)))
+    before = fa.FLASH_DENSE.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.FLASH_DENSE.launches == before + 1
+    want = fa.flash_attention_dense_plain(*fa.broadcast_flatten(q, k, v),
+                                          causal=causal, window=window)
+    _assert_close(out, want.reshape(b, h, s, hd).permute(0, 2, 1, 3))
+    # block sizes name the TPU's blocking; the kernel's result ignores them
+    assert torch.equal(flash_attention(q, k, v, causal=causal, window=window,
+                                       block_q=128, block_k=64), out)
+
+
+def test_flash_dense_bhsd_entry_and_errors(dev):
+    q = _randn(dev, 3, 384, 128)
+    out = fa.flash_attention_bhsd(q, q, q, window=100)
+    _assert_close(out, fa.flash_attention_dense_plain(q, q, q, window=100))
+    x = q[:, :, None]
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(*(x.float(),) * 3)
+    with pytest.raises(ValueError, match="head_dim"):
+        y = _randn(dev, 1, 64, 1, 32)
+        flash_attention(y, y, y)
+    with pytest.raises(ValueError, match="different devices"):
+        flash_attention(x, x.cpu(), x)
+    with pytest.raises(ValueError, match="GQA layout"):
+        flash_attention(_randn(dev, 1, 64, 3, 64), *(_randn(dev, 1, 64, 2, 64),) * 2)
 
 
 @pytest.mark.parametrize("shape", [(4, 256, 96, 256, 128), (6, 384, 64, 128, 128),
@@ -126,7 +165,28 @@ def test_gmm_rejects_what_the_kernel_does_not_take(dev):
 
 def test_build_is_cached_and_counted(dev):
     libs = _build.build_all()
-    assert set(libs) == {"flash_sched", "gmm"}
+    assert set(libs) == {"flash_dense", "flash_sched", "gmm"}
     assert all(p.is_file() for p in libs.values())
     _build.reset_launches()
     assert all(k.launches == 0 for k in _build.KERNELS.values())
+
+
+def test_forward_launches_flash_dense_once_per_layer(dev):
+    """A 2-layer full-width qwen3-4b prefill above the flash threshold goes
+    through the dense kernel once per layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import forward, init_decoder
+
+    cfg = dataclasses.replace(get_arch("qwen3-4b"), num_layers=2)
+    params, _ = init_decoder(0, cfg, device=dev)
+    s = cfg.flash_threshold + 52
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, s))).to(dev)
+    before = fa.FLASH_DENSE.launches
+    logits, _ = forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    assert fa.FLASH_DENSE.launches == before + cfg.num_layers
+    assert logits.shape == (1, s, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())

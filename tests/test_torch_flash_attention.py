@@ -177,3 +177,97 @@ def test_mixed_devices_raise():
     q = torch.zeros(1, 8, 1, 8)
     with pytest.raises(ValueError, match="different devices"):
         flash_attention(q, q.to("meta"), q, schedule="fac2")
+
+
+# ---------------------------------------------------------------------------
+# the dense kernel (schedule=None): the sweeps of tests/test_kernels.py
+# ---------------------------------------------------------------------------
+
+# the reference's own tolerances against its oracle (tests/test_kernels.py):
+# 2e-5 in fp32; 3e-2 in bf16, where both sides round an fp32 result to bf16
+DENSE_TOL = {np.float32: 2e-5, "bfloat16": 3e-2}
+
+
+def _dense_both(q, k, v, dtype=np.float32, **kw):
+    if dtype == "bfloat16":
+        jx = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+        tx = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    else:
+        jx = [jnp.asarray(x) for x in (q, k, v)]
+        tx = [torch.from_numpy(x) for x in (q, k, v)]
+    want = np.asarray(ref_ops.flash_attention(*jx, interpret=True, **kw),
+                      np.float32)
+    got = flash_attention(*tx, **kw).float().numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 128, 2, 2, 64),     # MHA, exact blocks
+    (2, 300, 4, 2, 64),     # GQA, ragged seq
+    (1, 513, 2, 1, 128),    # MQA, off-by-one seq
+    (1, 64, 8, 4, 32),      # small head_dim
+])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_dense_matches_jax_kernel(shape, dtype):
+    got, want = _dense_both(*_inputs(sum(shape), *shape), dtype=dtype,
+                            block_q=128, block_k=128)
+    tol = DENSE_TOL[dtype]
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [32, 128])
+def test_dense_sliding_window_matches_jax_kernel(window):
+    got, want = _dense_both(*_inputs(5, 1, 300, 2, 2, 64), window=window,
+                            block_q=64, block_k=64)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", (True, False))
+def test_dense_causality_matches_jax_kernel(causal):
+    got, want = _dense_both(*_inputs(6, 2, 100, 4, 1, 32), causal=causal,
+                            window=20, block_q=32, block_k=32)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("blocks", [(64, 128), (128, 64), (256, 256)])
+def test_dense_block_shape_sweep_matches_jax_kernel(blocks):
+    bq, bk = blocks
+    got, want = _dense_both(*_inputs(7, 1, 384, 2, 2, 64), block_q=bq,
+                            block_k=bk)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_dense_matches_model_flash_path():
+    """The model's plain flash path and the dense kernel's agree, as the
+    reference's tests/test_kernels.py holds the two."""
+    import dataclasses
+    from repro.configs import ARCHS, smoke_config
+    from repro.models.attention import _attend_flash as jax_attend_flash
+    from repro_torch.models.attention import _attend_flash
+
+    cfg = dataclasses.replace(smoke_config(ARCHS["qwen3-4b"]),
+                              compute_dtype="float32")
+    q, k, v = _inputs(8, 2, 256, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim)
+    model_out = _attend_flash(*map(torch.from_numpy, (q, k, v)), cfg,
+                              window=0, block=64)
+    kern_out = _port(q, k, v, block_q=64, block_k=64)
+    np.testing.assert_allclose(model_out.numpy(), kern_out, atol=ATOL)
+    np.testing.assert_allclose(
+        model_out.numpy(),
+        np.asarray(jax_attend_flash(*map(jnp.asarray, (q, k, v)), cfg,
+                                    window=0, block=64)), atol=ATOL)
+
+
+def test_dense_bhsd_entry_matches_jax():
+    from repro.kernels.flash_attention.flash_attention import (
+        flash_attention_bhsd as jax_bhsd)
+
+    q, k, v = (x[:, :, 0].repeat(3, axis=0) for x in (Q, K, V))  # (3, s, hd)
+    got = fa.flash_attention_bhsd(*map(torch.from_numpy, (q, k, v)),
+                                  window=50, block_q=64, block_k=32).numpy()
+    want = np.asarray(jax_bhsd(*map(jnp.asarray, (q, k, v)), window=50,
+                               block_q=64, block_k=32, interpret=True))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    assert fa.FLASH_DENSE.name == "flash_dense"
+    assert _build.KERNELS["flash_dense"] is fa.FLASH_DENSE
