@@ -21,12 +21,15 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                shapes (partial blocks, a sliding window, dead tiles)
   flash_sched  the kernel against its plain version at the main path's
                shapes, bit-identity across schedules and sched_p, timing
-  gmm          the same for the grouped matmul (wi and wo shapes)
+  gmm          the same for the grouped matmul (wi and wo shapes), and
+               back-to-back times of the fac2 order, the identity order and
+               the identity order with every tile on expert 0
   flash_dense  the dense kernel against its plain version at the prefill's
                shape (qwen3-4b: 1 x 4096, 32 q heads, 8 KV heads,
                head_dim 128, causal) and at small ragged shapes (s not a
                multiple of the tile, MQA, head_dim 64, windows 32 and 200);
-               its time, the plain version's, and
+               its time (single calls and back to back), the plain
+               version's, and
                ``scaled_dot_product_attention(is_causal=True)``'s on the same
                tensors as a yardstick (the port never calls it)
   prefill      launch counts set to 0, then ``models.forward`` of full-width,
@@ -127,6 +130,29 @@ def cuda_ms(fn, n):
     return float(np.median(times))
 
 
+def cuda_ms_b2b(fn, n):
+    """ms per call of ``fn`` launched ``n`` times back to back between two
+    CUDA events, after one warm-up; the median of 3 rounds.  A call's host
+    work overlaps the previous call's kernel, so where the kernel is the
+    longer this is near its own time (``cuda_ms`` also counts the host work
+    before the launch)."""
+    import numpy as np
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        rounds.append(a.elapsed_time(b) / n)
+    return float(np.median(rounds))
+
+
 def bound(flops, nbytes):
     """(bound_ms, bound_by): the larger of operations over the bf16 peak
     and bytes over the memory rate."""
@@ -201,8 +227,11 @@ def phase_flash_dense(dev, randn):
     q, k, v = randn(b, s, h, hd), randn(b, s, kvh, hd), randn(b, s, kvh, hd)
     out = flash_attention(q, k, v, causal=True)
     err = check_close("flash_dense", out, plain(q, k, v))
-    ms = cuda_ms(lambda: fa._flash_dense_cuda(q, k, v, causal=True,
-                                              window=0), REPS)
+
+    def kernel():
+        return fa._flash_dense_cuda(q, k, v, causal=True, window=0)
+
+    ms, ms_b2b = cuda_ms(kernel, REPS), cuda_ms_b2b(kernel, REPS)
     call_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), REPS)
     plain_ms = cuda_ms(lambda: plain(q, k, v), 3)
     # yardstick only: one PyTorch call for the same function
@@ -220,7 +249,8 @@ def phase_flash_dense(dev, randn):
                   bound_ms=bound_ms, bound_by=bound_by,
                   library_ms=library_ms)
     emit("flash_dense", shape=[b, s, h, kvh, hd], causal=True,
-         small_max_abs_err=small, call_ms=call_ms, sdpa_max_abs_diff=sdpa_err,
+         small_max_abs_err=small, ms_b2b=ms_b2b, call_ms=call_ms,
+         sdpa_max_abs_diff=sdpa_err,
          flops=flops, bytes=nbytes, **fields)
     return fields
 
@@ -567,26 +597,42 @@ def main() -> int:
             assert torch.equal(out, y), f"gmm {name} differs for {kw}"
         xt = x_tiles.contiguous()
 
-        def gmm_kernel_ms(schedule):
+        def gmm_kernel(schedule):
             order, gp = plan_tiles(expert_rows, BLOCK_ROWS, p=n_sm,
                                    technique=schedule, capacity_rows=c_,
                                    return_plan=True)
             gb = worker_bounds(gp.step_worker, n_sm)
-            return cuda_ms(lambda: gm.gmm_cuda(xt, w, tile_expert, order, gb,
-                                               gp.n), REPS), gp
+            return (lambda: gm.gmm_cuda(xt, w, tile_expert, order, gb,
+                                        gp.n)), gp
 
-        ms, gplan = gmm_kernel_ms("fac2")
-        ms_static = gmm_kernel_ms("static")[0]
+        run_fac2, gplan = gmm_kernel("fac2")
+        ms = cuda_ms(run_fac2, REPS)
+        ms_static = cuda_ms(gmm_kernel("static")[0], REPS)
+        # back to back, so that the wrapper's host work drops out: the fac2
+        # order; the identity order split into n_sm spans (an expert's tiles
+        # one after another on one CTA); the same with every tile on expert
+        # 0, whose weights then stay in L2 (another function: timing only)
+        t_ = e_ * tpe
+        ident = (np.arange(t_, dtype=np.int32), gm.span_bounds(t_, n_sm), t_)
+        expert0 = torch.zeros_like(tile_expert)
+        ms_b2b = {
+            "fac2": cuda_ms_b2b(run_fac2, REPS),
+            "identity": cuda_ms_b2b(
+                lambda: gm.gmm_cuda(xt, w, tile_expert, *ident), REPS),
+            "identity_expert0": cuda_ms_b2b(
+                lambda: gm.gmm_cuda(xt, w, expert0, *ident), REPS)}
         p_ms = cuda_ms(lambda: gm.grouped_matmul_tiles_plain(
             xt, w, tile_expert), 3)
         lib_ms = cuda_ms(lambda: torch.bmm(x, w), REPS)
-        live_rows = int(np.minimum(expert_rows, c_).sum())
-        active = int((expert_rows > 0).sum())
-        flops = 2 * live_rows * d_ * f_
-        nbytes = 2 * (live_rows * d_ + active * d_ * f_ + e_ * c_ * f_)
+        # every tile, live or dead, as the TPU kernel's CostEstimate counts
+        # it: the kernel and torch.bmm both compute the dead tiles too
+        rows_all = e_ * c_
+        flops = 2 * rows_all * d_ * f_
+        nbytes = 2 * (rows_all * d_ + e_ * d_ * f_ + rows_all * f_)
         gmm_rows[name] = dict(
-            max_abs_err=err, ms=ms, ms_static=ms_static, plain_ms=p_ms,
-            library_ms=lib_ms,
+            max_abs_err=err, ms=ms, ms_static=ms_static, ms_b2b=ms_b2b,
+            plain_ms=p_ms, library_ms=lib_ms,
+            library_ms_b2b=cuda_ms_b2b(lambda: torch.bmm(x, w), REPS),
             bound_ms=1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
             flops=flops, bytes=nbytes, live_tiles=int(gplan.n),
             tiles=int(e_ * tpe), percent_imbalance=gplan.percent_imbalance)

@@ -9,139 +9,345 @@
 // (1 x 4096 tokens, 32 query heads, 8 KV heads, head_dim 128, causal) the
 // function does 4 * 128 operations per live (row, column) pair, about
 // 137 GFLOP, over about 84 MB of q, k, v and out: some 1,600 operations per
-// byte against the card's ~295, so the tensor cores are the limit.  K and V
-// are re-read once per 128-row q tile; they come from L2 (a head's K and V
-// are 2 MB).  The kernel uses warp-level mma.sync (m16n8k16, bf16 in, fp32
-// accumulate) fed by ldmatrix, with cp.async double-buffering the K/V
-// sub-tiles; wgmma, TMA and a producer warp are later work.
+// byte against the card's ~295, so the tensor cores are the limit, and only
+// wgmma reaches their rate.  Keeping the reference's fp32 P V (P split into
+// bf16 hi + lo) makes the P V half of the tensor work twice as large: 1.5x
+// the MMA work of a bf16-P kernel.  Next to the MMAs, the softmax costs two
+// MUFU-class instructions per score (the exp2 and the bf16 conversions).
 //
-// Design:
-//   * The TPU's sequential kv grid axis cannot carry state across CTAs on
-//     the card, so it becomes a loop inside the CTA: one CTA per
-//     (lane, 128-row q tile), walking 64-column kv sub-tiles from the first
-//     one the window reaches up to the causal diagonal.  Every sub-tile in
-//     that range is live for some row of the tile; none outside it is.
-//   * The causal triangle's longest q tiles sit at the bottom.  Block index
-//     x maps to q tile nq - 1 - x / lanes, so the longest tiles are
-//     dispatched first and the short ones fill the tail.
-//   * The sub-tile machinery is flash_sched.cu's, shared through
-//     flash_common.cuh: 8 warps x 16 rows, row state m / l / acc in
-//     registers, fp32 math (bf16 products are exact in fp32; P is split
-//     into bf16 hi + lo for P V).  The online softmax is updated per
-//     64-column sub-tile where the TPU kernel updates it per 512-column
-//     block, so the two agree within a tolerance, not bitwise; block_q and
-//     block_k only name the TPU's blocking and do not change the result.
-//   * NEG_INF is -1e30, not -inf.  A row whose columns in its first live
-//     sub-tile are all masked (a window narrower than a tile) sees
-//     p = exp(-1e30 - -1e30) = 1 there; the sub-tile that brings its first
-//     real column wipes that with corr = exp(-1e30 - m) = 0, exactly as on
-//     the TPU.  Every row of a dense causal or windowed grid has at least
-//     its diagonal column, so no row is dead.
-//   * GQA / MQA: KV head hh / (H / KVH), read in place; the broadcast is
-//     never materialised.  Tensors are addressed through (batch, head, row)
-//     strides, so the model layout (b, s, h, hd) is read without a copy.
-//     The ragged tail (s not a multiple of the tile) is masked in the
-//     kernel: K/V rows past s load as zeros and are masked, and only rows
-//     below s are written.  Nothing is padded.
+// Design (TMA + wgmma + warp specialisation):
+//   * The TPU's sequential kv grid axis becomes a loop inside the CTA: one
+//     CTA per (lane, 128-row q tile), walking 128-column kv tiles from the
+//     first one the window reaches up to the causal diagonal.  Block x runs
+//     q tile nq - 1 - x / lanes: the longest tiles of the causal triangle
+//     are dispatched first and the short ones fill the tail.
+//   * Three warpgroups.  One thread of warpgroup 0 (the producer, registers
+//     cut to 24 by setmaxnreg) loads Q once and the K and V tiles into a
+//     3-stage ring with TMA, each completion reported to its own mbarrier
+//     (so S = Q K^T can start before V has landed).  q, k and v are mapped
+//     as 4-D (b, s, heads, hd) tensors from their strides, so the model
+//     layout and GQA's KV head hh / (H / KVH) are read in place; rows past
+//     s arrive as zeros.  With SWIZZLE_128B a box is 64 columns wide, so an
+//     hd-128 tile is two boxes.
+//   * Warpgroups 1 and 2 (the consumers, 240 registers) own q rows 0-63 and
+//     64-127.  Per kv tile: S = Q K^T with wgmma.m64n128k16 from shared
+//     memory (K is (kv, hd), hd contiguous: K-major, as B wants); the
+//     online softmax in registers with ex2.approx, scale * log2(e) folded
+//     into the scores; O += P V with wgmma RS: P from registers as the A
+//     operand, V (MN-major) from shared memory through the transpose bit.
+//     P is kept fp32 as in the reference (which multiplies p, fp32, by v
+//     cast to fp32): P = hi + lo in bf16, two RS wgmmas into one fp32
+//     accumulator.  Both consumers read the same K / V stage and hand it
+//     back to the producer with one arrival per warp.
+//   * The consumers take turns to issue S = Q K^T (two named barriers), so
+//     the tensor cores work for one while the other runs its softmax.
+//   * Masking only where needed: a tile pays for the mask arithmetic only
+//     when it crosses the causal diagonal, the window's lower edge or the
+//     ragged end s for this warpgroup's rows; full tiles take one FFMA and
+//     one exp2 per score.
+//   * NEG_INF is -1e30 in the log2 domain, not -inf.  A row whose columns in
+//     a tile are all masked before its first live column (a window narrower
+//     than a tile) sees p = exp2(-1e30 - -1e30) = 1 there; the tile that
+//     brings its first real column wipes that with corr = exp2(-1e30 - m) =
+//     0, exactly, as on the TPU.  After its live columns, a masked column
+//     gives p = exp2(-1e30 - m) = 0.  Every row of a dense causal or
+//     windowed grid has at least its diagonal column, so no row is dead.
+//   * Only rows below s are written, straight from the accumulators.
 
-#include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-using namespace flash;
+using namespace hopper;
 
-struct DenseParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* o;
-  int lanes, nq, s, H, group, causal, window;
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long o_sb, o_sh, o_ss;
-  float scale;
-};
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int BQ = 128;                 // q rows of a CTA
+constexpr int BKV = 128;                // kv columns of a tile
+constexpr int NTHREADS = 384;           // producer + two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
+constexpr int BOX = 128 * 128;          // one box: 128 rows x 64 bf16
+constexpr int TURN = 1;                 // named barriers 1, 2: the turns
+
+constexpr int STAGES = 3;               // K / V tiles in flight
 
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-flash_dense_kernel(const DenseParams P) {
-  constexpr int TILE = BK * (HD + 8);   // one K or V sub-tile (bf16)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // stage s: K at smem + 2 s TILE, V right after it
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+struct Layout {
+  static constexpr int NBOX = HD / 64;              // boxes per tile
+  static constexpr int TILE = NBOX * BOX;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + TILE;                // STAGES tiles
+  static constexpr int V = K + STAGES * TILE;       // STAGES tiles
+  static constexpr int BAR = V + STAGES * TILE;     // q, k[], v[], empty[]
+  static constexpr int BYTES = BAR + (1 + 3 * STAGES) * 8 + 1024;  // + align
+};
+
+struct DenseParams {
+  __nv_bfloat16* o;
+  long long o_sb, o_sh, o_ss;
+  int lanes, nq, s, H, group, causal, window;
+  float scale_log2;   // softmax scale * log2(e)
+};
+
+// 2^x in one MUFU instruction (results below 2^-126 flush to 0; ex2(0) is 1)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// scores of this thread (m64n128 accumulator layout) -> P = exp2(S scale
+// log2(e) - m) as bf16 hi / lo A fragments of the eight 16-column slices;
+// updates m, l (log2 domain) and rescales o.  MASK: columns >= s, above the
+// diagonal or outside the window get NEG_INF first; without it the scale
+// is folded into one FFMA per score.
+template <int HD, bool MASK>
+__device__ __forceinline__ void softmax(float* sacc, float (&m)[2],
+                                        float (&l)[2], float* o,
+                                        uint32_t (&phi)[8][4],
+                                        uint32_t (&plo)[8][4], int col0,
+                                        int r_lo, int lane,
+                                        const DenseParams& P) {
+  float mx[2];
+  if constexpr (MASK) {
+    mx[0] = m[0];
+    mx[1] = m[1];
+#pragma unroll
+    for (int v = 0; v < 64; ++v) {
+      const int row = r_lo + 8 * ((v >> 1) & 1);
+      const int col = col0 + 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
+      bool ok = col < P.s;
+      if (P.causal) ok = ok && col <= row;
+      if (P.window > 0) ok = ok && (row - col) < P.window;
+      const float x = ok ? sacc[v] * P.scale_log2 : NEG_INF;
+      sacc[v] = x;
+      mx[(v >> 1) & 1] = fmaxf(mx[(v >> 1) & 1], x);
+    }
+  } else {
+    float raw[2] = {sacc[0], sacc[2]};
+#pragma unroll
+    for (int v = 0; v < 64; ++v)
+      raw[(v >> 1) & 1] = fmaxf(raw[(v >> 1) & 1], sacc[v]);
+    // scale > 0, so the scaled maximum is the maximum of the scaled scores
+    mx[0] = fmaxf(m[0], raw[0] * P.scale_log2);
+    mx[1] = fmaxf(m[1], raw[1] * P.scale_log2);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+  }
+  const float corr[2] = {fast_exp2(m[0] - mx[0]), fast_exp2(m[1] - mx[1])};
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = 8 * kk + 2 * i;
+      const float mj = mx[i & 1];
+      const float p0 = MASK ? fast_exp2(sacc[v] - mj)
+                            : fast_exp2(fmaf(sacc[v], P.scale_log2, -mj));
+      const float p1 = MASK ? fast_exp2(sacc[v + 1] - mj)
+                            : fast_exp2(fmaf(sacc[v + 1], P.scale_log2, -mj));
+      rs[i & 1] += p0 + p1;
+      // fp32 p = hi + lo, both bf16
+      __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(h);
+      __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+      phi[kk][i] = *reinterpret_cast<uint32_t*>(&h);
+      plo[kk][i] = *reinterpret_cast<uint32_t*>(&lo);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 1);
+    rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 2);
+    l[j] = l[j] * corr[j] + rs[j];
+    m[j] = mx[j];
+  }
+#pragma unroll
+  for (int v = 0; v < HD / 2; ++v) o[v] *= corr[(v >> 1) & 1];
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const DenseParams P) {
+  using L = Layout<HD>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int fr = lane / 4;         // fragment row within an 8-row half
-  const int fc = (lane % 4) * 2;   // fragment column pair
-  const int lm = lane / 8;         // ldmatrix: which 8x8 matrix
-  const int lr = lane % 8;         // ldmatrix: which row of it
+  const int wg = tid / 128;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
 
   // bottom (longest) q tiles first
   const int qt = P.nq - 1 - static_cast<int>(blockIdx.x) / P.lanes;
   const int lane_id = static_cast<int>(blockIdx.x) % P.lanes;
   const int b = lane_id / P.H;
   const int hh = lane_id % P.H;
-  const int kvh = hh / P.group;
-  const __nv_bfloat16* qb = P.q + b * P.q_sb + hh * P.q_sh;
-  const __nv_bfloat16* kb = P.k + b * P.k_sb + kvh * P.k_sh;
-  const __nv_bfloat16* vb = P.v + b * P.v_sb + kvh * P.v_sh;
-  __nv_bfloat16* ob = P.o + b * P.o_sb + hh * P.o_sh;
-
   const int row0 = qt * BQ;
-  const int qend = min(row0 + BQ, P.s);
-  const int r_lo = row0 + warp * 16 + fr;
-  const int r_hi = r_lo + 8;
-
-  uint32_t qf[HD / 16][4];
-  load_q<HD>(qf, qb, P.q_ss, r_lo, r_hi, qend, fc);
-
-  float m[2] = {NEG_INF, NEG_INF};
-  float l[2] = {0.f, 0.f};
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
   // live columns: from the window's reach of the first row (rounded down to
-  // a sub-tile) to the diagonal of the last row (causal) or the end
-  const int c_lo = P.window > 0 ? max(0, row0 - P.window + 1) / BK * BK : 0;
-  const int c_hi = P.causal ? qend : P.s;
+  // a tile) to the diagonal of the last row (causal) or the end
+  const int c_lo = P.window > 0 ? max(0, row0 - P.window + 1) / BKV * BKV : 0;
+  const int c_hi = P.causal ? min(row0 + BQ, P.s) : P.s;
+  const int ntiles = (c_hi - c_lo + BKV - 1) / BKV;
 
-  load_kv<HD>(smem, smem + TILE, kb, vb, P.k_ss, P.v_ss, c_lo, P.s, tid);
-  cp_async_commit();
-  int st = 0;
-  for (int col0 = c_lo; col0 < c_hi; col0 += BK) {
-    // start loading the next sub-tile into the other stage
-    if (col0 + BK < c_hi) {
-      __nv_bfloat16* Kn = smem + 2 * (st ^ 1) * TILE;
-      load_kv<HD>(Kn, Kn + TILE, kb, vb, P.k_ss, P.v_ss, col0 + BK, P.s, tid);
+  if (wg == 0) {
+    // ---- producer ----
+    reg_dealloc<24>();
+    if (tid == 0) {
+      const int kvh = hh / P.group;
+      mbar_expect_tx(q_full, L::TILE);
+      for (int j = 0; j < L::NBOX; ++j)
+        tma_load_4d(smem + L::Q + j * BOX, &qmap, q_full, 64 * j, row0, hh, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % STAGES;
+        const int col0 = c_lo + i * BKV;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&k_full[s], L::TILE);
+        for (int j = 0; j < L::NBOX; ++j)
+          tma_load_4d(smem + L::K + s * L::TILE + j * BOX, &kmap, &k_full[s],
+                      64 * j, col0, kvh, b);
+        mbar_expect_tx(&v_full[s], L::TILE);
+        for (int j = 0; j < L::NBOX; ++j)
+          tma_load_4d(smem + L::V + s * L::TILE + j * BOX, &vmap, &v_full[s],
+                      64 * j, col0, kvh, b);
+      }
     }
-    cp_async_commit();
-    cp_async_wait<1>();   // this stage's group has landed
-    __syncthreads();
-    const __nv_bfloat16* Ks = smem + 2 * st * TILE;
-    tile_step<HD>(Ks, Ks + TILE, qf, m, l, acc, col0, P.s, r_lo, r_hi,
-                  P.causal, P.window, P.scale, fc, lm, lr);
-    __syncthreads();   // every warp is done with this stage
-    st ^= 1;
-  }
+  } else {
+    // ---- consumers: q rows r0 .. r0 + 63 ----
+    reg_alloc<240>();
+    const int c = wg - 1;
+    const int tq = tid % 128;
+    const int lane = tid % 32;
+    const int r0 = row0 + 64 * c;
+    const int r_lo = r0 + 16 * (tq / 32) + lane / 4;   // and r_lo + 8
 
-  store_rows<HD>(ob, P.o_ss, acc, m, l, r_lo, r_hi, qend, fc);
+    float o[HD / 2];
+#pragma unroll
+    for (int v = 0; v < HD / 2; ++v) o[v] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};
+    float l[2] = {0.f, 0.f};
+
+    // Q of this warpgroup: rows 64 c .. of every box (K-major)
+    const uint64_t dq = smem_desc(smem + L::Q + c * 64 * 128, 16, 1024);
+    mbar_wait(q_full, 0);
+    // the consumers take turns to issue S = Q K^T (named barrier 1 + c is
+    // consumer c's turn), so that one runs its softmax while the tensor
+    // cores work for the other; consumer 0 goes first
+    if (c == 1) named_bar_arrive(TURN, 256);
+
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % STAGES;
+      const uint32_t ph = (i / STAGES) & 1;
+      const int col0 = c_lo + i * BKV;
+      const bool mask = col0 + BKV > P.s || (P.causal && col0 + BKV - 1 > r0) ||
+                        (P.window > 0 && r0 + 63 - col0 >= P.window);
+
+      // S = Q K^T
+      float sacc[64];
+      const uint64_t dk = smem_desc(smem + L::K + s * L::TILE, 16, 1024);
+      mbar_wait(&k_full[s], ph);
+      named_bar_sync(TURN + c, 256);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int off = (kk / 4) * (BOX / 16) + (kk % 4) * 2;
+        wgmma_m64n128k16_ss<0>(sacc, dq + off, dk + off, kk);
+      }
+      wgmma_commit();
+      named_bar_arrive(TURN + 1 - c, 256);
+      wgmma_wait<0>();
+      fence_regs<64>(sacc);
+
+      uint32_t phi[8][4], plo[8][4];
+      if (mask)
+        softmax<HD, true>(sacc, m, l, o, phi, plo, col0, r_lo, lane, P);
+      else
+        softmax<HD, false>(sacc, m, l, o, phi, plo, col0, r_lo, lane, P);
+
+      // O += (P_hi + P_lo) V
+      const uint64_t dv = smem_desc(smem + L::V + s * L::TILE, BOX, 1024);
+      mbar_wait(&v_full[s], ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        if constexpr (HD == 128) {
+          wgmma_m64n128k16_rs<1>(o, phi[kk], dv + 128 * kk, 1);
+          wgmma_m64n128k16_rs<1>(o, plo[kk], dv + 128 * kk, 1);
+        } else {
+          wgmma_m64n64k16_rs<1>(o, phi[kk], dv + 128 * kk, 1);
+          wgmma_m64n64k16_rs<1>(o, plo[kk], dv + 128 * kk, 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<HD / 2>(o);
+      fence_regs<32>(&phi[0][0]);
+      fence_regs<32>(&plo[0][0]);
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // consumer 1's last hand-over is taken here, so every turn is matched
+    if (c == 0) named_bar_sync(TURN, 256);
+
+    // out = o / l for the rows below s; rows that never saw a live column
+    // (m <= NEG_INF / 2) are written as 0
+    __nv_bfloat16* ob = P.o + b * P.o_sb + hh * P.o_sh;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = r_lo + 8 * j;
+      if (row >= P.s) continue;
+      const float inv = m[j] > NEG_INF * 0.5f
+                            ? __fdividef(1.f, fmaxf(l[j], 1e-30f)) : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt) {
+        const int col = nt * 8 + 2 * (lane & 3);
+        *reinterpret_cast<uint32_t*>(ob + row * P.o_ss + col) =
+            pack_bf16(o[4 * nt + 2 * j] * inv, o[4 * nt + 2 * j + 1] * inv);
+      }
+    }
+  }
+}
+
+// q / k / v (b, s, heads, hd) by element strides -> a 4-D map with boxes of
+// 64 hd x 128 rows of one head
+int encode_bshd(CUtensorMap* map, const void* base, int batch, int s,
+                int heads, int hd, long long sb, long long sh, long long ss) {
+  using u64 = cuuint64_t;
+  const u64 dims[4] = {(u64)hd, (u64)s, (u64)heads, (u64)batch};
+  const u64 strides[3] = {(u64)ss * 2, (u64)sh * 2, (u64)sb * 2};
+  const cuuint32_t box[4] = {64, 128, 1, 1};
+  return encode_bf16(map, base, 4, dims, strides, box);
 }
 
 template <int HD>
-int launch_hd(const DenseParams& P, cudaStream_t st) {
-  constexpr int bytes = smem_bytes<HD>();
+int launch_hd(const CUtensorMap& qm, const CUtensorMap& km,
+              const CUtensorMap& vm, const DenseParams& P, cudaStream_t st) {
+  constexpr int bytes = Layout<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_dense_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long grid = static_cast<long long>(P.lanes) * P.nq;
   flash_dense_kernel<HD><<<static_cast<unsigned>(grid), NTHREADS, bytes, st>>>(
-      P);
+      qm, km, vm, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -154,28 +360,28 @@ extern "C" int flash_dense_launch(
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, float scale,
     void* stream) {
-  if (batch <= 0 || s <= 0 || H <= 0 || group <= 0)
+  if (batch <= 0 || s <= 0 || H <= 0 || group <= 0 || H % group != 0 ||
+      (hd != 64 && hd != 128))
     return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qm, km, vm;
+  const int kvh = H / group;
+  int rc = encode_bshd(&qm, q, batch, s, H, hd, q_sb, q_sh, q_ss);
+  if (rc == 0) rc = encode_bshd(&km, k, batch, s, kvh, hd, k_sb, k_sh, k_ss);
+  if (rc == 0) rc = encode_bshd(&vm, v, batch, s, kvh, hd, v_sb, v_sh, v_ss);
+  if (rc != 0) return rc;
   DenseParams P;
-  P.q = static_cast<const __nv_bfloat16*>(q);
-  P.k = static_cast<const __nv_bfloat16*>(k);
-  P.v = static_cast<const __nv_bfloat16*>(v);
   P.o = static_cast<__nv_bfloat16*>(o);
+  P.o_sb = o_sb; P.o_sh = o_sh; P.o_ss = o_ss;
   P.lanes = batch * H;
   P.nq = (s + BQ - 1) / BQ;
   P.s = s; P.H = H; P.group = group;
   P.causal = causal; P.window = window;
-  P.q_sb = q_sb; P.q_sh = q_sh; P.q_ss = q_ss;
-  P.k_sb = k_sb; P.k_sh = k_sh; P.k_ss = k_ss;
-  P.v_sb = v_sb; P.v_sh = v_sh; P.v_ss = v_ss;
-  P.o_sb = o_sb; P.o_sh = o_sh; P.o_ss = o_ss;
-  P.scale = scale;
+  P.scale_log2 = scale * LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 128) return launch_hd<128>(P, st);
-  if (hd == 64) return launch_hd<64>(P, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return hd == 128 ? launch_hd<128>(qm, km, vm, P, st)
+                   : launch_hd<64>(qm, km, vm, P, st);
 }
 
 extern "C" const char* flash_dense_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_string(code);
 }

@@ -4,221 +4,248 @@
 // (launched by grouped_matmul_tiles through one pl.pallas_call over a 1-D
 // grid of row tiles, each multiplied by its expert's (d, f) weight block).
 //
-// What bounds it on an H100: bytes, at the main path's shapes.  With
-// 128 experts, capacity 512 and Zipf-skewed loads (about 175 live rows an
-// expert), the expert weights (3 MB each in bf16) dominate: about 100
-// operations per byte the function must move, below the card's ~295.  A
-// tile reads its expert's weights once (an expert with four tiles reads
-// them four times, the repeats mostly from L2).  The kernel uses warp-level
-// mma.sync (m16n8k16, bf16 in, fp32 accumulate) fed by ldmatrix, with a
-// three-stage cp.async pipeline over the d slices; wgmma, TMA and grouping
-// an expert's tiles on one CTA are later work.
+// What bounds it on an H100: at the main path's shapes (128 experts,
+// capacity 512, 128-row tiles, wi (2048, 768) and wo (768, 2048)) the
+// function does 2 T bm d f = 206 GFLOP per matmul over 771 MB of x, w and
+// out (every tile, live or dead, as the TPU kernel's CostEstimate counts
+// it): about 270 operations per byte, just under the card's ~295, so bytes
+// bound it by a hair and the tensor cores, which only wgmma drives at their
+// rate, must run near their peak as well.  In practice the weights
+// dominate: a tile multiplies its expert's whole (d, f) block, 3 MB, and
+// the tiles of one expert run at different times on different CTAs (the
+// plan decides which and when), so each tile reads the block again from
+// device memory; with the weights resident in L2 the same kernel runs at
+// the rate of torch.bmm.
 //
-// Design:
+// Design (TMA + wgmma + warp specialisation):
 //   * Persistent: the grid has p CTAs, one per plan worker.  CTA w first
 //     walks its live share of the plan, steps [bounds[w], bounds[w+1]) of
 //     `order`, in order.  The steps after n_span (the dead, all-padding
 //     tiles that balance/moe.plan_tiles appends after the live ones) are
 //     dealt round-robin: CTA w takes n_span + w, n_span + w + p, ...  They
-//     are computed all the same, as the TPU grid computes them.
-//   * The reference gathers the tiles into plan order and inverse-permutes
-//     the output; here step i reads x tile order[i] and writes output tile
-//     order[i] in place, which gives the same output without the copies.
-//   * The reference loads the whole (d, f) expert block per grid step: 3 MB
-//     in bf16 at (2048, 768), far beyond shared memory.  Each tile is cut
-//     into 128 x 128 output blocks (8 warps as 2 x 4, 64 x 32 each) and the
-//     d dimension into 32-wide slices staged in shared memory, three in
-//     flight; ldmatrix.trans gives the weights' B fragments.
-//   * Each output tile is computed by one CTA with the same instruction
-//     sequence whatever the schedule, so outputs are bit-identical across
-//     schedules.
+//     are computed all the same, as the TPU grid computes them.  Step i
+//     reads x tile order[i] and writes output tile order[i] in place, which
+//     gives the reference's gather / inverse permutation without copies.
+//   * A work unit is (step, 128-row block of the tile, output column block):
+//     128 x 256, or 128 x 128 for the last block when f % 256 == 128.
+//   * Three warpgroups.  One thread of warpgroup 0 (the producer, registers
+//     cut to 40 by setmaxnreg) walks the same unit sequence as the
+//     consumers and keeps a ring of 4 stages full with TMA: the x box
+//     (128 rows x 64 d) and the w boxes (64 d x 64 f each), completion
+//     reported to the stage's `full` mbarrier.  Its phase bits carry on
+//     across units, so the loads of unit u + 1 are in flight while the
+//     consumers run unit u's epilogue.
+//   * Warpgroups 1 and 2 (the consumers, 232 registers) own rows 0-63 and
+//     64-127 of the unit and issue wgmma.m64n256k16 (or n128), A and B from
+//     shared memory, fp32 accumulators in registers.  x is K-major; w is
+//     (E, d, f) with f contiguous, i.e. MN-major, read through the
+//     descriptor's transpose bit.  A stage is handed back (`empty`
+//     mbarrier, one arrival per consumer warp) as soon as the wgmma group
+//     after it has been issued and the one reading it has retired.
+//   * The d tail: x is mapped as (T, bm, d) and w as (E, d, f), so a 64-deep
+//     box that runs past d is zero-filled within the tile and within the
+//     expert (a 2-D map over (E d, f) would read the next expert's rows).
+//   * Epilogue: fp32 -> bf16 in registers, written 64 columns at a time
+//     into one of two swizzled 64 x 64 staging boxes per consumer, each
+//     chunk sent out by a TMA store; a box is rewritten only after the
+//     store before last has read it, so one store stays in flight.
+//   * Bit-identity across schedules: every output block is computed by the
+//     same instruction sequence (the same k order, no split-k, no atomics)
+//     whatever CTA runs it, so outputs are bit-identical for every schedule
+//     and every p.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int BM = 128;           // output rows per block
-constexpr int BN = 128;           // output columns per block
-constexpr int BKD = 32;           // d slice per shared-memory stage
-constexpr int STAGES = 3;         // d slices in flight
-constexpr int XS = BKD + 8;       // x slice row stride (bf16)
-constexpr int WS = BN + 8;        // w slice row stride (bf16)
-constexpr int XT = BM * XS;       // x slice elements
-constexpr int WT = BKD * WS;      // w slice elements
-constexpr int SMEM_BYTES = STAGES * (XT + WT) * 2;
-constexpr int NTHREADS = 256;     // 8 warps: 2 (rows) x 4 (columns)
+using namespace hopper;
+
+constexpr int BM = 128;                  // rows of a unit
+constexpr int BK = 64;                   // d depth of a stage (128 bytes)
+constexpr int BN = 256;                  // columns of a unit (128 at the tail)
+constexpr int STAGES = 4;
+constexpr int NTHREADS = 384;            // producer + two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
+constexpr int A_BYTES = BM * BK * 2;     // x box: 128 rows x 64 d
+constexpr int B_BOX = BK * 64 * 2;       // w box: 64 d x 64 f
+constexpr int B_BYTES = (BN / 64) * B_BOX;
+constexpr int C_BOX = 64 * 64 * 2;       // out box: 64 rows x 64 f
+constexpr int C_BYTES = 2 * C_BOX;       // staging of one consumer: 2 boxes
+constexpr int SMEM_A = 0;
+constexpr int SMEM_B = SMEM_A + STAGES * A_BYTES;
+constexpr int SMEM_C = SMEM_B + STAGES * B_BYTES;
+constexpr int SMEM_BAR = SMEM_C + 2 * C_BYTES;
+constexpr int SMEM_BYTES = SMEM_BAR + 2 * STAGES * 8 + 1024;  // + alignment
 
 struct GmmParams {
-  const __nv_bfloat16* x;     // (T, bm, d) tile slots
-  const __nv_bfloat16* w;     // (E, d, f)
-  __nv_bfloat16* out;         // (T, bm, f) tile slots
-  const int* order;           // (T,) step -> tile slot
-  const int* tile_expert;     // (T,) tile slot -> expert
-  const int* bounds;          // (p + 1,) live steps of each CTA
+  const int* order;         // (T,) step -> tile slot
+  const int* tile_expert;   // (T,) tile slot -> expert
+  const int* bounds;        // (p + 1,) live steps of each CTA
   int n_span, T, bm, d, f;
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// the unit sequence of CTA w: its live steps, then its dead ones
+struct Walk {
+  int live0, nlive, nsteps, p, w, n_span;
+  __device__ Walk(const GmmParams& P) {
+    p = gridDim.x;
+    w = blockIdx.x;
+    live0 = P.bounds[w];
+    nlive = P.bounds[w + 1] - live0;
+    const int ndead =
+        (P.T - P.n_span > w) ? (P.T - P.n_span - w + p - 1) / p : 0;
+    nsteps = nlive + ndead;
+    n_span = P.n_span;
+  }
+  __device__ int step(int it) const {
+    return it < nlive ? live0 + it : n_span + w + (it - nlive) * p;
+  }
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
+// One unit's k loop on the consumer side: wait for each stage, issue its
+// four 16-deep wgmmas, hand the previous stage back once its group retired.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// one (BM x BKD) slice of x and one (BKD x BN) slice of w into a stage:
-// 512 16-byte vectors each, two per thread
-__device__ __forceinline__ void load_slice(__nv_bfloat16* stage,
-                                           const __nv_bfloat16* xt,
-                                           const __nv_bfloat16* we, int d,
-                                           int f, int kb, int tid) {
-  __nv_bfloat16* Xs = stage;
-  __nv_bfloat16* Ws = stage + XT;
+__device__ __forceinline__ void mainloop(float* acc, unsigned char* smem,
+                                         uint64_t* full, uint64_t* empty,
+                                         int c, int nk, int& g, int lane) {
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = g % STAGES;
+    mbar_wait(&full[s], (g / STAGES) & 1);
+    const uint64_t da =
+        smem_desc(smem + SMEM_A + s * A_BYTES + c * 64 * 128, 16, 1024);
+    const uint64_t db = smem_desc(smem + SMEM_B + s * B_BYTES, B_BOX, 1024);
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = tid + i * NTHREADS;
-    const int xrow = idx / (BKD / 8);
-    const int xcol = (idx % (BKD / 8)) * 8;
-    cp_async16(Xs + xrow * XS + xcol, xt + (long long)xrow * d + kb + xcol);
-    const int wrow = idx / (BN / 8);
-    const int wcol = (idx % (BN / 8)) * 8;
-    cp_async16(Ws + wrow * WS + wcol, we + (long long)(kb + wrow) * f + wcol);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      if constexpr (N == 256)
+        wgmma_m64n256k16_ss<1>(acc, da + 2 * kk, db + 128 * kk, kb | kk);
+      else
+        wgmma_m64n128k16_ss<1>(acc, da + 2 * kk, db + 128 * kk, kb | kk);
+    }
+    wgmma_commit();
+    if (kb > 0) {
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(&empty[(g - 1) % STAGES]);
+    }
+    ++g;
+  }
+  wgmma_wait<0>();
+  fence_regs<N / 2>(acc);
+  if (lane == 0) mbar_arrive(&empty[(g - 1) % STAGES]);
+}
+
+// fp32 -> bf16 in 64-column chunks through the consumer's two staging boxes
+// (64 x 64, SWIZZLE_128B), one TMA store per chunk.  Chunk q of the
+// consumer's whole run uses box q % 2, which the store of chunk q - 2 must
+// have finished reading: the wait keeps one store in flight.
+template <int N>
+__device__ __forceinline__ void epilogue(const float* acc, unsigned char* cst,
+                                         const CUtensorMap* omap, int t,
+                                         int row, int col, int c, int tq,
+                                         int& qc) {
+  const int lane = tq % 32;
+  const int r = 16 * (tq / 32) + lane / 4;   // and r + 8; both have r % 8
+  const int sw = lane / 4;                    // == (r % 8)
+#pragma unroll
+  for (int q = 0; q < N / 64; ++q, ++qc) {
+    unsigned char* box = cst + (qc & 1) * C_BOX;
+    if (tq == 0) bulk_wait_read<1>();
+    named_bar_sync(1 + c, 128);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {             // 8-column groups of the chunk
+      const int v = (8 * q + j) * 4;
+      unsigned char* p = box + ((j ^ sw) * 16) + 4 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(p + r * 128) = pack_bf16(acc[v], acc[v + 1]);
+      *reinterpret_cast<uint32_t*>(p + (r + 8) * 128) =
+          pack_bf16(acc[v + 2], acc[v + 3]);
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + c, 128);
+    if (tq == 0) {
+      tma_store_3d(omap, box, col + 64 * q, row, t);
+      bulk_commit();
+    }
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS) gmm_kernel(const GmmParams P) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+__global__ void __launch_bounds__(NTHREADS, 1)
+gmm_kernel(const __grid_constant__ CUtensorMap xmap,
+           const __grid_constant__ CUtensorMap wmap,
+           const __grid_constant__ CUtensorMap omap, const GmmParams P) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SMEM_BAR);
+  uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int wm = warp / 4;          // warp row: 64 output rows
-  const int wn = warp % 4;          // warp column: 32 output columns
-  const int fr = lane / 4;
-  const int fc = (lane % 4) * 2;
-  const int lm = lane / 8;          // ldmatrix: which 8x8 matrix
-  const int lr = lane % 8;          // ldmatrix: which row of it
-  const int p = gridDim.x;
-  const int w = blockIdx.x;
-  const int nk = P.d / BKD;
+  const int wg = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
 
-  const int live0 = P.bounds[w];
-  const int nlive = P.bounds[w + 1] - live0;
-  const int ndead = (P.T - P.n_span > w) ? (P.T - P.n_span - w + p - 1) / p : 0;
+  const Walk walk(P);
+  const int nmb = P.bm / BM;
+  const int nnb = (P.f + BN - 1) / BN;
+  const int nk = (P.d + BK - 1) / BK;
 
-  for (int it = 0; it < nlive + ndead; ++it) {
-    const int step = it < nlive ? live0 + it : P.n_span + w + (it - nlive) * p;
-    const int t = P.order[step];
-    const int e = P.tile_expert[t];
-    const __nv_bfloat16* we_base = P.w + (long long)e * P.d * P.f;
-
-    for (int mb = 0; mb < P.bm; mb += BM) {
-      const __nv_bfloat16* xt = P.x + ((long long)t * P.bm + mb) * P.d;
-      __nv_bfloat16* ot = P.out + ((long long)t * P.bm + mb) * P.f;
-      for (int nb = 0; nb < P.f; nb += BN) {
-        const __nv_bfloat16* we = we_base + nb;
-        float acc[4][4][4];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-#pragma unroll
-        for (int s = 0; s < STAGES - 1; ++s) {
-          if (s < nk) load_slice(smem + s * (XT + WT), xt, we, P.d, P.f, s * BKD, tid);
-          cp_async_commit();
-        }
-        for (int kt = 0; kt < nk; ++kt) {
-          cp_async_wait<STAGES - 2>();  // slice kt has landed
-          __syncthreads();              // and slice kt - 1 is consumed
-          const int nxt = kt + STAGES - 1;
-          if (nxt < nk)
-            load_slice(smem + (nxt % STAGES) * (XT + WT), xt, we, P.d, P.f,
-                       nxt * BKD, tid);
-          cp_async_commit();
-          const __nv_bfloat16* Xs = smem + (kt % STAGES) * (XT + WT);
-          const __nv_bfloat16* Ws = Xs + XT;
-#pragma unroll
-          for (int ks = 0; ks < BKD / 16; ++ks) {
-            uint32_t a[4][4];
-            uint32_t bfr[2][4];
-#pragma unroll
-            for (int mt = 0; mt < 4; ++mt)   // (rows lo, k lo), (hi, lo), (lo, hi), (hi, hi)
-              ldsm_x4(a[mt], Xs + (wm * 64 + mt * 16 + (lm & 1) * 8 + lr) * XS +
-                                 ks * 16 + (lm >> 1) * 8);
-#pragma unroll
-            for (int np = 0; np < 2; ++np)   // (k lo, n-tile 2np), (hi, 2np), (lo, 2np+1), (hi, 2np+1)
-              ldsm_x4_trans(bfr[np], Ws + (ks * 16 + (lm & 1) * 8 + lr) * WS +
-                                         wn * 32 + (np * 2 + (lm >> 1)) * 8);
-#pragma unroll
-            for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-              for (int nt = 0; nt < 4; ++nt)
-                mma_bf16_16816(acc[mt][nt], a[mt], bfr[nt >> 1] + (nt & 1) * 2);
-          }
-        }
-        cp_async_wait<0>();
-        __syncthreads();   // all reads done before the next block's loads
-
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          const int row = wm * 64 + mt * 16 + fr;
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const int col = nb + wn * 32 + nt * 8 + fc;
-            *reinterpret_cast<uint32_t*>(ot + (long long)row * P.f + col) =
-                pack_bf16(acc[mt][nt][0], acc[mt][nt][1]);
-            *reinterpret_cast<uint32_t*>(ot + (long long)(row + 8) * P.f + col) =
-                pack_bf16(acc[mt][nt][2], acc[mt][nt][3]);
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----
+    reg_dealloc<40>();
+    if (tid == 0) {
+      int g = 0;
+      for (int it = 0; it < walk.nsteps; ++it) {
+        const int t = P.order[walk.step(it)];
+        const int e = P.tile_expert[t];
+        for (int mb = 0; mb < nmb; ++mb) {
+          for (int nbi = 0; nbi < nnb; ++nbi) {
+            const int col = nbi * BN;
+            const int nbox = min(BN, P.f - col) / 64;
+            for (int kb = 0; kb < nk; ++kb) {
+              const int s = g % STAGES;
+              mbar_wait(&empty[s], ((g / STAGES) & 1) ^ 1);
+              mbar_expect_tx(&full[s], A_BYTES + nbox * B_BOX);
+              tma_load_3d(smem + SMEM_A + s * A_BYTES, &xmap, &full[s],
+                          kb * BK, mb * BM, t);
+              for (int j = 0; j < nbox; ++j)
+                tma_load_3d(smem + SMEM_B + s * B_BYTES + j * B_BOX, &wmap,
+                            &full[s], col + 64 * j, kb * BK, e);
+              ++g;
+            }
           }
         }
       }
     }
+  } else {
+    // ---- consumers: rows 64 c .. 64 c + 63 of every unit ----
+    reg_alloc<232>();
+    const int c = wg - 1;
+    const int tq = tid % 128;
+    unsigned char* cst = smem + SMEM_C + c * C_BYTES;
+    float acc[BN / 2];
+    int g = 0;
+    int qc = 0;
+    for (int it = 0; it < walk.nsteps; ++it) {
+      const int t = P.order[walk.step(it)];
+      for (int mb = 0; mb < nmb; ++mb) {
+        for (int nbi = 0; nbi < nnb; ++nbi) {
+          const int col = nbi * BN;
+          const int row = mb * BM + 64 * c;
+          if (P.f - col >= 256) {
+            mainloop<256>(acc, smem, full, empty, c, nk, g, tq % 32);
+            epilogue<256>(acc, cst, &omap, t, row, col, c, tq, qc);
+          } else {
+            mainloop<128>(acc, smem, full, empty, c, nk, g, tq % 32);
+            epilogue<128>(acc, cst, &omap, t, row, col, c, tq, qc);
+          }
+        }
+      }
+    }
+    if (tq == 0) bulk_wait();
   }
 }
 
@@ -227,13 +254,29 @@ __global__ void __launch_bounds__(NTHREADS) gmm_kernel(const GmmParams P) {
 extern "C" int gmm_launch(const void* x, const void* w, void* out,
                           const void* order, const void* tile_expert,
                           const void* bounds, int p, int n_span, int T, int bm,
-                          int d, int f, void* stream) {
-  if (p <= 0 || bm % BM != 0 || f % BN != 0 || d % BKD != 0)
+                          int d, int f, int E, void* stream) {
+  if (p <= 0 || T <= 0 || E <= 0 || bm % BM != 0 || f % 128 != 0 ||
+      d % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  using u64 = cuuint64_t;
+  CUtensorMap xmap, wmap, omap;
+  // x (T, bm, d): boxes of 128 rows x 64 d
+  const u64 xd[3] = {(u64)d, (u64)bm, (u64)T};
+  const u64 xs[2] = {(u64)d * 2, (u64)bm * d * 2};
+  const cuuint32_t xb[3] = {BK, BM, 1};
+  // w (E, d, f): boxes of 64 d x 64 f, zero past d within the expert
+  const u64 wd[3] = {(u64)f, (u64)d, (u64)E};
+  const u64 ws[2] = {(u64)f * 2, (u64)d * f * 2};
+  const cuuint32_t wb[3] = {64, BK, 1};
+  // out (T, bm, f): boxes of 64 rows x 64 f
+  const u64 od[3] = {(u64)f, (u64)bm, (u64)T};
+  const u64 os[2] = {(u64)f * 2, (u64)bm * f * 2};
+  const cuuint32_t ob[3] = {64, 64, 1};
+  int rc = encode_bf16(&xmap, x, 3, xd, xs, xb);
+  if (rc == 0) rc = encode_bf16(&wmap, w, 3, wd, ws, wb);
+  if (rc == 0) rc = encode_bf16(&omap, out, 3, od, os, ob);
+  if (rc != 0) return rc;
   GmmParams P;
-  P.x = static_cast<const __nv_bfloat16*>(x);
-  P.w = static_cast<const __nv_bfloat16*>(w);
-  P.out = static_cast<__nv_bfloat16*>(out);
   P.order = static_cast<const int*>(order);
   P.tile_expert = static_cast<const int*>(tile_expert);
   P.bounds = static_cast<const int*>(bounds);
@@ -241,10 +284,11 @@ extern "C" int gmm_launch(const void* x, const void* w, void* out,
   cudaError_t err = cudaFuncSetAttribute(
       gmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gmm_kernel<<<p, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(P);
+  gmm_kernel<<<p, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, omap, P);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* gmm_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_string(code);
 }

@@ -10,7 +10,8 @@ across ``p`` workers gives each near-equal work.
 
 On a CUDA tensor the list drives ``csrc/gmm.cu``: a persistent kernel with
 ``p`` CTAs, CTA ``w`` walking its plan share in order and then its
-round-robin part of the dead tiles; see the note at the top of that file.
+round-robin part of the dead tiles, fed by TMA and computed with wgmma;
+see the note at the top of that file.
 On a CPU tensor ``grouped_matmul_tiles_plain`` computes the same function.
 Tiles are independent, so the output is bit-identical for every order.
 """
@@ -26,13 +27,14 @@ from ...device import check_device
 from .._build import Kernel
 from .ref import grouped_matmul_ref
 
-#: the CUDA kernel's block sizes: rows and columns of an output block,
-#: and the d slice staged in shared memory
+#: what the CUDA kernel takes: block_rows and f multiples of its 128-row,
+#: 128-column output blocks (256 columns where f allows), d a multiple of 32
+#: (its 64-deep stages are zero-filled past d)
 KERNEL_BLOCK_ROWS, KERNEL_BLOCK_COLS, KERNEL_BLOCK_D = 128, 128, 32
 
 _c = ctypes
 GMM = Kernel("gmm", source="gmm", symbol="gmm_launch",
-             argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 6 + [_c.c_void_p])
+             argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 7 + [_c.c_void_p])
 
 
 def span_bounds(n: int, p: int) -> np.ndarray:
@@ -57,7 +59,7 @@ def gmm_cuda(x_tiles, weights, tile_expert, order, bounds, n_span: int):
     round-robin.  Returns a new (T, bm, f) tensor.
     """
     t, bm, d = x_tiles.shape
-    _, d2, f = weights.shape
+    e, d2, f = weights.shape
     if d2 != d or tuple(tile_expert.shape) != (t,):
         raise ValueError(f"x_tiles {tuple(x_tiles.shape)}, weights "
                          f"{tuple(weights.shape)} and tile_expert "
@@ -80,13 +82,16 @@ def gmm_cuda(x_tiles, weights, tile_expert, order, bounds, n_span: int):
     host = np.concatenate([order, np.asarray(bounds, np.int32)])
     out = torch.empty((t, bm, f), dtype=x_tiles.dtype, device=x_tiles.device)
     # freed when this returns: the caching allocator reuses it only for work
-    # queued after the kernel on the same stream
-    table = torch.from_numpy(host).to(x_tiles.device)
+    # queued after the kernel on the same stream.  Copied from pinned memory
+    # without blocking, so the host does not wait for the stream to drain.
+    table = torch.from_numpy(host).pin_memory().to(x_tiles.device,
+                                                   non_blocking=True)
     te = tile_expert.to(device=x_tiles.device, dtype=torch.int32).contiguous()
     ptr = table.data_ptr()
     GMM.launch(x_tiles.data_ptr(), weights.data_ptr(), out.data_ptr(),
                ptr, te.data_ptr(), ptr + 4 * t, len(bounds) - 1, n_span, t,
-               bm, d, f, torch.cuda.current_stream(x_tiles.device).cuda_stream)
+               bm, d, f, e,
+               torch.cuda.current_stream(x_tiles.device).cuda_stream)
     return out
 
 

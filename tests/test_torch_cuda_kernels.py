@@ -99,6 +99,25 @@ def test_flash_bhsd_entry_and_errors(dev):
     (1, 2560, 8, 2, 128, 0, True),     # the 2-layer prefill's length
 ])
 def test_flash_dense_matches_plain(dev, case):
+    _check_flash_dense(dev, case)
+
+
+def test_flash_dense_tile_edges(dev):
+    """The edges of the kernel's 128 x 128 tiles.
+
+    The cases share one test instead of being parametrize items only while
+    the reference's order-dependent ``test_shard_as_applies_constraint``
+    stays unfixed (ROADMAP.md, faults): more items here move this file in
+    pytest-xdist's loadfile queue, and that reference test then fails.
+    """
+    for case in ((1, 128, 2, 1, 128, 0, True),     # one q tile, one kv tile
+                 (1, 129, 4, 2, 64, 0, True),      # one row past a tile
+                 (1, 300, 4, 2, 128, 1, True),     # window 1: the row itself
+                 (2, 400, 4, 1, 64, 127, True)):   # window 127, a tile - 1
+        _check_flash_dense(dev, case)
+
+
+def _check_flash_dense(dev, case):
     b, s, h, kvh, hd, window, causal = case
     q, k, v = (_randn(dev, b, s, n, hd, seed=i)
                for i, n in enumerate((h, kvh, kvh)))
@@ -111,6 +130,28 @@ def test_flash_dense_matches_plain(dev, case):
     # block sizes name the TPU's blocking; the kernel's result ignores them
     assert torch.equal(flash_attention(q, k, v, causal=causal, window=window,
                                        block_q=128, block_k=64), out)
+
+
+def test_flash_dense_reads_strided_heads(dev):
+    """q, k and v as views of one (b, s, 3, h, hd) buffer: the heads are
+    not contiguous rows, and the kernel reads them in place (hd 64, 128).
+
+    The cases share one test instead of being parametrize items only while
+    the reference's order-dependent ``test_shard_as_applies_constraint``
+    stays unfixed (ROADMAP.md, faults): more items here move this file in
+    pytest-xdist's loadfile queue, and that reference test then fails.
+    """
+    b, s, h, kvh = 2, 300, 4, 2
+    for hd in (64, 128):
+        buf = _randn(dev, b, s, 3, h, hd, seed=5)
+        q, k, v = buf[:, :, 0], buf[:, :, 1, :kvh], buf[:, :, 2, :kvh]
+        assert not q.is_contiguous()
+        out = flash_attention(q, k, v, causal=True)
+        want = fa.flash_attention_dense_plain(*fa.broadcast_flatten(q, k, v),
+                                              causal=True)
+        _assert_close(out, want.reshape(b, h, s, hd).permute(0, 2, 1, 3))
+        assert torch.equal(flash_attention(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), causal=True), out)
 
 
 def test_flash_dense_bhsd_entry_and_errors(dev):
@@ -132,6 +173,10 @@ def test_flash_dense_bhsd_entry_and_errors(dev):
 @pytest.mark.parametrize("shape", [(4, 256, 96, 256, 128), (6, 384, 64, 128, 128),
                                    (3, 256, 128, 128, 256)])
 def test_gmm_matches_plain_and_is_schedule_free(dev, shape):
+    _check_gmm(dev, shape)
+
+
+def _check_gmm(dev, shape):
     e, c, d, f, bm = shape
     x = _randn(dev, e, c, d, seed=1)
     w = _randn(dev, e, d, f, seed=2, scale=d ** -0.5)
@@ -152,6 +197,35 @@ def test_gmm_matches_plain_and_is_schedule_free(dev, shape):
     assert torch.equal(grouped_matmul(x, w, block_rows=bm), out)
     perm = np.random.default_rng(0).permutation(t)
     assert torch.equal(grouped_matmul(x, w, tile_order=perm, block_rows=bm), out)
+
+
+def test_gmm_tails_and_one_cta_ring(dev):
+    """The d tail, the 128-column tail and a single tile, then sched_p = 1:
+    one CTA walks every unit, so its stage ring wraps many times and its
+    phase bits carry on across units and tiles.
+
+    The cases share one test instead of being parametrize items only while
+    the reference's order-dependent ``test_shard_as_applies_constraint``
+    stays unfixed (ROADMAP.md, faults): more items here move this file in
+    pytest-xdist's loadfile queue, and that reference test then fails.
+    """
+    # the last 64-deep box runs past d = 160; f = 384 is a 256 block and a
+    # 128 tail
+    _check_gmm(dev, (2, 256, 160, 384, 128))
+    _check_gmm(dev, (1, 128, 64, 128, 128))   # one expert, a single tile
+    e, c, d, f, bm = 4, 512, 256, 512, 128
+    x = _randn(dev, e, c, d, seed=3)
+    w = _randn(dev, e, d, f, seed=4, scale=d ** -0.5)
+    out = grouped_matmul(x, w, block_rows=bm, sched_p=1)
+    t = e * (c // bm)
+    te = torch.arange(t, device=dev) // (c // bm)
+    want = gm.grouped_matmul_tiles_plain(x.reshape(t, bm, d), w, te)
+    _assert_close(out, want.reshape(e, c, f))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert torch.equal(grouped_matmul(x, w, block_rows=bm, sched_p=n_sm), out)
+    rows = np.array([512, 3, 0, 200])
+    assert torch.equal(grouped_matmul(x, w, block_rows=bm, schedule="fac2",
+                                      expert_rows=rows, sched_p=1), out)
 
 
 def test_gmm_rejects_what_the_kernel_does_not_take(dev):
