@@ -18,9 +18,13 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                C 512, wi (128, 2048, 768), wo (128, 768, 2048), fac2); the
                counts are read right after
   small        both kernels against the plain oracles at small, ragged
-               shapes (partial blocks, a sliding window, dead tiles)
+               shapes (partial blocks, 64-column kv blocks inside a
+               128-column tile, windows narrower than a tile, a lane of
+               kv_len 0, strided heads, dead tiles)
   flash_sched  the kernel against its plain version at the main path's
                shapes, bit-identity across schedules and sched_p, timing
+               (single calls and back to back) and the host planning of a
+               call split into its pieces (``plan_split_ms``)
   gmm          the same for the grouped matmul (wi and wo shapes), and
                back-to-back times of the fac2 order, the identity order and
                the identity order with every tile on expert 0
@@ -31,7 +35,9 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                its time (single calls and back to back), the plain
                version's, and
                ``scaled_dot_product_attention(is_causal=True)``'s on the same
-               tensors as a yardstick (the port never calls it)
+               tensors as a yardstick (the port never calls it), and
+               ``digest``: a hash of its outputs on inputs of a seed of
+               their own, equal across builds that compute the same bits
   prefill      launch counts set to 0, then ``models.forward`` of full-width,
                full-depth qwen3-4b (36 layers, random fp32 weights from seed
                0, bf16 compute) on 1 x 4096 tokens from numpy seed 0; the
@@ -49,6 +55,12 @@ then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; it also exits non-zero, printing no result, when no
 CUDA device is present or ``src/repro_torch`` is missing beside it.
+
+    python3 chip_smoke.py --dense-digest [SRC]
+
+prints only that digest, for the package under ``SRC`` (default: this
+checkout's ``src``), so that another tree's ``flash_dense`` can be held
+against this one bit for bit.
 
 Tolerance of the 2-layer ``forward`` / ``decode_step`` comparison (bf16
 compute): max |logit difference| <= 0.25 and the same argmax at >= 80% of
@@ -193,6 +205,83 @@ def device_profile(fn, top=8):
                      for k in kernels[:top]])
 
 
+def host_ms(fn, n=REPS):
+    """Median host time of ``fn`` over ``n`` single calls after one
+    warm-up, in ms (no device synchronisation)."""
+    import numpy as np
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def plan_split_ms(fa, lane_lens, p, dev):
+    """The host work of one ``flash_sched`` call at the main path's shape
+    (fac2, ``p`` workers), piece by piece: the per-group kv ranges and
+    costs, the DLS plan, the descriptors and CTA bounds, and the pinned
+    upload of the table (enqueue only)."""
+    from repro_torch.core.torch_sched import plan_tiles_for_kernel
+    nq = S // 512
+    kw = dict(causal=True, window=0, kv_lens=lane_lens)
+    lo, hi, costs, lens = fa._kv_ranges(B * H, S, 512, 512, **kw)
+    plan = plan_tiles_for_kernel(costs, p=p, technique="fac2")
+    desc = fa._descriptors(plan.order, lo, hi, lens, nq)
+    bounds = fa.descriptor_bounds(desc, plan)
+    return {
+        "costs": host_ms(lambda: fa._kv_ranges(B * H, S, 512, 512, **kw)),
+        "plan": host_ms(lambda: plan_tiles_for_kernel(costs, p=p,
+                                                      technique="fac2")),
+        "descriptors": host_ms(lambda: fa.descriptor_bounds(
+            fa._descriptors(plan.order, lo, hi, lens, nq), plan)),
+        "upload": host_ms(lambda: fa._upload_table(desc, bounds, dev))}
+
+
+def sched_tiles(desc, bounds, block_q, block_k):
+    """(total, most on one CTA): the live 128 x 128 tiles of a causal
+    ``flash_sched`` launch without a window, counted from its descriptors
+    as ``flash_sched.cu``'s Walk counts them; the CTA with the most sets
+    the kernel's time."""
+    import numpy as np
+    _, qi, kj, first, last, lim = (np.asarray(a, np.int64) for a in desc)
+    g0, g1 = np.flatnonzero(first), np.flatnonzero(last)
+    qb0 = qi[g0] * block_q
+    qb1 = np.minimum(qb0 + block_q, S)
+    c_lo = kj[g0] * block_k
+    c_end = np.minimum(np.minimum((kj[g1] + 1) * block_k, S), lim[g0])
+    per_group = np.zeros(g0.size, np.int64)
+    for row0 in range(0, block_q, 128):
+        row0 = qb0 + row0
+        hi = np.minimum(c_end, np.minimum(row0 + 128, qb1))
+        n = (hi - 1 - c_lo) // 128 + 1
+        per_group += np.where((row0 < qb1) & (hi > c_lo), n, 0)
+    cta = np.searchsorted(np.asarray(bounds), g0, side="right") - 1
+    per_cta = np.bincount(cta, per_group, minlength=len(bounds) - 1)
+    return int(per_group.sum()), int(per_cta.max())
+
+
+def dense_digest(dev):
+    """sha256 (16 hex digits) of ``flash_dense``'s bf16 outputs at the
+    prefill's shape (causal) and at a small windowed head_dim-64 shape, on
+    inputs from a generator of their own (seed 1234), so that two builds
+    of the kernel can be held bit for bit against each other."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    h = hashlib.sha256()
+    for b, s, h_, kvh, hd, win in ((1, PREFILL_S, 32, 8, 128, 0),
+                                   (1, 1000, 4, 1, 64, 200)):
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                   .to(torch.bfloat16) for n in (h_, kvh, kvh))
+        out = fa._flash_dense_cuda(q, k, v, causal=True, window=win)
+        h.update(out.view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def phase_flash_dense(dev, randn):
     """The dense kernel against its plain version at the prefill's shape and
     at small ragged ones; its times and its bound.  Returns the fields of
@@ -249,6 +338,7 @@ def phase_flash_dense(dev, randn):
                   bound_ms=bound_ms, bound_by=bound_by,
                   library_ms=library_ms)
     emit("flash_dense", shape=[b, s, h, kvh, hd], causal=True,
+         digest=dense_digest(dev),
          small_max_abs_err=small, ms_b2b=ms_b2b, call_ms=call_ms,
          sdpa_max_abs_diff=sdpa_err,
          flops=flops, bytes=nbytes, **fields)
@@ -367,16 +457,26 @@ def phase_serve(dev, cfg, params):
          **rows)
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} is missing; run "
+    # --dense-digest [SRC]: print only dense_digest() of the package under
+    # SRC (default: this checkout's src), to hold two trees' builds of
+    # flash_dense against each other bit for bit
+    src = ROOT / "src"
+    if argv[:1] == ["--dense-digest"] and len(argv) > 1:
+        src = Path(argv[1]).resolve()
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} is missing; run "
               "from a checkout of the repository", file=sys.stderr)
         return 3
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(src))
+    if argv[:1] == ["--dense-digest"]:
+        print(json.dumps({"dense_digest": dense_digest(
+            torch.device("cuda", 0)), "src": str(src)}), flush=True)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -465,12 +565,26 @@ def main() -> int:
 
     # ---- small ragged shapes against the plain oracles -------------------
     small = {}
-    for bs, ss, hs, kvhs, hd, win, bq in ((2, 300, 4, 2, 128, 0, 128),
-                                          (3, 200, 2, 1, 64, 70, 64),
-                                          (1, 96, 2, 2, 128, 0, 512)):
-        qs, ks, vs = randn(bs, ss, hs, hd), randn(bs, ss, kvhs, hd), \
-            randn(bs, ss, kvhs, hd)
-        lens = rng.integers(1, ss + 1, size=bs)
+    for bs, ss, hs, kvhs, hd, win, bq, lens, strided in (
+            (2, 300, 4, 2, 128, 0, 128, None, False),
+            (3, 200, 2, 1, 64, 70, 64, None, False),
+            (1, 96, 2, 2, 128, 0, 512, None, False),
+            # a 128-column tile spans two 64-column kv blocks
+            (2, 300, 4, 2, 128, 0, 64, None, False),
+            # a window narrower than a tile, MQA
+            (2, 300, 4, 1, 128, 32, 128, None, False),
+            # one row past a tile; a lane of kv_len 0 (zeros)
+            (3, 129, 4, 2, 128, 0, 128, [0, 129, 77], False),
+            # q, k, v strided from one (b, s, 3, h, hd) buffer
+            (2, 300, 4, 2, 64, 0, 128, None, True)):
+        if strided:
+            buf = randn(bs, ss, 3, hs, hd)
+            qs, ks, vs = buf[:, :, 0], buf[:, :, 1, :kvhs], buf[:, :, 2, :kvhs]
+        else:
+            qs, ks, vs = randn(bs, ss, hs, hd), randn(bs, ss, kvhs, hd), \
+                randn(bs, ss, kvhs, hd)
+        lens = (rng.integers(1, ss + 1, size=bs) if lens is None
+                else np.asarray(lens))
         got = flash_attention(qs, ks, vs, causal=True, window=win,
                               block_q=bq, block_k=bq, schedule="gss",
                               kv_lens=lens, sched_p=5)
@@ -478,8 +592,9 @@ def main() -> int:
         want = attention_ref(qf, kf, vf, causal=True, window=win,
                              kv_lens=np.repeat(lens, hs))
         want = want.reshape(bs, hs, ss, hd).permute(0, 2, 1, 3)
-        small[f"flash_s{ss}_hd{hd}_w{win}"] = check_close("flash small",
-                                                          got, want)
+        key = f"flash_s{ss}_hd{hd}_w{win}_b{bq}" + ("_strided" if strided
+                                                    else "")
+        small[key] = check_close("flash small", got, want)
     es, cs, ds, fs = 4, 256, 96, 256
     xs, ws = randn(es, cs, ds), randn(es, ds, fs, scale=ds ** -0.5)
     rows = np.array([256, 0, 130, 7])
@@ -521,20 +636,30 @@ def main() -> int:
             schedule=schedule, p=p)
         return d, fa.descriptor_bounds(d, pl), pl
 
-    def flash_kernel_ms(schedule, p, n):
+    def flash_kernel(schedule, p):
         d, bd, _ = flash_plan(schedule, p)
-        return cuda_ms(lambda: fa._flash_sched_cuda(
-            q, k, v, d, bd, block_q=512, block_k=512, causal=True,
-            window=0), n)
+        return lambda: fa._flash_sched_cuda(
+            q, k, v, d, bd, block_q=512, block_k=512, causal=True, window=0)
 
-    desc, _, plan = flash_plan("fac2", n_sm)
+    def flash_kernel_ms(schedule, p, n):
+        return cuda_ms(flash_kernel(schedule, p), n)
+
+    desc, bounds, plan = flash_plan("fac2", n_sm)
     plan8 = flash_plan("fac2", 8)[2]
     flash_ms = flash_kernel_ms("fac2", n_sm, REPS)
+    flash_ms_b2b = cuda_ms_b2b(flash_kernel("fac2", n_sm), REPS)
+    tiles, tiles_cta = sched_tiles(desc, bounds, 512, 512)
+    # probe: self-scheduling (one group a chunk) balances this plan to
+    # within 1%, so it shows the kernel's rate apart from fac2's balance
+    desc_ss, bounds_ss, plan_ss = flash_plan("ss", n_sm)
+    tiles_cta_ss = sched_tiles(desc_ss, bounds_ss, 512, 512)[1]
+    flash_ms_b2b_ss = cuda_ms_b2b(flash_kernel("ss", n_sm), REPS)
     flash_ms_static = flash_kernel_ms("static", n_sm, REPS)
     flash_ms_p8 = flash_kernel_ms("fac2", 8, max(3, REPS // 4))
     flash_ms_p8_static = flash_kernel_ms("static", 8, max(3, REPS // 4))
     call_ms = cuda_ms(lambda: flash_attention(
-        q, k, v, schedule="fac2", kv_lens=kv_lens, sched_p=n_sm), 3)
+        q, k, v, schedule="fac2", kv_lens=kv_lens, sched_p=n_sm), REPS)
+    plan_split = plan_split_ms(fa, lane_lens, n_sm, dev)
     plain_ms = cuda_ms(lambda: fa.flash_attention_sched_plain(
         qf, kf, vf, kv_lens=lane_lens, causal=True), 3)
     del qf, kf, vf
@@ -566,8 +691,13 @@ def main() -> int:
          max_abs_err=flash_err, sdpa_max_abs_diff=sdpa_err,
          identical_schedules=list(IDENTITY_SCHEDULES),
          identical_techniques_s1024=len(REGISTRY),
-         ms=flash_ms, ms_static=flash_ms_static, ms_sched_p8=flash_ms_p8,
-         ms_sched_p8_static=flash_ms_p8_static, call_ms_with_planning=call_ms,
+         ms=flash_ms, ms_b2b=flash_ms_b2b, ms_static=flash_ms_static,
+         ms_sched_p8=flash_ms_p8, ms_sched_p8_static=flash_ms_p8_static,
+         call_ms_with_planning=call_ms, plan_split_ms=plan_split,
+         live_tiles=tiles, live_tiles_max_cta=tiles_cta,
+         us_per_tile_max_cta=1e3 * flash_ms_b2b / tiles_cta,
+         ms_b2b_ss=flash_ms_b2b_ss, live_tiles_max_cta_ss=tiles_cta_ss,
+         percent_imbalance_ss=plan_ss.percent_imbalance,
          plain_ms=plain_ms, library_ms=library_ms, bound_ms=flash_bound,
          flops=flash_flops, bytes=flash_bytes, groups=int(plan.n),
          descriptors=int(desc[0].shape[0]),
@@ -698,4 +828,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -53,34 +53,14 @@
 //     gives p = exp2(-1e30 - m) = 0.  Every row of a dense causal or
 //     windowed grid has at least its diagonal column, so no row is dead.
 //   * Only rows below s are written, straight from the accumulators.
+//   * The consumer side (softmax, the S and P V issues, the turns, the
+//     epilogue) is shared with flash_sched.cu through flash_hopper.cuh.
 
-#include "hopper_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
-using namespace hopper;
-
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BQ = 128;                 // q rows of a CTA
-constexpr int BKV = 128;                // kv columns of a tile
-constexpr int NTHREADS = 384;           // producer + two consumer warpgroups
-constexpr int CONSUMER_WARPS = 8;
-constexpr int BOX = 128 * 128;          // one box: 128 rows x 64 bf16
-constexpr int TURN = 1;                 // named barriers 1, 2: the turns
-
-constexpr int STAGES = 3;               // K / V tiles in flight
-
-template <int HD>
-struct Layout {
-  static constexpr int NBOX = HD / 64;              // boxes per tile
-  static constexpr int TILE = NBOX * BOX;
-  static constexpr int Q = 0;
-  static constexpr int K = Q + TILE;                // STAGES tiles
-  static constexpr int V = K + STAGES * TILE;       // STAGES tiles
-  static constexpr int BAR = V + STAGES * TILE;     // q, k[], v[], empty[]
-  static constexpr int BYTES = BAR + (1 + 3 * STAGES) * 8 + 1024;  // + align
-};
+using namespace flash_hopper;
 
 struct DenseParams {
   __nv_bfloat16* o;
@@ -88,86 +68,6 @@ struct DenseParams {
   int lanes, nq, s, H, group, causal, window;
   float scale_log2;   // softmax scale * log2(e)
 };
-
-// 2^x in one MUFU instruction (results below 2^-126 flush to 0; ex2(0) is 1)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// scores of this thread (m64n128 accumulator layout) -> P = exp2(S scale
-// log2(e) - m) as bf16 hi / lo A fragments of the eight 16-column slices;
-// updates m, l (log2 domain) and rescales o.  MASK: columns >= s, above the
-// diagonal or outside the window get NEG_INF first; without it the scale
-// is folded into one FFMA per score.
-template <int HD, bool MASK>
-__device__ __forceinline__ void softmax(float* sacc, float (&m)[2],
-                                        float (&l)[2], float* o,
-                                        uint32_t (&phi)[8][4],
-                                        uint32_t (&plo)[8][4], int col0,
-                                        int r_lo, int lane,
-                                        const DenseParams& P) {
-  float mx[2];
-  if constexpr (MASK) {
-    mx[0] = m[0];
-    mx[1] = m[1];
-#pragma unroll
-    for (int v = 0; v < 64; ++v) {
-      const int row = r_lo + 8 * ((v >> 1) & 1);
-      const int col = col0 + 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
-      bool ok = col < P.s;
-      if (P.causal) ok = ok && col <= row;
-      if (P.window > 0) ok = ok && (row - col) < P.window;
-      const float x = ok ? sacc[v] * P.scale_log2 : NEG_INF;
-      sacc[v] = x;
-      mx[(v >> 1) & 1] = fmaxf(mx[(v >> 1) & 1], x);
-    }
-  } else {
-    float raw[2] = {sacc[0], sacc[2]};
-#pragma unroll
-    for (int v = 0; v < 64; ++v)
-      raw[(v >> 1) & 1] = fmaxf(raw[(v >> 1) & 1], sacc[v]);
-    // scale > 0, so the scaled maximum is the maximum of the scaled scores
-    mx[0] = fmaxf(m[0], raw[0] * P.scale_log2);
-    mx[1] = fmaxf(m[1], raw[1] * P.scale_log2);
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
-    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
-  }
-  const float corr[2] = {fast_exp2(m[0] - mx[0]), fast_exp2(m[1] - mx[1])};
-  float rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int v = 8 * kk + 2 * i;
-      const float mj = mx[i & 1];
-      const float p0 = MASK ? fast_exp2(sacc[v] - mj)
-                            : fast_exp2(fmaf(sacc[v], P.scale_log2, -mj));
-      const float p1 = MASK ? fast_exp2(sacc[v + 1] - mj)
-                            : fast_exp2(fmaf(sacc[v + 1], P.scale_log2, -mj));
-      rs[i & 1] += p0 + p1;
-      // fp32 p = hi + lo, both bf16
-      __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-      const float2 hf = __bfloat1622float2(h);
-      __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
-      phi[kk][i] = *reinterpret_cast<uint32_t*>(&h);
-      plo[kk][i] = *reinterpret_cast<uint32_t*>(&lo);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 1);
-    rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 2);
-    l[j] = l[j] * corr[j] + rs[j];
-    m[j] = mx[j];
-  }
-#pragma unroll
-  for (int v = 0; v < HD / 2; ++v) o[v] *= corr[(v >> 1) & 1];
-}
 
 template <int HD>
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -264,17 +164,7 @@ flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
       float sacc[64];
       const uint64_t dk = smem_desc(smem + L::K + s * L::TILE, 16, 1024);
       mbar_wait(&k_full[s], ph);
-      named_bar_sync(TURN + c, 256);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int off = (kk / 4) * (BOX / 16) + (kk % 4) * 2;
-        wgmma_m64n128k16_ss<0>(sacc, dq + off, dk + off, kk);
-      }
-      wgmma_commit();
-      named_bar_arrive(TURN + 1 - c, 256);
-      wgmma_wait<0>();
-      fence_regs<64>(sacc);
+      issue_s<HD>(sacc, dq, dk, c);
 
       uint32_t phi[8][4], plo[8][4];
       if (mask)
@@ -285,22 +175,7 @@ flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
       // O += (P_hi + P_lo) V
       const uint64_t dv = smem_desc(smem + L::V + s * L::TILE, BOX, 1024);
       mbar_wait(&v_full[s], ph);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        if constexpr (HD == 128) {
-          wgmma_m64n128k16_rs<1>(o, phi[kk], dv + 128 * kk, 1);
-          wgmma_m64n128k16_rs<1>(o, plo[kk], dv + 128 * kk, 1);
-        } else {
-          wgmma_m64n64k16_rs<1>(o, phi[kk], dv + 128 * kk, 1);
-          wgmma_m64n64k16_rs<1>(o, plo[kk], dv + 128 * kk, 1);
-        }
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs<HD / 2>(o);
-      fence_regs<32>(&phi[0][0]);
-      fence_regs<32>(&plo[0][0]);
+      issue_pv<HD>(o, phi, plo, dv);
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
@@ -309,32 +184,9 @@ flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // out = o / l for the rows below s; rows that never saw a live column
     // (m <= NEG_INF / 2) are written as 0
-    __nv_bfloat16* ob = P.o + b * P.o_sb + hh * P.o_sh;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int row = r_lo + 8 * j;
-      if (row >= P.s) continue;
-      const float inv = m[j] > NEG_INF * 0.5f
-                            ? __fdividef(1.f, fmaxf(l[j], 1e-30f)) : 0.f;
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
-        const int col = nt * 8 + 2 * (lane & 3);
-        *reinterpret_cast<uint32_t*>(ob + row * P.o_ss + col) =
-            pack_bf16(o[4 * nt + 2 * j] * inv, o[4 * nt + 2 * j + 1] * inv);
-      }
-    }
+    store_rows<HD>(P.o + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m, l, r_lo,
+                   P.s, lane);
   }
-}
-
-// q / k / v (b, s, heads, hd) by element strides -> a 4-D map with boxes of
-// 64 hd x 128 rows of one head
-int encode_bshd(CUtensorMap* map, const void* base, int batch, int s,
-                int heads, int hd, long long sb, long long sh, long long ss) {
-  using u64 = cuuint64_t;
-  const u64 dims[4] = {(u64)hd, (u64)s, (u64)heads, (u64)batch};
-  const u64 strides[3] = {(u64)ss * 2, (u64)sh * 2, (u64)sb * 2};
-  const cuuint32_t box[4] = {64, 128, 1, 1};
-  return encode_bf16(map, base, 4, dims, strides, box);
 }
 
 template <int HD>

@@ -2,194 +2,261 @@
 //
 // Replaces: _flash_sched_kernel in src/repro/kernels/flash_attention/
 // flash_attention.py (launched by flash_attention_sched_bhsd through one
-// pl.pallas_call over a 1-D grid of live (lane, q block, kv block) triples).
+// pl.pallas_call over a 1-D grid of live (lane, q block, kv block)
+// descriptors in DLS plan order, the online-softmax state in VMEM scratch,
+// reset on a group's `first` descriptor and written on its `last`).
 //
 // What bounds it on an H100: operations.  At the main path's shapes
 // (32 query heads, 4 KV heads, head_dim 128, 8 ragged lanes of up to 4096,
-// causal) the function does about 1,000 operations per byte it must move
-// (0.55 TFLOP over 0.56 GB), above the card's ~295 operations per byte, so
-// the tensor cores are the limit.  K and V are re-read once per 128-row q
-// sub-tile; they come from L2.  The kernel uses warp-level mma.sync
-// (m16n8k16, bf16 in, fp32 accumulate) fed by ldmatrix, and cp.async
-// double-buffers the K/V sub-tiles so the next one loads while the current
-// one is multiplied; wgmma, TMA and a producer warp are later work.
+// causal) the function does about 0.55 TFLOP over 0.56 GB, some 1,000
+// operations per byte against the card's ~295, so the tensor cores are the
+// limit and only wgmma reaches their rate.  The fp32 P V of the reference
+// (P split into bf16 hi + lo) makes the P V half of the tensor work twice
+// as large as a bf16-P kernel's.
 //
-// Design:
-//   * Persistent: the grid has p CTAs, one per plan worker.  CTA w walks the
-//     descriptors [bounds[w], bounds[w+1]) in order -- exactly its share of
-//     the DLS plan (KernelTilePlan.shares()[w]).  The hardware block
-//     scheduler therefore cannot reorder the plan, and the plan's
+// Design (flash_dense.cu's, made persistent over the plan):
+//   * Persistent: the grid has p CTAs, one per plan worker.  CTA w walks
+//     the descriptors [bounds[w], bounds[w+1]) in order -- exactly its
+//     share of the DLS plan (KernelTilePlan.shares()[w]), so the plan's
 //     worker_cost / cov / percent_imbalance describe what the card ran.
-//   * One CTA does one whole (lane, q block) group, its kv blocks ascending,
-//     so every schedule gives a bit-identical output.
-//   * 512 x 512 stays the planning unit.  A 512-row fp32 q block does not fit
-//     the 227 KB of shared memory a block may use, so the group is tiled:
-//     128-row q sub-tiles (8 warps x 16 rows, row state m / l / acc in
-//     registers) against 64-column kv sub-tiles (K and V staged in shared
-//     memory, two stages; ldmatrix.trans gives V's B fragments).  The online softmax is updated per 64-column sub-tile, the
-//     TPU kernel updates it per 512-column block: the two agree within a
-//     tolerance, not bitwise.
-//   * The math is fp32 as on the TPU, which casts q, k and v to fp32.  bf16
-//     products are exact in fp32, so Q K^T on bf16 tensor cores with fp32
-//     accumulation is fp32 math.  P is fp32; it is split into two bf16 terms
-//     (hi + lo, 16 significant bits) for P V, two MMAs into one fp32
-//     accumulator.
-//   * NEG_INF is -1e30, not -inf: a fully masked row sees
-//     exp(-1e30 - -1e30) = 1 and is zeroed at the end, as on the TPU.  State
-//     resets on a group's `first` descriptor and is written on its `last`;
-//     rows that never saw a live column (m <= NEG_INF / 2) are written as 0.
-//     A kv sub-tile that is masked for every row of the q sub-tile is
-//     skipped: it would leave m, l and acc of every live row unchanged
-//     exactly (p = 0, corr = 1), and dead rows are zeroed anyway.
-//   * GQA: the kernel indexes KV head hh / (H / KVH); the broadcast is never
-//     materialised.  Tensors are addressed through (batch, head, row)
-//     strides, so the model layout (b, s, h, hd) is read in place.
-//   * The sub-tile machinery (cp.async staging, ldmatrix, mma.sync, the
-//     online-softmax step, the epilogue) is shared with flash_dense.cu
-//     through flash_common.cuh.
+//   * A group is the run of descriptors from a `first` flag to a `last`
+//     flag: one (lane, q block) and its live kv blocks, a contiguous
+//     ascending run as the planner emits them; its descriptors are read
+//     once.  Its units are its 128-row q tiles in ascending order, its kv
+//     tiles the 128-column tiles from the group's first kv column on.  A
+//     tile dead for every row of the unit (above the diagonal, at or past
+//     the lane's `lim`, below the window, or past the group's last kv
+//     block) is never loaded; the live tiles of a unit are one range,
+//     computed, not searched.  A unit's result depends on the unit alone,
+//     so the output is bit-identical for every schedule and every p.
+//   * Three warpgroups, as in flash_dense.cu.  One thread of warpgroup 0
+//     (the producer, registers cut to 24 by setmaxnreg) loads each unit's
+//     Q tile and its K and V tiles into a 3-stage ring with TMA; q, k and v
+//     are mapped as 4-D (b, s, heads, hd) tensors from their strides, so
+//     the model layout and GQA's KV head hh / (H / KVH) are read in place.
+//     The producer and the consumers walk the same unit and tile sequence
+//     through one inline iterator (Walk).
+//   * Q + 3 K/V stages fill 224 KB, so Q is single-buffered: the consumers
+//     release it on their own mbarrier (q_empty) as soon as the unit's last
+//     S = Q K^T has completed, and the producer loads the next unit's Q
+//     while they run the last P V and the epilogue.  The ring's and Q's
+//     mbarrier phases carry on across units and groups: the pipeline does
+//     not drain between units, and p = 1 wraps the ring many times.
+//   * Warpgroups 1 and 2 (the consumers, 240 registers) own q rows 0-63
+//     and 64-127 of the unit and run flash_hopper.cuh's S = Q K^T (SS
+//     wgmma, turns on named barriers), online softmax in the log2 domain
+//     and O += (P_hi + P_lo) V (RS wgmma), as flash_dense.cu does.  A tile
+//     pays for the mask arithmetic only where it crosses the causal
+//     diagonal, the window's lower edge, the lane's `lim` or the end of
+//     the group's kv blocks.
+//   * The reference's _finalize: NEG_INF is -1e30 and is wiped by corr = 0
+//     once a row sees its first live column; rows that never saw one
+//     (m <= NEG_INF / 2) are written as 0, which covers a lane of `lim` 0
+//     and a fully masked group (its single kv block dead for every row).
+//   * Only the unit's rows are written: those below min(q block end, s).
+//     With a q block of 64 rows the other half of the 128-row tile belongs
+//     to another group (possibly another CTA): it is computed, not written.
 
-#include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
-using namespace flash;
+using namespace flash_hopper;
 
-struct FlashParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+struct SchedParams {
   __nv_bfloat16* o;
+  long long o_sb, o_sh, o_ss;
   const int* desc;     // 6 x G int32: bi, qi, kj, first, last, lim
   const int* bounds;   // p + 1 int32: CTA w owns descriptors [b[w], b[w+1])
   int G, s, H, group, block_q, block_k, causal, window;
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long o_sb, o_sh, o_ss;
-  float scale;
+  float scale_log2;    // softmax scale * log2(e)
 };
 
-// the next kv sub-tile of the group, from (gg, c) on, that is live for some
-// row of the q sub-tile [row0, rlast]; uniform across the CTA
-__device__ __forceinline__ bool seek_live(const FlashParams& P,
-                                          const int* kj_a, int gend, int lim,
-                                          int row0, int rlast, int& gg,
-                                          int& c, int& col0, int& kb1) {
-  for (; gg < gend; ++gg, c = 0) {
-    const int kb0 = kj_a[gg] * P.block_k;
-    kb1 = min(kb0 + P.block_k, P.s);
-    for (; kb0 + c < kb1; c += BK) {
-      col0 = kb0 + c;
-      const int clast = min(col0 + BK, kb1) - 1;
-      const bool dead = col0 >= lim || (P.causal && col0 > rlast) ||
-                        (P.window > 0 && row0 - clast >= P.window);
-      if (!dead) return true;
+// what softmax<> masks: columns >= s (here the group's column end), the
+// causal diagonal and the window
+struct MaskParams {
+  int s, causal, window;
+  float scale_log2;
+};
+
+// The unit sequence of one CTA, identical in the producer and the
+// consumers.  next() moves to the next unit (reading a new group's
+// descriptors when the group is done) and returns false at the end of the
+// CTA's share.
+struct Walk {
+  int gend, gstop;                 // the next group starts at gend
+  int lane_id, qb1, c_lo, c_end;   // the group: lane, row end, columns
+  int row0, rend, tile0, ntiles;   // the unit: rows, live kv tiles
+
+  __device__ __forceinline__ Walk(const SchedParams& P, int w)
+      : gend(P.bounds[w]), gstop(P.bounds[w + 1]), qb1(0), row0(0) {}
+
+  __device__ __forceinline__ bool next(const SchedParams& P) {
+    row0 += BQ;
+    if (row0 >= qb1) {
+      if (gend >= gstop) return false;
+      const int g = gend;
+      const int* kj = P.desc + 2 * P.G;
+      const int* last = P.desc + 4 * P.G;
+      int e = g;
+      while (e < gstop - 1 && last[e] == 0) ++e;
+      gend = e + 1;
+      lane_id = P.desc[g];
+      row0 = P.desc[P.G + g] * P.block_q;
+      qb1 = min(row0 + P.block_q, P.s);
+      c_lo = kj[g] * P.block_k;
+      c_end = min(min((kj[e] + 1) * P.block_k, P.s), P.desc[5 * P.G + g]);
     }
+    rend = min(row0 + BQ, qb1);
+    // live columns of some row of the unit: [lo, hi)
+    int lo = c_lo, hi = c_end;
+    if (P.window > 0) lo = max(lo, row0 - P.window + 1);
+    if (P.causal) hi = min(hi, rend);
+    const int i0 = (lo - c_lo) / BKV;
+    tile0 = c_lo + i0 * BKV;
+    ntiles = hi > lo ? (hi - 1 - c_lo) / BKV - i0 + 1 : 0;
+    return true;
   }
-  return false;
-}
+};
 
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-flash_sched_kernel(const FlashParams P) {
-  constexpr int TILE = BK * (HD + 8);   // one K or V sub-tile (bf16)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // stage s: K at smem + 2 s TILE, V right after it
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_sched_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const SchedParams P) {
+  using L = Layout<HD>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_full + 2;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int fr = lane / 4;         // fragment row within an 8-row half
-  const int fc = (lane % 4) * 2;   // fragment column pair
-  const int lm = lane / 8;         // ldmatrix: which 8x8 matrix
-  const int lr = lane % 8;         // ldmatrix: which row of it
+  const int wg = tid / 128;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMER_WARPS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
 
-  const int* bi_a = P.desc;
-  const int* qi_a = P.desc + P.G;
-  const int* kj_a = P.desc + 2 * P.G;
-  const int* lst_a = P.desc + 4 * P.G;
-  const int* lim_a = P.desc + 5 * P.G;
+  Walk w(P, blockIdx.x);
+  int it = 0;   // kv tiles so far: stage it % STAGES, phase it / STAGES
+  int qn = 0;   // Q tiles so far: phase qn
+  if (wg == 0) {
+    // ---- producer ----
+    reg_dealloc<24>();
+    if (tid == 0) {
+      while (w.next(P)) {
+        if (w.ntiles == 0) continue;
+        const int b = w.lane_id / P.H;
+        const int hh = w.lane_id % P.H;
+        const int kvh = hh / P.group;
+        mbar_wait(q_empty, (qn & 1) ^ 1);
+        mbar_expect_tx(q_full, L::TILE);
+        for (int j = 0; j < L::NBOX; ++j)
+          tma_load_4d(smem + L::Q + j * BOX, &qmap, q_full, 64 * j, w.row0, hh,
+                      b);
+        ++qn;
+        for (int i = 0; i < w.ntiles; ++i, ++it) {
+          const int s = it % STAGES;
+          const int col0 = w.tile0 + i * BKV;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&k_full[s], L::TILE);
+          for (int j = 0; j < L::NBOX; ++j)
+            tma_load_4d(smem + L::K + s * L::TILE + j * BOX, &kmap, &k_full[s],
+                        64 * j, col0, kvh, b);
+          mbar_expect_tx(&v_full[s], L::TILE);
+          for (int j = 0; j < L::NBOX; ++j)
+            tma_load_4d(smem + L::V + s * L::TILE + j * BOX, &vmap, &v_full[s],
+                        64 * j, col0, kvh, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: rows 64 c .. 64 c + 63 of each unit ----
+    reg_alloc<240>();
+    const int c = wg - 1;
+    const int tq = tid % 128;
+    const int lane = tid % 32;
+    // Q of this warpgroup: rows 64 c .. of every box (K-major)
+    const uint64_t dq = smem_desc(smem + L::Q + c * 64 * 128, 16, 1024);
+    // the consumers take turns to issue S = Q K^T (named barrier 1 + c is
+    // consumer c's turn) across every unit; consumer 0 goes first
+    if (c == 1) named_bar_arrive(TURN, 256);
 
-  int g = P.bounds[blockIdx.x];
-  const int gstop = P.bounds[blockIdx.x + 1];
-  while (g < gstop) {
-    // the group runs from its `first` descriptor g to its `last` one
-    int gend = g;
-    while (gend < gstop - 1 && lst_a[gend] == 0) ++gend;
-    ++gend;
-    const int lane_id = bi_a[g];
-    const int lim = lim_a[g];
-    const int b = lane_id / P.H;
-    const int hh = lane_id % P.H;
-    const int kvh = hh / P.group;
-    const __nv_bfloat16* qb = P.q + b * P.q_sb + hh * P.q_sh;
-    const __nv_bfloat16* kb = P.k + b * P.k_sb + kvh * P.k_sh;
-    const __nv_bfloat16* vb = P.v + b * P.v_sb + kvh * P.v_sh;
-    __nv_bfloat16* ob = P.o + b * P.o_sb + hh * P.o_sh;
-    const int qb0 = qi_a[g] * P.block_q;
-    const int qb1 = min(qb0 + P.block_q, P.s);
-
-    for (int row0 = qb0; row0 < qb1; row0 += BQ) {
-      const int rlast = min(row0 + BQ, qb1) - 1;
-      const int r_lo = row0 + warp * 16 + fr;
-      const int r_hi = r_lo + 8;
-
-      uint32_t qf[HD / 16][4];
-      load_q<HD>(qf, qb, P.q_ss, r_lo, r_hi, qb1, fc);
-
+    while (w.next(P)) {
+      const int r0 = w.row0 + 64 * c;
+      const int r_lo = r0 + 16 * (tq / 32) + lane / 4;   // and r_lo + 8
+      const MaskParams mp{w.c_end, P.causal, P.window, P.scale_log2};
+      float o[HD / 2];
+#pragma unroll
+      for (int v = 0; v < HD / 2; ++v) o[v] = 0.f;
       float m[2] = {NEG_INF, NEG_INF};
       float l[2] = {0.f, 0.f};
-      float acc[HD / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt)
-        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
 
-      int gg = g, c = 0, col0 = 0, kb1 = 0;
-      bool have = seek_live(P, kj_a, gend, lim, row0, rlast, gg, c, col0, kb1);
-      if (have)
-        load_kv<HD>(smem, smem + TILE, kb, vb, P.k_ss, P.v_ss, col0, kb1, tid);
-      cp_async_commit();
-      int st = 0;
-      while (have) {
-        // start loading the next live sub-tile into the other stage
-        int ngg = gg, nc = c + BK, ncol0 = 0, nkb1 = 0;
-        const bool next =
-            seek_live(P, kj_a, gend, lim, row0, rlast, ngg, nc, ncol0, nkb1);
-        if (next) {
-          __nv_bfloat16* Kn = smem + 2 * (st ^ 1) * TILE;
-          load_kv<HD>(Kn, Kn + TILE, kb, vb, P.k_ss, P.v_ss, ncol0, nkb1, tid);
-        }
-        cp_async_commit();
-        cp_async_wait<1>();   // this stage's group has landed
-        __syncthreads();
-        const __nv_bfloat16* Ks = smem + 2 * st * TILE;
-        tile_step<HD>(Ks, Ks + TILE, qf, m, l, acc, col0, min(lim, kb1), r_lo,
-                      r_hi, P.causal, P.window, P.scale, fc, lm, lr);
-        __syncthreads();   // every warp is done with this stage
-        gg = ngg;
-        c = nc;
-        col0 = ncol0;
-        kb1 = nkb1;
-        st ^= 1;
-        have = next;
+      if (w.ntiles > 0) {
+        mbar_wait(q_full, qn & 1);
+        ++qn;
+      }
+      for (int i = 0; i < w.ntiles; ++i, ++it) {
+        const int s = it % STAGES;
+        const uint32_t ph = (it / STAGES) & 1;
+        const int col0 = w.tile0 + i * BKV;
+        const bool mask = col0 + BKV > w.c_end ||
+                          (P.causal && col0 + BKV - 1 > r0) ||
+                          (P.window > 0 && r0 + 63 - col0 >= P.window);
+
+        // S = Q K^T; after the unit's last one, Q goes back to the producer
+        float sacc[64];
+        const uint64_t dk = smem_desc(smem + L::K + s * L::TILE, 16, 1024);
+        mbar_wait(&k_full[s], ph);
+        issue_s<HD>(sacc, dq, dk, c);
+        if (i == w.ntiles - 1 && lane == 0) mbar_arrive(q_empty);
+
+        uint32_t phi[8][4], plo[8][4];
+        if (mask)
+          softmax<HD, true>(sacc, m, l, o, phi, plo, col0, r_lo, lane, mp);
+        else
+          softmax<HD, false>(sacc, m, l, o, phi, plo, col0, r_lo, lane, mp);
+
+        // O += (P_hi + P_lo) V
+        const uint64_t dv = smem_desc(smem + L::V + s * L::TILE, BOX, 1024);
+        mbar_wait(&v_full[s], ph);
+        issue_pv<HD>(o, phi, plo, dv);
+        if (lane == 0) mbar_arrive(&empty[s]);
       }
 
-      // the group's `last` descriptor: write acc / max(l, 1e-30), dead rows 0
-      store_rows<HD>(ob, P.o_ss, acc, m, l, r_lo, r_hi, qb1, fc);
+      // the unit's rows only; dead rows (no live column) are written as 0
+      const int b = w.lane_id / P.H;
+      const int hh = w.lane_id % P.H;
+      store_rows<HD>(P.o + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m, l, r_lo,
+                     w.rend, lane);
     }
-    g = gend;
+
+    // consumer 1's last hand-over is taken here, so every turn is matched
+    if (c == 0) named_bar_sync(TURN, 256);
   }
 }
 
 template <int HD>
-int launch_hd(const FlashParams& P, int p, cudaStream_t st) {
-  constexpr int bytes = smem_bytes<HD>();
+int launch_hd(const CUtensorMap& qm, const CUtensorMap& km,
+              const CUtensorMap& vm, const SchedParams& P, int p,
+              cudaStream_t st) {
+  constexpr int bytes = Layout<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_sched_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_sched_kernel<HD><<<p, NTHREADS, bytes, st>>>(P);
+  flash_sched_kernel<HD><<<p, NTHREADS, bytes, st>>>(qm, km, vm, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -197,34 +264,36 @@ int launch_hd(const FlashParams& P, int p, cudaStream_t st) {
 
 extern "C" int flash_sched_launch(
     const void* q, const void* k, const void* v, void* o, const void* desc,
-    const void* bounds, int G, int p, int s, int H, int group, int hd,
-    int block_q, int block_k, int causal, int window, long long q_sb,
+    const void* bounds, int G, int p, int batch, int s, int H, int group,
+    int hd, int block_q, int block_k, int causal, int window, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, float scale,
     void* stream) {
-  FlashParams P;
-  P.q = static_cast<const __nv_bfloat16*>(q);
-  P.k = static_cast<const __nv_bfloat16*>(k);
-  P.v = static_cast<const __nv_bfloat16*>(v);
+  if (p <= 0 || G < 0 || batch <= 0 || s <= 0 || H <= 0 || group <= 0 ||
+      H % group != 0 || block_q <= 0 || block_k <= 0 ||
+      (hd != 64 && hd != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qm, km, vm;
+  const int kvh = H / group;
+  int rc = encode_bshd(&qm, q, batch, s, H, hd, q_sb, q_sh, q_ss);
+  if (rc == 0) rc = encode_bshd(&km, k, batch, s, kvh, hd, k_sb, k_sh, k_ss);
+  if (rc == 0) rc = encode_bshd(&vm, v, batch, s, kvh, hd, v_sb, v_sh, v_ss);
+  if (rc != 0) return rc;
+  SchedParams P;
   P.o = static_cast<__nv_bfloat16*>(o);
+  P.o_sb = o_sb; P.o_sh = o_sh; P.o_ss = o_ss;
   P.desc = static_cast<const int*>(desc);
   P.bounds = static_cast<const int*>(bounds);
   P.G = G; P.s = s; P.H = H; P.group = group;
   P.block_q = block_q; P.block_k = block_k;
   P.causal = causal; P.window = window;
-  P.q_sb = q_sb; P.q_sh = q_sh; P.q_ss = q_ss;
-  P.k_sb = k_sb; P.k_sh = k_sh; P.k_ss = k_ss;
-  P.v_sb = v_sb; P.v_sh = v_sh; P.v_ss = v_ss;
-  P.o_sb = o_sb; P.o_sh = o_sh; P.o_ss = o_ss;
-  P.scale = scale;
+  P.scale_log2 = scale * LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (hd == 128) return launch_hd<128>(P, p, st);
-  if (hd == 64) return launch_hd<64>(P, p, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return hd == 128 ? launch_hd<128>(qm, km, vm, P, p, st)
+                   : launch_hd<64>(qm, km, vm, P, p, st);
 }
 
 extern "C" const char* flash_sched_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_string(code);
 }

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks shared by gmm.cu and flash_dense.cu:
-// mbarriers with a phase bit, TMA tensor loads and stores, the wgmma shared-
-// memory descriptor and the wgmma instructions the two kernels issue,
-// register re-allocation between warpgroups, and the host-side encoding of
-// tensor maps.
+// Hopper (sm_90a) building blocks shared by gmm.cu, flash_dense.cu and
+// flash_sched.cu: mbarriers with a phase bit, TMA tensor loads and stores,
+// the wgmma shared-memory descriptor and the wgmma instructions the kernels
+// issue, register re-allocation between warpgroups, and the host-side
+// encoding of tensor maps.
 //
 // Every shared-memory tile these kernels hand to wgmma is written by TMA
 // with CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), the 16-byte

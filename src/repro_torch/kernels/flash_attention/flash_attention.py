@@ -11,20 +11,22 @@ file.  On a CPU tensor ``flash_attention_dense_plain`` (fp32 masked
 softmax) computes the same function.
 
 Schedule-aware (``flash_attention_sched_bhsd``): the host side is kept
-byte-faithful: the live (lane, q block, kv block) triples are enumerated per
-(lane, q block) group (``flash_kv_group_costs``), the group order is
-DLS-planned from the per-group live-KV costs (``repro_torch.core.
-torch_sched``), and six int32 descriptor arrays (bi, qi, kj, first, last,
-lim) list the triples in plan order (``_plan_kv_descriptors``).  On a CUDA
-tensor the descriptors drive ``csrc/flash_sched.cu``: a persistent kernel
-with ``sched_p`` CTAs, CTA ``w`` walking its plan share in order.  On a CPU
-tensor ``flash_attention_sched_plain`` computes the same function.  Outputs
-are bit-identical for every schedule on either path: a schedule only
-permutes whole groups, and each group's kv blocks stay ascending inside one
-CTA.
+byte-faithful and is array arithmetic: each (lane, q block) group's live kv
+blocks are one range, computed for all groups at once with its live-column
+cost (``flash_kv_group_costs``); the group order is DLS-planned from those
+costs (``repro_torch.core.torch_sched``); and six int32 descriptor arrays
+(bi, qi, kj, first, last, lim) list the triples in plan order, expanded
+with ``np.repeat`` / ``np.cumsum`` (``_plan_kv_descriptors``).  On a CUDA
+tensor the descriptors, copied from pinned memory without waiting, drive
+``csrc/flash_sched.cu``: a persistent TMA + wgmma kernel with ``sched_p``
+CTAs, CTA ``w`` walking its plan share in order in 128-row q tiles.  On a
+CPU tensor ``flash_attention_sched_plain`` computes the same function.
+Outputs are bit-identical for every schedule on either path: a schedule
+only permutes whole groups, and each 128-row q tile is computed inside one
+CTA, its kv tiles ascending.
 
 Both CUDA launchers read the model layout (b, s, h|kvh, hd) and the KV
-heads in place by strides.
+heads in place through 4-D TMA tensor maps built from the strides.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ KERNEL_HEAD_DIMS = (64, 128)
 _c = ctypes
 FLASH_SCHED = Kernel(
     "flash_sched", source="flash_sched", symbol="flash_sched_launch",
-    argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 10 + [_c.c_longlong] * 12
+    argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 11 + [_c.c_longlong] * 12
     + [_c.c_float, _c.c_void_p])
 FLASH_DENSE = Kernel(
     "flash_dense", source="flash_dense", symbol="flash_dense_launch",
@@ -70,6 +72,46 @@ def broadcast_flatten(q, k, v):
     return flat(q), flat(k), flat(v)
 
 
+def _kv_ranges(bh: int, s: int, block_q: int, block_k: int, *,
+               causal: bool, window: int, kv_lens: Optional[np.ndarray]):
+    """The live kv blocks ``[lo, hi)`` of every (lane, q block) group, in
+    group order (lane major), with their float64 costs and the clipped
+    per-lane lengths.
+
+    The reference walks the kv blocks of a group in order, skips those
+    below the window and stops at the first one at or past the lane's
+    length or above the causal diagonal.  The skipped blocks are a prefix
+    and the stop holds from some block on, so the blocks it keeps are one
+    range.  A group with none keeps block 0 (one step, so that its output
+    is written).
+    """
+    nq = -(-s // block_q)
+    nk = -(-s // block_k)
+    lens = (np.full(bh, s, np.int64) if kv_lens is None
+            else np.clip(np.asarray(kv_lens, np.int64), 0, s))
+    if lens.shape != (bh,):
+        raise ValueError(f"kv_lens must have shape ({bh},), got {lens.shape}")
+    qi = np.arange(nq, dtype=np.int64)
+    lim = lens[:, None]
+    hi = np.minimum(nk, -(-lim // block_k))          # k_start >= lim: stop
+    if causal:
+        q_end = np.minimum((qi + 1) * block_q, s) - 1
+        hi = np.minimum(hi, q_end // block_k + 1)    # above the diagonal
+    hi = np.broadcast_to(hi, (bh, nq))
+    lo = np.zeros_like(hi)
+    if window > 0:                                   # below the window
+        lo = lo + np.maximum(0, (qi * block_q - block_k + 1 - window)
+                             // block_k + 1)
+    dead = hi <= lo
+    lo, hi = np.where(dead, 0, lo).ravel(), np.where(dead, 1, hi).ravel()
+    lim = np.broadcast_to(lim, (bh, nq)).ravel()
+    # full blocks but the last, cut at lim; a dead group's step costs a
+    # whole block when lim is 0 (the reference's `or block_k`)
+    costs = np.minimum(lim, hi * block_k) - lo * block_k
+    costs = np.where(costs == 0, block_k, costs).astype(np.float64)
+    return lo, hi, costs, lens
+
+
 def flash_kv_group_costs(bh: int, s: int, block_q: int, block_k: int, *,
                          causal: bool = True, window: int = 0,
                          kv_lens: Optional[np.ndarray] = None):
@@ -80,40 +122,25 @@ def flash_kv_group_costs(bh: int, s: int, block_q: int, block_k: int, *,
     the per-group cost array the DLS planner consumes, and the clipped
     per-lane lengths.
     """
-    nq = -(-s // block_q)
-    nk = -(-s // block_k)
-    lens = (np.full(bh, s, np.int64) if kv_lens is None
-            else np.clip(np.asarray(kv_lens, np.int64), 0, s))
-    if lens.shape != (bh,):
-        raise ValueError(f"kv_lens must have shape ({bh},), got {lens.shape}")
+    lo, hi, costs, lens = _kv_ranges(bh, s, block_q, block_k, causal=causal,
+                                     window=window, kv_lens=kv_lens)
+    group_kjs = [list(range(a, b)) for a, b in zip(lo.tolist(), hi.tolist())]
+    return group_kjs, costs, lens
 
-    group_kjs: list[list[int]] = []
-    costs: list[int] = []
-    for bi in range(bh):
-        lim = int(lens[bi])
-        for qi in range(nq):
-            q_end = min((qi + 1) * block_q, s) - 1
-            kjs = []
-            for kj in range(nk):
-                k_start = kj * block_k
-                if k_start >= lim:
-                    break                     # beyond this lane's ragged KV
-                if causal and k_start > q_end:
-                    break                     # above the causal diagonal
-                if window > 0 and (qi * block_q - (k_start + block_k - 1)
-                                   >= window):
-                    continue                  # below the sliding window
-                kjs.append(kj)
-            if not kjs:
-                # a fully-masked group (padding rows) still needs one step
-                # so its output block is initialized and written
-                kjs = [0]
-            group_kjs.append(kjs)
-            # a masked group's one step costs a whole block (the `or`),
-            # as in the reference cost model
-            costs.append(sum(min(lim, (kj + 1) * block_k) - kj * block_k
-                             or block_k for kj in kjs))
-    return group_kjs, np.asarray(costs, np.float64), lens
+
+def _descriptors(order, lo, hi, lens, nq: int):
+    """Six int32 arrays (bi, qi, kj, first, last, lim): the kv blocks
+    ``[lo[g], hi[g])`` of every group ``g`` of ``order`` (group ``g`` is lane
+    ``g // nq``, q block ``g % nq``), one descriptor each, in plan order."""
+    order = np.asarray(order, np.int64)
+    n = (hi - lo)[order]                     # descriptors of each group
+    gid = np.repeat(order, n)
+    # position of each descriptor inside its group
+    j = np.arange(gid.size) - np.repeat(np.cumsum(n) - n, n)
+    bi = gid // nq
+    return tuple(a.astype(np.int32) for a in (
+        bi, gid % nq, lo[gid] + j, j == 0, j == np.repeat(n, n) - 1,
+        lens[bi]))
 
 
 def _plan_kv_descriptors(bh: int, s: int, block_q: int, block_k: int, *,
@@ -126,25 +153,10 @@ def _plan_kv_descriptors(bh: int, s: int, block_q: int, block_k: int, *,
     last, lim) of length G = total live triples, plus the KernelTilePlan
     over the (lane, q block) groups.
     """
-    nq = -(-s // block_q)
-    group_kjs, costs, lens = flash_kv_group_costs(
-        bh, s, block_q, block_k, causal=causal, window=window,
-        kv_lens=kv_lens)
+    lo, hi, costs, lens = _kv_ranges(bh, s, block_q, block_k, causal=causal,
+                                     window=window, kv_lens=kv_lens)
     plan = plan_tiles_for_kernel(costs, p=p, technique=schedule)
-    bi_s, qi_s, kj_s, fst_s, lst_s, lim_s = [], [], [], [], [], []
-    for gid in plan.order.tolist():
-        bi, qi = divmod(gid, nq)
-        kjs = group_kjs[gid]
-        for j, kj in enumerate(kjs):
-            bi_s.append(bi)
-            qi_s.append(qi)
-            kj_s.append(kj)
-            fst_s.append(1 if j == 0 else 0)
-            lst_s.append(1 if j == len(kjs) - 1 else 0)
-            lim_s.append(int(lens[bi]))
-    desc = tuple(np.asarray(a, np.int32)
-                 for a in (bi_s, qi_s, kj_s, fst_s, lst_s, lim_s))
-    return desc, plan
+    return _descriptors(plan.order, lo, hi, lens, -(-s // block_q)), plan
 
 
 def descriptor_bounds(desc, plan) -> np.ndarray:
@@ -206,6 +218,14 @@ def _strides(*tensors) -> list[int]:
     return [t.stride(i) for t in tensors for i in (0, 2, 1)]
 
 
+def _upload_table(desc, bounds, device) -> torch.Tensor:
+    """The descriptors and the CTA bounds as one int32 tensor on
+    ``device``, copied from pinned memory without blocking, so that the
+    host does not wait for the stream to drain."""
+    host = np.concatenate([*desc, np.asarray(bounds, np.int32)])
+    return torch.from_numpy(host).pin_memory().to(device, non_blocking=True)
+
+
 def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
                       causal: bool, window: int):
     """Launch ``flash_sched`` on q (b, s, h, hd), k/v (b, s, kvh, hd) in
@@ -218,14 +238,13 @@ def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
     p = int(bounds.shape[0]) - 1
     # freed when this returns: the caching allocator reuses it only for work
     # queued after the kernel on the same stream
-    table = torch.from_numpy(np.concatenate([*desc, bounds]).astype(np.int32))
-    table = table.to(q.device)
+    table = _upload_table(desc, bounds, q.device)
     d_ptr = table.data_ptr()
     FLASH_SCHED.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         d_ptr, d_ptr + 6 * g * 4,
-        g, p, s, h, h // kvh, hd, block_q, block_k, int(causal), int(window),
-        *_strides(q, k, v, out),
+        g, p, b, s, h, h // kvh, hd, block_q, block_k, int(causal),
+        int(window), *_strides(q, k, v, out),
         1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
@@ -272,7 +291,7 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0,
 
     The reference's signature without ``interpret``.  ``block_q`` and
     ``block_k`` name the TPU kernel's blocking; the result does not depend
-    on them (the card tiles by 128 x 64, the plain version does not tile).
+    on them (the card tiles by 128 x 128, the plain version does not tile).
     """
     out = flash_attention_dense_bshd(q.unsqueeze(2), k.unsqueeze(2),
                                      v.unsqueeze(2), causal=causal,
