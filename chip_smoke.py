@@ -49,7 +49,36 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                full-width qwen3-4b: 8 requests drawn as the launcher draws
                them, 4 slots, max_len 256, fac2; again with the int8 KV
                cache; a device profile of a short run
-  kernels      the summary line, one entry per kernel
+  moe_prefill  launch counts set to 0, then ``models.forward`` of
+               full-width qwen3-moe-30b-a3b cut to 8 of 48 layers (random
+               fp32 weights from seed 0, bf16 compute, dispatch "ragged")
+               on 1 x 4096 tokens; the counts are read right after (gmm:
+               3 a layer, flash_dense: 1 a layer).  Wall time, tokens/s, a
+               device profile, a second run bit-identical to the first,
+               the share of (token, k) slots dropped at capacity factor
+               1.25; one layer's ragged FFN against the same call with the
+               plain grouped matmul in place of ``grouped_matmul``; at
+               capacity factor E / top_k (16: no expert can overflow) every
+               layer's FFN under the ragged and the dense dispatch on the
+               input that layer had in the run (routed alike by
+               construction), then the ragged logits of 2 layers against
+               the dense dispatch's; gmm timed alone at the model path's
+               shapes
+  moe_serve    ``DecodeEngine`` through ``launch.serve``'s code path on the
+               same model: 8 requests, 4 slots, max_len 256, fac2, bf16 KV;
+               a device profile of a short run
+  recurrent    xlstm-1.3b and recurrentgemma-2b at full width and depth:
+               a 4096-token prefill (launch counts from 0).  recurrentgemma's
+               head_dim 256 is outside flash_dense's (64, 128), so its
+               4096-token prefill is not ported: the phase checks that it
+               raises ValueError and times nothing of it.  Then a device
+               profile of a 512-token prefill (below flash_threshold, the
+               einsum attention of every arch), ``forward`` against
+               ``decode_step`` on one block-pattern period (8 and 3 layers)
+               fed the same tokens, and ``DecodeEngine`` with 4 requests on
+               2 slots, so that lanes are reset and reused
+  kernels      the summary line, one entry per kernel; ``launches`` sums
+               the counted runs of every path that launches the kernel
 
 then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises and the
@@ -63,15 +92,23 @@ checkout's ``src``), so that another tree's ``flash_dense`` can be held
 against this one bit for bit.
 
 Tolerance of the 2-layer ``forward`` / ``decode_step`` comparison (bf16
-compute): max |logit difference| <= 0.25 and the same argmax at >= 80% of
-the positions.  Both paths keep the residual stream in bf16 (a step of
-2^-8 to 2^-7 near 1), and they differ in where they round: the prefill's
-attention is the dense kernel (fp32 scores and probabilities, one rounding
-of the output to bf16), the decode's rounds scores and probabilities to
-bf16 and multiplies a one-row GEMV where the prefill runs a GEMM.  The
-logits of random weights have a spread of about 1, so a difference of a
-few bf16 steps in the hidden state moves a logit by about 0.01-0.05 and
-flips the argmax where the two largest logits lie closer than that.
+compute), also held by the recurrent ``forward`` / ``decode_step``
+comparisons and by the 2-layer MoE dispatch comparison on the tokens that
+both dispatches route to the same experts in every layer, which must be
+at least 90% of them (the argmax bound holds for all tokens there): max
+|logit difference| <= 0.25 and the same argmax at >= 80% of the positions.
+The layer-by-layer MoE dispatch comparison holds every token's FFN output
+to the same 0.25.  Both paths keep the residual stream in
+bf16 (a step of 2^-8 to 2^-7 near 1), and they differ in where they round:
+the prefill's attention is the dense kernel (fp32 scores and
+probabilities, one rounding of the output to bf16), the decode's rounds
+scores and probabilities to bf16 and multiplies a one-row GEMV where the
+prefill runs a GEMM.  The logits of random weights have a spread of about
+1, so a difference of a few bf16 steps in the hidden state moves a logit by
+about 0.01-0.05 and flips the argmax where the two largest logits lie
+closer than that.  The recurrent forms differ more: the chunkwise mLSTM
+rounds its scores to bf16 where the step form keeps an fp32 state, and the
+states carry a difference on from step to step.
 
 The plain versions run with TF32 off (``torch.backends.cuda.matmul.
 allow_tf32`` and ``torch.backends.cudnn.allow_tf32`` False), in fp32.
@@ -103,6 +140,12 @@ ARCH, PREFILL_S, PARITY_S, PARITY_LAYERS = "qwen3-4b", 4096, 2560, 2
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_LEN = 8, 4, 256
 PARITY_MAX_DIFF, PARITY_ARGMAX = 0.25, 0.80
 E, C, D_MODEL, D_FF, BLOCK_ROWS = 128, 512, 2048, 768, 128
+# this slice: the MoE and recurrent families
+MOE_ARCH, MOE_LAYERS, MOE_PARITY_LAYERS = "qwen3-moe-30b-a3b", 8, 2
+MOE_ROUTED_ALIKE = 0.90
+RECURRENT_ARCHS = ("xlstm-1.3b", "recurrentgemma-2b")
+RECURRENT_PARITY_S, RECURRENT_PROFILE_S = 640, 512
+RECURRENT_REQUESTS, RECURRENT_SLOTS = 4, 2
 IDENTITY_SCHEDULES = ("static", "ss", "gss", "fac2", "awf_b", "ws_rr",
                       "dls_steal")
 
@@ -173,11 +216,12 @@ def bound(flops, nbytes):
                                        else "bytes")
 
 
-def device_profile(fn, top=8):
+def device_profile(fn, top=8, watch=()):
     """Run ``fn`` under ``torch.profiler``: wall ms, the summed device time
-    of the kernels, the device's idle share of the wall time and the
-    ``top`` kernels by device time (the profiler's own overhead is in the
-    wall time)."""
+    of the kernels, the device's idle share of the wall time, the ``top``
+    kernels by device time and, for each substring in ``watch``, the device
+    ms and count of the kernels whose name holds it (the profiler's own
+    overhead is in the wall time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -198,11 +242,78 @@ def device_profile(fn, top=8):
         kernels.append((us / 1e3, ev.count, ev.key[:90]))
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
-    return dict(wall_ms=wall_ms, device_ms=busy_ms,
-                idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-                launches=sum(k[1] for k in kernels),
-                top=[{"kernel": k[2], "ms": k[0], "count": k[1]}
-                     for k in kernels[:top]])
+    out = dict(wall_ms=wall_ms, device_ms=busy_ms,
+               idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+               launches=sum(k[1] for k in kernels),
+               top=[{"kernel": k[2], "ms": k[0], "count": k[1]}
+                    for k in kernels[:top]])
+    for sub in watch:
+        hit = [k for k in kernels if sub in k[2]]
+        out[sub] = {"ms": sum(k[0] for k in hit),
+                    "count": sum(k[1] for k in hit)}
+    return out
+
+
+def first_layers(cfg, params, n):
+    """``cfg`` cut to its first ``n`` layers, a whole number of
+    block-pattern periods, and those layers' parameters (views)."""
+    import dataclasses
+
+    import torch
+    period = len(cfg.block_pattern)
+    assert n % period == 0 and n <= cfg.num_layers, (n, period)
+    g = n // period
+
+    def cut(v):
+        return v[:g] if torch.is_tensor(v) else {k: cut(x)
+                                                  for k, x in v.items()}
+
+    return (dataclasses.replace(cfg, num_layers=n),
+            dict(params, groups=tuple(cut(grp) for grp in params["groups"]),
+                 remainder=()))
+
+
+def plain_grouped_matmul(xe, w, *, block_rows, **_):
+    """``grouped_matmul``'s identity-order product on the plain version,
+    to stand in for it in the model's ragged dispatch."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+    e, r, d = xe.shape
+    tiles = r // block_rows
+    te = torch.arange(e * tiles, device=xe.device) // tiles
+    return gm.grouped_matmul_tiles_plain(
+        xe.reshape(e * tiles, block_rows, d), w, te).reshape(e, r, -1)
+
+
+def logits_agree(name, got, want):
+    """(max |difference|, argmax agreement) of two logit tensors; raises
+    outside PARITY_MAX_DIFF and PARITY_ARGMAX."""
+    diff = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    assert diff <= PARITY_MAX_DIFF and agree >= PARITY_ARGMAX, (
+        name, diff, agree)
+    return diff, agree
+
+
+def decode_parity(dev, cfg, params, tokens):
+    """``forward`` against ``decode_step`` fed the same tokens one by one:
+    (max |difference|, argmax agreement, seconds of the decode loop, the
+    largest |logit| of ``forward``)."""
+    import torch
+    from repro_torch.models import decode_step, forward, init_decode_state
+    s = tokens.shape[1]
+    full, _ = forward(params, cfg, tokens)
+    state = init_decode_state(cfg, 1, max_len=s, device=dev)
+    steps = []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(s):
+            step, state = decode_step(params, cfg, state, tokens[:, i:i + 1])
+            steps.append(step[0, 0])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return (*logits_agree(cfg.name, torch.stack(steps), full[0]), decode_s,
+            float(full.abs().max()))
 
 
 def host_ms(fn, n=REPS):
@@ -349,12 +460,10 @@ def phase_prefill(dev, cfg, params):
     """``forward`` of the full model with the counts from 0 (the slice's
     main path), then timing, a device profile and the 2-layer comparison
     of ``forward`` with ``decode_step``.  Returns the launch counts."""
-    import dataclasses
-
     import numpy as np
     import torch
     from repro_torch.kernels import _build
-    from repro_torch.models import decode_step, forward, init_decode_state
+    from repro_torch.models import forward
 
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, PREFILL_S))).to(dev)
@@ -380,38 +489,20 @@ def phase_prefill(dev, cfg, params):
     prof = device_profile(run)
 
     # forward against decode_step on the same tokens, 2 layers
-    cfg2 = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
-    params2 = dict(params, groups=tuple(
-        {k: (v[:PARITY_LAYERS] if torch.is_tensor(v) else
-             {kk: vv[:PARITY_LAYERS] for kk, vv in v.items()})
-         for k, v in grp.items()} for grp in params["groups"]))
+    cfg2, params2 = first_layers(cfg, params, PARITY_LAYERS)
     tok2 = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, PARITY_S))).to(dev)
     before = _build.KERNELS["flash_dense"].launches
-    full, _ = forward(params2, cfg2, tok2)
+    max_diff, agree, decode_s, logit_abs_max = decode_parity(dev, cfg2,
+                                                             params2, tok2)
     assert _build.KERNELS["flash_dense"].launches == before + PARITY_LAYERS
-    state = init_decode_state(cfg2, 1, max_len=PARITY_S, device=dev)
-    diff = torch.empty(PARITY_S, device=dev)
-    same = torch.empty(PARITY_S, dtype=torch.bool, device=dev)
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        for i in range(PARITY_S):
-            step, state = decode_step(params2, cfg2, state, tok2[:, i:i + 1])
-            diff[i] = (step[0, 0] - full[0, i]).abs().max()
-            same[i] = step[0, 0].argmax() == full[0, i].argmax()
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    max_diff, agree = float(diff.max()), float(same.float().mean())
     emit("prefill", arch=cfg.name, layers=cfg.num_layers,
          tokens=PREFILL_S, launches=launches, first_s=first_s, warm_s=warm_s,
          tokens_per_s=PREFILL_S / warm_s, profile=prof,
          parity={"layers": PARITY_LAYERS, "s": PARITY_S,
                  "max_abs_diff": max_diff, "argmax_agreement": agree,
                  "tolerance": [PARITY_MAX_DIFF, PARITY_ARGMAX],
-                 "logit_abs_max": float(full.abs().max()),
-                 "decode_s": decode_s})
-    assert max_diff <= PARITY_MAX_DIFF and agree >= PARITY_ARGMAX, (
-        max_diff, agree)
+                 "logit_abs_max": logit_abs_max, "decode_s": decode_s})
     return launches
 
 
@@ -420,41 +511,348 @@ def phase_serve(dev, cfg, params):
     caches, then a device profile of a short run."""
     import dataclasses
 
-    import numpy as np
     import torch
-    from repro_torch.launch.serve import make_requests, run_engine
-
-    def serve(c, n, max_len, seed):
-        requests = make_requests(n, max_len, seed)
-        eng, stats = run_engine(c, params, requests, slots=SERVE_SLOTS,
-                                max_len=SERVE_MAX_LEN, technique="fac2",
-                                device=dev)
-        return requests, eng, stats
 
     rows = {}
     for name, c in (("bf16", cfg),
                     ("kv8", dataclasses.replace(cfg, kv_cache_dtype="int8"))):
-        requests, eng, stats = serve(c, SERVE_REQUESTS, SERVE_MAX_LEN, 0)
-        assert stats.completed == SERVE_REQUESTS, (name, stats)
-        for r in requests:
-            out = eng.output(r.rid)
-            assert len(out) == min(r.max_new_tokens, SERVE_MAX_LEN // 2)
-            assert all(0 <= t < c.padded_vocab for t in out), (name, r.rid)
+        rows[name], eng = serve_rows(dev, c, params, SERVE_REQUESTS,
+                                     SERVE_SLOTS, SERVE_MAX_LEN)
         assert len(eng.kernel_records) == eng.plan_calls
-        rows[name] = dict(
-            completed=stats.completed, steps=stats.steps, tokens=stats.tokens,
-            tok_per_s=stats.tok_per_s, wall_s=stats.wall_s,
-            step_ms_median=float(np.median(stats.step_ms)),
-            step_ms_p90=float(np.percentile(stats.step_ms, 90)),
-            plan_calls=eng.plan_calls, plan_time_s=eng.plan_time_s,
-            plan_cache_hits=eng.plan_cache_hits,
-            sample_output=eng.output(0)[:8])
+        rows[name].update(plan_calls=eng.plan_calls,
+                          plan_time_s=eng.plan_time_s,
+                          plan_cache_hits=eng.plan_cache_hits)
         del eng
         torch.cuda.empty_cache()
-    prof = device_profile(lambda: serve(cfg, 4, 64, 1))
+    prof = device_profile(lambda: serve_rows(dev, cfg, params, 4,
+                                             SERVE_SLOTS, 64, seed=1))
     emit("serve", arch=cfg.name, requests=SERVE_REQUESTS, slots=SERVE_SLOTS,
          max_len=SERVE_MAX_LEN, technique="fac2", profile_4_requests=prof,
          **rows)
+
+
+def serve_rows(dev, cfg, params, n, slots, max_len, seed=0):
+    """``n`` requests drawn as the launcher draws them through
+    ``launch.serve``'s ``run_engine`` on ``slots`` slots; raises unless all
+    complete with the tokens asked for.  Returns (the engine's numbers, the
+    engine)."""
+    import numpy as np
+    from repro_torch.launch.serve import make_requests, run_engine
+    requests = make_requests(n, max_len, seed)
+    eng, stats = run_engine(cfg, params, requests, slots=slots,
+                            max_len=max_len, technique="fac2", device=dev)
+    assert stats.completed == n, (cfg.name, stats)
+    for r in requests:
+        out = eng.output(r.rid)
+        assert len(out) == min(r.max_new_tokens, max_len // 2), r.rid
+        assert all(0 <= t < cfg.padded_vocab for t in out), (cfg.name, r.rid)
+    return dict(completed=f"{stats.completed}/{n}", steps=stats.steps,
+                tokens=stats.tokens, tok_per_s=stats.tok_per_s,
+                wall_s=stats.wall_s,
+                step_ms_median=float(np.median(stats.step_ms)),
+                step_ms_p90=float(np.percentile(stats.step_ms, 90)),
+                sample_output=eng.output(0)[:8]), eng
+
+
+def gmm_model_shapes(dev, cfg, n_sm, randn):
+    """``gmm`` alone at the MoE prefill's expert shapes (the identity tile
+    order with one CTA per SM, as ``moe_ragged`` calls it): single-call and
+    back-to-back ms of wi + wg + wo, the plain version's and ``torch.bmm``'s
+    ms, and the bound of the three calls."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+    from repro_torch.models.moe import _capacity
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff
+    rows = -(-_capacity(cfg, PREFILL_S) // BLOCK_ROWS) * BLOCK_ROWS
+    x, h = randn(e, rows, d), randn(e, rows, f)
+    w_in = randn(e, d, f, scale=d ** -0.5)
+    w_out = randn(e, f, d, scale=f ** -0.5)
+    tiles = e * rows // BLOCK_ROWS
+    te = torch.arange(tiles, device=dev) // (rows // BLOCK_ROWS)
+    calls = ((x, w_in), (x, w_in), (h, w_out))      # wi, wg, wo
+    out = {"ms": 0.0, "ms_b2b": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "flops": 0, "bytes": 0}
+    for xi, w in calls:
+        def run(xi=xi, w=w):
+            return grouped_matmul(xi, w, block_rows=BLOCK_ROWS, sched_p=n_sm)
+        out["ms"] += cuda_ms(run, REPS)
+        out["ms_b2b"] += cuda_ms_b2b(run, REPS)
+        xt = xi.reshape(tiles, BLOCK_ROWS, xi.shape[2])
+        out["plain_ms"] += cuda_ms(
+            lambda xt=xt, w=w: gm.grouped_matmul_tiles_plain(xt, w, te), 3)
+        out["library_ms"] += cuda_ms(lambda xi=xi, w=w: torch.bmm(xi, w),
+                                     REPS)
+        out["flops"] += 2 * e * rows * xi.shape[2] * w.shape[2]
+        out["bytes"] += 2 * (xi.numel() + w.numel() + e * rows * w.shape[2])
+    out["bound_ms"], out["bound_by"] = bound(out["flops"], out["bytes"])
+    out["shapes"] = {"x": [e, rows, d], "wi_wg": [e, d, f], "wo": [e, f, d]}
+    return out
+
+
+def phase_moe_prefill(dev, n_sm, randn):
+    """``forward`` of qwen3-moe-30b-a3b (8 layers, ragged dispatch) with the
+    counts from 0, then timing, a profile, bit-identity, the dropped-slot
+    share, the kernel-against-plain check of one layer's FFN, the 2-layer
+    dense-dispatch comparison and gmm at the model's shapes.  Returns
+    (cfg, params, launches, gmm's model-path fields for the kernels line)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models import decoder, forward, init_decoder
+    from repro_torch.models import moe as tmoe
+
+    base = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(
+        base, num_layers=MOE_LAYERS,
+        moe=dataclasses.replace(base.moe, dispatch="ragged"))
+    params, _ = init_decoder(0, cfg, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PREFILL_S))).to(dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, aux = forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
+    assert launches["gmm"] == 3 * cfg.num_layers, launches
+    assert launches["flash_dense"] == cfg.num_layers, launches
+    assert tuple(logits.shape) == (1, PREFILL_S, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all()), "MoE logits not finite"
+
+    def run():
+        forward(params, cfg, tokens)
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    prof = device_profile(run, top=10, watch=("gmm", "flash_dense"))
+
+    # a second run, bit for bit, recording each layer's FFN input and loads
+    cap = tmoe._capacity(cfg, PREFILL_S)
+    taps = []
+    real_moe = decoder.moe
+
+    def moe_tap(p, c, x):
+        out = real_moe(p, c, x)
+        taps.append((p, x, out[2]))
+        return out
+
+    decoder.moe = moe_tap
+    try:
+        again, _ = forward(params, cfg, tokens)
+    finally:
+        decoder.moe = real_moe
+    assert torch.equal(again, logits), "two MoE prefills differ"
+    del again, logits
+    load = torch.stack([t[2] for t in taps])        # (layers, E)
+    # one sequence is one token group, so an expert drops load - cap slots
+    dropped = float(torch.clamp_min(load - cap, 0).sum()
+                    / (cfg.num_layers * PREFILL_S * cfg.moe.top_k))
+
+    # one layer's ragged FFN: gmm against the plain grouped matmul
+    ffn0 = {k: v[0] for k, v in params["groups"][0]["ffn"].items()}
+    x = randn(1, PREFILL_S, cfg.d_model)
+    y = tmoe.moe_ragged(ffn0, cfg, x)[0]
+    real_gm = tmoe.grouped_matmul
+    tmoe.grouped_matmul = plain_grouped_matmul
+    try:
+        want = tmoe.moe_ragged(ffn0, cfg, x)[0]
+    finally:
+        tmoe.grouped_matmul = real_gm
+    ffn_err = check_close("moe_ragged", y, want)
+    del y, want, x
+
+    # every layer's FFN under both dispatches on the input it had in the
+    # run above, at capacity factor E / top_k: the capacity is then the
+    # token count, so no expert can overflow, and the router sees one input,
+    # so both dispatches route every token alike (equal loads)
+    parity_cf = cfg.moe.num_experts / cfg.moe.top_k
+    cfg_cf = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=parity_cf))
+    assert tmoe._capacity(cfg_cf, PREFILL_S) >= PREFILL_S
+    layer_diff, layer_abs = [], []
+    for p, x, _ in taps:
+        yr, _, load_r = tmoe.moe_ragged(p, cfg_cf, x)
+        yd, _, load_d = tmoe.moe_dense(p, cfg_cf, x)
+        assert torch.equal(load_r, load_d), "the dispatches routed apart"
+        layer_diff.append(float((yr - yd).abs().max()))
+        layer_abs.append(float(yd.abs().max()))
+    del taps, yr, yd
+    assert max(layer_diff) <= PARITY_MAX_DIFF, layer_diff
+
+    # 2 layers end to end, ragged against dense at the same capacity
+    # factor (at 8 the random router sent 2219 of 4096 tokens to one
+    # expert of the second layer, over its capacity of 2048, and the ragged
+    # dispatch dropped them).  The first layer's router sees the same input
+    # under both dispatches; the second's sees hidden states that differ by
+    # bf16 rounding, and where a token's 8th and 9th experts are that close
+    # the two runs pick different experts for it, which moves its logits by
+    # far more than a rounding step.  So the difference bound holds the
+    # tokens routed alike in every layer, which must be at least
+    # MOE_ROUTED_ALIKE of them; the argmax bound holds all tokens.
+    cfg2, params2 = first_layers(cfg_cf, params, MOE_PARITY_LAYERS)
+    logits2, routes, loads2 = {}, {}, {}
+    real_route = tmoe._route
+
+    def route_tap(*args):
+        out = real_route(*args)
+        routes[dispatch].append(torch.sort(out[0][0], dim=-1).values)
+        loads2[dispatch].append(int(out[3].max()))
+        return out
+
+    tmoe._route = route_tap
+    try:
+        for dispatch in ("ragged", "dense"):
+            routes[dispatch], loads2[dispatch] = [], []
+            c = dataclasses.replace(cfg2, moe=dataclasses.replace(
+                cfg2.moe, dispatch=dispatch))
+            logits2[dispatch] = forward(params2, c, tokens)[0][0]
+    finally:
+        tmoe._route = real_route
+    same = [(a == b).all(-1) for a, b in zip(routes["ragged"],
+                                             routes["dense"])]
+    assert bool(same[0].all()), "layer 1 routed differently"
+    alike = torch.stack(same).all(0)                         # (s,)
+    alike_share = float(alike.float().mean())
+    assert alike_share >= MOE_ROUTED_ALIKE, alike_share
+    diff_all = float((logits2["ragged"] - logits2["dense"]).abs().max())
+    diff, agree = logits_agree("ragged vs dense, tokens routed alike",
+                               logits2["ragged"][alike],
+                               logits2["dense"][alike])
+    agree_all = float((logits2["ragged"].argmax(-1)
+                       == logits2["dense"].argmax(-1)).float().mean())
+    assert agree_all >= PARITY_ARGMAX, agree_all
+    logit_abs_max = float(logits2["dense"].abs().max())
+    del logits2, params2
+    gmm = gmm_model_shapes(dev, cfg, n_sm, randn)
+    emit("moe_prefill", arch=cfg.name, layers=cfg.num_layers,
+         cut=f"{cfg.num_layers} of {base.num_layers} layers; random fp32 "
+             "weights from seed 0",
+         dispatch="ragged", tokens=PREFILL_S, launches=launches,
+         first_s=first_s, warm_s=warm_s, tokens_per_s=PREFILL_S / warm_s,
+         aux=float(aux), profile=prof, bit_identical=True,
+         capacity=cap, dropped_share_cf1_25=dropped,
+         ffn_plain_max_abs_err=ffn_err,
+         load_max_per_layer=load.max(-1).values.tolist(),
+         dispatch_by_layer={"capacity_factor": parity_cf,
+                            "max_abs_diff": layer_diff,
+                            "ffn_abs_max": layer_abs,
+                            "tolerance": PARITY_MAX_DIFF},
+         dispatch_parity={"layers": MOE_PARITY_LAYERS,
+                          "capacity_factor": parity_cf,
+                          "load_max_per_layer": loads2,
+                          "tokens_routed_alike": int(alike.sum()),
+                          "routed_alike_floor": MOE_ROUTED_ALIKE,
+                          "max_abs_diff": diff, "argmax_agreement": agree,
+                          "max_abs_diff_all": diff_all,
+                          "argmax_agreement_all": agree_all,
+                          "logit_abs_max": logit_abs_max,
+                          "tolerance": [PARITY_MAX_DIFF, PARITY_ARGMAX]},
+         gmm_model_shapes=gmm)
+    return cfg, params, launches, gmm
+
+
+def phase_moe_serve(dev, cfg, params):
+    """The MoE model in DecodeEngine: 8 requests on 4 slots; the counts
+    from 0 around the run; then a device profile of a short run."""
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    row, _ = serve_rows(dev, cfg, params, SERVE_REQUESTS, SERVE_SLOTS,
+                        SERVE_MAX_LEN)
+    launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
+    assert launches["gmm"] > 0, launches
+    prof = device_profile(lambda: serve_rows(dev, cfg, params, 4, SERVE_SLOTS,
+                                             64, seed=1),
+                          watch=("gmm",))
+    emit("moe_serve", arch=cfg.name, layers=cfg.num_layers, dispatch="ragged",
+         requests=SERVE_REQUESTS, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+         technique="fac2", kv="bf16", launches=launches,
+         profile_4_requests=prof, **row)
+    return launches
+
+
+def phase_recurrent(dev, arch):
+    """A full-width, full-depth recurrent model: 4096-token prefill with the
+    counts from 0, a profile of a short prefill, forward against
+    decode_step on one block-pattern period, and serving with lane reuse.
+
+    ``flash_dense`` takes head dims 64 and 128.  A model with local
+    attention of another head dim (recurrentgemma-2b: 256) raises above
+    ``flash_threshold`` rather than fall back to the einsum, so its
+    4096-token prefill is not ported: the phase checks that it raises and
+    reports no time for it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        KERNEL_HEAD_DIMS)
+    from repro_torch.models import forward, init_decoder
+
+    cfg = get_arch(arch)
+    params, _ = init_decoder(0, cfg, device=dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, PREFILL_S))).to(dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    if ("local_attn" in cfg.block_pattern
+            and cfg.resolved_head_dim not in KERNEL_HEAD_DIMS):
+        try:
+            forward(params, cfg, tokens)
+        except ValueError as err:
+            prefill = {"ported": False, "raises": f"ValueError: {err}"}
+        else:
+            raise AssertionError(f"{arch}: head_dim {cfg.resolved_head_dim} "
+                                 "reached flash_dense")
+        launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
+    else:
+        t0 = time.perf_counter()
+        logits, _ = forward(params, cfg, tokens)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
+        assert tuple(logits.shape) == (1, PREFILL_S, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all()), f"{arch} logits not finite"
+        del logits
+        t0 = time.perf_counter()
+        forward(params, cfg, tokens)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        prefill = {"ported": True, "first_s": first_s, "warm_s": warm_s,
+                   "tokens_per_s": PREFILL_S / warm_s}
+    # below flash_threshold every arch's attention is the einsum branch
+    short = tokens[:, :RECURRENT_PROFILE_S]
+    prof = device_profile(lambda: forward(params, cfg, short), top=6)
+
+    period = len(cfg.block_pattern)
+    cfg_p, params_p = first_layers(cfg, params, period)
+    ptok = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, RECURRENT_PARITY_S))).to(dev)
+    diff, agree, decode_s, logit_abs_max = decode_parity(dev, cfg_p,
+                                                         params_p, ptok)
+    del params_p
+    row, _ = serve_rows(dev, cfg, params, RECURRENT_REQUESTS,
+                        RECURRENT_SLOTS, SERVE_MAX_LEN)
+    emit("recurrent", arch=arch, layers=cfg.num_layers,
+         pattern=list(cfg.block_pattern), tokens=PREFILL_S,
+         launches=launches, prefill=prefill,
+         profile={"tokens": RECURRENT_PROFILE_S, **prof},
+         parity={"layers": period, "s": RECURRENT_PARITY_S,
+                 "max_abs_diff": diff, "argmax_agreement": agree,
+                 "tolerance": [PARITY_MAX_DIFF, PARITY_ARGMAX],
+                 "logit_abs_max": logit_abs_max, "decode_s": decode_s},
+         serve={"requests": RECURRENT_REQUESTS, "slots": RECURRENT_SLOTS,
+                "max_len": SERVE_MAX_LEN, "technique": "fac2", **row})
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv) -> int:
@@ -784,6 +1182,16 @@ def main(argv) -> int:
     prefill_launches = phase_prefill(dev, cfg, params)
     phase_serve(dev, cfg, params)
     del params
+    torch.cuda.empty_cache()
+
+    # ---- this slice: the MoE and recurrent families --------------------
+    moe_cfg, moe_params, moe_launches, gmm_model = phase_moe_prefill(
+        dev, n_sm, randn)
+    serve_launches = phase_moe_serve(dev, moe_cfg, moe_params)
+    del moe_params
+    torch.cuda.empty_cache()
+    for arch in RECURRENT_ARCHS:
+        phase_recurrent(dev, arch)
 
     gmm_flops = total("flops")
     gmm_bytes = total("bytes")
@@ -801,7 +1209,11 @@ def main(argv) -> int:
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gmm.cu",
          "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:37",
-         "launches": launches["gmm"],
+         "launches": (launches["gmm"] + moe_launches["gmm"]
+                      + serve_launches["gmm"]),
+         "launches_by_path": {"main_path": launches["gmm"],
+                              "moe_prefill": moe_launches["gmm"],
+                              "moe_serve": serve_launches["gmm"]},
          "max_abs_err": max(r["max_abs_err"] for r in gmm_rows.values()),
          "tolerance": f"{ATOL} + {RTOL}*|plain|",
          "ms": total("ms"), "plain_ms": total("plain_ms"),
@@ -809,11 +1221,17 @@ def main(argv) -> int:
          "bound_by": ("operations" if gmm_flops / PEAK_BF16_FLOPS
                       >= gmm_bytes / PEAK_BYTES else "bytes"),
          "library_ms": total("library_ms"),
-         "percent_imbalance": gmm_rows["wi"]["percent_imbalance"]},
+         "percent_imbalance": gmm_rows["wi"]["percent_imbalance"],
+         "model_path": {k: gmm_model[k] for k in (
+             "ms", "ms_b2b", "plain_ms", "library_ms", "bound_ms",
+             "bound_by", "shapes")}},
         {"name": "flash_dense", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_dense.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:51",
-         "launches": prefill_launches["flash_dense"],
+         "launches": (prefill_launches["flash_dense"]
+                      + moe_launches["flash_dense"]),
+         "launches_by_path": {"prefill": prefill_launches["flash_dense"],
+                              "moe_prefill": moe_launches["flash_dense"]},
          "tolerance": f"{ATOL} + {RTOL}*|plain|", **dense},
     ]
     for kern in kernels:

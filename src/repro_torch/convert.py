@@ -8,8 +8,11 @@ arrays numpy can read (``np.asarray`` of each leaf; JAX arrays qualify):
     for ``repro.models.moe.init_moe``;
   * ``decoder_params_from_jax``: ``repro.models.init_decoder``'s tree
     (nested dicts, the stacked ``groups`` and the ``remainder`` tuples) ->
-    the same nesting of tensors, the port decoder's parameters;
-  * ``decode_state_from_jax``: a reference ``DecodeState`` -> the port's.
+    the same nesting of tensors, the port decoder's parameters: attention
+    and MLP weights, the MoE router and expert stacks, the recurrent
+    mixers' leaves;
+  * ``decode_state_from_jax``: a reference ``DecodeState`` -> the port's,
+    KV caches and recurrent states alike.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from .device import resolve_device
 from .models.attention import KVCache, KVCacheQ
 from .models.decoder import DecodeState, tree_map
+from .models.recurrent import MLSTMState, RGLRUState, SLSTMState
 
 __all__ = ["params_from_jax", "flatten_tree", "decoder_params_from_jax",
            "decode_state_from_jax"]
@@ -83,10 +87,11 @@ def decoder_params_from_jax(tree: Any, *,
 
 def decode_state_from_jax(state: Any, *,
                           device: Optional[Union[str, torch.device]] = None):
-    """A reference ``DecodeState`` (KVCache / KVCacheQ leaves) -> the
-    port's, field by field."""
+    """A reference ``DecodeState`` (KVCache / KVCacheQ / MLSTMState /
+    SLSTMState / RGLRUState leaves) -> the port's, field by field."""
     dev = resolve_device(device)
-    classes = {"KVCache": KVCache, "KVCacheQ": KVCacheQ}
+    classes = {cls.__name__: cls for cls in (KVCache, KVCacheQ, MLSTMState,
+                                             SLSTMState, RGLRUState)}
 
     def cache(c):
         cls = classes[type(c).__name__]

@@ -68,8 +68,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.replicas > 1:
         raise NotImplementedError(
             "--replicas > 1 runs serve/cluster.py, which is not ported yet "
-            "(ROADMAP.md, port queue: 'The MoE model path, cluster, "
-            "resilience and trials, training')")
+            "(ROADMAP.md, port queue: 'Cluster, elastic, resilience and "
+            "trials')")
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = smoke_config(cfg)

@@ -1,6 +1,6 @@
-"""Model zoo, ported from ``src/repro/models``: the dense decoder for the
-attention-only block patterns (``qwen3-4b`` and its kin).  The MoE and
-recurrent blocks, ``loss_fn`` and remat wait for later slices (ROADMAP.md).
+"""Model zoo, ported from ``src/repro/models``: the unified decoder for all
+10 architectures (attention, MoE FFN, mLSTM / sLSTM / RG-LRU blocks).
+``loss_fn`` and remat wait for the training slice (ROADMAP.md).
 """
 
 from .decoder import (  # noqa: F401

@@ -1,21 +1,21 @@
-"""Decoder LM for the attention-only block patterns.  Port of
+"""Unified decoder LM covering all 10 architectures.  Port of
 ``src/repro/models/decoder.py``.
 
-Layer stacking as in the reference: the block pattern is tiled over
+Layer stacking as in the reference: the block pattern (e.g. ('attn',) or
+('rglru','rglru','local_attn') or 7x'mlstm'+1x'slstm') is tiled over
 num_layers as ``G full groups + R remainder layers``.  Group parameters are
 stacked with a leading G axis and run by a Python loop over the groups
 (the reference's ``lax.scan``); remainder layers are unrolled.
 
-Decode: per-layer KV caches are stacked per pattern position the same way.
-They are updated in place: a layer's cache is a view of its slice of the
-stacked tensors, written by indexed writes where the reference's
-``dynamic_update_index_in_dim`` returns a new array.  ``decode_step``
-returns the state it was given, advanced.
+Decode: per-layer caches (KV ring buffers / recurrent states) are stacked
+per pattern position the same way.  They are updated in place: a layer's
+cache is a view of its slice of the stacked tensors, written by indexed
+writes or ``copy_`` where the reference's ``dynamic_update_index_in_dim``
+returns a new array.  ``decode_step`` returns the state it was given,
+advanced.
 
-Not here yet (ROADMAP.md, port queue, "The MoE model path, cluster,
-resilience and trials, training"): the MoE FFN and the ``mlstm`` /
-``slstm`` / ``rglru`` block kinds, which raise ``NotImplementedError``;
-``loss_fn`` and remat, which belong to the training slice.
+Not here yet (ROADMAP.md, port queue): ``loss_fn`` and remat, which belong
+to the training slice.
 """
 
 from __future__ import annotations
@@ -44,22 +44,33 @@ from .layers import (
     unembed_logits,
 )
 from .mlp import init_mlp, mlp
+from .moe import init_moe, moe
+from .recurrent import (
+    init_mlstm,
+    init_mlstm_state,
+    init_rglru,
+    init_rglru_state,
+    init_slstm,
+    init_slstm_state,
+    mlstm_decode,
+    mlstm_parallel,
+    rglru,
+    rglru_decode,
+    slstm,
+    slstm_decode,
+)
 
-_ATTN_KINDS = ("attn", "local_attn")
-_LATER = ("ROADMAP.md, port queue: 'The MoE model path, cluster, "
-          "resilience and trials, training'")
+_MIXER_INIT = {
+    "attn": init_attention,
+    "local_attn": init_attention,
+    "mlstm": init_mlstm,
+    "slstm": init_slstm,
+    "rglru": init_rglru,
+}
 
 
-def _check_supported(cfg, kinds) -> None:
-    """Raise for what this slice does not run: MoE and recurrent blocks."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet ({_LATER})")
-    for kind in kinds:
-        if kind not in _ATTN_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet "
-                f"({_LATER})")
+def _has_ffn(cfg) -> bool:
+    return cfg.d_ff > 0 or cfg.moe is not None
 
 
 def tree_map(fn, *trees):
@@ -80,13 +91,12 @@ def tree_map(fn, *trees):
 
 
 def init_block(gen: torch.Generator, cfg, kind: str):
-    _check_supported(cfg, (kind,))
-    mix_p, mix_a = init_attention(gen, cfg)
+    mix_p, mix_a = _MIXER_INIT[kind](gen, cfg)
     params = {"norm1": norm_init(cfg.d_model, device=gen.device)[0],
               "mixer": mix_p}
     axes = {"norm1": Ax("embed"), "mixer": mix_a}
-    if cfg.d_ff > 0:
-        ff_p, ff_a = init_mlp(gen, cfg)
+    if _has_ffn(cfg):
+        ff_p, ff_a = (init_moe if cfg.moe is not None else init_mlp)(gen, cfg)
         params["norm2"] = norm_init(cfg.d_model, device=gen.device)[0]
         params["ffn"] = ff_p
         axes["norm2"] = Ax("embed")
@@ -96,12 +106,26 @@ def init_block(gen: torch.Generator, cfg, kind: str):
 
 def block_apply(params, cfg, kind: str, x, sin, cos):
     """Training/prefill block: returns (x, aux_loss)."""
-    _check_supported(cfg, (kind,))
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     window = cfg.window if kind == "local_attn" else 0
-    x = x + attention(params["mixer"], cfg, h, sin, cos, window=window)
+    if kind in ("attn", "local_attn"):
+        mix = attention(params["mixer"], cfg, h, sin, cos, window=window)
+    elif kind == "mlstm":
+        mix, _ = mlstm_parallel(params["mixer"], cfg, h)
+    elif kind == "slstm":
+        mix, _ = slstm(params["mixer"], cfg, h)
+    elif kind == "rglru":
+        mix, _ = rglru(params["mixer"], cfg, h)
+    else:
+        raise KeyError(kind)
+    x = x + mix
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.d_ff > 0:
+    if cfg.moe is not None:
+        h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
+        y, aux_l, _load = moe(params["ffn"], cfg, h2)
+        x = x + y
+        aux = aux + aux_l
+    elif cfg.d_ff > 0:
         h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
         x = x + mlp(params["ffn"], cfg, h2)
     return x, aux
@@ -109,15 +133,27 @@ def block_apply(params, cfg, kind: str, x, sin, cos):
 
 def block_decode(params, cfg, kind: str, x, sin, cos, cache):
     """One-token block; ``cache`` is updated in place and returned."""
-    _check_supported(cfg, (kind,))
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     window = cfg.window if kind == "local_attn" else 0
-    mix, cache = attention_decode(params["mixer"], cfg, h, sin, cos, cache,
-                                  window=window)
+    if kind in ("attn", "local_attn"):
+        mix, cache = attention_decode(params["mixer"], cfg, h, sin, cos,
+                                      cache, window=window)
+    elif kind == "mlstm":
+        mix, cache = mlstm_decode(params["mixer"], cfg, h, cache)
+    elif kind == "slstm":
+        mix, cache = slstm_decode(params["mixer"], cfg, h, cache)
+    elif kind == "rglru":
+        mix, cache = rglru_decode(params["mixer"], cfg, h, cache)
+    else:
+        raise KeyError(kind)
     x = x + mix
-    if cfg.d_ff > 0:
+    if _has_ffn(cfg):
         h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
-        x = x + mlp(params["ffn"], cfg, h2)
+        if cfg.moe is not None:
+            y, _aux, _load = moe(params["ffn"], cfg, h2)
+        else:
+            y = mlp(params["ffn"], cfg, h2)
+        x = x + y
     return x, cache
 
 
@@ -142,7 +178,6 @@ def _stack_init(init_fn, n: int):
 def init_decoder(seed: int, cfg, *, device=None):
     """(params, axes) of the decoder, drawn from ``torch.Generator`` seeded
     with ``seed`` on ``device`` (the card unless ``"cpu"``)."""
-    _check_supported(cfg, cfg.pattern_layers)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     g, pattern, remainder = _group_split(cfg)
@@ -229,10 +264,18 @@ class DecodeState(NamedTuple):
 
 def _cache_for(cfg, kind: str, batch: int, max_len: int,
                device: Optional[torch.device]):
-    _check_supported(cfg, (kind,))
-    window = cfg.window if kind == "local_attn" else 0
-    init = init_kv_cache_q if cfg.kv_cache_dtype == "int8" else init_kv_cache
-    return init(cfg, batch, max_len, window=window, device=device)
+    if kind in ("attn", "local_attn"):
+        window = cfg.window if kind == "local_attn" else 0
+        init = (init_kv_cache_q if cfg.kv_cache_dtype == "int8"
+                else init_kv_cache)
+        return init(cfg, batch, max_len, window=window, device=device)
+    if kind == "mlstm":
+        return init_mlstm_state(cfg, batch, device=device)
+    if kind == "slstm":
+        return init_slstm_state(cfg, batch, device=device)
+    if kind == "rglru":
+        return init_rglru_state(cfg, batch, device=device)
+    raise KeyError(kind)
 
 
 def init_decode_state(cfg, batch: int, max_len: int, *,

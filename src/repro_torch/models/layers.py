@@ -6,8 +6,7 @@ takes a ``torch.Generator`` (its device is where the parameters are made)
 and returns (params, axes), axes mirroring params with ``sharding.Ax``
 leaves naming the logical axes of each tensor.  A generator cannot give
 ``jax.random``'s bits, so the tests hand both packages the same parameters
-through ``repro_torch.convert``.  ``conv1d_init`` / ``causal_conv1d`` wait
-for the recurrent slice (ROADMAP.md).
+through ``repro_torch.convert``.
 """
 
 from __future__ import annotations
@@ -133,6 +132,40 @@ def unembed_logits(x: torch.Tensor, table: torch.Tensor,
         t = use_weight(t, cfg, "vocab", None)
     logits = x.float() @ t.T
     return shard_as(logits, "batch", "seq", "vocab")
+
+
+# ---------------------------------------------------------------------------
+# temporal conv (recurrent blocks)
+# ---------------------------------------------------------------------------
+
+
+def conv1d_init(gen: torch.Generator, width: int, channels: int,
+                dtype=torch.float32):
+    w = torch.randn((width, channels), generator=gen, dtype=dtype,
+                    device=gen.device)
+    return w.mul_((1.0 / width) ** 0.5), Ax("conv", "lru")
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x (b, s, c), w (width, c).
+
+    Training/prefill: state=None, zero left-pad, returns (y, last (width-1)
+    inputs as new state).  Decode: x (b, 1, c) with state (b, width-1, c).
+    The taps are summed in the reference's order, tap 0 first.
+    """
+    width = w.shape[0]
+    if state is None:
+        pad = torch.zeros(x.shape[:1] + (width - 1,) + x.shape[2:],
+                          dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    s = x.shape[1]
+    y = sum(xp[:, i:i + s, :] * w[i][None, None, :].to(x.dtype)
+            for i in range(width))
+    new_state = xp[:, xp.shape[1] - (width - 1):, :]
+    return y, new_state
 
 
 def dtype_of(name: str) -> torch.dtype:

@@ -4,15 +4,18 @@
 Binds the DLS RequestScheduler to `models.decode_step`: a fixed pool of
 `slots` decodes in lockstep (one batched step); when a slot's request
 finishes, the engine pulls a DLS-sized chunk of queued requests (FAC2 by
-default) and refills free slots.  The KV state of a freed slot is reset in
-place and the new request's prompt is prefilled token by token through the
-same step function.
+default) and refills free slots.  A freed slot's caches (KV and recurrent
+states) are reset in place to a fresh single-lane state and the new
+request's prompt is prefilled token by token through the same step
+function.
 
 Differences from the reference, none of which changes a greedy output:
   * eager PyTorch, no ``jit``;
-  * the matmul weights (attention and FFN) are cast to the compute dtype
-    once, at construction, where the reference casts them in every step —
-    the same values; embeddings and norms stay as given;
+  * the matmul weights that the reference casts at their use (attention,
+    FFN and expert stacks, the recurrent mixers' projections) are cast to
+    the compute dtype once, at construction — the same values; what the
+    reference uses in fp32 (router, router bias, gates, ``r``, ``b``,
+    ``lam``, conv taps), embeddings and norms stay as given;
   * the decode state is updated in place;
   * sampled decoding (``greedy=False``) draws from a ``torch.Generator``
     seeded with ``seed``; it cannot give ``jax.random``'s bits.
@@ -38,8 +41,11 @@ from .scheduler import Request, RequestScheduler
 
 __all__ = ["DecodeEngine", "EngineStats"]
 
-#: the weights the model casts to the compute dtype at use
-_MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "wi", "wg")
+#: the weights the model casts to the compute dtype at use: attention
+#: (wq, wk, wv, wo), the FFN and the expert stacks (wi, wg, wo), the mLSTM
+#: projections (wq, wk, wv, wo), the sLSTM input projection (w) and the
+#: RG-LRU projections (wx, wgate, wo)
+_MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "wi", "wg", "w", "wx", "wgate")
 
 
 @dataclasses.dataclass
@@ -112,6 +118,10 @@ class DecodeEngine:
         self._outputs: dict[int, list[int]] = {}
         self._tokens = np.zeros((slots, 1), np.int32)
         self._used = [False] * slots
+        # what a reused lane is reset to: recurrent states do not start at
+        # zero (the mLSTM / sLSTM stabiliser m starts at -1e30)
+        self._fresh = init_decode_state(cfg, 1, max_len=max_len,
+                                        device=self.device)
         # decode steps spent on the slot's current admission chunk — the
         # throughput measurement fed back to the DLS scheduler
         self._chunk_steps = [0] * slots
@@ -126,15 +136,17 @@ class DecodeEngine:
         self.plan_cache_hits = 0     # plans served from the memo cache
 
     def _reset_lane(self, s: int) -> None:
-        """Zero lane s of every cache and its positions in place, as the
-        reference splices in a fresh single-lane state; pos 0 masks the
-        stale KV entries."""
-        for caches in self.state.group_caches:
-            for t in caches:
-                t[:, s] = 0          # stacked (G, b, ...)
-        for cache in self.state.rem_caches:
-            for t in cache:
-                t[s] = 0
+        """Splice the fresh single-lane state into lane s in place: per-lane
+        pos -> 0 (which masks the stale KV entries) and recurrent states
+        back to their initial values."""
+        fresh = self._fresh
+        for caches, f_caches in zip(self.state.group_caches,
+                                    fresh.group_caches):
+            for t, f in zip(caches, f_caches):
+                t[:, s] = f[:, 0]    # stacked (G, b, ...)
+        for cache, f_cache in zip(self.state.rem_caches, fresh.rem_caches):
+            for t, f in zip(cache, f_cache):
+                t[s] = f[0]
         self.state.pos[s] = 0
 
     # -- public ----------------------------------------------------------------

@@ -225,10 +225,67 @@ def _check_gmm(dev, shape):
     assert torch.equal(grouped_matmul(x, w, tile_order=perm, block_rows=bm), out)
 
 
-def test_gmm_tails_and_one_cta_ring(dev):
+def _moe_case(dev, **kw):
+    """(cfg, params, x) of a small MoE FFN: 8 experts, d 256, expert d_ff
+    256, top-2, ragged dispatch, bf16; 2 x 300 tokens in 2 groups give
+    ``cap`` 96 and 192 rows an expert, padded to 256 for the kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.moe import init_moe
+
+    base = get_arch("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(
+        base, d_model=256, compute_dtype="bfloat16", moe=dataclasses.replace(
+            base.moe, num_experts=8, top_k=2, d_ff=256, dispatch="ragged"))
+    cfg = dataclasses.replace(cfg, **kw)
+    params, _ = init_moe(torch.Generator(device=dev).manual_seed(0), cfg)
+    return cfg, params, _randn(dev, 2, 300, cfg.d_model, seed=6)
+
+
+def _plain_grouped_matmul(xe, w, *, block_rows, **_):
+    """``grouped_matmul``'s identity-order product on the plain version."""
+    e, r, d = xe.shape
+    tiles = r // block_rows
+    te = torch.arange(e * tiles, device=xe.device) // tiles
+    return gm.grouped_matmul_tiles_plain(
+        xe.reshape(e * tiles, block_rows, d), w, te).reshape(e, r, -1)
+
+
+def _check_moe_ragged(dev, monkeypatch):
+    """``moe_ragged`` on CUDA tensors: one ``gmm`` launch per projection,
+    each with one CTA per SM, against the same call with the plain version
+    in place of ``grouped_matmul``; two runs bit-identical."""
+    from repro_torch.kernels.grouped_matmul import ops
+    from repro_torch.models import moe as tmoe
+
+    cfg, params, x = _moe_case(dev)
+    assert tmoe._capacity(cfg, 300) % 128
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ctas = []
+    real = ops.gmm_cuda
+
+    def spy(x_tiles, w, te, order, bounds, n_span):
+        ctas.append(len(bounds) - 1)
+        return real(x_tiles, w, te, order, bounds, n_span)
+
+    monkeypatch.setattr(ops, "gmm_cuda", spy)
+    before = gm.GMM.launches
+    y, _, load = tmoe.moe_ragged(params, cfg, x)
+    assert gm.GMM.launches == before + 3 and ctas == [n_sm] * 3
+    assert torch.equal(tmoe.moe_ragged(params, cfg, x)[0], y)
+    monkeypatch.setattr(tmoe, "grouped_matmul", _plain_grouped_matmul)
+    want, _, want_load = tmoe.moe_ragged(params, cfg, x)
+    assert gm.GMM.launches == before + 6
+    _assert_close(y, want)
+    assert torch.equal(load, want_load)
+
+
+def test_gmm_tails_and_one_cta_ring(dev, monkeypatch):
     """The d tail, the 128-column tail and a single tile, then sched_p = 1:
     one CTA walks every unit, so its stage ring wraps many times and its
-    phase bits carry on across units and tiles.
+    phase bits carry on across units and tiles.  Last, the MoE model's
+    ragged dispatch, whose expert rows are padded to the 128-row tile.
 
     The cases share one test instead of being parametrize items only while
     the reference's order-dependent ``test_shard_as_applies_constraint``
@@ -252,15 +309,32 @@ def test_gmm_tails_and_one_cta_ring(dev):
     rows = np.array([512, 3, 0, 200])
     assert torch.equal(grouped_matmul(x, w, block_rows=bm, schedule="fac2",
                                       expert_rows=rows, sched_p=1), out)
+    _check_moe_ragged(dev, monkeypatch)
 
 
 def test_gmm_rejects_what_the_kernel_does_not_take(dev):
+    """Also through the MoE model's ragged dispatch: fp32 tensors and an
+    expert d_ff that is not a multiple of 128 raise; nothing falls back to
+    the einsum."""
+    import dataclasses
+
+    from repro_torch.models.moe import moe_ragged
+
     x = _randn(dev, 2, 128, 64)
     with pytest.raises(ValueError, match="f %"):
         grouped_matmul(x, _randn(dev, 2, 64, 96), block_rows=128)
     with pytest.raises(TypeError, match="bfloat16"):
         grouped_matmul(x.float(), _randn(dev, 2, 64, 128).float(),
                        block_rows=128)
+    cfg, params, xm = _moe_case(dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        moe_ragged(params, cfg, xm.float())
+    cfg96 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                             d_ff=96))
+    params96 = {k: (v[..., :96] if k in ("wi", "wg") else
+                    v[:, :96] if k == "wo" else v) for k, v in params.items()}
+    with pytest.raises(ValueError, match="f %"):
+        moe_ragged(params96, cfg96, xm)
 
 
 def test_build_is_cached_and_counted(dev):

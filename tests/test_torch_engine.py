@@ -1,13 +1,22 @@
 """The port's DecodeEngine (``repro_torch.serve``) against the reference's,
 on the CPU: the runs of tests/test_engine.py on both packages.
 
-fp32 smoke qwen3-4b, parameters from the reference's ``init_decoder``
-through ``repro_torch.convert``.  Every run must give, exactly: the greedy
-tokens per request, the ``EngineStats`` counters, the shed requests, the
-``decode_kv`` plan records, the scheduler's pull sequence, the chunk
-measurements reported back to it and the plan-cache counters.  The fp32
-logits of the two packages differ by about 1e-7 (tests/test_torch_models.py),
-far below the gaps greedy decoding picks between on these runs.
+fp32 smoke qwen3-4b, and for the lane-reuse cases fp32 smoke xlstm-1.3b
+(recurrent states) and granite-moe-1b-a400m (MoE FFN); parameters from the
+reference's ``init_decoder`` through ``repro_torch.convert``.  Every run
+must give, exactly: the greedy tokens per request, the ``EngineStats``
+counters, the shed requests, the ``decode_kv`` plan records, the
+scheduler's pull sequence, the chunk measurements reported back to it, the
+plan-cache counters, and the state of every lane right after the engine
+resets it for reuse (a fresh single-lane state: zero KV caches and
+positions, the mLSTM / sLSTM stabiliser m at -1e30).  The fp32 logits of
+the two packages differ by about 1e-7 (tests/test_torch_models.py), far
+below the gaps greedy decoding picks between on these runs.
+
+The reset state is compared directly because the greedy tokens cannot
+show a wrong stabiliser: m is a log-space scale that cancels in the
+normalised mLSTM / sLSTM readouts, so a lane reset to m = 0 decodes the
+same tokens up to rounding, while its state differs from the reference's.
 """
 
 import dataclasses
@@ -22,6 +31,7 @@ if not hasattr(jax.experimental, "enable_x64"):
 
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import ARCHS as REF_ARCHS, smoke_config as ref_smoke
 from repro.core import jax_sched
@@ -35,16 +45,34 @@ from repro_torch.serve.engine import DecodeEngine
 from repro_torch.serve.scheduler import Request
 
 
-@pytest.fixture(scope="module")
-def models():
+def _models(arch):
     kw = dict(prefix_len=0, compute_dtype="float32")
-    cfg = dataclasses.replace(ref_smoke(REF_ARCHS["qwen3-4b"]), **kw)
-    tcfg = dataclasses.replace(smoke_config(ARCHS["qwen3-4b"]), **kw)
+    cfg = dataclasses.replace(ref_smoke(REF_ARCHS[arch]), **kw)
+    tcfg = dataclasses.replace(smoke_config(ARCHS[arch]), **kw)
     params, _ = init_decoder(jax.random.key(0), cfg)
     tparams = decoder_params_from_jax(jax.tree.map(np.asarray, params),
                                       device="cpu")
     return {"ref": (RefEngine, RefRequest, cfg, params, {}),
             "port": (DecodeEngine, Request, tcfg, tparams, {"device": "cpu"})}
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models("qwen3-4b")
+
+
+@pytest.fixture(scope="module",
+                params=("xlstm-1.3b", "granite-moe-1b-a400m"))
+def family_models(request):
+    return _models(request.param)
+
+
+def _lane_state(state, s):
+    """Lane ``s`` of every cache tensor and its position, as float lists."""
+    leaves = ([t[:, s] for c in state.group_caches for t in c]
+              + [t[s] for c in state.rem_caches for t in c] + [state.pos[s]])
+    return [(x.float().numpy() if isinstance(x, torch.Tensor)
+             else np.asarray(x, np.float32)).tolist() for x in leaves]
 
 
 def _run_both(models, scenario, **engine_kw):
@@ -71,6 +99,14 @@ def _run_both(models, scenario, **engine_kw):
                 complete(worker, elapsed=elapsed)
 
             eng.sched.pull, eng.sched.complete = spy_pull, spy_complete
+            eng.resets = []
+            reset = eng._reset_lane
+
+            def spy_reset(s, eng=eng, reset=reset):
+                reset(s)
+                eng.resets.append((s, _lane_state(eng.state, s)))
+
+            eng._reset_lane = spy_reset
             engines.append(eng)
             return eng
 
@@ -89,6 +125,7 @@ def _run_both(models, scenario, **engine_kw):
             "reported": [e.reported for e in engines],
             "plans": [(e.plan_calls, e.plan_cache_hits) for e in engines],
             "backlog": [e.sched.backlog for e in engines],
+            "resets": [e.resets for e in engines],
         }
     for key, want in seen["ref"].items():
         assert seen["port"][key] == want, key
@@ -122,6 +159,38 @@ def test_engine_lane_isolation(models):
         return [alone.run(), seq.run()]
 
     got = _run_both(models, scenario)
+    assert got["outputs"][1][100] == got["outputs"][0][100]
+
+
+def test_engine_reused_lanes_match_on_other_families(family_models):
+    """More requests than slots, so lanes are reset and reused: a reused
+    lane must start from a fresh state (the mLSTM / sLSTM stabiliser m at
+    -1e30, not 0) for the tokens to match the reference's."""
+    def scenario(engine, req):
+        eng = engine(slots=2, max_len=64)
+        for i in range(6):
+            eng.submit(req(i, new=6))
+        return [eng.run()]
+
+    got = _run_both(family_models, scenario)
+    assert got["stats"][0][:3:2] == (6, 36)
+    assert len(got["resets"][0]) == 4
+
+
+def test_engine_lane_isolation_on_other_families(family_models):
+    """A request decodes the same alone as on a lane another request used."""
+    prompt = [int(t) for t in np.random.default_rng(7).integers(2, 200, 6)]
+    first = [int(t) for t in np.random.default_rng(3).integers(2, 200, 10)]
+
+    def scenario(engine, req):
+        alone = engine(slots=1, max_len=64)
+        alone.submit(req(100), prompt=list(prompt))
+        seq = engine(slots=1, max_len=64)
+        seq.submit(req(99), prompt=list(first))
+        seq.submit(req(100), prompt=list(prompt))
+        return [alone.run(), seq.run()]
+
+    got = _run_both(family_models, scenario)
     assert got["outputs"][1][100] == got["outputs"][0][100]
 
 

@@ -277,13 +277,6 @@ def test_port_init_decoder_shapes_match_reference(model):
     assert float(w.abs().max()) <= 2.0 * 64 ** -0.5 + 1e-7   # truncated at 2
 
 
-@pytest.mark.parametrize("arch", ("qwen3-moe-30b-a3b", "xlstm-1.3b",
-                                  "recurrentgemma-2b"))
-def test_later_slices_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm.init_decoder(0, smoke_config(ARCHS[arch]), device="cpu")
-
-
 def test_entry_points_need_a_card_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is the card")
