@@ -30,14 +30,18 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                the identity order with every tile on expert 0
   flash_dense  the dense kernel against its plain version at the prefill's
                shape (qwen3-4b: 1 x 4096, 32 q heads, 8 KV heads,
-               head_dim 128, causal) and at small ragged shapes (s not a
-               multiple of the tile, MQA, head_dim 64, windows 32 and 200);
-               its time (single calls and back to back), the plain
-               version's, and
-               ``scaled_dot_product_attention(is_causal=True)``'s on the same
-               tensors as a yardstick (the port never calls it), and
-               ``digest``: a hash of its outputs on inputs of a seed of
-               their own, equal across builds that compute the same bits
+               head_dim 128, causal), at the full attention shapes of
+               stablelm-3b (1 x 4096, 32 / 32 heads, head_dim 80, computed
+               at 128, causal) and recurrentgemma-2b (1 x 4096, 10 / 1
+               heads, head_dim 256, window 2048), and at small ragged
+               shapes (s not a multiple of the tile, MQA, head_dims 64, 80
+               and 256, windows from 1 to 2048); per full shape
+               (``by_head_dim``) its time (single calls and back to back),
+               the plain version's, and ``scaled_dot_product_attention``'s
+               with the same mask on the same tensors as a yardstick (the
+               port never calls it), and ``digest``: a hash of its outputs
+               (head dims 128 and 64) on inputs of a seed of their own,
+               equal across builds that compute the same bits
   prefill      launch counts set to 0, then ``models.forward`` of full-width,
                full-depth qwen3-4b (36 layers, random fp32 weights from seed
                0, bf16 compute) on 1 x 4096 tokens from numpy seed 0; the
@@ -68,17 +72,38 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                same model: 8 requests, 4 slots, max_len 256, fac2, bf16 KV;
                a device profile of a short run
   recurrent    xlstm-1.3b and recurrentgemma-2b at full width and depth:
-               a 4096-token prefill (launch counts from 0).  recurrentgemma's
-               head_dim 256 is outside flash_dense's (64, 128), so its
-               4096-token prefill is not ported: the phase checks that it
-               raises ValueError and times nothing of it.  Then a device
+               a 4096-token prefill (launch counts from 0; recurrentgemma's
+               8 ``local_attn`` layers launch flash_dense at head_dim 256,
+               window 2048, once each) and a device profile of it where it
+               launches flash_dense.  Then a device
                profile of a 512-token prefill (below flash_threshold, the
                einsum attention of every arch), ``forward`` against
                ``decode_step`` on one block-pattern period (8 and 3 layers)
                fed the same tokens, and ``DecodeEngine`` with 4 requests on
                2 slots, so that lanes are reset and reused
+  prefill_80   launch counts set to 0, then ``models.forward`` of
+               full-width, full-depth stablelm-3b (32 layers, head_dim 80,
+               random fp32 weights from seed 0, ~11 GB, bf16 compute) on
+               1 x 4096 tokens; the counts are read right after
+               (flash_dense: 32).  Wall time, tokens/s, a device profile
+  campaign     the port's campaign engine (``core.graph_sim``) on the card
+               at the paper's Table 1 size: 352.nab (N 44,794) on
+               miniHPC-Broadwell (p 20) and miniHPC-KNL (p 64), the
+               campaign's 9 adaptive techniques at every Table 1 chunk
+               parameter, 5 repetitions (folded into one lane each: the
+               simulator is deterministic), 3 of 352.nab's 1,002
+               time-steps, held against the host ``batch_sim`` (rtol 1e-9
+               at p >= 8, BOLD's log-ulp tolerance the same); lanes,
+               rounds, host syncs and wall time, and a device profile of
+               one technique's lane group; then
+               ``auto_simulate(engine="graph")`` on the card against
+               ``engine="batch"`` (the same arms) and
+               ``plan_schedule(backend="graph")`` on the card against the
+               host plan for every plannable technique at p 20 and 64
   kernels      the summary line, one entry per kernel; ``launches`` sums
                the counted runs of every path that launches the kernel
+               (``launches_by_path``); flash_dense's entry carries
+               ``by_head_dim``
 
 then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises and the
@@ -86,10 +111,14 @@ script exits non-zero; it also exits non-zero, printing no result, when no
 CUDA device is present or ``src/repro_torch`` is missing beside it.
 
     python3 chip_smoke.py --dense-digest [SRC]
+    python3 chip_smoke.py --dense-times [SRC]
 
-prints only that digest, for the package under ``SRC`` (default: this
-checkout's ``src``), so that another tree's ``flash_dense`` can be held
-against this one bit for bit.
+print only that digest, or only ``flash_dense``'s single-call and
+back-to-back times at the prefill's shape (head_dim 128, causal) and at
+head_dim 64 with a window of 200, for the package under ``SRC``
+(default: this checkout's ``src``), so that another tree's
+``flash_dense`` can be held against this one bit for bit, and timed
+against it in turns (parent, change, change, parent) in one call.
 
 Tolerance of the 2-layer ``forward`` / ``decode_step`` comparison (bf16
 compute), also held by the recurrent ``forward`` / ``decode_step``
@@ -146,6 +175,10 @@ MOE_ROUTED_ALIKE = 0.90
 RECURRENT_ARCHS = ("xlstm-1.3b", "recurrentgemma-2b")
 RECURRENT_PARITY_S, RECURRENT_PROFILE_S = 640, 512
 RECURRENT_REQUESTS, RECURRENT_SLOTS = 4, 2
+# this slice: flash_dense at head dim 80 (src/repro/configs/stablelm_3b.py)
+DENSE80_ARCH = "stablelm-3b"
+# the campaign phase: time-steps of each Table 1 config (of 352.nab's 1,002)
+CAMPAIGN_TIMESTEPS = 3
 IDENTITY_SCHEDULES = ("static", "ss", "gss", "fac2", "awf_b", "ws_rr",
                       "dls_steal")
 
@@ -393,11 +426,84 @@ def dense_digest(dev):
     return h.hexdigest()[:16]
 
 
-def phase_flash_dense(dev, randn):
-    """The dense kernel against its plain version at the prefill's shape and
-    at small ragged ones; its times and its bound.  Returns the fields of
-    its ``kernels`` entry (launches come from the prefill)."""
+def dense_kernel_ms(q, k, v, window):
+    """``flash_dense``'s kernel alone, causal: (ms of single calls, ms back
+    to back)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    def kernel():
+        return fa._flash_dense_cuda(q, k, v, causal=True, window=window)
+
+    return cuda_ms(kernel, REPS), cuda_ms_b2b(kernel, REPS)
+
+
+def dense_full_shape(dev, randn, plain, b, s, h, kvh, hd, window):
+    """``flash_dense`` at one full (b, s, h, kvh, hd, window) shape, causal:
+    the kernel against its plain version, its times (single calls and back
+    to back), the plain version's, ``scaled_dot_product_attention``'s with
+    the same mask (a yardstick: the port never calls it) and the bound from
+    the live (row, column) pairs.  Returns (fields, the kernel's output)."""
     import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    q, k, v = randn(b, s, h, hd), randn(b, s, kvh, hd), randn(b, s, kvh, hd)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    err = check_close(f"flash_dense hd {hd}", out, plain(q, k, v, True,
+                                                          window))
+    ms, ms_b2b = dense_kernel_ms(q, k, v, window)
+    call_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
+                                              window=window), REPS)
+    plain_ms = cuda_ms(lambda: plain(q, k, v, True, window), 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.permute(0, 2, 1, 3)
+    kt, vt = (x.permute(0, 2, 1, 3).repeat_interleave(h // kvh, dim=1)
+              for x in (k, v))
+    if window > 0:
+        i = torch.arange(s, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+
+        def run_sdpa():
+            return sdpa(qt, kt, vt, attn_mask=mask)
+    else:
+        def run_sdpa():
+            return sdpa(qt, kt, vt, is_causal=True)
+    library_ms = cuda_ms(run_sdpa, REPS)
+    sdpa_err = float((run_sdpa().permute(0, 2, 1, 3).float()
+                      - out.float()).abs().max())
+    # live (row, col) pairs: row r sees min(r + 1, window) columns
+    rows = torch.arange(1, s + 1, dtype=torch.float64)
+    pairs = int((torch.minimum(rows, torch.tensor(float(window)))
+                 if window > 0 else rows).sum())
+    flops = 4 * hd * b * h * pairs
+    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(shape=[b, s, h, kvh, hd], window=window, max_abs_err=err,
+                ms=ms, ms_b2b=ms_b2b, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                sdpa_max_abs_diff=sdpa_err, flops=flops, bytes=nbytes), out
+
+
+def dense_times(dev):
+    """``flash_dense``'s ms and ms_b2b at the qwen3-4b prefill's shape and
+    at head_dim 64, window 200, on inputs of a seed of their own."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for key, (b, s, h, kvh, hd, win) in (
+            ("hd128", (1, PREFILL_S, 32, 8, 128, 0)),
+            ("hd64_w200", (1, PREFILL_S, 32, 8, 64, 200))):
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                   .to(torch.bfloat16) for n in (h, kvh, kvh))
+        ms, ms_b2b = dense_kernel_ms(q, k, v, win)
+        out[key] = {"ms": ms, "ms_b2b": ms_b2b}
+    return out
+
+
+def phase_flash_dense(dev, randn):
+    """The dense kernel against its plain version at the prefill's shape,
+    at the full attention shapes of stablelm-3b (head dim 80, computed at
+    128) and recurrentgemma-2b (head dim 256, window 2048) and at small
+    ragged ones; times and bounds of each full shape.  Returns the fields
+    of its ``kernels`` entry (launches come from the prefills)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -413,7 +519,16 @@ def phase_flash_dense(dev, randn):
                                           (1, 200, 4, 1, 64, 32, True),
                                           (2, 333, 8, 2, 128, 200, True),
                                           (1, 1000, 4, 1, 64, 200, True),
-                                          (1, 96, 2, 2, 64, 0, False)):
+                                          (1, 96, 2, 2, 64, 0, False),
+                                          # the padded head dims
+                                          (1, 300, 4, 2, 80, 0, True),
+                                          (2, 333, 4, 1, 80, 100, True),
+                                          (1, 200, 2, 2, 80, 0, False),
+                                          (1, 300, 4, 2, 256, 0, True),
+                                          (2, 333, 5, 1, 256, 100, True),
+                                          (1, 2100, 10, 1, 256, 2048, True),
+                                          (1, 129, 2, 1, 256, 1, True),
+                                          (1, 200, 2, 2, 256, 0, False)):
         qs, ks, vs = randn(b, s, h, hd), randn(b, s, kvh, hd), \
             randn(b, s, kvh, hd)
         got = flash_attention(qs, ks, vs, causal=causal, window=win)
@@ -421,45 +536,37 @@ def phase_flash_dense(dev, randn):
         small[key] = check_close("flash_dense small", got,
                                  plain(qs, ks, vs, causal, win))
 
-    cfg = get_arch(ARCH)
-    b, s = 1, PREFILL_S
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q, k, v = randn(b, s, h, hd), randn(b, s, kvh, hd), randn(b, s, kvh, hd)
-    out = flash_attention(q, k, v, causal=True)
-    err = check_close("flash_dense", out, plain(q, k, v))
-
-    def kernel():
-        return fa._flash_dense_cuda(q, k, v, causal=True, window=0)
-
-    ms, ms_b2b = cuda_ms(kernel, REPS), cuda_ms_b2b(kernel, REPS)
-    call_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), REPS)
-    plain_ms = cuda_ms(lambda: plain(q, k, v), 3)
-    # yardstick only: one PyTorch call for the same function
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt = q.permute(0, 2, 1, 3)
-    kt, vt = (x.permute(0, 2, 1, 3).repeat_interleave(h // kvh, dim=1)
-              for x in (k, v))
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), REPS)
-    sdpa_err = float((sdpa(qt, kt, vt, is_causal=True).permute(0, 2, 1, 3)
-                      .float() - out.float()).abs().max())
-    flops = 4 * hd * b * h * (s * (s + 1) // 2)      # live (row, col) pairs
-    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
-    bound_ms, bound_by = bound(flops, nbytes)
-    fields = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                  bound_ms=bound_ms, bound_by=bound_by,
-                  library_ms=library_ms)
-    emit("flash_dense", shape=[b, s, h, kvh, hd], causal=True,
-         digest=dense_digest(dev),
-         small_max_abs_err=small, ms_b2b=ms_b2b, call_ms=call_ms,
-         sdpa_max_abs_diff=sdpa_err,
-         flops=flops, bytes=nbytes, **fields)
+    by_head_dim = {}
+    for arch, window in ((ARCH, 0), ("stablelm-3b", 0),
+                         ("recurrentgemma-2b", 2048)):
+        cfg = get_arch(arch)
+        assert cfg.window in (0, window), (arch, cfg.window)
+        fields, _ = dense_full_shape(
+            dev, randn, plain, 1, PREFILL_S, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, window)
+        by_head_dim[str(cfg.resolved_head_dim)] = dict(arch=arch, **fields)
+    main = by_head_dim["128"]
+    fields = {k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+    emit("flash_dense", shape=main["shape"], causal=True,
+         digest=dense_digest(dev), small_max_abs_err=small,
+         ms_b2b=main["ms_b2b"], call_ms=main["call_ms"],
+         sdpa_max_abs_diff=main["sdpa_max_abs_diff"], flops=main["flops"],
+         bytes=main["bytes"], by_head_dim=by_head_dim, **fields)
+    fields["max_abs_err"] = max(r["max_abs_err"] for r in by_head_dim.values())
+    fields["by_head_dim"] = {
+        hd: {k: r[k] for k in ("arch", "shape", "window", "max_abs_err", "ms",
+                               "ms_b2b", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")}
+        for hd, r in by_head_dim.items()}
     return fields
 
 
-def phase_prefill(dev, cfg, params):
+def phase_prefill(dev, cfg, params, phase="prefill", parity=True):
     """``forward`` of the full model with the counts from 0 (the slice's
-    main path), then timing, a device profile and the 2-layer comparison
-    of ``forward`` with ``decode_step``.  Returns the launch counts."""
+    main path), then timing, a device profile and (``parity``) the 2-layer
+    comparison of ``forward`` with ``decode_step``.  Returns the launch
+    counts."""
     import numpy as np
     import torch
     from repro_torch.kernels import _build
@@ -486,7 +593,15 @@ def phase_prefill(dev, cfg, params):
     run()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    prof = device_profile(run)
+    prof = device_profile(run, watch=("flash_dense",))
+    fields = dict(arch=cfg.name, layers=cfg.num_layers, tokens=PREFILL_S,
+                  head_dim=cfg.resolved_head_dim, launches=launches,
+                  first_s=first_s, warm_s=warm_s,
+                  tokens_per_s=PREFILL_S / warm_s, profile=prof)
+    if not parity:
+        emit(phase, cut="none: full width and depth; random fp32 weights "
+             "from seed 0", **fields)
+        return launches
 
     # forward against decode_step on the same tokens, 2 layers
     cfg2, params2 = first_layers(cfg, params, PARITY_LAYERS)
@@ -496,9 +611,7 @@ def phase_prefill(dev, cfg, params):
     max_diff, agree, decode_s, logit_abs_max = decode_parity(dev, cfg2,
                                                              params2, tok2)
     assert _build.KERNELS["flash_dense"].launches == before + PARITY_LAYERS
-    emit("prefill", arch=cfg.name, layers=cfg.num_layers,
-         tokens=PREFILL_S, launches=launches, first_s=first_s, warm_s=warm_s,
-         tokens_per_s=PREFILL_S / warm_s, profile=prof,
+    emit(phase, **fields,
          parity={"layers": PARITY_LAYERS, "s": PARITY_S,
                  "max_abs_diff": max_diff, "argmax_agreement": agree,
                  "tolerance": [PARITY_MAX_DIFF, PARITY_ARGMAX],
@@ -779,20 +892,15 @@ def phase_moe_serve(dev, cfg, params):
 
 def phase_recurrent(dev, arch):
     """A full-width, full-depth recurrent model: 4096-token prefill with the
-    counts from 0, a profile of a short prefill, forward against
-    decode_step on one block-pattern period, and serving with lane reuse.
-
-    ``flash_dense`` takes head dims 64 and 128.  A model with local
-    attention of another head dim (recurrentgemma-2b: 256) raises above
-    ``flash_threshold`` rather than fall back to the einsum, so its
-    4096-token prefill is not ported: the phase checks that it raises and
-    reports no time for it."""
+    counts from 0 (recurrentgemma-2b's local attention runs ``flash_dense``
+    at head dim 256, once per ``local_attn`` layer), a profile of the warm
+    prefill where it launches ``flash_dense`` and of a short prefill,
+    forward against decode_step on one block-pattern period, and serving
+    with lane reuse.  Returns the prefill's launch counts."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        KERNEL_HEAD_DIMS)
     from repro_torch.models import forward, init_decoder
 
     cfg = get_arch(arch)
@@ -802,31 +910,27 @@ def phase_recurrent(dev, arch):
         0, cfg.vocab_size, (1, PREFILL_S))).to(dev)
     torch.cuda.synchronize()
     _build.reset_launches()
-    if ("local_attn" in cfg.block_pattern
-            and cfg.resolved_head_dim not in KERNEL_HEAD_DIMS):
-        try:
-            forward(params, cfg, tokens)
-        except ValueError as err:
-            prefill = {"ported": False, "raises": f"ValueError: {err}"}
-        else:
-            raise AssertionError(f"{arch}: head_dim {cfg.resolved_head_dim} "
-                                 "reached flash_dense")
-        launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
-    else:
-        t0 = time.perf_counter()
-        logits, _ = forward(params, cfg, tokens)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
-        assert tuple(logits.shape) == (1, PREFILL_S, cfg.padded_vocab)
-        assert bool(torch.isfinite(logits).all()), f"{arch} logits not finite"
-        del logits
-        t0 = time.perf_counter()
-        forward(params, cfg, tokens)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        prefill = {"ported": True, "first_s": first_s, "warm_s": warm_s,
-                   "tokens_per_s": PREFILL_S / warm_s}
+    t0 = time.perf_counter()
+    logits, _ = forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
+    n_attn = sum(kind in ("attn", "local_attn")
+                 for kind in cfg.pattern_layers)
+    assert launches["flash_dense"] == n_attn, (arch, launches, n_attn)
+    assert tuple(logits.shape) == (1, PREFILL_S, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all()), f"{arch} logits not finite"
+    del logits
+    t0 = time.perf_counter()
+    forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    prefill = {"first_s": first_s, "warm_s": warm_s,
+               "tokens_per_s": PREFILL_S / warm_s}
+    if n_attn:
+        prefill["profile"] = device_profile(
+            lambda: forward(params, cfg, tokens), top=6,
+            watch=("flash_dense",))
     # below flash_threshold every arch's attention is the einsum branch
     short = tokens[:, :RECURRENT_PROFILE_S]
     prof = device_profile(lambda: forward(params, cfg, short), top=6)
@@ -855,16 +959,145 @@ def phase_recurrent(dev, arch):
     return launches
 
 
+def _records_agree(name, got, want, rtol):
+    """A graph-band result against the host batch engine's: equal chunk
+    counts, finish times and t_par within ``rtol`` (0: bit for bit)."""
+    import numpy as np
+    assert len(got) == len(want), name
+    for g, w in zip(got, want):
+        rg, rw = g.record, w.record
+        assert g.engine_used == "graph", (name, g.engine_used)
+        assert rg.n_chunks == rw.n_chunks, (name, rg.n_chunks, rw.n_chunks)
+        if rtol == 0:
+            assert rg.t_par == rw.t_par, name
+            assert np.array_equal(rg.thread_finish, rw.thread_finish), name
+        else:
+            np.testing.assert_allclose(rg.thread_finish, rw.thread_finish,
+                                       rtol=rtol, err_msg=name)
+            np.testing.assert_allclose(rg.t_par, rw.t_par, rtol=rtol,
+                                       err_msg=name)
+
+
+def phase_campaign(dev):
+    """The port's campaign engine (``graph_sim``) on the card at the paper's
+    Table 1 size (``configs/paper_campaign.py``): 352.nab (N = 44,794) on
+    miniHPC-Broadwell (p = 20) and miniHPC-KNL (p = 64), the campaign's
+    adaptive techniques at every Table 1 chunk parameter, 5 repetitions,
+    ``CAMPAIGN_TIMESTEPS`` of Table 1's 1,002 time-steps (so every
+    technique's adaptive state carries from instance to instance on the
+    card), held against the host batch engine: bit for bit below p = 8
+    (not reached here), rtol 1e-9 above, BOLD included (its documented
+    log-ulp tolerance is the same rtol).  The simulator is deterministic,
+    so both engines fold the repetitions of a config into one lane.  Then
+    ``auto_simulate(engine="graph")`` on the card against
+    ``engine="batch"`` (the same arms), and ``plan_schedule(backend="graph")``
+    on the card against the host plan for every plannable technique."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_campaign import CAMPAIGN
+    from repro_torch.core import (REGISTRY, AutoSelector, BatchConfig,
+                                  auto_simulate, graph_sim, nab_like,
+                                  plan_schedule, simulate_batch)
+
+    app, n_iter, n_steps = CAMPAIGN.applications[0][:3]
+    nodes = [nd for nd in CAMPAIGN.nodes if nd.name in (
+        "miniHPC-Broadwell", "miniHPC-KNL")]
+    techs = [t for t in CAMPAIGN.techniques if REGISTRY[t].meta.adaptive
+             or REGISTRY[t].meta.worker_dependent]
+    reps = CAMPAIGN.repetitions
+    w = nab_like(n=n_iter, seed=0)
+    rows = {}
+    for node in nodes:
+        p = node.cores
+        cps = CAMPAIGN.chunk_params(w.n, p)
+        cfgs = [BatchConfig(technique=t, workload=w, p=p, chunk_param=cp,
+                            seed=r, timesteps=CAMPAIGN_TIMESTEPS)
+                for t in techs for cp in cps for r in range(reps)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = graph_sim.simulate_batch_graph(cfgs, device=dev)
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+        stats = dict(graph_sim.LAST_RUN)
+        t0 = time.perf_counter()
+        host = simulate_batch(cfgs)
+        host_s = time.perf_counter() - t0
+        rtol = 0.0 if p < 8 else 1e-9
+        for cfg, g, h in zip(cfgs, graph, host):
+            assert len(g) == CAMPAIGN_TIMESTEPS, (cfg.technique, len(g))
+            _records_agree(f"{cfg.technique},{cfg.chunk_param} p{p}", g, h,
+                           rtol)
+        t_par = {t: min(sum(r.record.t_par for r in g)
+                        for c, g in zip(cfgs, graph) if c.technique == t)
+                 for t in techs}
+        rows[node.name] = dict(
+            p=p, configs=len(cfgs), chunk_params=cps, lanes=stats["lanes"],
+            groups=stats["groups"], rounds=stats["rounds"],
+            host_syncs=stats["syncs"], graph_wall_s=graph_s,
+            host_batch_wall_s=host_s, rtol=rtol, best_sum_t_par=t_par)
+        if p == nodes[0].cores:
+            # the device's idle share of one technique's group
+            af = [c for c in cfgs if c.technique == "af"]
+            prof = device_profile(lambda: graph_sim.simulate_batch_graph(
+                af, device=dev), top=4)
+            rows[node.name]["profile_af"] = dict(
+                lanes=graph_sim.LAST_RUN["lanes"],
+                rounds=graph_sim.LAST_RUN["rounds"], **prof)
+
+    # the selector over the campaign's techniques: graph against batch
+    p = nodes[0].cores
+    steps = len(CAMPAIGN.techniques) + 6
+    hist = {}
+    for engine in ("graph", "batch"):
+        sel, h = auto_simulate(
+            w, p=p, timesteps=steps, chunk_param=w.n // (4 * p),
+            engine=engine, device=dev,
+            selector=AutoSelector(CAMPAIGN.techniques,
+                                  policy="explore_commit"))
+        hist[engine] = (sel, h)
+    arms = [x["technique"] for x in hist["graph"][1]]
+    assert arms == [x["technique"] for x in hist["batch"][1]], "arms differ"
+    np.testing.assert_allclose([x["t_par"] for x in hist["graph"][1]],
+                               [x["t_par"] for x in hist["batch"][1]],
+                               rtol=1e-9)
+    best = str(hist["graph"][0].best)
+    assert best == str(hist["batch"][0].best)
+
+    # closed forms on the card against the host plans
+    plannable = sorted(REGISTRY.graph_names(plannable=True))
+    t0 = time.perf_counter()
+    for name in plannable:
+        kw = (dict(mu=w.mu, sigma=w.sigma) if REGISTRY[name].meta
+              .requires_profiling else {})
+        for node in nodes:
+            for cp in (1, w.n // (4 * node.cores)):
+                got = plan_schedule(f"{name},{cp},backend=graph", w.n,
+                                    node.cores, device=dev, **kw)
+                want = plan_schedule(name, w.n, node.cores, chunk_param=cp,
+                                     **kw)
+                assert got.chunks == want.chunks, (name, node.name, cp)
+    plan_s = time.perf_counter() - t0
+    emit("campaign", application=app, n=w.n, techniques=techs,
+         repetitions=reps, timesteps=CAMPAIGN_TIMESTEPS,
+         cut=f"time-steps {n_steps:,} -> {CAMPAIGN_TIMESTEPS}",
+         nodes=rows,
+         auto={"p": p, "steps": steps, "arms": arms, "best": best,
+               "same_as_batch": True},
+         plans={"techniques": plannable, "p": [nd.cores for nd in nodes],
+                "equal_to_host": True, "wall_s": plan_s})
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    # --dense-digest [SRC]: print only dense_digest() of the package under
-    # SRC (default: this checkout's src), to hold two trees' builds of
-    # flash_dense against each other bit for bit
+    # --dense-digest / --dense-times [SRC]: print only dense_digest() or
+    # dense_times() of the package under SRC (default: this checkout's
+    # src), to hold two trees' builds of flash_dense against each other
+    dense_only = argv[:1] in (["--dense-digest"], ["--dense-times"])
     src = ROOT / "src"
-    if argv[:1] == ["--dense-digest"] and len(argv) > 1:
+    if dense_only and len(argv) > 1:
         src = Path(argv[1]).resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} is missing; run "
@@ -873,6 +1106,10 @@ def main(argv) -> int:
     sys.path.insert(0, str(src))
     if argv[:1] == ["--dense-digest"]:
         print(json.dumps({"dense_digest": dense_digest(
+            torch.device("cuda", 0)), "src": str(src)}), flush=True)
+        return 0
+    if argv[:1] == ["--dense-times"]:
+        print(json.dumps({"dense_times": dense_times(
             torch.device("cuda", 0)), "src": str(src)}), flush=True)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1190,8 +1427,18 @@ def main(argv) -> int:
     serve_launches = phase_moe_serve(dev, moe_cfg, moe_params)
     del moe_params
     torch.cuda.empty_cache()
-    for arch in RECURRENT_ARCHS:
-        phase_recurrent(dev, arch)
+    recurrent_launches = {arch: phase_recurrent(dev, arch)
+                          for arch in RECURRENT_ARCHS}
+
+    # ---- this slice: stablelm-3b (head dim 80) and the campaign engine ----
+    cfg = get_arch(DENSE80_ARCH)
+    params, _ = init_decoder(0, cfg, device=dev)
+    dense80_launches = phase_prefill(dev, cfg, params, phase="prefill_80",
+                                     parity=False)
+    assert dense80_launches["flash_dense"] == cfg.num_layers
+    del params
+    torch.cuda.empty_cache()
+    phase_campaign(dev)
 
     gmm_flops = total("flops")
     gmm_bytes = total("bytes")
@@ -1229,9 +1476,16 @@ def main(argv) -> int:
          "source": "src/repro_torch/kernels/csrc/flash_dense.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:51",
          "launches": (prefill_launches["flash_dense"]
-                      + moe_launches["flash_dense"]),
-         "launches_by_path": {"prefill": prefill_launches["flash_dense"],
-                              "moe_prefill": moe_launches["flash_dense"]},
+                      + moe_launches["flash_dense"]
+                      + dense80_launches["flash_dense"]
+                      + recurrent_launches["recurrentgemma-2b"][
+                          "flash_dense"]),
+         "launches_by_path": {
+             "prefill": prefill_launches["flash_dense"],
+             "moe_prefill": moe_launches["flash_dense"],
+             "prefill_80": dense80_launches["flash_dense"],
+             "recurrentgemma_prefill": recurrent_launches[
+                 "recurrentgemma-2b"]["flash_dense"]},
          "tolerance": f"{ATOL} + {RTOL}*|plain|", **dense},
     ]
     for kern in kernels:

@@ -97,9 +97,11 @@ def plan_schedule(
     2p+i, ...).  Adaptive techniques planned this way use only their
     current weights/stats — callers feed telemetry between plans.
 
-    A spec with ``backend="graph"`` raises ``NotImplementedError`` in the
-    port until ``torch_sched.plan_chunks`` exists (the reference
-    materializes it through ``jax_sched.plan_chunks``).
+    A spec with ``backend="graph"`` is materialized through the closed
+    forms (``torch_sched.plan_chunks``) instead of the host state
+    machines — identical chunks (tested against the host plan), computed
+    as torch tensors on the card unless ``device="cpu"`` is passed among
+    ``tech_kw``.
     """
     if isinstance(technique, Technique):
         tech = technique
@@ -129,11 +131,23 @@ def plan_schedule(
 
 
 def _plan_via_graph(spec: ScheduleSpec, n: int, p: int, **plan_kw) -> Plan:
-    """backend="graph": the in-graph closed forms are not ported yet."""
-    raise NotImplementedError(
-        f"backend='graph' for {spec.technique!r} needs torch_sched.plan_chunks, "
-        "which is not ported yet (ROADMAP.md, port queue item 2); use "
-        "backend='host' or 'auto'")
+    """backend="graph": materialize via the closed form on a device."""
+    from .torch_sched import plan_chunks  # deferred: torch_sched imports us
+    from .schedule import REGISTRY
+
+    sizes, starts, count = plan_chunks(spec, n, p, **plan_kw)
+    count = int(count)
+    sizes, starts = sizes[:count].tolist(), starts[:count].tolist()
+    batched = REGISTRY[spec.technique].graph.batched
+    chunks = tuple(
+        PlannedChunk(worker=i % p, start=starts[i], size=sizes[i],
+                     batch=(i // p if batched else i))
+        for i in range(count)
+    )
+    plan = Plan(technique=spec.technique, n=n, p=p,
+                chunk_param=spec.chunk_param, chunks=chunks)
+    plan.validate()
+    return plan
 
 
 def replan(old: Plan, new_p: int, done_iterations: int = 0, **tech_kw) -> Plan:

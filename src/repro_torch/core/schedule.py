@@ -2,9 +2,10 @@
 
 Copy of ``src/repro/core/schedule.py`` for the PyTorch port, kept
 byte-faithful so both packages resolve the same specs to the same
-registry entries.  Graph forms stay unbound here until the port's
-``torch_sched`` gains the closed forms; the docs generator
-(``python -m repro.core.schedule --doc``) stays with the reference.
+registry entries.  The port's ``torch_sched`` binds the closed graph
+forms and ``graph_sim`` the campaign forms, as the reference's modules
+do; the docs generator (``python -m repro.core.schedule --doc``) stays
+with the reference.
 
 This is the repo's ``OMP_SCHEDULE`` / user-defined-scheduling API (after
 Kale et al., "Toward a Standard Interface for User-Defined Scheduling in

@@ -27,6 +27,8 @@ CTA, its kv tiles ascending.
 
 Both CUDA launchers read the model layout (b, s, h|kvh, hd) and the KV
 heads in place through 4-D TMA tensor maps built from the strides.
+``flash_dense`` takes any head dim that is a multiple of 8 up to 256 (the
+configs use 64, 80, 128 and 256); ``flash_sched`` takes 64 and 128.
 """
 
 from __future__ import annotations
@@ -43,8 +45,12 @@ from ...device import check_device
 from .._build import Kernel
 from .ref import attention_ref
 
-#: head dims the CUDA kernel is instantiated for
-KERNEL_HEAD_DIMS = (64, 128)
+#: padded head dims ``flash_dense`` is instantiated for: it takes any
+#: multiple of 8 up to the largest, computing at the next of these (TMA
+#: fills the columns past the real head dim with zeros)
+DENSE_HEAD_DIMS = (64, 128, 256)
+#: head dims ``flash_sched`` is instantiated for
+SCHED_HEAD_DIMS = (64, 128)
 
 _c = ctypes
 FLASH_SCHED = Kernel(
@@ -193,8 +199,8 @@ def flash_attention_sched_plain(q, k, v, *,
 
 def _check_kernel_inputs(name: str, q, k, v) -> None:
     """Raise unless q (b, s, h, hd), k/v (b, s, kvh, hd) are what the CUDA
-    kernels take: a GQA layout, bfloat16, a head dim they are built for, a
-    contiguous last dim, 16-byte aligned rows."""
+    kernel ``name`` takes: a GQA layout, bfloat16, a head dim it is built
+    for, a contiguous last dim, 16-byte aligned rows."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     if k.shape != (b, s, kvh, hd) or v.shape != k.shape or h % kvh:
@@ -203,9 +209,16 @@ def _check_kernel_inputs(name: str, q, k, v) -> None:
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes bfloat16 q, k and v, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name} supports head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    # flash_dense: multiples of 8 (16-byte rows for TMA) up to its widest
+    # padded instantiation
+    if name == "flash_dense" and (hd % 8 or not
+                                  0 < hd <= DENSE_HEAD_DIMS[-1]):
+        raise ValueError(f"flash_dense supports a head_dim that is a "
+                         f"multiple of 8 up to {DENSE_HEAD_DIMS[-1]}, "
+                         f"got {hd}")
+    if name == "flash_sched" and hd not in SCHED_HEAD_DIMS:
+        raise ValueError(f"flash_sched supports head_dim in "
+                         f"{SCHED_HEAD_DIMS}, got {hd}")
     for nm, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) \
                 or t.data_ptr() % 16:

@@ -6,8 +6,10 @@ Paths:
   * `full`   — one einsum; used for short sequences.
   * `flash`  — above ``cfg.flash_threshold``.  On a CUDA tensor it launches
                the dense flash kernel (``kernels/flash_attention``,
-               ``csrc/flash_dense.cu``), which reads the KV heads in place;
-               an unsupported dtype or head dim raises there.  On a CPU
+               ``csrc/flash_dense.cu``), which reads the KV heads in place
+               and takes every head dim the configs use (64, 80, 128, 256:
+               any multiple of 8 up to 256); an unsupported dtype or head
+               dim raises there, with no fallback.  On a CPU
                tensor `_attend_flash` computes the same function: the
                reference's online softmax over KV blocks of 1024, a Python
                loop where the reference has ``lax.scan``.

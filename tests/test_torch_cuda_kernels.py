@@ -129,7 +129,10 @@ def test_flash_dense_matches_plain(dev, case):
 
 
 def test_flash_dense_tile_edges(dev):
-    """The edges of the kernel's 128 x 128 tiles.
+    """The edges of the kernel's 128 x 128 tiles, and the head dims that
+    are padded inside the kernel: 80 (stablelm-3b, computed at 128) and 256
+    (recurrentgemma-2b, 64-column K / V tiles in 2 stages), causal, windowed
+    MQA, non-causal, a window of 2048 and windows narrower than a tile.
 
     The cases share one test instead of being parametrize items only while
     the reference's order-dependent ``test_shard_as_applies_constraint``
@@ -139,7 +142,15 @@ def test_flash_dense_tile_edges(dev):
     for case in ((1, 128, 2, 1, 128, 0, True),     # one q tile, one kv tile
                  (1, 129, 4, 2, 64, 0, True),      # one row past a tile
                  (1, 300, 4, 2, 128, 1, True),     # window 1: the row itself
-                 (2, 400, 4, 1, 64, 127, True)):   # window 127, a tile - 1
+                 (2, 400, 4, 1, 64, 127, True),    # window 127, a tile - 1
+                 (1, 300, 4, 2, 80, 0, True),      # hd 80, GQA, ragged s
+                 (2, 333, 4, 1, 80, 100, True),    # hd 80, windowed MQA
+                 (1, 200, 4, 4, 80, 0, False),     # hd 80, non-causal
+                 (2, 333, 10, 1, 256, 100, True),  # hd 256, windowed MQA
+                 (1, 2100, 10, 1, 256, 2048, True),  # recurrentgemma's window
+                 (1, 129, 2, 1, 256, 1, True),     # hd 256, window 1
+                 (1, 300, 2, 2, 256, 63, True),    # window 63 < a kv tile
+                 (1, 200, 2, 2, 256, 0, False)):   # hd 256, non-causal
         _check_flash_dense(dev, case)
 
 
@@ -160,7 +171,8 @@ def _check_flash_dense(dev, case):
 
 def test_flash_dense_reads_strided_heads(dev):
     """q, k and v as views of one (b, s, 3, h, hd) buffer: the heads are
-    not contiguous rows, and the kernel reads them in place (hd 64, 128).
+    not contiguous rows, and the kernel reads them in place (hd 64, 128,
+    and the padded 80 and 256).
 
     The cases share one test instead of being parametrize items only while
     the reference's order-dependent ``test_shard_as_applies_constraint``
@@ -168,7 +180,7 @@ def test_flash_dense_reads_strided_heads(dev):
     pytest-xdist's loadfile queue, and that reference test then fails.
     """
     b, s, h, kvh = 2, 300, 4, 2
-    for hd in (64, 128):
+    for hd in (64, 128, 80, 256):
         buf = _randn(dev, b, s, 3, h, hd, seed=5)
         q, k, v = buf[:, :, 0], buf[:, :, 1, :kvh], buf[:, :, 2, :kvh]
         assert not q.is_contiguous()
@@ -187,9 +199,14 @@ def test_flash_dense_bhsd_entry_and_errors(dev):
     x = q[:, :, None]
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(*(x.float(),) * 3)
-    with pytest.raises(ValueError, match="head_dim"):
-        y = _randn(dev, 1, 64, 1, 32)
-        flash_attention(y, y, y)
+    # any head dim that is a multiple of 8 up to 256 (72: padded to 128)
+    y = _randn(dev, 2, 200, 72)
+    _assert_close(fa.flash_attention_bhsd(y, y, y),
+                  fa.flash_attention_dense_plain(y, y, y))
+    for hd in (264, 84):
+        with pytest.raises(ValueError, match="head_dim"):
+            y = _randn(dev, 1, 64, 1, hd)
+            flash_attention(y, y, y)
     with pytest.raises(ValueError, match="different devices"):
         flash_attention(x, x.cpu(), x)
     with pytest.raises(ValueError, match="GQA layout"):

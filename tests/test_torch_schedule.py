@@ -102,8 +102,15 @@ def test_replan_identical(name):
     assert _chunks(a) == _chunks(b) and a.p == b.p == 5
 
 
-def test_graph_backend_waits_for_the_closed_forms():
-    with pytest.raises(NotImplementedError, match="plan_chunks"):
+def test_graph_backend_waits_for_the_closed_forms(monkeypatch):
+    """backend="graph" runs the closed forms (torch_sched.plan_chunks): on
+    the CPU when asked, equal to the reference's graph plan; by default on
+    the card, so without one it raises rather than fall back."""
+    a = port.plan_schedule("gss,1,backend=graph", 100, 4, device="cpu")
+    assert _chunks(a) == _chunks(ref.plan_schedule("gss,1,backend=graph",
+                                                   100, 4))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         port.plan_schedule("gss,1,backend=graph", 100, 4)
 
 
