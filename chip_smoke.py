@@ -71,6 +71,29 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
   moe_serve    ``DecodeEngine`` through ``launch.serve``'s code path on the
                same model: 8 requests, 4 slots, max_len 256, fac2, bf16 KV;
                a device profile of a short run
+  cluster      ``launch.serve.run_cluster`` (the two-level node / thread
+               schedule, replicas one after another on the card, one
+               shared copy of the weights) at the launcher's defaults:
+               16 requests, 4 replicas x 4 slots, max_len 128, thread
+               technique fac2, on full-width qwen3-4b under node techniques
+               awf_b and static, then on 1 replica (its qwen3-4b runs
+               execute right after serve, on that model's weights); the
+               MoE model of moe_prefill (ragged dispatch) with 8 requests
+               on 2 replicas, awf_b / fac2, counts from 0 around it (gmm
+               on the ``cluster_moe`` path); every layer's MoE input of
+               one decode step of that run (captured on the way, x of
+               4 x 1 tokens) goes through ``moe_ragged`` again, with gmm
+               and with the plain grouped matmul, held at the stated
+               tolerance after the counts are read.  Each run: every request
+               completes with its tokens, in vocabulary; the router's
+               replica_steps, replica_requests and node_chunks equal
+               run_cluster's on the CPU at smoke_config of the arch;
+               cross-node c.o.v. and p.i., wall time, tokens/s, step ms
+               median and p90, peak allocated memory, which for 4 replicas
+               stays under 1 GB above 1 replica's.  Then the 20 golden trial
+               digests through ``repro_torch.trials`` against
+               ``tests/data/pr8_trial_digests.json``, and a
+               ``ResilienceConfig()`` trial of the thermal scenario
   recurrent    xlstm-1.3b and recurrentgemma-2b at full width and depth:
                a 4096-token prefill (launch counts from 0; recurrentgemma's
                8 ``local_attn`` layers launch flash_dense at head_dim 256,
@@ -181,6 +204,20 @@ DENSE80_ARCH = "stablelm-3b"
 CAMPAIGN_TIMESTEPS = 3
 IDENTITY_SCHEDULES = ("static", "ss", "gss", "fac2", "awf_b", "ws_rr",
                       "dls_steal")
+# the cluster phase: launch.serve --replicas at the launcher's defaults
+# (16 requests, 4 slots, max_len 128), and the MoE model on 2 replicas
+CLUSTER_REQUESTS, CLUSTER_REPLICAS, CLUSTER_SLOTS, CLUSTER_MAX_LEN = \
+    16, 4, 4, 128
+CLUSTER_NODE_TECHNIQUES, CLUSTER_THREAD_TECHNIQUE = ("awf_b", "static"), \
+    "fac2"
+MOE_CLUSTER_REQUESTS, MOE_CLUSTER_REPLICAS = 8, 2
+# the decode step of the MoE cluster run whose MoE inputs (every layer's)
+# are held against the plain grouped matmul
+MOE_CLUSTER_TAP_STEP = 20
+# 4 replicas may peak this much above 1 replica on the same requests: their
+# KV caches (~0.3 GB at qwen3-4b's width), not a copy of the weights each
+CLUSTER_MEMORY_MARGIN = 1e9
+GOLDEN_DIGESTS = ROOT / "tests" / "data" / "pr8_trial_digests.json"
 
 
 def emit(phase: str, **fields) -> None:
@@ -890,6 +927,225 @@ def phase_moe_serve(dev, cfg, params):
     return launches
 
 
+def cluster_run(dev, cfg, params, node, *, replicas, n):
+    """``launch.serve.run_cluster`` on the card: ``n`` requests drawn as
+    the launcher draws them, node technique ``node`` over ``replicas``
+    engines of ``CLUSTER_SLOTS`` slots, thread technique fac2, with the
+    counts from 0 around it.  Raises if a request does not complete with
+    the tokens asked for, in vocabulary, or if the router's choices differ
+    from ``run_cluster``'s on the CPU at ``smoke_config`` of the same arch
+    (decode steps depend on neither width nor token values).  Returns (the
+    run's numbers, its launch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.schedule import resolve
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import make_requests, run_cluster
+    from repro_torch.models import init_decoder
+    from repro_torch.serve.engine import DecodeEngine
+
+    requests = make_requests(n, CLUSTER_MAX_LEN, 0)
+    kw = dict(replicas=replicas, slots=CLUSTER_SLOTS,
+              max_len=CLUSTER_MAX_LEN)
+    spec, node_spec = resolve(CLUSTER_THREAD_TECHNIQUE), resolve(node)
+    engines, step_ms = {}, []
+    real_run = DecodeEngine.run
+
+    def run(eng, *args, **kwargs):
+        # each node chunk's engine run: note the engine and its step times
+        stats = real_run(eng, *args, **kwargs)
+        engines[id(eng)] = eng
+        step_ms.extend(stats.step_ms)
+        return stats
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    _build.reset_launches()
+    DecodeEngine.run = run
+    t0 = time.perf_counter()
+    try:
+        out = run_cluster(cfg, params, spec, node_spec, requests=requests,
+                          device=dev, **kw)
+        torch.cuda.synchronize()
+    finally:
+        DecodeEngine.run = real_run
+    wall_s = time.perf_counter() - t0
+    launches = {k: kern.launches for k, kern in _build.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert out["completed"] == n, (cfg.name, node, out)
+    for r in requests:
+        outs = [e.output(r.rid) for e in engines.values() if e.output(r.rid)]
+        assert len(outs) == 1, (cfg.name, node, r.rid, len(outs))
+        assert len(outs[0]) == min(r.max_new_tokens, CLUSTER_MAX_LEN // 2)
+        assert all(0 <= t < cfg.padded_vocab for t in outs[0]), r.rid
+    del engines
+
+    t0 = time.perf_counter()
+    small = smoke_config(cfg)
+    small_params, _ = init_decoder(0, small, device="cpu")
+    want = run_cluster(small, small_params, spec, node_spec,
+                       requests=make_requests(n, CLUSTER_MAX_LEN, 0),
+                       device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    for key in ("completed", "tokens", "replica_steps", "replica_requests",
+                "node_chunks"):
+        assert out[key] == want[key], (cfg.name, node, key, out[key],
+                                       want[key])
+    return dict(schedule=f"{node_spec}/{spec}", replicas=replicas,
+                requests=n, completed=f"{out['completed']}/{n}",
+                tokens=out["tokens"], replica_steps=out["replica_steps"],
+                replica_requests=out["replica_requests"],
+                node_chunks=out["node_chunks"],
+                cross_node_cov=out["cross_node_cov"],
+                cross_node_pi=out["cross_node_pi"], wall_s=wall_s,
+                tokens_per_s=out["tokens"] / wall_s, steps=len(step_ms),
+                step_ms_median=float(np.median(step_ms)),
+                step_ms_p90=float(np.percentile(step_ms, 90)),
+                resident_bytes=resident, peak_bytes=peak,
+                router_equals_cpu_smoke=True, cpu_smoke_s=cpu_s), launches
+
+
+def phase_cluster_dense(dev, cfg, params):
+    """The cluster phase's qwen3-4b runs, while that model's weights are on
+    the card: 4 replicas under each node technique, then 1 replica on the
+    same requests, whose peak memory the 4-replica runs may exceed by less
+    than ``CLUSTER_MEMORY_MARGIN``.  Returns the phase's dense fields."""
+    runs = {node: cluster_run(dev, cfg, params, node,
+                              replicas=CLUSTER_REPLICAS,
+                              n=CLUSTER_REQUESTS)[0]
+            for node in CLUSTER_NODE_TECHNIQUES}
+    one = cluster_run(dev, cfg, params, CLUSTER_NODE_TECHNIQUES[0],
+                      replicas=1, n=CLUSTER_REQUESTS)[0]
+    over = {node: r["peak_bytes"] - one["peak_bytes"]
+            for node, r in runs.items()}
+    assert max(over.values()) < CLUSTER_MEMORY_MARGIN, over
+    return dict(arch=cfg.name, layers=cfg.num_layers,
+                cut="none: full width and depth; random fp32 weights from "
+                    "seed 0", runs=runs, one_replica=one,
+                peak_over_one_replica_bytes=over,
+                memory_margin_bytes=CLUSTER_MEMORY_MARGIN)
+
+
+def cluster_trials():
+    """The 20 golden trial digests through ``repro_torch.trials`` on the
+    host, against ``tests/data/pr8_trial_digests.json``, and one
+    ``ResilienceConfig()`` trial of the thermal scenario."""
+    import dataclasses
+
+    from repro_torch.serve import ResilienceConfig
+    from repro_torch.trials import (Scenario, elastic_program,
+                                    failure_program, run_trial,
+                                    thermal_program)
+    # the fault / elasticity sweep the golden digests pin
+    # (tests/test_resilience.py)
+    scenarios = [
+        Scenario(name="kill_recover", traffic="spiky", n=120,
+                 num_replicas=3,
+                 events=failure_program(kill_at=0.05, replicas=(0,),
+                                        recover_at=0.2)),
+        Scenario(name="kill_forever", traffic="zipf", n=120, num_replicas=3,
+                 events=failure_program(kill_at=0.05, replicas=(0, 1))),
+        Scenario(name="scale_up", traffic="bursty", n=120, num_replicas=2,
+                 events=elastic_program((0.05, 5))),
+        Scenario(name="scale_down", traffic="spiky", n=120, num_replicas=4,
+                 events=elastic_program((0.05, 2))),
+        Scenario(name="thermal", traffic="diurnal", n=120, num_replicas=3,
+                 events=thermal_program(0, times=(0.05, 0.1),
+                                        speeds=(2.0, 5.0))),
+    ]
+    gold = json.loads(GOLDEN_DIGESTS.read_text())
+    t0 = time.perf_counter()
+    got = {f"{sc.name}|{sp}": run_trial(sc, sp, seed=gold["seed"]).digest()
+           for sc in scenarios for sp in gold["schedules"]}
+    digests_s = time.perf_counter() - t0
+    bad = sorted(k for k in gold["digests"] if got.get(k) != gold[
+        "digests"][k])
+    assert len(got) == len(gold["digests"]) == 20 and not bad, bad
+    thermal = dataclasses.replace(scenarios[-1],
+                                  resilience=ResilienceConfig())
+    res = run_trial(thermal, "awf_b/fac2", seed=gold["seed"])
+    assert res.served_once and res.complete, res
+    return dict(golden_digests_equal=len(got), digests_s=digests_s,
+                thermal_resilient={
+                    "schedule": res.schedule, "seed": res.seed,
+                    "served_once": res.served_once,
+                    "reclaimed": res.reclaimed,
+                    "duplicates": res.duplicates,
+                    "quarantines": res.quarantines,
+                    "makespan": res.makespan, "p99": res.p99})
+
+
+def phase_cluster(dev, dense, cfg, params):
+    """The cluster phase: the MoE model on 2 replicas (ragged dispatch, so
+    ``gmm`` launches; counts from 0 around the run), gmm held against the
+    plain grouped matmul on the MoE inputs of one decode step of that run,
+    the trial digests, and the line with the qwen3-4b runs of
+    ``phase_cluster_dense``.  Returns (the MoE run's launch counts, gmm's
+    max abs error at the decode shapes)."""
+    import torch
+    from repro_torch.models import decoder
+    from repro_torch.models import moe as tmoe
+
+    # every layer's MoE input of one decode step on ``dev`` (not of the
+    # CPU run the router is held to); the tap launches nothing
+    first = MOE_CLUSTER_TAP_STEP * cfg.num_layers
+    calls, taps = [0], []
+    real_moe = decoder.moe
+
+    def moe_tap(p, c, x):
+        if x.device.type == dev.type:
+            if first <= calls[0] < first + cfg.num_layers:
+                taps.append((p, x.clone()))
+            calls[0] += 1
+        return real_moe(p, c, x)
+
+    decoder.moe = moe_tap
+    try:
+        moe, launches = cluster_run(dev, cfg, params,
+                                    CLUSTER_NODE_TECHNIQUES[0],
+                                    replicas=MOE_CLUSTER_REPLICAS,
+                                    n=MOE_CLUSTER_REQUESTS)
+    finally:
+        decoder.moe = real_moe
+    assert launches["gmm"] > 0, launches
+    assert len(taps) == cfg.num_layers, (len(taps), calls)
+
+    # the counts are read: the same inputs through moe_ragged with gmm and
+    # with the plain grouped matmul in its place
+    real_gm, shapes, errs = tmoe.grouped_matmul, set(), []
+
+    def plain(xe, w, **kw):
+        shapes.add((tuple(xe.shape), tuple(w.shape)))
+        return plain_grouped_matmul(xe, w, **kw)
+
+    for p, x in taps:
+        got = tmoe.moe_ragged(p, cfg, x)[0]
+        tmoe.grouped_matmul = plain
+        try:
+            want = tmoe.moe_ragged(p, cfg, x)[0]
+        finally:
+            tmoe.grouped_matmul = real_gm
+        assert bool(torch.isfinite(got).all()), "moe_ragged decode"
+        errs.append(check_close("moe_ragged decode", got, want))
+    x_shape = list(taps[0][1].shape)
+    del taps, got, want
+    gmm_decode = dict(step=MOE_CLUSTER_TAP_STEP, layers=cfg.num_layers,
+                      x_shape=x_shape,
+                      xe_w_shapes=[list(map(list, sh))
+                                   for sh in sorted(shapes)],
+                      max_abs_err=max(errs),
+                      tolerance=f"{ATOL} + {RTOL}*|plain|")
+    emit("cluster", dense=dense,
+         moe=dict(arch=cfg.name, layers=cfg.num_layers, dispatch=(
+             cfg.moe.dispatch), launches=launches, gmm_decode=gmm_decode,
+             **moe),
+         **cluster_trials())
+    return launches, gmm_decode["max_abs_err"]
+
+
 def phase_recurrent(dev, arch):
     """A full-width, full-depth recurrent model: 4096-token prefill with the
     counts from 0 (recurrentgemma-2b's local attention runs ``flash_dense``
@@ -1418,6 +1674,7 @@ def main(argv) -> int:
     params, _ = init_decoder(0, cfg, device=dev)
     prefill_launches = phase_prefill(dev, cfg, params)
     phase_serve(dev, cfg, params)
+    cluster_dense = phase_cluster_dense(dev, cfg, params)
     del params
     torch.cuda.empty_cache()
 
@@ -1425,6 +1682,8 @@ def main(argv) -> int:
     moe_cfg, moe_params, moe_launches, gmm_model = phase_moe_prefill(
         dev, n_sm, randn)
     serve_launches = phase_moe_serve(dev, moe_cfg, moe_params)
+    cluster_launches, cluster_gmm_err = phase_cluster(
+        dev, cluster_dense, moe_cfg, moe_params)
     del moe_params
     torch.cuda.empty_cache()
     recurrent_launches = {arch: phase_recurrent(dev, arch)
@@ -1457,11 +1716,13 @@ def main(argv) -> int:
          "source": "src/repro_torch/kernels/csrc/gmm.cu",
          "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:37",
          "launches": (launches["gmm"] + moe_launches["gmm"]
-                      + serve_launches["gmm"]),
+                      + serve_launches["gmm"] + cluster_launches["gmm"]),
          "launches_by_path": {"main_path": launches["gmm"],
                               "moe_prefill": moe_launches["gmm"],
-                              "moe_serve": serve_launches["gmm"]},
-         "max_abs_err": max(r["max_abs_err"] for r in gmm_rows.values()),
+                              "moe_serve": serve_launches["gmm"],
+                              "cluster_moe": cluster_launches["gmm"]},
+         "max_abs_err": max(max(r["max_abs_err"] for r in gmm_rows.values()),
+                            cluster_gmm_err),
          "tolerance": f"{ATOL} + {RTOL}*|plain|",
          "ms": total("ms"), "plain_ms": total("plain_ms"),
          "bound_ms": total("bound_ms"),

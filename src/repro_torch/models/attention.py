@@ -225,6 +225,15 @@ def attention(params, cfg, x, sin, cos, *, window: int = 0):
     return shard_as(out, "batch", "seq", "embed_act")
 
 
+def _set_slot(buf, lanes, slot, inside, val):
+    """``buf[lanes, slot] = val`` in place, keeping the old entry of every
+    lane where ``inside`` is False (``None``: every lane writes)."""
+    if inside is not None:
+        keep = inside.view(-1, *([1] * (val.dim() - 1)))
+        val = torch.where(keep, val, buf[lanes, slot])
+    buf[lanes, slot] = val
+
+
 def attention_decode(params, cfg, x, sin, cos, cache, *, window: int = 0):
     """One-token decode.  x: (b, 1, d); cache holds past KV (bf16 KVCache
     or int8 KVCacheQ).  Writes the new token's K/V into the cache and
@@ -238,18 +247,26 @@ def attention_decode(params, cfg, x, sin, cos, cache, *, window: int = 0):
     # per-lane positions: each batch lane writes at its own slot
     lanes = torch.arange(b, device=x.device)
     pos = cache.pos.long()
-    slot = torch.remainder(pos, size) if ring else pos          # (b,)
+    if ring:
+        slot, inside = torch.remainder(pos, size), None         # (b,)
+    else:
+        # a lane past the cache's end writes nothing, as the reference's
+        # scatter drops an out-of-bounds update.  Only an idle engine lane
+        # gets there, but a lane admitted for the first time is not reset
+        # (as in the reference), so a request may then decode in it and
+        # must read what the reference's cache holds
+        slot, inside = torch.clamp_max(pos, size - 1), pos < size
     quant = isinstance(cache, KVCacheQ)
     if quant:
         kq, ks = _quantize_token(k)
         vq, vs = _quantize_token(v)
-        cache.k[lanes, slot] = kq[:, 0]
-        cache.v[lanes, slot] = vq[:, 0]
-        cache.k_scale[lanes, slot] = ks[:, 0]
-        cache.v_scale[lanes, slot] = vs[:, 0]
+        _set_slot(cache.k, lanes, slot, inside, kq[:, 0])
+        _set_slot(cache.v, lanes, slot, inside, vq[:, 0])
+        _set_slot(cache.k_scale, lanes, slot, inside, ks[:, 0])
+        _set_slot(cache.v_scale, lanes, slot, inside, vs[:, 0])
     else:
-        cache.k[lanes, slot] = k[:, 0].to(cache.k.dtype)
-        cache.v[lanes, slot] = v[:, 0].to(cache.v.dtype)
+        _set_slot(cache.k, lanes, slot, inside, k[:, 0].to(cache.k.dtype))
+        _set_slot(cache.v, lanes, slot, inside, v[:, 0].to(cache.v.dtype))
     h = cfg.num_heads
     kvh = cfg.num_kv_heads
     g = h // kvh

@@ -15,7 +15,9 @@ Differences from the reference, none of which changes a greedy output:
     FFN and expert stacks, the recurrent mixers' projections) are cast to
     the compute dtype once, at construction — the same values; what the
     reference uses in fp32 (router, router bias, gates, ``r``, ``b``,
-    ``lam``, conv taps), embeddings and norms stay as given;
+    ``lam``, conv taps), embeddings and norms stay as given.  A tree
+    that ``prepare_params`` already made is taken as it is, so engines
+    built on one such tree share its tensors (``launch.serve.run_cluster``);
   * the decode state is updated in place;
   * sampled decoding (``greedy=False``) draws from a ``torch.Generator``
     seeded with ``seed``; it cannot give ``jax.random``'s bits.
@@ -39,7 +41,7 @@ from ..models import decode_step, init_decode_state
 from ..models.layers import dtype_of
 from .scheduler import Request, RequestScheduler
 
-__all__ = ["DecodeEngine", "EngineStats"]
+__all__ = ["DecodeEngine", "EngineStats", "prepare_params"]
 
 #: the weights the model casts to the compute dtype at use: attention
 #: (wq, wk, wv, wo), the FFN and the expert stacks (wi, wg, wo), the mLSTM
@@ -65,8 +67,11 @@ class EngineStats:
         return self.tokens / max(self.wall_s, 1e-9)
 
 
-def _prepare_params(params, dtype: torch.dtype, device: torch.device):
-    """``params`` on ``device``, the matmul weights cast to ``dtype``."""
+def prepare_params(params, dtype: torch.dtype, device: torch.device):
+    """``params`` on ``device``, the matmul weights cast to ``dtype``.
+
+    ``Tensor.to`` returns the tensor itself when its dtype and device
+    already match, so a prepared tree passes through unchanged."""
     def walk(tree, key=None):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
@@ -87,8 +92,8 @@ class DecodeEngine:
                  device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = _prepare_params(params, dtype_of(cfg.compute_dtype),
-                                      self.device)
+        self.params = prepare_params(params, dtype_of(cfg.compute_dtype),
+                                     self.device)
         self.slots = slots
         self.max_len = max_len
         # deadline-aware shedding: with a step budget of

@@ -1,9 +1,7 @@
 """Continuous-batching serving scheduler driven by DLS self-scheduling.
 
 A copy of ``src/repro/serve/scheduler.py`` for the PyTorch port (NumPy; the
-reference module loads JAX through ``repro.core``).  The circuit-breaker
-rejoin hook (``neutralize_worker``, which reaches ``serve/elastic.py``)
-waits for the cluster slice (ROADMAP.md).
+reference module loads JAX through ``repro.core``).
 
 The serving queue is the paper's loop: requests are *iterations* with
 irregular cost (prompt length + requested tokens), decode slots are
@@ -78,6 +76,10 @@ class RequestScheduler:
             w: [] for w in range(self.num_workers)}
         # per-worker outstanding grant awaiting complete()
         self._outstanding: dict[int, object] = {}
+        # workers whose inherited adaptive state must be neutralized at
+        # the next plan rebuild (circuit-breaker rejoin: the replica's
+        # pre-quarantine telemetry described a degraded machine)
+        self._neutralize: dict[int, bool] = {}
 
     def submit(self, req: Request) -> None:
         self._pending.append(req)
@@ -91,6 +93,11 @@ class RequestScheduler:
         tech = self.spec.make(n=self.backlog, p=self.num_workers)
         if self._tech is not None:
             tech.inherit(self._tech)
+        if self._neutralize:
+            # deferred import: elastic imports this module at top level
+            from .elastic import neutralize_worker_state
+            neutralize_worker_state(tech, sorted(self._neutralize))
+            self._neutralize.clear()
         self._plan_gen += 1
         tech.begin_instance(self._plan_gen)
         return tech
@@ -203,6 +210,17 @@ class RequestScheduler:
             self._pending = keep
             self._head = 0
         return dropped
+
+    def neutralize_worker(self, worker: int) -> None:
+        """Mark ``worker``'s adaptive state for neutralization at the
+        next plan rebuild (after ``inherit`` runs) — the rejoin path of
+        the circuit breaker.  See ``elastic.neutralize_worker_state``.
+        """
+        w = int(worker)
+        if not 0 <= w < self.num_workers:
+            raise ValueError(f"worker {w} out of range "
+                             f"[0, {self.num_workers})")
+        self._neutralize[w] = True
 
     @property
     def backlog(self) -> int:
