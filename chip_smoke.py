@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's kernel paths, prefill and serving on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's kernel paths, prefill, serving and
+training on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one card
 
@@ -123,6 +123,30 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                ``engine="batch"`` (the same arms) and
                ``plan_schedule(backend="graph")`` on the card against the
                host plan for every plannable technique at p 20 and 64
+  train        the training slice.  ``flash_dense_bwd`` (delta, dkdv, dq)
+               against its plain version (``torch.autograd.grad`` through
+               the fp32 plain forward) at qwen3-4b's attention shape (2 x
+               4096, 32 / 8 heads, hd 128) and granite-moe-1b-a400m's (16 /
+               8 heads, hd 64), causal: dQ, dK, dV within 2^-6 of max
+               |plain| each, two runs bit-identical, times of the backward
+               and of forward + backward (single calls and back to back),
+               the plain backward's and SDPA's backward and forward +
+               backward (``is_causal``, ``enable_gqa``; a yardstick), and
+               ``dense_digest`` equal to the parent's.  Then qwen3-4b at
+               full width on 2 x 4096 tokens from the port's
+               ``DataLoader``: loss and every gradient leaf of 2 layers
+               with the kernels against the same with the plain attention
+               swapped in for ``ops.flash_attention``; launch counts set to
+               0, then 16 of 36 layers (fp32 weights from seed 0, bf16
+               compute, remat "full", AdamW at the launcher's schedule)
+               for 1 warm and 4 timed ``make_train_step`` steps, the counts
+               read right after (per step flash_dense 32, each backward
+               kernel 16), step time, tokens/s, peak allocated memory, the
+               loss at step 0 within 0.5 of ln(vocab), a device profile of
+               one more step; last ``launch.train`` at its defaults with
+               --steps 12 --checkpoint-every 4 (smoke_config: no custom
+               kernel) and a ``Trainer`` that fails once at step 6,
+               restores step 4's checkpoint and replays
   kernels      the summary line, one entry per kernel; ``launches`` sums
                the counted runs of every path that launches the kernel
                (``launches_by_path``); flash_dense's entry carries
@@ -168,6 +192,15 @@ Tolerance for a bf16 kernel output against the plain version:
 |kernel - plain| <= 2^-7 + 2^-7 * |plain|, i.e. about two bf16 rounding
 steps: the kernels sum in another order (and split P into two bf16 terms)
 before the final rounding to bf16.
+
+The train phase's gates.  ``flash_dense_bwd``'s dQ, dK and dV against the
+fp32 plain backward: max |kernel - plain| <= 2^-6 max |plain| per tensor
+(P and dS are rounded to bf16 before their products, and the result to
+bf16 once).  The 2-layer step, kernels against plain attention (bf16
+compute, the residual stream in bf16): losses within 1e-2, every gradient
+leaf within 2^-4 of that leaf's largest |plain| entry.  The Trainer's
+replayed steps within 1e-3 of the first pass's losses (the embedding's
+backward sums with atomics on the card).
 """
 
 from __future__ import annotations
@@ -218,6 +251,27 @@ MOE_CLUSTER_TAP_STEP = 20
 # KV caches (~0.3 GB at qwen3-4b's width), not a copy of the weights each
 CLUSTER_MEMORY_MARGIN = 1e9
 GOLDEN_DIGESTS = ROOT / "tests" / "data" / "pr8_trial_digests.json"
+# the training slice: flash_dense_bwd at qwen3-4b's attention shape (b 2,
+# s 4096, 32 / 8 heads, hd 128) and granite-moe-1b-a400m's (16 / 8 heads,
+# hd 64), causal; dQ, dK, dV within BWD_REL_TOL of max |plain| each
+BWD_ARCH_64 = "granite-moe-1b-a400m"
+BWD_KERNELS = ("flash_dense_bwd_delta", "flash_dense_bwd_dkdv",
+               "flash_dense_bwd_dq")
+BWD_REL_TOL = 2.0 ** -6
+# dense_digest() of the parent's flash_dense (PR 17's tree, on an H100):
+# the lse write must leave the forward's bits as they were
+PARENT_DENSE_DIGEST = "251ae83caaa69f6f"
+# the step of qwen3-4b at full width on 2 x 4096 tokens from the DataLoader:
+# TRAIN_PARITY_LAYERS layers with the kernels against plain attention, then
+# TRAIN_LAYERS layers (of 36: fp32 params, grads and two AdamW moments of
+# all 36 need 70.6 GB) for 1 warm and TRAIN_STEPS timed steps
+TRAIN_BATCH, TRAIN_S = 2, 4096
+TRAIN_PARITY_LAYERS, TRAIN_LAYERS, TRAIN_STEPS = 2, 16, 4
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 2.0 ** -4
+# the Trainer on the card: one RuntimeError at step 6, replayed from the
+# step-4 checkpoint; replayed losses within TRAIN_REPLAY_TOL of the first
+# pass's (the embedding's backward sums with atomics on the card)
+TRAIN_FAIL_AT, TRAIN_REPLAY_TOL = 6, 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -542,15 +596,9 @@ def phase_flash_dense(dev, randn):
     ragged ones; times and bounds of each full shape.  Returns the fields
     of its ``kernels`` entry (launches come from the prefills)."""
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
-    def plain(q, k, v, causal=True, window=0):
-        b, s, h, hd = q.shape
-        out = fa.flash_attention_dense_plain(*fa.broadcast_flatten(q, k, v),
-                                             causal=causal, window=window)
-        return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
-
+    plain = plain_attention
     small = {}
     for b, s, h, kvh, hd, win, causal in ((2, 300, 4, 2, 128, 0, True),
                                           (1, 200, 4, 1, 64, 32, True),
@@ -1343,6 +1391,320 @@ def phase_campaign(dev):
                 "equal_to_host": True, "wall_s": plan_s})
 
 
+def bwd_shape(dev, seed, b, s, h, kvh, hd):
+    """``flash_dense_bwd`` at one full (b, s, h, kvh, hd) causal shape: the
+    three kernels against the plain backward (``torch.autograd.grad``
+    through the fp32 plain forward), bit-identity of two runs, times of the
+    backward alone and of forward + backward (single calls and back to
+    back), the plain backward's, and ``scaled_dot_product_attention``'s
+    backward and forward + backward on the same tensors (``is_causal``,
+    ``enable_gqa``; a yardstick the port never calls)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                   .to(torch.bfloat16) for n in (h, kvh, kvh, h))
+    out, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=0,
+                                    with_lse=True)
+
+    def backward():
+        return fa._flash_dense_bwd_cuda(q, k, v, out, do, lse, causal=True,
+                                        window=0)
+
+    def fwd_bwd():
+        o, l_ = fa._flash_dense_cuda(q, k, v, causal=True, window=0,
+                                     with_lse=True)
+        return fa._flash_dense_bwd_cuda(q, k, v, o, do, l_, causal=True,
+                                        window=0)
+
+    got, again = backward(), backward()
+    identical = all(torch.equal(x, y) for x, y in zip(got, again))
+    assert identical, f"flash_dense_bwd hd {hd}: two runs differ"
+    want = fa.flash_attention_dense_bwd_plain(q, k, v, do)
+    errors = {}
+    for nm, x, y in zip(("dq", "dk", "dv"), got, want):
+        top = float(y.abs().max())
+        err = float((x.float() - y).abs().max())
+        errors[nm] = {"max_abs_err": err, "max_abs_plain": top,
+                      "rel": err / top}
+        assert err <= BWD_REL_TOL * top, (hd, nm, err, top)
+    del got, again, want
+    plain_ms = cuda_ms(lambda: fa.flash_attention_dense_bwd_plain(
+        q, k, v, do), 3)
+    ms, ms_b2b = cuda_ms(backward, REPS), cuda_ms_b2b(backward, REPS)
+    fb_ms, fb_b2b = cuda_ms(fwd_bwd, REPS), cuda_ms_b2b(fwd_bwd, REPS)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.permute(0, 2, 1, 3).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.permute(0, 2, 1, 3)
+    graph = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        o = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        graph, (qt, kt, vt), dot, retain_graph=True), REPS)
+    library_fb_ms = cuda_ms(sdpa_fwd_bwd, REPS)
+    del graph
+    # the backward's MMA work: 5 products of depth hd per live pair, 2.5x
+    # the forward's 2; bytes: q, k, v, o, dO and lse read, dq, dk, dv
+    # written
+    pairs = s * (s + 1) // 2
+    flops = 10 * hd * b * h * pairs
+    nbytes = 2 * (4 * b * s * h * hd + 4 * b * s * kvh * hd) + 4 * b * h * s
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(shape=[b, s, h, kvh, hd], causal=True, errors=errors,
+                max_rel_err=max(r["rel"] for r in errors.values()),
+                max_abs_err=max(r["max_abs_err"] for r in errors.values()),
+                tolerance=f"{BWD_REL_TOL}*max|plain|", bit_identical=identical,
+                ms=ms, ms_b2b=ms_b2b, fwd_bwd_ms=fb_ms,
+                fwd_bwd_ms_b2b=fb_b2b, plain_ms=plain_ms,
+                library_ms=library_ms, library_fwd_bwd_ms=library_fb_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                fwd_bwd_bound_ms=bound(14 * hd * b * h * pairs, nbytes)[0],
+                flops=flops, bytes=nbytes)
+
+
+def plain_attention(q, k, v, causal=True, window=0):
+    """The dense kernel's plain version in the model layout (fp32 masked
+    softmax, differentiated by autograd); the train phase swaps it in for
+    ``ops.flash_attention``."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    b, s, h, hd = q.shape
+    out = fa.flash_attention_dense_plain(*fa.broadcast_flatten(q, k, v),
+                                         causal=causal, window=window)
+    return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+
+
+def train_batches(cfg, n):
+    """``n`` batches of TRAIN_BATCH x TRAIN_S tokens from the port's
+    ``DataLoader``, sized as ``launch.train`` sizes its data."""
+    from repro_torch.data.pipeline import DataConfig, DataLoader
+    loader = DataLoader(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+        global_batch=TRAIN_BATCH, mean_doc_len=min(512.0, TRAIN_S * 1.2)))
+    try:
+        return [next(loader) for _ in range(n)]
+    finally:
+        loader.close()
+
+
+def train_parity(dev, cfg, batch):
+    """Loss and gradients of TRAIN_PARITY_LAYERS full-width layers with the
+    kernels, then with ``plain_attention`` in place of
+    ``ops.flash_attention`` (the check calls the plain version itself)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import init_decoder
+    from repro_torch.train import steps as tsteps
+    from repro_torch.tree import tree_flatten_with_path
+
+    cfg2 = dataclasses.replace(cfg, num_layers=TRAIN_PARITY_LAYERS)
+    params, _ = init_decoder(0, cfg2, device=dev)
+    before = {n: kern.launches for n, kern in _build.KERNELS.items()}
+    loss_k, _, grads_k = tsteps._grads(params, batch["tokens"],
+                                       batch["labels"], None, cfg2)
+    torch.cuda.synchronize()
+    launches = {n: kern.launches - before[n]
+                for n, kern in _build.KERNELS.items()}
+    assert launches["flash_dense_bwd_dq"] == TRAIN_PARITY_LAYERS, launches
+    real = tattn.flash_attention
+    tattn.flash_attention = plain_attention
+    try:
+        loss_p, _, grads_p = tsteps._grads(params, batch["tokens"],
+                                           batch["labels"], None, cfg2)
+        torch.cuda.synchronize()
+    finally:
+        tattn.flash_attention = real
+    rel = {}
+    for (path, _), a, b in zip(tree_flatten_with_path(params), grads_k,
+                               grads_p):
+        top = float(b.abs().max())
+        err = float((a - b).abs().max())
+        rel["/".join(str(k) for _, k in path)] = err / max(top, 1e-30)
+        assert err <= TRAIN_GRAD_TOL * top, (path, err, top)
+    loss_diff = abs(float(loss_k) - float(loss_p))
+    assert loss_diff <= TRAIN_LOSS_TOL, (float(loss_k), float(loss_p))
+    return dict(layers=TRAIN_PARITY_LAYERS, loss_kernel=float(loss_k),
+                loss_plain=float(loss_p), loss_abs_diff=loss_diff,
+                grad_rel_err=rel, max_grad_rel_err=max(rel.values()),
+                tolerance={"loss_abs": TRAIN_LOSS_TOL,
+                           "grad_rel_to_leaf_max": TRAIN_GRAD_TOL},
+                launches=launches)
+
+
+def train_full(dev, cfg, batches):
+    """``make_train_step`` on TRAIN_LAYERS full-width layers, remat "full",
+    AdamW: counts from 0, 1 warm step and TRAIN_STEPS timed steps, counts
+    read; a device profile of one more step.  Returns (fields, counts)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_decoder
+    from repro_torch.optim.adamw import OptimizerConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfgn = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS, remat="full")
+    params, _ = init_decoder(0, cfgn, device=dev)
+    opt = adamw_init(params)
+    # the launcher's schedule: 20 warm-up steps (lr <= 7.5e-5 here)
+    step = make_train_step(cfgn, OptimizerConfig(warmup_steps=20,
+                                                 total_steps=200))
+    feed = [{k: torch.from_numpy(v).to(dev) for k, v in bt.items()
+             if not k.startswith("_")} for bt in batches]
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    losses, times = [], []
+    for i in range(1 + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, feed[i])
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps_run = 1 + TRAIN_STEPS
+    per_step = {n: c / steps_run for n, c in launches.items() if c}
+    assert per_step.get("flash_dense") == 2 * TRAIN_LAYERS, per_step
+    for n in BWD_KERNELS:
+        assert per_step.get(n) == TRAIN_LAYERS, per_step
+    assert all(math.isfinite(x) for x in losses), losses
+    assert abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5, losses[0]
+    prof = device_profile(lambda: step(params, opt, feed[-1]), top=10,
+                          watch=("flash_dense", "dkdv", "dq_kernel",
+                                 "delta_kernel"))
+    step_s = float(np.median(times[1:]))
+    tokens = TRAIN_BATCH * TRAIN_S
+    del params, opt, feed
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, layers=TRAIN_LAYERS, of_layers=cfg.num_layers,
+                params=n_params, tokens_per_step=tokens, remat="full",
+                losses=losses, step_s=times, step_s_median=step_s,
+                tokens_per_s=tokens / step_s, peak_allocated_gb=peak / 1e9,
+                launches=launches, launches_per_step=per_step,
+                profile=prof), launches
+
+
+def train_trainer(dev, tmp):
+    """``launch.train`` at its defaults with --steps 12 --checkpoint-every
+    4 (smoke config, seq 256: below flash_threshold, so no custom kernel
+    runs), then a ``Trainer`` that fails once at step 6, restores step 4's
+    checkpoint and replays."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    before = sum(k.launches for k in _build.KERNELS.values())
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        launch_train.main(["--arch", ARCH, "--steps", "12",
+                           "--checkpoint-every", "4", "--ckpt",
+                           str(tmp / "launch")])
+    launch_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    assert lines[-1].endswith("checkpoints=[4, 8, 12]"), lines[-1]
+
+    cfg = smoke_config(get_arch(ARCH))
+    fired = []
+
+    def fail(step):
+        if step == TRAIN_FAIL_AT and not fired:
+            fired.append(step)
+            raise RuntimeError("injected failure")
+
+    tr = Trainer(cfg, OptimizerConfig(learning_rate=3e-4, warmup_steps=20,
+                                      total_steps=12),
+                 TrainerConfig(steps=12, checkpoint_every=4,
+                               checkpoint_dir=str(tmp / "trainer"),
+                               log_every=100),
+                 DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                            global_batch=8, mean_doc_len=307.2),
+                 failure_hook=fail, device=dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        hist = tr.run()
+    steps = [r["step"] for r in hist]
+    assert fired and steps == [*range(TRAIN_FAIL_AT),
+                               *range(4, 12)], steps
+    first = {r["step"]: r["loss"] for r in hist[:TRAIN_FAIL_AT]}
+    replay = {r["step"]: r["loss"] for r in hist[TRAIN_FAIL_AT:]}
+    replay_diff = max(abs(first[s] - replay[s]) for s in (4, 5))
+    assert replay_diff <= TRAIN_REPLAY_TOL, (first, replay)
+    assert tr.store.steps() == [4, 8, 12]
+    custom = sum(k.launches for k in _build.KERNELS.values()) - before
+    return dict(launch_lines=[lines[0], lines[-1]], launch_s=launch_s,
+                custom_kernel_launches=custom,
+                note="smoke_config, seq 256 < flash_threshold: no custom "
+                     "kernel runs", failure_at=TRAIN_FAIL_AT,
+                replayed_steps=[4, 5], replay_max_abs_diff=replay_diff,
+                replay_tolerance=TRAIN_REPLAY_TOL,
+                losses=[r["loss"] for r in hist],
+                checkpoints=tr.store.steps())
+
+
+def phase_train(dev):
+    """The training slice: flash_dense_bwd against its plain version at
+    qwen3-4b's and granite-moe-1b-a400m's attention shapes, the 2-layer
+    step with the kernels against plain attention, the 16-layer full-width
+    run (the counted path), then the Trainer on the card.  Returns the
+    fields of the kernels line's flash_dense_bwd entry and the 16-layer
+    run's launch counts."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    cfg = get_arch(ARCH)
+    moe = get_arch(BWD_ARCH_64)
+    shapes = {"128": bwd_shape(dev, 11, TRAIN_BATCH, TRAIN_S, cfg.num_heads,
+                               cfg.num_kv_heads, cfg.resolved_head_dim),
+              "64": bwd_shape(dev, 12, TRAIN_BATCH, TRAIN_S, moe.num_heads,
+                              moe.num_kv_heads, moe.resolved_head_dim)}
+    shapes["128"]["arch"], shapes["64"]["arch"] = ARCH, BWD_ARCH_64
+    digest = dense_digest(dev)
+    assert digest == PARENT_DENSE_DIGEST, (digest, PARENT_DENSE_DIGEST)
+    batches = train_batches(cfg, 1 + TRAIN_STEPS)
+    parity = train_parity(dev, cfg, {
+        k: torch.from_numpy(batches[0][k]).to(dev)
+        for k in ("tokens", "labels")})
+    full, launches = train_full(dev, cfg, batches)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = train_trainer(dev, Path(tmp))
+    emit("train", by_head_dim=shapes, dense_digest=digest,
+         dense_digest_parent=PARENT_DENSE_DIGEST, parity=parity,
+         full=full, trainer=trainer,
+         cut=f"{TRAIN_LAYERS} of {cfg.num_layers} layers at full width "
+             "(fp32 params, grads and two AdamW moments of all 36 need "
+             "70.6 GB); random fp32 weights from seed 0")
+    main = shapes["128"]
+    fields = {k: main[k] for k in ("max_abs_err", "ms", "ms_b2b",
+                                   "fwd_bwd_ms", "fwd_bwd_ms_b2b",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "library_fwd_bwd_ms")}
+    fields["max_rel_err"] = max(r["max_rel_err"] for r in shapes.values())
+    fields["by_head_dim"] = {
+        hd: {k: r[k] for k in ("arch", "shape", "max_rel_err", "ms",
+                               "ms_b2b", "fwd_bwd_ms", "plain_ms",
+                               "library_ms", "library_fwd_bwd_ms",
+                               "bound_ms", "bound_by")}
+        for hd, r in shapes.items()}
+    return fields, launches
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1699,6 +2061,10 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_campaign(dev)
 
+    # ---- this slice: training on the card -------------------------------
+    torch.cuda.empty_cache()
+    bwd, train_launches = phase_train(dev)
+
     gmm_flops = total("flops")
     gmm_bytes = total("bytes")
     kernels = [
@@ -1740,14 +2106,25 @@ def main(argv) -> int:
                       + moe_launches["flash_dense"]
                       + dense80_launches["flash_dense"]
                       + recurrent_launches["recurrentgemma-2b"][
-                          "flash_dense"]),
+                          "flash_dense"]
+                      + train_launches["flash_dense"]),
          "launches_by_path": {
              "prefill": prefill_launches["flash_dense"],
              "moe_prefill": moe_launches["flash_dense"],
              "prefill_80": dense80_launches["flash_dense"],
              "recurrentgemma_prefill": recurrent_launches[
-                 "recurrentgemma-2b"]["flash_dense"]},
+                 "recurrentgemma-2b"]["flash_dense"],
+             "train": train_launches["flash_dense"]},
          "tolerance": f"{ATOL} + {RTOL}*|plain|", **dense},
+        {"name": "flash_dense_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_dense_bwd.cu",
+         "replaces": "src/repro/models/attention.py:191",
+         "replaces_note": "no Pallas kernel: the reference differentiates "
+                          "_attend_flash by autodiff",
+         "launches": train_launches["flash_dense_bwd_dkdv"],
+         "launches_by_kernel": {n: train_launches[n] for n in BWD_KERNELS},
+         "launches_by_path": {"train": train_launches["flash_dense_bwd_dkdv"]},
+         "tolerance": f"{BWD_REL_TOL}*max|plain| per gradient", **bwd},
     ]
     for kern in kernels:
         assert all(math.isfinite(kern[x]) for x in

@@ -1,4 +1,4 @@
-"""DLS applied to framework decisions (port of ``src/repro/balance``;
-``accum.py`` waits for a later slice)."""
+"""DLS applied to framework decisions (port of ``src/repro/balance``)."""
 
+from .accum import AccumPlanner  # noqa: F401
 from .moe import MoEBalancer, plan_tiles  # noqa: F401

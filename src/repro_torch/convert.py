@@ -12,7 +12,10 @@ arrays numpy can read (``np.asarray`` of each leaf; JAX arrays qualify):
     and MLP weights, the MoE router and expert stacks, the recurrent
     mixers' leaves;
   * ``decode_state_from_jax``: a reference ``DecodeState`` -> the port's,
-    KV caches and recurrent states alike.
+    KV caches and recurrent states alike;
+  * ``adamw_state_from_jax``: a reference ``AdamWState`` (step, mu, nu) ->
+    the port's, the moments nested as ``decoder_params_from_jax`` nests
+    parameters.
 """
 
 from __future__ import annotations
@@ -26,9 +29,10 @@ from .device import resolve_device
 from .models.attention import KVCache, KVCacheQ
 from .models.decoder import DecodeState, tree_map
 from .models.recurrent import MLSTMState, RGLRUState, SLSTMState
+from .optim.adamw import AdamWState
 
 __all__ = ["params_from_jax", "flatten_tree", "decoder_params_from_jax",
-           "decode_state_from_jax"]
+           "decode_state_from_jax", "adamw_state_from_jax"]
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
@@ -101,3 +105,14 @@ def decode_state_from_jax(state: Any, *,
         group_caches=tuple(cache(c) for c in state.group_caches),
         rem_caches=tuple(cache(c) for c in state.rem_caches),
         pos=_tensor(state.pos, dev))
+
+
+def adamw_state_from_jax(state: Any, *,
+                         device: Optional[Union[str, torch.device]] = None
+                         ) -> AdamWState:
+    """A reference ``AdamWState`` -> the port's: the int32 step and the two
+    moment trees, on ``device`` (the card unless ``"cpu"``)."""
+    dev = resolve_device(device)
+    return AdamWState(step=_tensor(state.step, dev),
+                      mu=decoder_params_from_jax(state.mu, device=dev),
+                      nu=decoder_params_from_jax(state.nu, device=dev))

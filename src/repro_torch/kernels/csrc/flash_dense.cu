@@ -70,7 +70,10 @@
 //     gives p = exp2(-1e30 - m) = 0.  Every row of a dense causal or
 //     windowed grid has at least its diagonal column, so no row is dead.
 //   * Only rows below s and columns below the head dim are written,
-//     straight from the accumulators.
+//     straight from the accumulators.  Given a pointer, the epilogue also
+//     writes each row's log-sum-exp, lse = (m + log2 l) ln 2 in fp32, laid
+//     out (b, h, s): the residual flash_dense_bwd.cu reads.  O does not
+//     depend on it.
 //   * The consumer side (softmax, the S and P V issues, the turns, the
 //     epilogue) is shared with flash_sched.cu through flash_hopper.cuh.
 
@@ -82,6 +85,7 @@ using namespace flash_hopper;
 
 struct DenseParams {
   __nv_bfloat16* o;
+  float* lse;         // (b, h, s) log-sum-exp of each row, or null
   long long o_sb, o_sh, o_ss;
   int lanes, nq, s, H, group, hd, causal, window;
   float scale_log2;   // softmax scale * log2(e)
@@ -205,6 +209,19 @@ flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
     // never saw a live column (m <= NEG_INF / 2) are written as 0
     store_rows<HD>(P.o + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m, l, r_lo,
                    P.s, lane, P.hd);
+    // lse = (m + log2 l) ln 2 of the rows below s (+inf for a row with no
+    // live column, so that the backward's exp(S - lse) is 0 there)
+    if (P.lse != nullptr && (lane & 3) == 0) {
+      float* lrow = P.lse + static_cast<long long>(lane_id) * P.s;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = r_lo + 8 * j;
+        if (row < P.s)
+          lrow[row] = m[j] > NEG_INF * 0.5f
+                          ? (m[j] + log2f(l[j])) * 0.6931471805599453f
+                          : __int_as_float(0x7f800000);
+      }
+    }
   }
 }
 
@@ -234,7 +251,8 @@ int launch_hd(const void* q, const void* k, const void* v, int batch, int kvh,
 }  // namespace
 
 extern "C" int flash_dense_launch(
-    const void* q, const void* k, const void* v, void* o, int batch, int s,
+    const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+    int s,
     int H, int group, int hd, int causal, int window, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
@@ -248,6 +266,7 @@ extern "C" int flash_dense_launch(
                   vs[3] = {v_sb, v_sh, v_ss};
   DenseParams P;
   P.o = static_cast<__nv_bfloat16*>(o);
+  P.lse = static_cast<float*>(lse);
   P.o_sb = o_sb; P.o_sh = o_sh; P.o_ss = o_ss;
   P.lanes = batch * H;
   P.nq = (s + BQ - 1) / BQ;

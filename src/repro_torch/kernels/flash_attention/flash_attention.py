@@ -10,6 +10,15 @@ diagonal or outside the sliding window; see the note at the top of that
 file.  On a CPU tensor ``flash_attention_dense_plain`` (fp32 masked
 softmax) computes the same function.
 
+Dense backward (no Pallas kernel: the reference differentiates the
+kernel's pure-JAX twin ``_attend_flash`` by autodiff): on a CUDA tensor
+``flash_attention_dense_bshd`` runs ``_FlashDense``, an autograd Function
+whose forward also asks ``flash_dense`` for each row's log-sum-exp and
+whose backward launches ``csrc/flash_dense_bwd.cu`` (D = rowsum(dO o O),
+then dK and dV, then dQ; head dims 64 and 128).  On a CPU tensor autograd
+differentiates the plain version; ``flash_attention_dense_bwd_plain``
+computes the same gradients explicitly, for the checks on the card.
+
 Schedule-aware (``flash_attention_sched_bhsd``): the host side is kept
 byte-faithful and is array arithmetic: each (lane, q block) group's live kv
 blocks are one range, computed for all groups at once with its live-column
@@ -59,8 +68,24 @@ FLASH_SCHED = Kernel(
     + [_c.c_float, _c.c_void_p])
 FLASH_DENSE = Kernel(
     "flash_dense", source="flash_dense", symbol="flash_dense_launch",
-    argtypes=[_c.c_void_p] * 4 + [_c.c_int] * 7 + [_c.c_longlong] * 12
+    argtypes=[_c.c_void_p] * 5 + [_c.c_int] * 7 + [_c.c_longlong] * 12
     + [_c.c_float, _c.c_void_p])
+#: the backward (``csrc/flash_dense_bwd.cu``): D = rowsum(dO o O), then dK and
+#: dV, then dQ; each launch counts on its own kernel
+FLASH_DENSE_BWD_DELTA = Kernel(
+    "flash_dense_bwd_delta", source="flash_dense_bwd",
+    symbol="flash_dense_bwd_delta_launch",
+    argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 4 + [_c.c_void_p])
+FLASH_DENSE_BWD_DKDV = Kernel(
+    "flash_dense_bwd_dkdv", source="flash_dense_bwd",
+    symbol="flash_dense_bwd_dkdv_launch",
+    argtypes=[_c.c_void_p] * 8 + [_c.c_int] * 7 + [_c.c_float, _c.c_void_p])
+FLASH_DENSE_BWD_DQ = Kernel(
+    "flash_dense_bwd_dq", source="flash_dense_bwd",
+    symbol="flash_dense_bwd_dq_launch",
+    argtypes=[_c.c_void_p] * 7 + [_c.c_int] * 7 + [_c.c_float, _c.c_void_p])
+#: head dims the backward is instantiated for
+DENSE_BWD_HEAD_DIMS = (64, 128)
 
 
 def broadcast_flatten(q, k, v):
@@ -262,19 +287,83 @@ def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
     return out
 
 
-def _flash_dense_cuda(q, k, v, *, causal: bool, window: int):
+def _flash_dense_cuda(q, k, v, *, causal: bool, window: int,
+                      with_lse: bool = False):
     """Launch ``flash_dense`` on q (b, s, h, hd), k/v (b, s, kvh, hd) in
-    place of their strides; returns a new (b, s, h, hd) tensor."""
+    place of their strides; returns a new (b, s, h, hd) tensor, and with
+    ``with_lse`` also each row's log-sum-exp (b, h, s) fp32 (the output is
+    the same bits either way)."""
     _check_kernel_inputs("flash_dense", q, k, v)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     FLASH_DENSE.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         b, s, h, h // kvh, hd, int(causal), int(window),
         *_strides(q, k, v, out),
         1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _check_bwd_head_dim(hd: int) -> None:
+    if hd not in DENSE_BWD_HEAD_DIMS:
+        raise ValueError(
+            f"flash_dense_bwd supports head_dim in {DENSE_BWD_HEAD_DIMS}, got "
+            f"{hd}; head dims 80 (padded) and 256 (windowed) wait for "
+            "ROADMAP.md section 2, item 2 (flash_dense backward)")
+
+
+def _flash_dense_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int):
+    """Launch the three backward kernels on the forward's q (b, s, h, hd),
+    k/v (b, s, kvh, hd), output o, its gradient do and lse (b, h, s); returns
+    (dq, dk, dv) in the inputs' shapes, bfloat16."""
+    _check_kernel_inputs("flash_dense", q, k, v)
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    _check_bwd_head_dim(hd)
+    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do.to(q.dtype)))
+    lse = lse.contiguous()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    FLASH_DENSE_BWD_DELTA.launch(o.data_ptr(), do.data_ptr(),
+                                 delta.data_ptr(), b, s, h, hd, stream)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    shape = (b, s, h, h // kvh, hd, int(causal), int(window),
+             1.0 / math.sqrt(hd), stream)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    FLASH_DENSE_BWD_DKDV.launch(*ins, dk.data_ptr(), dv.data_ptr(), *shape)
+    FLASH_DENSE_BWD_DQ.launch(*ins, dq.data_ptr(), *shape)
+    return dq, dk, dv
+
+
+class _FlashDense(torch.autograd.Function):
+    """``flash_dense`` under autograd: the forward launches the kernel and,
+    when a gradient is wanted, keeps q, k, v, the output and the rows'
+    log-sum-exp; the backward launches ``csrc/flash_dense_bwd.cu``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        grad = any(ctx.needs_input_grad[:3])
+        if not grad:
+            return _flash_dense_cuda(q, k, v, causal=causal, window=window)
+        _check_bwd_head_dim(q.shape[3])
+        out, lse = _flash_dense_cuda(q, k, v, causal=causal, window=window,
+                                     with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_dense_bwd_cuda(q, k, v, out, do, lse,
+                                           causal=ctx.causal,
+                                           window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_dense_plain(q, k, v, *, causal: bool = True,
@@ -284,14 +373,45 @@ def flash_attention_dense_plain(q, k, v, *, causal: bool = True,
     return flash_attention_sched_plain(q, k, v, causal=causal, window=window)
 
 
+def flash_attention_dense_bwd_plain(q, k, v, do, *, causal: bool = True,
+                                    window: int = 0):
+    """The plain version of the backward: (dq, dk, dv) of the dense
+    function at q (b, s, h, hd), k/v (b, s, kvh, hd) for the output
+    gradient do (b, s, h, hd), by ``torch.autograd.grad`` through
+    ``flash_attention_dense_plain`` in fp32, 32 lanes at a time (bounding
+    the fp32 (lanes, s, s) scores); fp32 results on any device."""
+    lane_chunk = 32
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    qf, kf, vf = (x.detach().float().contiguous()
+                  for x in broadcast_flatten(q, k, v))
+    dof = do.detach().float().permute(0, 2, 1, 3).reshape(b * h, s, hd)
+    grads = [torch.empty_like(qf) for _ in range(3)]
+    for a in range(0, b * h, lane_chunk):
+        z = slice(a, min(a + lane_chunk, b * h))
+        leaves = [x[z].requires_grad_(True) for x in (qf, kf, vf)]
+        with torch.enable_grad():
+            out = flash_attention_dense_plain(*leaves, causal=causal,
+                                              window=window)
+            got = torch.autograd.grad(out, leaves, dof[z])
+        for dst, g in zip(grads, got):
+            dst[z] = g
+    dq, dk, dv = (g.reshape(b, h, s, hd).permute(0, 2, 1, 3) for g in grads)
+    # the GQA group's lanes share one KV head: their gradients sum
+    dk, dv = (g.reshape(b, s, kvh, h // kvh, hd).sum(3) for g in (dk, dv))
+    return dq, dk, dv
+
+
 def flash_attention_dense_bshd(q, k, v, *, causal: bool = True,
                                window: int = 0):
     """Dense flash attention in the model layout: q (b, s, h, hd), k/v
-    (b, s, kvh, hd) -> (b, s, h, hd).  A CUDA tensor launches
-    ``flash_dense``; a CPU tensor takes the plain version."""
+    (b, s, kvh, hd) -> (b, s, h, hd).  A CUDA tensor goes through
+    ``_FlashDense`` (``flash_dense``, and ``flash_dense_bwd`` for its
+    gradient); a CPU tensor takes the plain version, which autograd
+    differentiates."""
     dev = check_device(q, k, v)
     if dev.type == "cuda":
-        return _flash_dense_cuda(q, k, v, causal=causal, window=window)
+        return _FlashDense.apply(q, k, v, causal, window)
     b, s, h, hd = q.shape
     out = flash_attention_dense_plain(*broadcast_flatten(q, k, v),
                                       causal=causal, window=window)

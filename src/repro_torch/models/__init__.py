@@ -1,6 +1,6 @@
 """Model zoo, ported from ``src/repro/models``: the unified decoder for all
-10 architectures (attention, MoE FFN, mLSTM / sLSTM / RG-LRU blocks).
-``loss_fn`` and remat wait for the training slice (ROADMAP.md).
+10 architectures (attention, MoE FFN, mLSTM / sLSTM / RG-LRU blocks),
+``forward``, ``decode_step`` and the training loss ``loss_fn``.
 """
 
 from .decoder import (  # noqa: F401
@@ -9,5 +9,6 @@ from .decoder import (  # noqa: F401
     forward,
     init_decode_state,
     init_decoder,
+    loss_fn,
 )
 from .attention import KVCache, init_kv_cache  # noqa: F401

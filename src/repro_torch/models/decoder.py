@@ -14,18 +14,30 @@ writes or ``copy_`` where the reference's ``dynamic_update_index_in_dim``
 returns a new array.  ``decode_step`` returns the state it was given,
 advanced.
 
-Not here yet (ROADMAP.md, port queue): ``loss_fn`` and remat, which belong
-to the training slice.
+Training: ``loss_fn`` is the reference's chunked next-token CE plus z-loss
+plus the MoE aux loss; each ``cfg.loss_chunk``-position chunk's unembed
+and CE run under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` inside ``lax.scan``), so the (b, s, vocab) logits are
+never held.  The group loop runs under ``_remat``: ``"full"`` recomputes a
+group's blocks in the backward, ``"dots"`` saves only the matmul outputs
+(selective checkpointing, the reference's ``checkpoint_dots``), ``"none"``
+saves everything.  Remat applies only where autograd records: a forward
+under ``torch.no_grad()``, or on parameters that do not require grad, runs
+the blocks as they are.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..sharding import Ax
+from ..tree import tree_leaves, tree_map
 from .attention import (
     attention,
     attention_decode,
@@ -71,18 +83,6 @@ _MIXER_INIT = {
 
 def _has_ffn(cfg) -> bool:
     return cfg.d_ff > 0 or cfg.moe is not None
-
-
-def tree_map(fn, *trees):
-    """Map ``fn`` over the leaves of nested dicts / tuples / NamedTuples."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
-        return type(t0)(*(tree_map(fn, *xs) for xs in zip(*trees)))
-    if isinstance(t0, (tuple, list)):
-        return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +226,29 @@ def _layers(params, cfg):
 # ---------------------------------------------------------------------------
 
 
+#: the matmuls whose outputs ``remat="dots"`` keeps (``checkpoint_dots``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _records(*tensors) -> bool:
+    """Will autograd record an op on ``tensors``?"""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _remat(fn, policy: str, records: bool):
+    """``fn`` under the remat ``policy`` ('none' | 'dots' | 'full') where
+    autograd ``records``; as it is otherwise (a checkpoint around a forward
+    that saves nothing only costs host time)."""
+    if policy == "none" or not records:
+        return fn
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(_DOTS))
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def _hidden_states(params, cfg, tokens, prefix_embed=None):
     """Shared trunk of forward() up to the final norm (no unembed)."""
     compute = dtype_of(cfg.compute_dtype)
@@ -235,9 +258,22 @@ def _hidden_states(params, cfg, tokens, prefix_embed=None):
     s = x.shape[1]
     sin, cos = rope_tables(torch.arange(s, device=x.device),
                            cfg.resolved_head_dim, cfg.rope_theta)
+    g, pattern, remainder = _group_split(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, layer, _, _ in _layers(params, cfg):
-        x, a = block_apply(layer, cfg, kind, x, sin, cos)
+
+    def group_body(x, aux, gi):
+        for pi, kind in enumerate(pattern):
+            layer = tree_map(lambda a: a[gi], params["groups"][pi])
+            x, a = block_apply(layer, cfg, kind, x, sin, cos)
+            aux = aux + a
+        return x, aux
+
+    body = _remat(group_body, cfg.remat,
+                  _records(x, *tree_leaves(params["groups"])))
+    for gi in range(g):
+        x, aux = body(x, aux, gi)
+    for ri, kind in enumerate(remainder):
+        x, a = block_apply(params["remainder"][ri], cfg, kind, x, sin, cos)
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
@@ -249,6 +285,42 @@ def forward(params, cfg, tokens, prefix_embed=None):
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     logits = unembed_logits(x, table, cfg)
     return softcap(logits, cfg.logit_softcap), aux
+
+
+def loss_fn(params, cfg, tokens, labels, prefix_embed=None,
+            z_loss: float = 1e-4):
+    """Next-token CE over the token body (prefix positions excluded).
+
+    The logits are never materialized at (b, s, vocab): the unembed + CE
+    is computed in checkpointed seq chunks of cfg.loss_chunk positions,
+    bounding the transient at (b, chunk, vocab)."""
+    x, aux = _hidden_states(params, cfg, tokens, prefix_embed)
+    if prefix_embed is not None:
+        x = x[:, prefix_embed.shape[1]:, :]
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+
+    def chunk_loss(xc, lc):
+        logits = unembed_logits(xc, table, cfg)
+        logits = softcap(logits, cfg.logit_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        return torch.sum(lse - picked), torch.sum(torch.square(lse))
+
+    b, s, _ = x.shape
+    chunk = cfg.loss_chunk
+    if chunk <= 0 or s % chunk != 0 or s <= chunk:
+        ce_sum, z_sum = chunk_loss(x, labels)
+    else:
+        body = _remat(chunk_loss, "full", _records(x, table))
+        ce_sum = z_sum = torch.zeros((), dtype=torch.float32,
+                                     device=x.device)
+        for c0 in range(0, s, chunk):
+            ce, zz = body(x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
+            ce_sum, z_sum = ce_sum + ce, z_sum + zz
+    n_tok = b * s
+    ce = ce_sum / n_tok
+    zl = z_loss * z_sum / n_tok
+    return ce + zl + aux, {"ce": ce, "z_loss": zl, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -143,8 +143,20 @@ def _expert_matmul(xe, w):
     """xe (E, R, d) expert rows @ w (E, d, f) -> (E, R, f), R a multiple of
     the kernel's row tile.  ``grouped_matmul`` launches ``gmm`` on a CUDA
     tensor (one CTA per SM, identity order) and takes the plain version on
-    a CPU tensor."""
-    kw = {"sched_p": _sm_count(xe.device.index)} if xe.is_cuda else {}
+    a CPU tensor.
+
+    ``gmm`` has no backward yet, so on a CUDA tensor with grad mode on and
+    an input that requires grad this raises rather than return an output
+    without a gradient (ROADMAP.md section 2, item 1: MoE training); the
+    dense dispatch trains."""
+    kw = {}
+    if xe.is_cuda:
+        if torch.is_grad_enabled() and (xe.requires_grad or w.requires_grad):
+            raise NotImplementedError(
+                "the ragged MoE dispatch cannot train on the card yet: gmm "
+                "has no backward (ROADMAP.md section 2, item 1: MoE "
+                "training); use moe dispatch 'dense'")
+        kw["sched_p"] = _sm_count(xe.device.index)
     return grouped_matmul(xe, w, block_rows=KERNEL_BLOCK_ROWS, **kw)
 
 

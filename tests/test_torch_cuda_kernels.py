@@ -356,7 +356,7 @@ def test_gmm_rejects_what_the_kernel_does_not_take(dev):
 
 def test_build_is_cached_and_counted(dev):
     libs = _build.build_all()
-    assert set(libs) == {"flash_dense", "flash_sched", "gmm"}
+    assert set(libs) == {"flash_dense", "flash_dense_bwd", "flash_sched", "gmm"}
     assert all(p.is_file() for p in libs.values())
     _build.reset_launches()
     assert all(k.launches == 0 for k in _build.KERNELS.values())
