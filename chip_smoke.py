@@ -126,13 +126,20 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
   train        the training slice.  ``flash_dense_bwd`` (delta, dkdv, dq)
                against its plain version (``torch.autograd.grad`` through
                the fp32 plain forward) at qwen3-4b's attention shape (2 x
-               4096, 32 / 8 heads, hd 128) and granite-moe-1b-a400m's (16 /
-               8 heads, hd 64), causal: dQ, dK, dV within 2^-6 of max
-               |plain| each, two runs bit-identical, times of the backward
-               and of forward + backward (single calls and back to back),
-               the plain backward's and SDPA's backward and forward +
-               backward (``is_causal``, ``enable_gqa``; a yardstick), and
-               ``dense_digest`` equal to the parent's.  Then qwen3-4b at
+               4096, 32 / 8 heads, hd 128), granite-moe-1b-a400m's (16 /
+               8 heads, hd 64), stablelm-3b's (32 / 32, hd 80) and
+               recurrentgemma-2b's (10 / 1, hd 256, window 2048), causal:
+               dQ, dK, dV within 2^-6 of max |plain| each, two runs
+               bit-identical, times of the backward and of forward +
+               backward (single calls and back to back), the plain
+               backward's and SDPA's backward and forward + backward
+               (``is_causal`` or the window as a boolean mask,
+               ``enable_gqa``; a yardstick); after each of the last two
+               the first layers of that model at full width (stablelm-3b
+               2, recurrentgemma-2b one pattern period, 3) on 2 x 4096
+               tokens with the kernels against plain attention (loss and
+               every gradient leaf); ``dense_digest`` equal to the
+               parent's.  Then qwen3-4b at
                full width on 2 x 4096 tokens from the port's
                ``DataLoader``: loss and every gradient leaf of 2 layers
                with the kernels against the same with the plain attention
@@ -147,6 +154,19 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                --steps 12 --checkpoint-every 4 (smoke_config: no custom
                kernel) and a ``Trainer`` that fails once at step 6,
                restores step 4's checkpoint and replays
+  moe_train    qwen3-moe-30b-a3b at full width cut to 2 of 48 layers,
+               dispatch "ragged", remat "full", on 2 x 4096 tokens from the
+               ``DataLoader``: loss and every gradient leaf with the kernels
+               against the same with the plain grouped matmul in place of
+               ``_expert_matmul``; launch counts set to 0, then 1 warm and
+               3 timed AdamW ``make_train_step`` steps, the counts read
+               right after (per layer and step gmm 9: forward, the remat's
+               recompute and dX for wi, wg and wo; gmm_dw 3; flash_dense 2;
+               each backward kernel 1); step time, tokens/s, peak memory, a
+               device profile of one more step; then dX (``gmm`` reading
+               the weights transposed) and dW (``gmm_dw``) alone at the
+               step's shapes against ``grouped_matmul_bwd_plain``, two runs
+               bit-identical, their times, ``torch.bmm``'s and the bound
   kernels      the summary line, one entry per kernel; ``launches`` sums
                the counted runs of every path that launches the kernel
                (``launches_by_path``); flash_dense's entry carries
@@ -159,13 +179,15 @@ CUDA device is present or ``src/repro_torch`` is missing beside it.
 
     python3 chip_smoke.py --dense-digest [SRC]
     python3 chip_smoke.py --dense-times [SRC]
+    python3 chip_smoke.py --bwd-times [SRC]
 
 print only that digest, or only ``flash_dense``'s single-call and
 back-to-back times at the prefill's shape (head_dim 128, causal) and at
-head_dim 64 with a window of 200, for the package under ``SRC``
-(default: this checkout's ``src``), so that another tree's
-``flash_dense`` can be held against this one bit for bit, and timed
-against it in turns (parent, change, change, parent) in one call.
+head_dim 64 with a window of 200, or only ``flash_dense_bwd``'s
+back-to-back times at the train phase's four shapes (``bwd_times``), for
+the package under ``SRC`` (default: this checkout's ``src``), so that
+another tree's kernels can be held against this one bit for bit, and
+timed against it in turns (parent, change, change, parent) in one call.
 
 Tolerance of the 2-layer ``forward`` / ``decode_step`` comparison (bf16
 compute), also held by the recurrent ``forward`` / ``decode_step``
@@ -196,9 +218,12 @@ before the final rounding to bf16.
 The train phase's gates.  ``flash_dense_bwd``'s dQ, dK and dV against the
 fp32 plain backward: max |kernel - plain| <= 2^-6 max |plain| per tensor
 (P and dS are rounded to bf16 before their products, and the result to
-bf16 once).  The 2-layer step, kernels against plain attention (bf16
-compute, the residual stream in bf16): losses within 1e-2, every gradient
-leaf within 2^-4 of that leaf's largest |plain| entry.  The Trainer's
+bf16 once).  The 2-layer steps (and recurrentgemma-2b's 3 layers),
+kernels against plain attention (bf16 compute, the residual stream in
+bf16), and the MoE step against the plain grouped matmul: losses within
+1e-2, every gradient leaf within 2^-4 of that leaf's largest |plain|
+entry.  The MoE backward kernels alone: |kernel - plain| <= 2^-7 + 2^-7
+|plain|, as the forward kernels.  The Trainer's
 replayed steps within 1e-3 of the first pass's losses (the embedding's
 backward sums with atomics on the card).
 """
@@ -272,6 +297,23 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 2.0 ** -4
 # step-4 checkpoint; replayed losses within TRAIN_REPLAY_TOL of the first
 # pass's (the embedding's backward sums with atomics on the card)
 TRAIN_FAIL_AT, TRAIN_REPLAY_TOL = 6, 1e-3
+# the backward at every head dim the configs use: 80 (stablelm-3b, 32 / 32
+# heads, computed at 128) and 256 (recurrentgemma-2b, 10 / 1, window 2048),
+# b 2 x 4096; then a full-width step of each model with the kernels against
+# plain attention: stablelm-3b at 2 layers, recurrentgemma-2b at one
+# block-pattern period (rglru, rglru, local_attn)
+BWD_WIDE_ARCHS = {"80": ("stablelm-3b", 2), "256": ("recurrentgemma-2b", 3)}
+# the ragged MoE's training: qwen3-moe-30b-a3b at full width, dispatch
+# "ragged", cut to MOE_TRAIN_LAYERS of 48 layers, remat "full", AdamW, on
+# TRAIN_BATCH x TRAIN_S tokens, 1 warm and MOE_TRAIN_STEPS timed steps.
+# Per layer and step gmm runs 9 times (wi, wg, wo: forward, the remat
+# recompute, dX) and gmm_dw 3 times.
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
+MOE_GMM_PER_LAYER, MOE_DW_PER_LAYER = 9, 3
+# a sanity band, not a reference: with random weights the first loss is
+# ln(vocab) plus about half the logits' variance (qwen3-4b's 16 layers read
+# 0.48 above ln 151936, these 2 MoE layers 0.64 above)
+MOE_TRAIN_LOSS0_BAND = 1.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -586,6 +628,31 @@ def dense_times(dev):
                    .to(torch.bfloat16) for n in (h, kvh, kvh))
         ms, ms_b2b = dense_kernel_ms(q, k, v, win)
         out[key] = {"ms": ms, "ms_b2b": ms_b2b}
+    return out
+
+
+def bwd_times(dev):
+    """``flash_dense_bwd``'s ms_b2b (the three launches of one backward) at
+    the train phase's shapes (b 2, s 4096, causal; head dims 128, 64, 80
+    and 256 with the configs' heads and windows), on inputs of a seed of
+    their own."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for arch in (ARCH, BWD_ARCH_64, *(a for a, _ in BWD_WIDE_ARCHS.values())):
+        cfg = get_arch(arch)
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        q, k, v, do = (torch.randn(TRAIN_BATCH, TRAIN_S, n, hd, generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for n in (h, kvh, kvh, h))
+        o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=cfg.window,
+                                      with_lse=True)
+        out[str(hd)] = {"arch": arch, "ms_b2b": cuda_ms_b2b(
+            lambda: fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
+                                             window=cfg.window), REPS)}
+        del q, k, v, do, o, lse
     return out
 
 
@@ -1391,36 +1458,45 @@ def phase_campaign(dev):
                 "equal_to_host": True, "wall_s": plan_s})
 
 
-def bwd_shape(dev, seed, b, s, h, kvh, hd):
-    """``flash_dense_bwd`` at one full (b, s, h, kvh, hd) causal shape: the
-    three kernels against the plain backward (``torch.autograd.grad``
-    through the fp32 plain forward), bit-identity of two runs, times of the
-    backward alone and of forward + backward (single calls and back to
-    back), the plain backward's, and ``scaled_dot_product_attention``'s
-    backward and forward + backward on the same tensors (``is_causal``,
+def live_pairs(s, window=0):
+    """(row, column) pairs of a causal s x s grid, within ``window`` of the
+    diagonal when it is > 0."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def bwd_shape(dev, seed, b, s, h, kvh, hd, window=0):
+    """``flash_dense_bwd`` at one full (b, s, h, kvh, hd) causal shape (with
+    a sliding ``window`` when > 0): the three kernels against the plain
+    backward (``torch.autograd.grad`` through the fp32 plain forward),
+    bit-identity of two runs, times of the backward alone and of forward +
+    backward (single calls and back to back), the plain backward's, and
+    ``scaled_dot_product_attention``'s backward and forward + backward on
+    the same tensors (``is_causal``, or the window as a boolean mask;
     ``enable_gqa``; a yardstick the port never calls)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
                    .to(torch.bfloat16) for n in (h, kvh, kvh, h))
-    out, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=0,
+    out, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=window,
                                     with_lse=True)
 
     def backward():
         return fa._flash_dense_bwd_cuda(q, k, v, out, do, lse, causal=True,
-                                        window=0)
+                                        window=window)
 
     def fwd_bwd():
-        o, l_ = fa._flash_dense_cuda(q, k, v, causal=True, window=0,
+        o, l_ = fa._flash_dense_cuda(q, k, v, causal=True, window=window,
                                      with_lse=True)
         return fa._flash_dense_bwd_cuda(q, k, v, o, do, l_, causal=True,
-                                        window=0)
+                                        window=window)
 
     got, again = backward(), backward()
     identical = all(torch.equal(x, y) for x, y in zip(got, again))
     assert identical, f"flash_dense_bwd hd {hd}: two runs differ"
-    want = fa.flash_attention_dense_bwd_plain(q, k, v, do)
+    want = fa.flash_attention_dense_bwd_plain(q, k, v, do, window=window)
     errors = {}
     for nm, x, y in zip(("dq", "dk", "dv"), got, want):
         top = float(y.abs().max())
@@ -1430,31 +1506,37 @@ def bwd_shape(dev, seed, b, s, h, kvh, hd):
         assert err <= BWD_REL_TOL * top, (hd, nm, err, top)
     del got, again, want
     plain_ms = cuda_ms(lambda: fa.flash_attention_dense_bwd_plain(
-        q, k, v, do), 3)
+        q, k, v, do, window=window), 3)
     ms, ms_b2b = cuda_ms(backward, REPS), cuda_ms_b2b(backward, REPS)
     fb_ms, fb_b2b = cuda_ms(fwd_bwd, REPS), cuda_ms_b2b(fwd_bwd, REPS)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.permute(0, 2, 1, 3).detach().requires_grad_(True)
                   for x in (q, k, v))
     dot = do.permute(0, 2, 1, 3)
-    graph = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    mask_kw = {"is_causal": True}
+    if window > 0:
+        i = torch.arange(s, device=dev)
+        mask_kw = {"attn_mask": (i[None, :] <= i[:, None])
+                   & (i[:, None] - i[None, :] < window)}
+    graph = sdpa(qt, kt, vt, enable_gqa=True, **mask_kw)
 
     def sdpa_fwd_bwd():
-        o = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        o = sdpa(qt, kt, vt, enable_gqa=True, **mask_kw)
         return torch.autograd.grad(o, (qt, kt, vt), dot)
 
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         graph, (qt, kt, vt), dot, retain_graph=True), REPS)
     library_fb_ms = cuda_ms(sdpa_fwd_bwd, REPS)
     del graph
-    # the backward's MMA work: 5 products of depth hd per live pair, 2.5x
-    # the forward's 2; bytes: q, k, v, o, dO and lse read, dq, dk, dv
-    # written
-    pairs = s * (s + 1) // 2
+    # the backward's MMA work at the real head dim: 5 products of depth hd
+    # per live pair, 2.5x the forward's 2; bytes: q, k, v, o, dO and lse
+    # read, dq, dk, dv written
+    pairs = live_pairs(s, window)
     flops = 10 * hd * b * h * pairs
     nbytes = 2 * (4 * b * s * h * hd + 4 * b * s * kvh * hd) + 4 * b * h * s
     bound_ms, bound_by = bound(flops, nbytes)
-    return dict(shape=[b, s, h, kvh, hd], causal=True, errors=errors,
+    return dict(shape=[b, s, h, kvh, hd], causal=True, window=window,
+                errors=errors,
                 max_rel_err=max(r["rel"] for r in errors.values()),
                 max_abs_err=max(r["max_abs_err"] for r in errors.values()),
                 tolerance=f"{BWD_REL_TOL}*max|plain|", bit_identical=identical,
@@ -1490,9 +1572,23 @@ def train_batches(cfg, n):
         loader.close()
 
 
-def train_parity(dev, cfg, batch):
-    """Loss and gradients of TRAIN_PARITY_LAYERS full-width layers with the
-    kernels, then with ``plain_attention`` in place of
+def grads_agree(params, grads_k, grads_p):
+    """{leaf path: max |kernel - plain| / max |plain|}; raises where a leaf
+    is outside TRAIN_GRAD_TOL of its largest |plain| entry."""
+    from repro_torch.tree import tree_flatten_with_path
+    rel = {}
+    for (path, _), a, b in zip(tree_flatten_with_path(params), grads_k,
+                               grads_p):
+        top = float(b.abs().max())
+        err = float((a - b).abs().max())
+        rel["/".join(str(k) for _, k in path)] = err / max(top, 1e-30)
+        assert err <= TRAIN_GRAD_TOL * top, (path, err, top)
+    return rel
+
+
+def train_parity(dev, cfg, batch, layers=TRAIN_PARITY_LAYERS):
+    """Loss and gradients of the first ``layers`` full-width layers with
+    the kernels, then with ``plain_attention`` in place of
     ``ops.flash_attention`` (the check calls the plain version itself)."""
     import dataclasses
 
@@ -1501,9 +1597,11 @@ def train_parity(dev, cfg, batch):
     from repro_torch.models import attention as tattn
     from repro_torch.models import init_decoder
     from repro_torch.train import steps as tsteps
-    from repro_torch.tree import tree_flatten_with_path
 
-    cfg2 = dataclasses.replace(cfg, num_layers=TRAIN_PARITY_LAYERS)
+    cfg2 = dataclasses.replace(cfg, num_layers=layers)
+    pattern = cfg.block_pattern
+    attn_layers = sum(pattern[i % len(pattern)] in ("attn", "local_attn")
+                      for i in range(layers))
     params, _ = init_decoder(0, cfg2, device=dev)
     before = {n: kern.launches for n, kern in _build.KERNELS.items()}
     loss_k, _, grads_k = tsteps._grads(params, batch["tokens"],
@@ -1511,7 +1609,9 @@ def train_parity(dev, cfg, batch):
     torch.cuda.synchronize()
     launches = {n: kern.launches - before[n]
                 for n, kern in _build.KERNELS.items()}
-    assert launches["flash_dense_bwd_dq"] == TRAIN_PARITY_LAYERS, launches
+    assert attn_layers > 0, cfg.name
+    for n in BWD_KERNELS:
+        assert launches[n] == attn_layers, launches
     real = tattn.flash_attention
     tattn.flash_attention = plain_attention
     try:
@@ -1520,16 +1620,13 @@ def train_parity(dev, cfg, batch):
         torch.cuda.synchronize()
     finally:
         tattn.flash_attention = real
-    rel = {}
-    for (path, _), a, b in zip(tree_flatten_with_path(params), grads_k,
-                               grads_p):
-        top = float(b.abs().max())
-        err = float((a - b).abs().max())
-        rel["/".join(str(k) for _, k in path)] = err / max(top, 1e-30)
-        assert err <= TRAIN_GRAD_TOL * top, (path, err, top)
+    rel = grads_agree(params, grads_k, grads_p)
     loss_diff = abs(float(loss_k) - float(loss_p))
     assert loss_diff <= TRAIN_LOSS_TOL, (float(loss_k), float(loss_p))
-    return dict(layers=TRAIN_PARITY_LAYERS, loss_kernel=float(loss_k),
+    del params, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, layers=layers, attention_layers=attn_layers,
+                loss_kernel=float(loss_k),
                 loss_plain=float(loss_p), loss_abs_diff=loss_diff,
                 grad_rel_err=rel, max_grad_rel_err=max(rel.values()),
                 tolerance={"loss_abs": TRAIN_LOSS_TOL,
@@ -1580,7 +1677,7 @@ def train_full(dev, cfg, batches):
     assert all(math.isfinite(x) for x in losses), losses
     assert abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5, losses[0]
     prof = device_profile(lambda: step(params, opt, feed[-1]), top=10,
-                          watch=("flash_dense", "dkdv", "dq_kernel",
+                          watch=("flash_dense", "dkdv", "dq_wgmma",
                                  "delta_kernel"))
     step_s = float(np.median(times[1:]))
     tokens = TRAIN_BATCH * TRAIN_S
@@ -1675,6 +1772,18 @@ def phase_train(dev):
               "64": bwd_shape(dev, 12, TRAIN_BATCH, TRAIN_S, moe.num_heads,
                               moe.num_kv_heads, moe.resolved_head_dim)}
     shapes["128"]["arch"], shapes["64"]["arch"] = ARCH, BWD_ARCH_64
+    wide_parity = {}
+    for i, (hd, (arch, layers)) in enumerate(BWD_WIDE_ARCHS.items()):
+        wcfg = get_arch(arch)
+        shapes[hd] = bwd_shape(dev, 13 + i, TRAIN_BATCH, TRAIN_S,
+                               wcfg.num_heads, wcfg.num_kv_heads,
+                               wcfg.resolved_head_dim, window=wcfg.window)
+        shapes[hd]["arch"] = arch
+        torch.cuda.empty_cache()
+        wide_parity[arch] = train_parity(dev, wcfg, {
+            k: torch.from_numpy(v).to(dev)
+            for k, v in train_batches(wcfg, 1)[0].items()
+            if k in ("tokens", "labels")}, layers=layers)
     digest = dense_digest(dev)
     assert digest == PARENT_DENSE_DIGEST, (digest, PARENT_DENSE_DIGEST)
     batches = train_batches(cfg, 1 + TRAIN_STEPS)
@@ -1686,7 +1795,7 @@ def phase_train(dev):
         trainer = train_trainer(dev, Path(tmp))
     emit("train", by_head_dim=shapes, dense_digest=digest,
          dense_digest_parent=PARENT_DENSE_DIGEST, parity=parity,
-         full=full, trainer=trainer,
+         parity_by_head_dim=wide_parity, full=full, trainer=trainer,
          cut=f"{TRAIN_LAYERS} of {cfg.num_layers} layers at full width "
              "(fp32 params, grads and two AdamW moments of all 36 need "
              "70.6 GB); random fp32 weights from seed 0")
@@ -1697,12 +1806,182 @@ def phase_train(dev):
                                    "library_ms", "library_fwd_bwd_ms")}
     fields["max_rel_err"] = max(r["max_rel_err"] for r in shapes.values())
     fields["by_head_dim"] = {
-        hd: {k: r[k] for k in ("arch", "shape", "max_rel_err", "ms",
-                               "ms_b2b", "fwd_bwd_ms", "plain_ms",
-                               "library_ms", "library_fwd_bwd_ms",
-                               "bound_ms", "bound_by")}
+        hd: {k: r[k] for k in ("arch", "shape", "window", "max_rel_err",
+                               "bit_identical", "ms", "ms_b2b", "fwd_bwd_ms",
+                               "fwd_bwd_ms_b2b", "plain_ms", "library_ms",
+                               "library_fwd_bwd_ms", "bound_ms", "bound_by")}
         for hd, r in shapes.items()}
     return fields, launches
+
+
+def moe_bwd_kernels(dev, cfg, rows, n_sm):
+    """dX (``gmm`` reading the weights transposed) and dW (``gmm_dw``) alone
+    at the MoE step's shapes (E experts x ``rows`` rows; wi, wg and wo), on
+    random bf16 inputs: each against ``grouped_matmul_bwd_plain`` (ATOL +
+    RTOL |plain|), two runs bit-identical, ms (single and back to back),
+    the plain version's ms, ``torch.bmm``'s for the same products and the
+    bound, summed over the three projections."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff
+    x, h = rnd(e, rows, d), rnd(e, rows, f)
+    w_in, w_out = rnd(e, d, f, scale=d ** -0.5), rnd(e, f, d, scale=f ** -0.5)
+    dy_h, dy_o = rnd(e, rows, f), rnd(e, rows, d)
+    calls = ((x, w_in, dy_h), (x, w_in, dy_h), (h, w_out, dy_o))
+    out = {}
+    for part, kw, lib in (
+            ("dx", {"need_dw": False},
+             lambda xi, w, dy: torch.bmm(dy, w.transpose(1, 2))),
+            ("dw", {"need_dx": False},
+             lambda xi, w, dy: torch.bmm(xi.transpose(1, 2), dy))):
+        r = {"ms": 0.0, "ms_b2b": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "max_abs_err": 0.0, "flops": 0, "bytes": 0}
+        for xi, w, dy in calls:
+            def run(xi=xi, w=w, dy=dy, kw=kw):
+                got = gm.grouped_matmul_bwd(xi, w, dy, sched_p=n_sm, **kw)
+                return got[0] if part == "dx" else got[1]
+
+            got, again = run(), run()
+            assert torch.equal(got, again), f"{part}: two runs differ"
+            want = gm.grouped_matmul_bwd_plain(xi, w, dy, **kw)
+            want = want[0] if part == "dx" else want[1]
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   check_close(f"moe {part}", got, want))
+            del got, again, want
+            r["ms"] += cuda_ms(run, REPS)
+            r["ms_b2b"] += cuda_ms_b2b(run, REPS)
+            r["plain_ms"] += cuda_ms(
+                lambda xi=xi, w=w, dy=dy, kw=kw: gm.grouped_matmul_bwd_plain(
+                    xi, w, dy, **kw), 3)
+            r["library_ms"] += cuda_ms(
+                lambda xi=xi, w=w, dy=dy: lib(xi, w, dy), REPS)
+            # every row, live or padding, as the kernels compute them: the
+            # two operands read once, the product written once
+            r["flops"] += 2 * xi.numel() * w.shape[2]
+            r["bytes"] += 2 * (xi.numel() + dy.numel() + w.numel())
+        r["bound_ms"], r["bound_by"] = bound(r["flops"], r["bytes"])
+        r["shapes"] = {"rows": [e, rows], "wi_wg": [e, d, f], "wo": [e, f, d]}
+        out[part] = r
+    return out
+
+
+def phase_moe_train(dev, n_sm):
+    """The ragged MoE trains on the card: qwen3-moe-30b-a3b at full width,
+    MOE_TRAIN_LAYERS layers, dispatch "ragged", remat "full".  Loss and
+    every gradient leaf with the kernels against the same with the plain
+    grouped matmul in place of ``_expert_matmul``; counts from 0, then
+    1 warm and MOE_TRAIN_STEPS timed AdamW steps, the counts read (per
+    layer and step gmm 9, gmm_dw 3, flash_dense 2, each backward kernel 1);
+    step time, tokens/s, peak memory, a device profile of one more step;
+    then the backward kernels alone at the step's shapes.  Returns the
+    launch counts and ``moe_bwd_kernels``' fields."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_decoder
+    from repro_torch.models import moe as tmoe
+    from repro_torch.optim.adamw import OptimizerConfig, adamw_init
+    from repro_torch.train import steps as tsteps
+    from repro_torch.tree import tree_leaves
+
+    base = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(
+        base, num_layers=MOE_TRAIN_LAYERS, remat="full",
+        moe=dataclasses.replace(base.moe, dispatch="ragged"))
+    params, _ = init_decoder(0, cfg, device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    feed = [{k: torch.from_numpy(v).to(dev) for k, v in bt.items()
+             if k in ("tokens", "labels")}
+            for bt in train_batches(cfg, 1 + MOE_TRAIN_STEPS)]
+
+    # the kernels' gradients against the plain grouped matmul's
+    _build.reset_launches()
+    loss_k, _, grads_k = tsteps._grads(params, feed[0]["tokens"],
+                                       feed[0]["labels"], None, cfg)
+    torch.cuda.synchronize()
+    parity_launches = {n: k.launches for n, k in _build.KERNELS.items()
+                       if k.launches}
+    real = tmoe._expert_matmul
+    tmoe._expert_matmul = lambda xe, w: plain_grouped_matmul(
+        xe, w, block_rows=BLOCK_ROWS)
+    try:
+        loss_p, _, grads_p = tsteps._grads(params, feed[0]["tokens"],
+                                           feed[0]["labels"], None, cfg)
+        torch.cuda.synchronize()
+    finally:
+        tmoe._expert_matmul = real
+    rel = grads_agree(params, grads_k, grads_p)
+    loss_diff = abs(float(loss_k) - float(loss_p))
+    assert loss_diff <= TRAIN_LOSS_TOL, (float(loss_k), float(loss_p))
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    opt = adamw_init(params)
+    step = tsteps.make_train_step(cfg, OptimizerConfig(warmup_steps=20,
+                                                       total_steps=200))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    losses, times = [], []
+    for i in range(1 + MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, feed[i])
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in _build.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps_run = 1 + MOE_TRAIN_STEPS
+    per_layer = {n: c / (steps_run * cfg.num_layers)
+                 for n, c in launches.items() if c}
+    want = {"gmm": MOE_GMM_PER_LAYER, "gmm_dw": MOE_DW_PER_LAYER,
+            "flash_dense": 2, **dict.fromkeys(BWD_KERNELS, 1)}
+    assert per_layer == want, per_layer
+    assert all(math.isfinite(x) for x in losses), losses
+    assert abs(losses[0] - math.log(cfg.vocab_size)) <= MOE_TRAIN_LOSS0_BAND, \
+        losses[0]
+    prof = device_profile(lambda: step(params, opt, feed[-1]), top=12,
+                          watch=("gmm_kernel", "gmm_dw_kernel",
+                                 "flash_dense_kernel", "dkdv", "dq_wgmma",
+                                 "delta_kernel"))
+    step_s = float(np.median(times[1:]))
+    tokens = TRAIN_BATCH * TRAIN_S
+    del params, opt, feed
+    torch.cuda.empty_cache()
+
+    groups = min(cfg.moe_groups, TRAIN_BATCH)
+    while TRAIN_BATCH % groups:
+        groups //= 2
+    cap = tmoe._capacity(cfg, TRAIN_BATCH // groups * TRAIN_S)
+    rows = -(-groups * cap // BLOCK_ROWS) * BLOCK_ROWS
+    kernels = moe_bwd_kernels(dev, cfg, rows, n_sm)
+    emit("moe_train", arch=cfg.name, layers=cfg.num_layers,
+         of_layers=base.num_layers, dispatch="ragged", remat="full",
+         params=n_params, tokens_per_step=tokens, expert_rows=rows,
+         parity={"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+                 "loss_abs_diff": loss_diff, "grad_rel_err": rel,
+                 "max_grad_rel_err": max(rel.values()),
+                 "tolerance": {"loss_abs": TRAIN_LOSS_TOL,
+                               "grad_rel_to_leaf_max": TRAIN_GRAD_TOL},
+                 "launches": parity_launches},
+         losses=losses, step_s=times, step_s_median=step_s,
+         tokens_per_s=tokens / step_s, peak_allocated_gb=peak / 1e9,
+         launches=launches, launches_per_layer_step=per_layer,
+         profile=prof, kernels=kernels,
+         cut=f"{cfg.num_layers} of {base.num_layers} layers at full width "
+             "(fp32 params, grads and two AdamW moments: ~0.62 B parameters "
+             "a layer plus 0.62 B of embedding and unembedding, 16 B each, "
+             "~30 GB before activations); random fp32 weights from seed 0")
+    return launches, kernels
 
 
 def main(argv) -> int:
@@ -1710,10 +1989,12 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    # --dense-digest / --dense-times [SRC]: print only dense_digest() or
-    # dense_times() of the package under SRC (default: this checkout's
-    # src), to hold two trees' builds of flash_dense against each other
-    dense_only = argv[:1] in (["--dense-digest"], ["--dense-times"])
+    # --dense-digest / --dense-times / --bwd-times [SRC]: print only
+    # dense_digest(), dense_times() or bwd_times() of the package under SRC
+    # (default: this checkout's src), to hold two trees' builds against
+    # each other
+    dense_only = argv[:1] in (["--dense-digest"], ["--dense-times"],
+                              ["--bwd-times"])
     src = ROOT / "src"
     if dense_only and len(argv) > 1:
         src = Path(argv[1]).resolve()
@@ -1728,6 +2009,10 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--dense-times"]:
         print(json.dumps({"dense_times": dense_times(
+            torch.device("cuda", 0)), "src": str(src)}), flush=True)
+        return 0
+    if argv[:1] == ["--bwd-times"]:
+        print(json.dumps({"bwd_times": bwd_times(
             torch.device("cuda", 0)), "src": str(src)}), flush=True)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2065,6 +2350,10 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     bwd, train_launches = phase_train(dev)
 
+    # ---- this slice: the ragged MoE trains on the card ------------------
+    torch.cuda.empty_cache()
+    moe_train_launches, moe_bwd = phase_moe_train(dev, n_sm)
+
     gmm_flops = total("flops")
     gmm_bytes = total("bytes")
     kernels = [
@@ -2082,11 +2371,13 @@ def main(argv) -> int:
          "source": "src/repro_torch/kernels/csrc/gmm.cu",
          "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:37",
          "launches": (launches["gmm"] + moe_launches["gmm"]
-                      + serve_launches["gmm"] + cluster_launches["gmm"]),
+                      + serve_launches["gmm"] + cluster_launches["gmm"]
+                      + moe_train_launches["gmm"]),
          "launches_by_path": {"main_path": launches["gmm"],
                               "moe_prefill": moe_launches["gmm"],
                               "moe_serve": serve_launches["gmm"],
-                              "cluster_moe": cluster_launches["gmm"]},
+                              "cluster_moe": cluster_launches["gmm"],
+                              "moe_train": moe_train_launches["gmm"]},
          "max_abs_err": max(max(r["max_abs_err"] for r in gmm_rows.values()),
                             cluster_gmm_err),
          "tolerance": f"{ATOL} + {RTOL}*|plain|",
@@ -2098,7 +2389,12 @@ def main(argv) -> int:
          "percent_imbalance": gmm_rows["wi"]["percent_imbalance"],
          "model_path": {k: gmm_model[k] for k in (
              "ms", "ms_b2b", "plain_ms", "library_ms", "bound_ms",
-             "bound_by", "shapes")}},
+             "bound_by", "shapes")},
+         # the backward's dX = dY W^T, the weights read transposed in place,
+         # at the MoE training step's shapes (wi + wg + wo)
+         "dx": {k: moe_bwd["dx"][k] for k in (
+             "max_abs_err", "ms", "ms_b2b", "plain_ms", "library_ms",
+             "bound_ms", "bound_by", "shapes")}},
         {"name": "flash_dense", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_dense.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:51",
@@ -2107,24 +2403,41 @@ def main(argv) -> int:
                       + dense80_launches["flash_dense"]
                       + recurrent_launches["recurrentgemma-2b"][
                           "flash_dense"]
-                      + train_launches["flash_dense"]),
+                      + train_launches["flash_dense"]
+                      + moe_train_launches["flash_dense"]),
          "launches_by_path": {
              "prefill": prefill_launches["flash_dense"],
              "moe_prefill": moe_launches["flash_dense"],
              "prefill_80": dense80_launches["flash_dense"],
              "recurrentgemma_prefill": recurrent_launches[
                  "recurrentgemma-2b"]["flash_dense"],
-             "train": train_launches["flash_dense"]},
+             "train": train_launches["flash_dense"],
+             "moe_train": moe_train_launches["flash_dense"]},
          "tolerance": f"{ATOL} + {RTOL}*|plain|", **dense},
         {"name": "flash_dense_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_dense_bwd.cu",
          "replaces": "src/repro/models/attention.py:191",
          "replaces_note": "no Pallas kernel: the reference differentiates "
                           "_attend_flash by autodiff",
-         "launches": train_launches["flash_dense_bwd_dkdv"],
-         "launches_by_kernel": {n: train_launches[n] for n in BWD_KERNELS},
-         "launches_by_path": {"train": train_launches["flash_dense_bwd_dkdv"]},
+         "launches": (train_launches["flash_dense_bwd_dkdv"]
+                      + moe_train_launches["flash_dense_bwd_dkdv"]),
+         "launches_by_kernel": {n: train_launches[n]
+                                + moe_train_launches[n] for n in BWD_KERNELS},
+         "launches_by_path": {
+             "train": train_launches["flash_dense_bwd_dkdv"],
+             "moe_train": moe_train_launches["flash_dense_bwd_dkdv"]},
          "tolerance": f"{BWD_REL_TOL}*max|plain| per gradient", **bwd},
+        {"name": "gmm_dw", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gmm.cu",
+         "replaces": "src/repro/models/moe.py:143",
+         "replaces_note": "no Pallas kernel: the reference differentiates "
+                          "moe_ragged's expert einsums by autodiff",
+         "launches": moe_train_launches["gmm_dw"],
+         "launches_by_path": {"moe_train": moe_train_launches["gmm_dw"]},
+         "tolerance": f"{ATOL} + {RTOL}*|plain|",
+         **{k: moe_bwd["dw"][k] for k in (
+             "max_abs_err", "ms", "ms_b2b", "plain_ms", "library_ms",
+             "bound_ms", "bound_by", "shapes")}},
     ]
     for kern in kernels:
         assert all(math.isfinite(kern[x]) for x in

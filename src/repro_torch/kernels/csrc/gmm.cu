@@ -53,6 +53,16 @@
 //     same instruction sequence (the same k order, no split-k, no atomics)
 //     whatever CTA runs it, so outputs are bit-identical for every schedule
 //     and every p.
+//
+// The backward's dX = dY W^T (training the ragged MoE) is the same kernel
+// with the weights read K-major (template flag WT, launch flag `wt`): the
+// product is x (T, bm, K) @ w[e]^T with w (E, N, K), so the reduction K is
+// w's contiguous dim.  The w map is the same (E, d, f) map; each stage then
+// loads the boxes (64 k x 64 n) at (k, n) = (f, d) coordinates, which lay
+// a 256-row n block out row after row as wgmma wants a K-major B (the same
+// layout as K in S = Q K^T), and the wgmma runs with trans-b = 0.  No
+// transposed copy of w is made.  The d tail past K (here w's f) is
+// zero-filled by the map within the expert, as before.
 
 #include "hopper_common.cuh"
 
@@ -81,7 +91,7 @@ struct GmmParams {
   const int* order;         // (T,) step -> tile slot
   const int* tile_expert;   // (T,) tile slot -> expert
   const int* bounds;        // (p + 1,) live steps of each CTA
-  int n_span, T, bm, d, f;
+  int n_span, T, bm, k, n;  // k: the reduction, n: the output width
 };
 
 // the unit sequence of CTA w: its live steps, then its dead ones
@@ -104,23 +114,34 @@ struct Walk {
 
 // One unit's k loop on the consumer side: wait for each stage, issue its
 // four 16-deep wgmmas, hand the previous stage back once its group retired.
-template <int N>
+// An operand stage is K-major (trans 0: the next 16-deep step is 32 bytes on
+// inside the 128-byte row) or MN-major (trans 1: 16 rows = 2048 bytes on).
+// gmm: A (x) K-major, B (w (E, K, N)) MN-major, or K-major with WT
+// (w (E, N, K)); gmm_dw: A (X^T) and B (dY) both MN-major.  Consumer c's A
+// rows start 8 KB into the stage either way: 64 of the x box's 128 rows, or
+// the second 64-row m box of X.
+template <int N, int TA, int TB>
 __device__ __forceinline__ void mainloop(float* acc, unsigned char* smem,
                                          uint64_t* full, uint64_t* empty,
                                          int c, int nk, int& g, int lane) {
+  constexpr int ASTEP = TA ? 128 : 2, BSTEP = TB ? 128 : 2;
   for (int kb = 0; kb < nk; ++kb) {
     const int s = g % STAGES;
     mbar_wait(&full[s], (g / STAGES) & 1);
-    const uint64_t da =
-        smem_desc(smem + SMEM_A + s * A_BYTES + c * 64 * 128, 16, 1024);
-    const uint64_t db = smem_desc(smem + SMEM_B + s * B_BYTES, B_BOX, 1024);
+    unsigned char* a = smem + SMEM_A + s * A_BYTES + c * 64 * 128;
+    unsigned char* b = smem + SMEM_B + s * B_BYTES;
+    const uint64_t da = TA ? smem_desc(a, 64 * 128, 1024)
+                           : smem_desc(a, 16, 1024);
+    const uint64_t db = TB ? smem_desc(b, B_BOX, 1024) : smem_desc(b, 16, 1024);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       if constexpr (N == 256)
-        wgmma_m64n256k16_ss<1>(acc, da + 2 * kk, db + 128 * kk, kb | kk);
+        wgmma_m64n256k16_ss<TB, TA>(acc, da + ASTEP * kk, db + BSTEP * kk,
+                                    kb | kk);
       else
-        wgmma_m64n128k16_ss<1>(acc, da + 2 * kk, db + 128 * kk, kb | kk);
+        wgmma_m64n128k16_ss<TB, TA>(acc, da + ASTEP * kk, db + BSTEP * kk,
+                                    kb | kk);
     }
     wgmma_commit();
     if (kb > 0) {
@@ -168,6 +189,7 @@ __device__ __forceinline__ void epilogue(const float* acc, unsigned char* cst,
   }
 }
 
+template <bool WT>
 __global__ void __launch_bounds__(NTHREADS, 1)
 gmm_kernel(const __grid_constant__ CUtensorMap xmap,
            const __grid_constant__ CUtensorMap wmap,
@@ -190,8 +212,8 @@ gmm_kernel(const __grid_constant__ CUtensorMap xmap,
 
   const Walk walk(P);
   const int nmb = P.bm / BM;
-  const int nnb = (P.f + BN - 1) / BN;
-  const int nk = (P.d + BK - 1) / BK;
+  const int nnb = (P.n + BN - 1) / BN;
+  const int nk = (P.k + BK - 1) / BK;
 
   if (wg == 0) {
     // ---- producer: one thread keeps the ring full ----
@@ -204,16 +226,21 @@ gmm_kernel(const __grid_constant__ CUtensorMap xmap,
         for (int mb = 0; mb < nmb; ++mb) {
           for (int nbi = 0; nbi < nnb; ++nbi) {
             const int col = nbi * BN;
-            const int nbox = min(BN, P.f - col) / 64;
+            const int nbox = min(BN, P.n - col) / 64;
             for (int kb = 0; kb < nk; ++kb) {
               const int s = g % STAGES;
               mbar_wait(&empty[s], ((g / STAGES) & 1) ^ 1);
               mbar_expect_tx(&full[s], A_BYTES + nbox * B_BOX);
               tma_load_3d(smem + SMEM_A + s * A_BYTES, &xmap, &full[s],
                           kb * BK, mb * BM, t);
-              for (int j = 0; j < nbox; ++j)
-                tma_load_3d(smem + SMEM_B + s * B_BYTES + j * B_BOX, &wmap,
-                            &full[s], col + 64 * j, kb * BK, e);
+              for (int j = 0; j < nbox; ++j) {
+                if constexpr (WT)
+                  tma_load_3d(smem + SMEM_B + s * B_BYTES + j * B_BOX, &wmap,
+                              &full[s], kb * BK, col + 64 * j, e);
+                else
+                  tma_load_3d(smem + SMEM_B + s * B_BYTES + j * B_BOX, &wmap,
+                              &full[s], col + 64 * j, kb * BK, e);
+              }
               ++g;
             }
           }
@@ -235,11 +262,11 @@ gmm_kernel(const __grid_constant__ CUtensorMap xmap,
         for (int nbi = 0; nbi < nnb; ++nbi) {
           const int col = nbi * BN;
           const int row = mb * BM + 64 * c;
-          if (P.f - col >= 256) {
-            mainloop<256>(acc, smem, full, empty, c, nk, g, tq % 32);
+          if (P.n - col >= 256) {
+            mainloop<256, 0, !WT>(acc, smem, full, empty, c, nk, g, tq % 32);
             epilogue<256>(acc, cst, &omap, t, row, col, c, tq, qc);
           } else {
-            mainloop<128>(acc, smem, full, empty, c, nk, g, tq % 32);
+            mainloop<128, 0, !WT>(acc, smem, full, empty, c, nk, g, tq % 32);
             epilogue<128>(acc, cst, &omap, t, row, col, c, tq, qc);
           }
         }
@@ -249,28 +276,109 @@ gmm_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// dW[e] = X[e]^T dY[e]: X (E, R, M), dY (E, R, N) -> dW (E, M, N).  A unit
+// is (expert, 128-row m block, 256-column n block: 128 at the tail); CTA w
+// of p runs units w, w + p, ...  The R rows are the reduction, 64 a stage,
+// in ascending order; X arrives as two 64 m x 64 r boxes (consumer c reads
+// box c, MN-major, trans-a = 1) and dY as the gmm forward's w (MN-major).
+__global__ void __launch_bounds__(NTHREADS, 1)
+gmm_dw_kernel(const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap ymap,
+              const __grid_constant__ CUtensorMap omap, int E, int R, int M,
+              int N) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SMEM_BAR);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int nmb = M / BM;
+  const int nnb = (N + BN - 1) / BN;
+  const int units = E * nmb * nnb;
+  const int nk = (R + BK - 1) / BK;
+
+  if (wg == 0) {
+    reg_dealloc<40>();
+    if (tid == 0) {
+      int g = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int e = u / (nmb * nnb);
+        const int mb = (u / nnb) % nmb;
+        const int col = (u % nnb) * BN;
+        const int nbox = min(BN, N - col) / 64;
+        for (int kb = 0; kb < nk; ++kb) {
+          const int s = g % STAGES;
+          mbar_wait(&empty[s], ((g / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], A_BYTES + nbox * B_BOX);
+          for (int j = 0; j < 2; ++j)
+            tma_load_3d(smem + SMEM_A + s * A_BYTES + j * 64 * 128, &xmap,
+                        &full[s], mb * BM + 64 * j, kb * BK, e);
+          for (int j = 0; j < nbox; ++j)
+            tma_load_3d(smem + SMEM_B + s * B_BYTES + j * B_BOX, &ymap,
+                        &full[s], col + 64 * j, kb * BK, e);
+          ++g;
+        }
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int c = wg - 1;
+    const int tq = tid % 128;
+    unsigned char* cst = smem + SMEM_C + c * C_BYTES;
+    float acc[BN / 2];
+    int g = 0;
+    int qc = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int e = u / (nmb * nnb);
+      const int row = ((u / nnb) % nmb) * BM + 64 * c;
+      const int col = (u % nnb) * BN;
+      if (N - col >= 256) {
+        mainloop<256, 1, 1>(acc, smem, full, empty, c, nk, g, tq % 32);
+        epilogue<256>(acc, cst, &omap, e, row, col, c, tq, qc);
+      } else {
+        mainloop<128, 1, 1>(acc, smem, full, empty, c, nk, g, tq % 32);
+        epilogue<128>(acc, cst, &omap, e, row, col, c, tq, qc);
+      }
+    }
+    if (tq == 0) bulk_wait();
+  }
+}
+
 }  // namespace
 
+// x (T, bm, d), w (E, d, f) -> out (T, bm, f); with wt, x (T, bm, f) and
+// out (T, bm, d): each tile times its expert's w^T (w read in place)
 extern "C" int gmm_launch(const void* x, const void* w, void* out,
                           const void* order, const void* tile_expert,
                           const void* bounds, int p, int n_span, int T, int bm,
-                          int d, int f, int E, void* stream) {
-  if (p <= 0 || T <= 0 || E <= 0 || bm % BM != 0 || f % 128 != 0 ||
-      d % 32 != 0)
+                          int d, int f, int E, int wt, void* stream) {
+  const int K = wt ? f : d, N = wt ? d : f;
+  if (p <= 0 || T <= 0 || E <= 0 || bm % BM != 0 || N % 128 != 0 ||
+      K % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   using u64 = cuuint64_t;
   CUtensorMap xmap, wmap, omap;
-  // x (T, bm, d): boxes of 128 rows x 64 d
-  const u64 xd[3] = {(u64)d, (u64)bm, (u64)T};
-  const u64 xs[2] = {(u64)d * 2, (u64)bm * d * 2};
+  // x (T, bm, K): boxes of 128 rows x 64 k
+  const u64 xd[3] = {(u64)K, (u64)bm, (u64)T};
+  const u64 xs[2] = {(u64)K * 2, (u64)bm * K * 2};
   const cuuint32_t xb[3] = {BK, BM, 1};
-  // w (E, d, f): boxes of 64 d x 64 f, zero past d within the expert
+  // w (E, d, f): boxes of 64 x 64, zero past d and f within the expert
   const u64 wd[3] = {(u64)f, (u64)d, (u64)E};
   const u64 ws[2] = {(u64)f * 2, (u64)d * f * 2};
-  const cuuint32_t wb[3] = {64, BK, 1};
-  // out (T, bm, f): boxes of 64 rows x 64 f
-  const u64 od[3] = {(u64)f, (u64)bm, (u64)T};
-  const u64 os[2] = {(u64)f * 2, (u64)bm * f * 2};
+  const cuuint32_t wb[3] = {64, 64, 1};
+  // out (T, bm, N): boxes of 64 rows x 64 n
+  const u64 od[3] = {(u64)N, (u64)bm, (u64)T};
+  const u64 os[2] = {(u64)N * 2, (u64)bm * N * 2};
   const cuuint32_t ob[3] = {64, 64, 1};
   int rc = encode_bf16(&xmap, x, 3, xd, xs, xb);
   if (rc == 0) rc = encode_bf16(&wmap, w, 3, wd, ws, wb);
@@ -280,12 +388,43 @@ extern "C" int gmm_launch(const void* x, const void* w, void* out,
   P.order = static_cast<const int*>(order);
   P.tile_expert = static_cast<const int*>(tile_expert);
   P.bounds = static_cast<const int*>(bounds);
-  P.n_span = n_span; P.T = T; P.bm = bm; P.d = d; P.f = f;
+  P.n_span = n_span; P.T = T; P.bm = bm; P.k = K; P.n = N;
+  auto kern = wt ? gmm_kernel<true> : gmm_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      gmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gmm_kernel<<<p, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<p, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       xmap, wmap, omap, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dW (E, M, N) = x (E, R, M)^T dy (E, R, N) per expert, p persistent CTAs
+extern "C" int gmm_dw_launch(const void* x, const void* dy, void* dw, int E,
+                             int R, int M, int N, int p, void* stream) {
+  if (p <= 0 || E <= 0 || R <= 0 || M % BM != 0 || N % 128 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using u64 = cuuint64_t;
+  CUtensorMap xmap, ymap, omap;
+  const cuuint32_t box[3] = {64, 64, 1};
+  // x (E, R, M) and dy (E, R, N): boxes of 64 columns x 64 rows, zero past
+  // R within the expert; dw (E, M, N): boxes of 64 rows x 64 columns
+  const u64 xd[3] = {(u64)M, (u64)R, (u64)E};
+  const u64 xs[2] = {(u64)M * 2, (u64)R * M * 2};
+  const u64 yd[3] = {(u64)N, (u64)R, (u64)E};
+  const u64 ys[2] = {(u64)N * 2, (u64)R * N * 2};
+  const u64 od[3] = {(u64)N, (u64)M, (u64)E};
+  const u64 os[2] = {(u64)N * 2, (u64)M * N * 2};
+  int rc = encode_bf16(&xmap, x, 3, xd, xs, box);
+  if (rc == 0) rc = encode_bf16(&ymap, dy, 3, yd, ys, box);
+  if (rc == 0) rc = encode_bf16(&omap, dw, 3, od, os, box);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      gmm_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int units = E * (M / BM) * ((N + BN - 1) / BN);
+  gmm_dw_kernel<<<p < units ? p : units, NTHREADS, SMEM_BYTES,
+                  static_cast<cudaStream_t>(stream)>>>(xmap, ymap, omap, E, R,
+                                                       M, N);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by gmm.cu, flash_dense.cu and
-// flash_sched.cu: mbarriers with a phase bit, TMA tensor loads and stores,
-// the wgmma shared-memory descriptor and the wgmma instructions the kernels
-// issue, register re-allocation between warpgroups, and the host-side
-// encoding of tensor maps.
+// Hopper (sm_90a) building blocks shared by the port's kernels (gmm.cu,
+// gmm_dw.cu, flash_dense.cu, flash_dense_bwd.cu, flash_sched.cu): mbarriers
+// with a phase bit, TMA tensor loads and stores, 1-D bulk loads, the wgmma
+// shared-memory descriptor and the wgmma instructions the kernels issue,
+// register re-allocation between warpgroups, and the host-side encoding of
+// tensor maps.
 //
 // Every shared-memory tile these kernels hand to wgmma is written by TMA
 // with CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), the 16-byte
@@ -12,9 +13,10 @@
 //     of S = Q K^T): 8-row groups 1024 bytes apart (SBO); the next 16-wide
 //     k step starts 32 bytes further on inside the 128-byte row;
 //   * MN-major (the output dimension contiguous, B of gmm and of O = P V;
-//     instruction flag trans-b = 1): 8-row k groups 1024 bytes apart (SBO),
-//     64-column chunks of the output dimension LBO bytes apart (one TMA box
-//     each); the next 16-deep k step starts 16 rows = 2048 bytes further on.
+//     instruction flag trans-b = 1, or trans-a = 1 for an A operand, as the
+//     dW kernel reads X^T): 8-row k groups 1024 bytes apart (SBO), 64-column
+//     chunks of the output dimension LBO bytes apart (one TMA box each); the
+//     next 16-deep k step starts 16 rows = 2048 bytes further on.
 //
 // The host encodes tensor maps with cuTensorMapEncodeTiled, fetched from the
 // driver through the runtime (cudaGetDriverEntryPoint*), so no -lcuda is
@@ -108,6 +110,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory, completion reported to `bar` as
+// transaction bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -215,7 +229,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // (v = 2 i, 2 i + 1) of the accumulator of a 16-column slice.
 
 // D (64 x 256, fp32) (+)= A (64 x 16, smem) * B (16 x 256, smem)
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(float* d, uint64_t da,
                                                   uint64_t db, int scale_d) {
   asm volatile(
@@ -238,7 +252,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float* d, uint64_t da,
       " %104, %105, %106, %107, %108, %109, %110, %111,"
       " %112, %113, %114, %115, %116, %117, %118, %119,"
       " %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, %131;\n}\n"
+      " %128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -261,11 +275,11 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float* d, uint64_t da,
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D (64 x 128, fp32) (+)= A (64 x 16, smem) * B (16 x 128, smem)
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da,
                                                   uint64_t db, int scale_d) {
   asm volatile(
@@ -280,7 +294,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da,
       " %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55,"
       " %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, %67;\n}\n"
+      " %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -292,7 +306,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D (64 x 64, fp32) (+)= A (64 x 16, smem) * B (16 x 64, smem)

@@ -15,7 +15,8 @@ kernel's pure-JAX twin ``_attend_flash`` by autodiff): on a CUDA tensor
 ``flash_attention_dense_bshd`` runs ``_FlashDense``, an autograd Function
 whose forward also asks ``flash_dense`` for each row's log-sum-exp and
 whose backward launches ``csrc/flash_dense_bwd.cu`` (D = rowsum(dO o O),
-then dK and dV, then dQ; head dims 64 and 128).  On a CPU tensor autograd
+then dK and dV, then dQ; TMA + wgmma at padded head dims 64 and 128,
+mma.sync at 256; every head dim the forward takes).  On a CPU tensor autograd
 differentiates the plain version; ``flash_attention_dense_bwd_plain``
 computes the same gradients explicitly, for the checks on the card.
 
@@ -70,22 +71,22 @@ FLASH_DENSE = Kernel(
     "flash_dense", source="flash_dense", symbol="flash_dense_launch",
     argtypes=[_c.c_void_p] * 5 + [_c.c_int] * 7 + [_c.c_longlong] * 12
     + [_c.c_float, _c.c_void_p])
-#: the backward (``csrc/flash_dense_bwd.cu``): D = rowsum(dO o O), then dK and
-#: dV, then dQ; each launch counts on its own kernel
+#: the backward (``csrc/flash_dense_bwd.cu``): D = rowsum(dO o O) and lse
+#: log2(e), then dK and dV, then dQ; each launch counts on its own kernel
 FLASH_DENSE_BWD_DELTA = Kernel(
     "flash_dense_bwd_delta", source="flash_dense_bwd",
     symbol="flash_dense_bwd_delta_launch",
-    argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 4 + [_c.c_void_p])
+    argtypes=[_c.c_void_p] * 5 + [_c.c_int] * 5 + [_c.c_void_p])
 FLASH_DENSE_BWD_DKDV = Kernel(
     "flash_dense_bwd_dkdv", source="flash_dense_bwd",
     symbol="flash_dense_bwd_dkdv_launch",
-    argtypes=[_c.c_void_p] * 8 + [_c.c_int] * 7 + [_c.c_float, _c.c_void_p])
+    argtypes=[_c.c_void_p] * 8 + [_c.c_int] * 8 + [_c.c_float, _c.c_void_p])
 FLASH_DENSE_BWD_DQ = Kernel(
     "flash_dense_bwd_dq", source="flash_dense_bwd",
     symbol="flash_dense_bwd_dq_launch",
-    argtypes=[_c.c_void_p] * 7 + [_c.c_int] * 7 + [_c.c_float, _c.c_void_p])
-#: head dims the backward is instantiated for
-DENSE_BWD_HEAD_DIMS = (64, 128)
+    argtypes=[_c.c_void_p] * 7 + [_c.c_int] * 8 + [_c.c_float, _c.c_void_p])
+#: the backward's (b, h, s_pad) rows: s rounded up to its 128-row blocks
+BWD_ROW_PAD = 128
 
 
 def broadcast_flatten(q, k, v):
@@ -308,14 +309,6 @@ def _flash_dense_cuda(q, k, v, *, causal: bool, window: int,
     return (out, lse) if with_lse else out
 
 
-def _check_bwd_head_dim(hd: int) -> None:
-    if hd not in DENSE_BWD_HEAD_DIMS:
-        raise ValueError(
-            f"flash_dense_bwd supports head_dim in {DENSE_BWD_HEAD_DIMS}, got "
-            f"{hd}; head dims 80 (padded) and 256 (windowed) wait for "
-            "ROADMAP.md section 2, item 2 (flash_dense backward)")
-
-
 def _flash_dense_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int):
     """Launch the three backward kernels on the forward's q (b, s, h, hd),
     k/v (b, s, kvh, hd), output o, its gradient do and lse (b, h, s); returns
@@ -323,18 +316,21 @@ def _flash_dense_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int):
     _check_kernel_inputs("flash_dense", q, k, v)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
-    _check_bwd_head_dim(hd)
     q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do.to(q.dtype)))
     lse = lse.contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    FLASH_DENSE_BWD_DELTA.launch(o.data_ptr(), do.data_ptr(),
-                                 delta.data_ptr(), b, s, h, hd, stream)
+    s_pad = -(-s // BWD_ROW_PAD) * BWD_ROW_PAD
+    # lse log2(e) and D, (b, h, s_pad): +inf and 0 past s
+    lse2, delta = torch.empty((2, b, h, s_pad), dtype=torch.float32,
+                              device=q.device).unbind(0)
+    FLASH_DENSE_BWD_DELTA.launch(o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                 lse2.data_ptr(), delta.data_ptr(), b, s,
+                                 s_pad, h, hd, stream)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    shape = (b, s, h, h // kvh, hd, int(causal), int(window),
+    shape = (b, s, s_pad, h, h // kvh, hd, int(causal), int(window),
              1.0 / math.sqrt(hd), stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           lse.data_ptr(), delta.data_ptr())
+           lse2.data_ptr(), delta.data_ptr())
     FLASH_DENSE_BWD_DKDV.launch(*ins, dk.data_ptr(), dv.data_ptr(), *shape)
     FLASH_DENSE_BWD_DQ.launch(*ins, dq.data_ptr(), *shape)
     return dq, dk, dv
@@ -350,7 +346,6 @@ class _FlashDense(torch.autograd.Function):
         grad = any(ctx.needs_input_grad[:3])
         if not grad:
             return _flash_dense_cuda(q, k, v, causal=causal, window=window)
-        _check_bwd_head_dim(q.shape[3])
         out, lse = _flash_dense_cuda(q, k, v, causal=causal, window=window,
                                      with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)

@@ -15,7 +15,10 @@ Dispatch implementations:
     each over all groups: on a CUDA tensor it launches ``gmm``
     (``csrc/gmm.cu``) with one CTA per SM over the identity tile order, and
     an unsupported dtype or shape raises there; on a CPU tensor it
-    computes the same products with ``grouped_matmul_tiles_plain``.  The
+    computes the same products with ``grouped_matmul_tiles_plain``.  Under
+    autograd each product is an ``_ExpertMatmul`` whose backward computes
+    dX with ``gmm`` (the weights read transposed) and dW with ``gmm_dw``
+    on the card, and with ``grouped_matmul_bwd_plain`` on the CPU.  The
     combine gathers each token's ``top_k`` contributions and sums them in
     k order (no atomics), so one input gives one output on every run.
 """
@@ -28,7 +31,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ..kernels.grouped_matmul.grouped_matmul import KERNEL_BLOCK_ROWS
+from ..kernels.grouped_matmul.grouped_matmul import (KERNEL_BLOCK_ROWS,
+                                                     grouped_matmul_bwd)
 from ..kernels.grouped_matmul.ops import grouped_matmul
 from ..sharding import Ax, shard_as
 from .layers import activate, dense_init, use_weight
@@ -139,25 +143,35 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+class _ExpertMatmul(torch.autograd.Function):
+    """xe (E, R, d) @ w (E, d, f) -> (E, R, f) through ``grouped_matmul``;
+    the backward computes only the gradients asked for, dX and dW, with
+    ``grouped_matmul_bwd`` (the kernels on the card, the plain version on
+    the CPU)."""
+
+    @staticmethod
+    def forward(ctx, xe, w, sched_p):
+        ctx.save_for_backward(xe, w)
+        ctx.sched_p = sched_p
+        return grouped_matmul(xe, w, block_rows=KERNEL_BLOCK_ROWS,
+                              sched_p=sched_p)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xe, w = ctx.saved_tensors
+        dx, dw = grouped_matmul_bwd(
+            xe, w, dy, need_dx=ctx.needs_input_grad[0],
+            need_dw=ctx.needs_input_grad[1], sched_p=ctx.sched_p)
+        return dx, dw, None
+
+
 def _expert_matmul(xe, w):
     """xe (E, R, d) expert rows @ w (E, d, f) -> (E, R, f), R a multiple of
-    the kernel's row tile.  ``grouped_matmul`` launches ``gmm`` on a CUDA
-    tensor (one CTA per SM, identity order) and takes the plain version on
-    a CPU tensor.
-
-    ``gmm`` has no backward yet, so on a CUDA tensor with grad mode on and
-    an input that requires grad this raises rather than return an output
-    without a gradient (ROADMAP.md section 2, item 1: MoE training); the
-    dense dispatch trains."""
-    kw = {}
-    if xe.is_cuda:
-        if torch.is_grad_enabled() and (xe.requires_grad or w.requires_grad):
-            raise NotImplementedError(
-                "the ragged MoE dispatch cannot train on the card yet: gmm "
-                "has no backward (ROADMAP.md section 2, item 1: MoE "
-                "training); use moe dispatch 'dense'")
-        kw["sched_p"] = _sm_count(xe.device.index)
-    return grouped_matmul(xe, w, block_rows=KERNEL_BLOCK_ROWS, **kw)
+    the kernel's row tile.  On a CUDA tensor ``gmm`` runs with one CTA per
+    SM over the identity order, forward and backward; a CPU tensor takes
+    the plain versions."""
+    sched_p = _sm_count(xe.device.index) if xe.is_cuda else 8
+    return _ExpertMatmul.apply(xe, w, sched_p)
 
 
 def moe_ragged(params, cfg, x):

@@ -1,5 +1,7 @@
 """Training on the card: ``flash_dense``'s backward against its plain
-version, and the MoE kernel path's refusal to train.
+version at every head dim the configs use, and the ragged MoE's backward
+kernels (dX by ``gmm`` with the weights read transposed, dW by ``gmm_dw``)
+against theirs.
 
 Every test here carries the ``cuda`` marker and skips without a GPU.  On a
 machine with one:
@@ -17,6 +19,11 @@ products (a relative step of 2^-9 each) and the result to bf16 once; the
 sums over 64 to 4096 columns average those roundings.  The forward's lse
 is held to the plain log-sum-exp within 1e-3 (the kernel's exp2 is
 ``ex2.approx``).  Two runs of the backward must give the same bits.
+
+The MoE backward's bf16 dX and dW against ``grouped_matmul_bwd_plain``
+(fp32 sums, one rounding): |kernel - plain| <= 2^-7 + 2^-7 |plain|
+elementwise, about two bf16 steps, the gate of the forward kernels; two
+runs give the same bits.
 """
 
 import math
@@ -30,6 +37,7 @@ from repro_torch.kernels.flash_attention import flash_attention as fa
 GRAD_TOL = 2.0 ** -6
 GRAD_ATOL = 1e-5
 LSE_TOL = 1e-3
+MOE_TOL = 2.0 ** -7
 pytestmark = pytest.mark.cuda
 
 
@@ -133,27 +141,66 @@ def test_flash_dense_autograd_counts_each_kernel(dev):
         assert torch.equal(leaf.grad, want)
 
 
-def test_flash_dense_bwd_unsupported_head_dim_raises(dev):
-    """Head dims 80 and 256 raise (no fallback), in the forward when a
-    gradient is wanted and in the backward's wrapper."""
-    for hd in (80, 256):
-        q, k, v, do = _inputs(dev, 1, 256, 2, 1, hd, seed=7)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            fa.flash_attention_dense_bshd(q.requires_grad_(True), k, v)
-        out, lse = fa._flash_dense_cuda(q.detach(), k, v, causal=True,
-                                        window=0, with_lse=True)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            fa._flash_dense_bwd_cuda(q.detach(), k, v, out, do, lse,
-                                     causal=True, window=0)
+def _check_grads(got, want, where):
+    for name, g, ref in zip("qkv", got, want):
+        assert g.shape == ref.shape and g.dtype == torch.bfloat16
+        err = float((g.float() - ref).abs().max())
+        top = float(ref.abs().max())
+        assert err <= GRAD_TOL * top + GRAD_ATOL, (name, where, err, top)
 
 
-def test_expert_matmul_raises_under_autograd(dev):
-    """``gmm`` has no backward yet: the ragged MoE path refuses to train on
-    the card instead of returning an output without a gradient."""
+def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
+    """Head dim 80 (stablelm-3b, computed at 128) and 256 (recurrentgemma-2b:
+    MQA, windows narrower and wider than a tile, the model's 2048): the
+    backward against the plain version, and two runs bit-identical."""
+    for i, (b, s, h, kvh, hd, window) in enumerate((
+            (2, 300, 4, 4, 80, 0), (1, 1000, 4, 2, 80, 100),
+            (1, 700, 5, 1, 256, 0), (2, 300, 4, 1, 256, 32),
+            (1, 2500, 2, 1, 256, 2048))):
+        q, k, v, do = _inputs(dev, b, s, h, kvh, hd, seed=40 + i)
+        got = _bwd(q, k, v, do, True, window)
+        assert all(torch.equal(x, y) for x, y in
+                   zip(got, _bwd(q, k, v, do, True, window)))
+        want = fa.flash_attention_dense_bwd_plain(q, k, v, do, window=window)
+        _check_grads(got[2:], want, (b, s, h, kvh, hd, window))
+
+
+def test_moe_bwd_kernels_match_plain(dev):
+    """``grouped_matmul_bwd`` on the card (dX by ``gmm`` reading the weights
+    transposed, dW by ``gmm_dw``) against ``grouped_matmul_bwd_plain`` at
+    widths with a 128-column tail and a depth tail, one launch each, two
+    runs bit-identical; ``_expert_matmul`` under autograd reaches both."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
     from repro_torch.models import moe as tmoe
-    xe = _randn(dev, 2, 128, 64, seed=9).requires_grad_(True)
-    w = _randn(dev, 2, 64, 128, seed=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe._expert_matmul(xe, w)
-    with torch.no_grad():
-        assert tmoe._expert_matmul(xe, w).shape == (2, 128, 128)
+    for e, r, d, f in ((3, 256, 384, 640), (2, 128, 128, 96 + 128)):
+        xe = _randn(dev, e, r, d, seed=50)
+        w = _randn(dev, e, d, f, seed=51, scale=d ** -0.5)
+        dy = _randn(dev, e, r, f, seed=52)
+        if f % 128:
+            # gmm_dw needs f % 128 == 0: only dX here (depth f with a tail)
+            before = gm.GMM.launches
+            dx, dw = gm.grouped_matmul_bwd(xe, w, dy, need_dw=False)
+            assert dw is None and gm.GMM.launches == before + 1
+            want, _ = gm.grouped_matmul_bwd_plain(xe, w, dy, need_dw=False)
+            _check_moe(dx, want)
+            continue
+        before = (gm.GMM.launches, gm.GMM_DW.launches)
+        dx, dw = gm.grouped_matmul_bwd(xe, w, dy, sched_p=7)
+        assert (gm.GMM.launches, gm.GMM_DW.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+        again = gm.grouped_matmul_bwd(xe, w, dy, sched_p=7)
+        assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+        want_dx, want_dw = gm.grouped_matmul_bwd_plain(xe, w, dy)
+        _check_moe(dx, want_dx)
+        _check_moe(dw, want_dw)
+        leaves = [x.clone().requires_grad_(True) for x in (xe, w)]
+        tmoe._expert_matmul(*leaves).backward(dy)
+        assert torch.equal(leaves[0].grad, dx)
+        assert torch.equal(leaves[1].grad, dw)
+
+
+def _check_moe(got, want):
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= MOE_TOL + MOE_TOL * want.float().abs()).all()), \
+        float(diff.max())
