@@ -160,13 +160,14 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                against the same with the plain grouped matmul in place of
                ``_expert_matmul``; launch counts set to 0, then 1 warm and
                3 timed AdamW ``make_train_step`` steps, the counts read
-               right after (per layer and step gmm 9: forward, the remat's
-               recompute and dX for wi, wg and wo; gmm_dw 3; flash_dense 2;
-               each backward kernel 1); step time, tokens/s, peak memory, a
-               device profile of one more step; then dX (``gmm`` reading
-               the weights transposed) and dW (``gmm_dw``) alone at the
-               step's shapes against ``grouped_matmul_bwd_plain``, two runs
-               bit-identical, their times, ``torch.bmm``'s and the bound
+               right after (per layer and step gmm 6: forward and the
+               remat's recompute for wi, wg and wo; gmm_dx 3; gmm_dw 3;
+               flash_dense 2; each backward kernel 1); step time, tokens/s,
+               peak memory, a device profile of one more step; then dX
+               (``gmm_dx``) and dW (``gmm_dw``) alone at the step's shapes
+               against ``grouped_matmul_bwd_plain``, two runs
+               bit-identical, their times, ``torch.bmm``'s, the bound and
+               a digest of the dX outputs
   kernels      the summary line, one entry per kernel; ``launches`` sums
                the counted runs of every path that launches the kernel
                (``launches_by_path``); flash_dense's entry carries
@@ -180,11 +181,14 @@ CUDA device is present or ``src/repro_torch`` is missing beside it.
     python3 chip_smoke.py --dense-digest [SRC]
     python3 chip_smoke.py --dense-times [SRC]
     python3 chip_smoke.py --bwd-times [SRC]
+    python3 chip_smoke.py --moe-bwd-times [SRC]
 
 print only that digest, or only ``flash_dense``'s single-call and
 back-to-back times at the prefill's shape (head_dim 128, causal) and at
 head_dim 64 with a window of 200, or only ``flash_dense_bwd``'s
-back-to-back times at the train phase's four shapes (``bwd_times``), for
+back-to-back times at the train phase's four shapes (``bwd_times``), or
+only the MoE backward's dX and dW back-to-back times at the moe_train
+step's shapes with a digest of the dX outputs (``moe_bwd_times``), for
 the package under ``SRC`` (default: this checkout's ``src``), so that
 another tree's kernels can be held against this one bit for bit, and
 timed against it in turns (parent, change, change, parent) in one call.
@@ -303,13 +307,20 @@ TRAIN_FAIL_AT, TRAIN_REPLAY_TOL = 6, 1e-3
 # plain attention: stablelm-3b at 2 layers, recurrentgemma-2b at one
 # block-pattern period (rglru, rglru, local_attn)
 BWD_WIDE_ARCHS = {"80": ("stablelm-3b", 2), "256": ("recurrentgemma-2b", 3)}
+# the backward's dkdv and dq kernels at each head dim (all TMA + wgmma)
+BWD_KERNELS_BY_HEAD_DIM = {
+    "64": "dkdv_wgmma<64>, dq_wgmma<64>",
+    "128": "dkdv_wgmma<128>, dq_wgmma<128>",
+    "80": "dkdv_wgmma<128>, dq_wgmma<128> (padded to 128)",
+    "256": "dkdv_wgmma_hd256, dq_wgmma_hd256 (64-row blocks, the outputs "
+           "split between the consumer warpgroups)"}
 # the ragged MoE's training: qwen3-moe-30b-a3b at full width, dispatch
 # "ragged", cut to MOE_TRAIN_LAYERS of 48 layers, remat "full", AdamW, on
 # TRAIN_BATCH x TRAIN_S tokens, 1 warm and MOE_TRAIN_STEPS timed steps.
-# Per layer and step gmm runs 9 times (wi, wg, wo: forward, the remat
-# recompute, dX) and gmm_dw 3 times.
+# Per layer and step gmm runs 6 times (wi, wg, wo: forward and the remat
+# recompute), gmm_dx and gmm_dw 3 times each.
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
-MOE_GMM_PER_LAYER, MOE_DW_PER_LAYER = 9, 3
+MOE_GMM_PER_LAYER, MOE_DX_PER_LAYER, MOE_DW_PER_LAYER = 6, 3, 3
 # a sanity band, not a reference: with random weights the first loss is
 # ln(vocab) plus about half the logits' variance (qwen3-4b's 16 layers read
 # 0.48 above ln 151936, these 2 MoE layers 0.64 above)
@@ -1806,23 +1817,43 @@ def phase_train(dev):
                                    "library_ms", "library_fwd_bwd_ms")}
     fields["max_rel_err"] = max(r["max_rel_err"] for r in shapes.values())
     fields["by_head_dim"] = {
-        hd: {k: r[k] for k in ("arch", "shape", "window", "max_rel_err",
-                               "bit_identical", "ms", "ms_b2b", "fwd_bwd_ms",
-                               "fwd_bwd_ms_b2b", "plain_ms", "library_ms",
-                               "library_fwd_bwd_ms", "bound_ms", "bound_by")}
+        hd: {"route": "cuda", "kernels": BWD_KERNELS_BY_HEAD_DIM[hd],
+             **{k: r[k] for k in (
+                 "arch", "shape", "window", "max_rel_err", "bit_identical",
+                 "ms", "ms_b2b", "fwd_bwd_ms", "fwd_bwd_ms_b2b", "plain_ms",
+                 "library_ms", "library_fwd_bwd_ms", "bound_ms",
+                 "bound_by")}}
         for hd, r in shapes.items()}
     return fields, launches
 
 
-def moe_bwd_kernels(dev, cfg, rows, n_sm):
-    """dX (``gmm`` reading the weights transposed) and dW (``gmm_dw``) alone
-    at the MoE step's shapes (E experts x ``rows`` rows; wi, wg and wo), on
-    random bf16 inputs: each against ``grouped_matmul_bwd_plain`` (ATOL +
-    RTOL |plain|), two runs bit-identical, ms (single and back to back),
-    the plain version's ms, ``torch.bmm``'s for the same products and the
-    bound, summed over the three projections."""
+def moe_train_cfg():
+    """qwen3-moe-30b-a3b cut to MOE_TRAIN_LAYERS layers, dispatch "ragged",
+    remat "full" (the moe_train phase's model), and its base config."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    base = get_arch(MOE_ARCH)
+    return dataclasses.replace(
+        base, num_layers=MOE_TRAIN_LAYERS, remat="full",
+        moe=dataclasses.replace(base.moe, dispatch="ragged")), base
+
+
+def moe_train_rows(cfg):
+    """Expert rows of the ragged dispatch at TRAIN_BATCH x TRAIN_S tokens:
+    the groups' capacities laid out and padded to BLOCK_ROWS."""
+    from repro_torch.models import moe as tmoe
+    groups = min(cfg.moe_groups, TRAIN_BATCH)
+    while TRAIN_BATCH % groups:
+        groups //= 2
+    cap = tmoe._capacity(cfg, TRAIN_BATCH // groups * TRAIN_S)
+    return -(-groups * cap // BLOCK_ROWS) * BLOCK_ROWS
+
+
+def moe_bwd_calls(dev, cfg, rows):
+    """The MoE step's three backward products (wi, wg, wo) as (x, w, dy) on
+    random bf16 inputs from a generator of their own (seed 21)."""
     import torch
-    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
     gen = torch.Generator(device=dev).manual_seed(21)
 
     def rnd(*shape, scale=1.0):
@@ -1833,7 +1864,53 @@ def moe_bwd_kernels(dev, cfg, rows, n_sm):
     x, h = rnd(e, rows, d), rnd(e, rows, f)
     w_in, w_out = rnd(e, d, f, scale=d ** -0.5), rnd(e, f, d, scale=f ** -0.5)
     dy_h, dy_o = rnd(e, rows, f), rnd(e, rows, d)
-    calls = ((x, w_in, dy_h), (x, w_in, dy_h), (h, w_out, dy_o))
+    return ((x, w_in, dy_h), (x, w_in, dy_h), (h, w_out, dy_o))
+
+
+def moe_dx_digest(calls, n_sm):
+    """sha256 (16 hex digits) of the three dX outputs, so that two builds
+    of the MoE backward can be held bit for bit against each other."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+    h = hashlib.sha256()
+    for xi, w, dy in calls:
+        dx = gm.grouped_matmul_bwd(xi, w, dy, need_dw=False, sched_p=n_sm)[0]
+        h.update(dx.view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def moe_bwd_times(dev):
+    """dX's and dW's ms_b2b (wi + wg + wo) at the moe_train step's shapes and
+    the digest of the dX outputs, on ``moe_bwd_calls``' inputs."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg, _ = moe_train_cfg()
+    rows = moe_train_rows(cfg)
+    calls = moe_bwd_calls(dev, cfg, rows)
+    out = {"rows": rows, "dx_digest": moe_dx_digest(calls, n_sm)}
+    for part, kw in (("dx", {"need_dw": False}), ("dw", {"need_dx": False})):
+        out[part] = {"ms_b2b": sum(cuda_ms_b2b(
+            lambda xi=xi, w=w, dy=dy: gm.grouped_matmul_bwd(
+                xi, w, dy, sched_p=n_sm, **kw), REPS)
+            for xi, w, dy in calls)}
+    return out
+
+
+def moe_bwd_kernels(dev, cfg, rows, n_sm):
+    """dX (``gmm_dx``) and dW (``gmm_dw``) alone at the MoE step's shapes (E
+    experts x ``rows`` rows; wi, wg and wo), on ``moe_bwd_calls``' inputs:
+    each against ``grouped_matmul_bwd_plain`` (ATOL + RTOL |plain|), two
+    runs bit-identical, ms (single and back to back), the plain version's
+    ms, ``torch.bmm``'s for the same products and the bound, summed over
+    the three projections; the digest of the dX outputs."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff
+    calls = moe_bwd_calls(dev, cfg, rows)
     out = {}
     for part, kw, lib in (
             ("dx", {"need_dw": False},
@@ -1841,7 +1918,8 @@ def moe_bwd_kernels(dev, cfg, rows, n_sm):
             ("dw", {"need_dx": False},
              lambda xi, w, dy: torch.bmm(xi.transpose(1, 2), dy))):
         r = {"ms": 0.0, "ms_b2b": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-             "max_abs_err": 0.0, "flops": 0, "bytes": 0}
+             "library_ms_b2b": 0.0, "max_abs_err": 0.0, "flops": 0,
+             "bytes": 0}
         for xi, w, dy in calls:
             def run(xi=xi, w=w, dy=dy, kw=kw):
                 got = gm.grouped_matmul_bwd(xi, w, dy, sched_p=n_sm, **kw)
@@ -1861,6 +1939,8 @@ def moe_bwd_kernels(dev, cfg, rows, n_sm):
                     xi, w, dy, **kw), 3)
             r["library_ms"] += cuda_ms(
                 lambda xi=xi, w=w, dy=dy: lib(xi, w, dy), REPS)
+            r["library_ms_b2b"] += cuda_ms_b2b(
+                lambda xi=xi, w=w, dy=dy: lib(xi, w, dy), REPS)
             # every row, live or padding, as the kernels compute them: the
             # two operands read once, the product written once
             r["flops"] += 2 * xi.numel() * w.shape[2]
@@ -1868,6 +1948,7 @@ def moe_bwd_kernels(dev, cfg, rows, n_sm):
         r["bound_ms"], r["bound_by"] = bound(r["flops"], r["bytes"])
         r["shapes"] = {"rows": [e, rows], "wi_wg": [e, d, f], "wo": [e, f, d]}
         out[part] = r
+    out["dx"]["digest"] = moe_dx_digest(calls, n_sm)
     return out
 
 
@@ -1877,15 +1958,13 @@ def phase_moe_train(dev, n_sm):
     every gradient leaf with the kernels against the same with the plain
     grouped matmul in place of ``_expert_matmul``; counts from 0, then
     1 warm and MOE_TRAIN_STEPS timed AdamW steps, the counts read (per
-    layer and step gmm 9, gmm_dw 3, flash_dense 2, each backward kernel 1);
+    layer and step gmm 6, gmm_dx 3, gmm_dw 3, flash_dense 2, each backward
+    kernel 1);
     step time, tokens/s, peak memory, a device profile of one more step;
     then the backward kernels alone at the step's shapes.  Returns the
     launch counts and ``moe_bwd_kernels``' fields."""
-    import dataclasses
-
     import numpy as np
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.models import init_decoder
     from repro_torch.models import moe as tmoe
@@ -1893,10 +1972,7 @@ def phase_moe_train(dev, n_sm):
     from repro_torch.train import steps as tsteps
     from repro_torch.tree import tree_leaves
 
-    base = get_arch(MOE_ARCH)
-    cfg = dataclasses.replace(
-        base, num_layers=MOE_TRAIN_LAYERS, remat="full",
-        moe=dataclasses.replace(base.moe, dispatch="ragged"))
+    cfg, base = moe_train_cfg()
     params, _ = init_decoder(0, cfg, device=dev)
     n_params = sum(p.numel() for p in tree_leaves(params))
     feed = [{k: torch.from_numpy(v).to(dev) for k, v in bt.items()
@@ -1943,14 +2019,16 @@ def phase_moe_train(dev, n_sm):
     steps_run = 1 + MOE_TRAIN_STEPS
     per_layer = {n: c / (steps_run * cfg.num_layers)
                  for n, c in launches.items() if c}
-    want = {"gmm": MOE_GMM_PER_LAYER, "gmm_dw": MOE_DW_PER_LAYER,
+    want = {"gmm": MOE_GMM_PER_LAYER, "gmm_dx": MOE_DX_PER_LAYER,
+            "gmm_dw": MOE_DW_PER_LAYER,
             "flash_dense": 2, **dict.fromkeys(BWD_KERNELS, 1)}
     assert per_layer == want, per_layer
     assert all(math.isfinite(x) for x in losses), losses
     assert abs(losses[0] - math.log(cfg.vocab_size)) <= MOE_TRAIN_LOSS0_BAND, \
         losses[0]
     prof = device_profile(lambda: step(params, opt, feed[-1]), top=12,
-                          watch=("gmm_kernel", "gmm_dw_kernel",
+                          watch=("gmm_kernel", "gmm_dx_kernel",
+                                 "gmm_dw_kernel",
                                  "flash_dense_kernel", "dkdv", "dq_wgmma",
                                  "delta_kernel"))
     step_s = float(np.median(times[1:]))
@@ -1958,11 +2036,7 @@ def phase_moe_train(dev, n_sm):
     del params, opt, feed
     torch.cuda.empty_cache()
 
-    groups = min(cfg.moe_groups, TRAIN_BATCH)
-    while TRAIN_BATCH % groups:
-        groups //= 2
-    cap = tmoe._capacity(cfg, TRAIN_BATCH // groups * TRAIN_S)
-    rows = -(-groups * cap // BLOCK_ROWS) * BLOCK_ROWS
+    rows = moe_train_rows(cfg)
     kernels = moe_bwd_kernels(dev, cfg, rows, n_sm)
     emit("moe_train", arch=cfg.name, layers=cfg.num_layers,
          of_layers=base.num_layers, dispatch="ragged", remat="full",
@@ -1989,12 +2063,12 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    # --dense-digest / --dense-times / --bwd-times [SRC]: print only
-    # dense_digest(), dense_times() or bwd_times() of the package under SRC
-    # (default: this checkout's src), to hold two trees' builds against
-    # each other
+    # --dense-digest / --dense-times / --bwd-times / --moe-bwd-times [SRC]:
+    # print only dense_digest(), dense_times(), bwd_times() or
+    # moe_bwd_times() of the package under SRC (default: this checkout's
+    # src), to hold two trees' builds against each other
     dense_only = argv[:1] in (["--dense-digest"], ["--dense-times"],
-                              ["--bwd-times"])
+                              ["--bwd-times"], ["--moe-bwd-times"])
     src = ROOT / "src"
     if dense_only and len(argv) > 1:
         src = Path(argv[1]).resolve()
@@ -2013,6 +2087,10 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--bwd-times"]:
         print(json.dumps({"bwd_times": bwd_times(
+            torch.device("cuda", 0)), "src": str(src)}), flush=True)
+        return 0
+    if argv[:1] == ["--moe-bwd-times"]:
+        print(json.dumps({"moe_bwd_times": moe_bwd_times(
             torch.device("cuda", 0)), "src": str(src)}), flush=True)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2389,12 +2467,7 @@ def main(argv) -> int:
          "percent_imbalance": gmm_rows["wi"]["percent_imbalance"],
          "model_path": {k: gmm_model[k] for k in (
              "ms", "ms_b2b", "plain_ms", "library_ms", "bound_ms",
-             "bound_by", "shapes")},
-         # the backward's dX = dY W^T, the weights read transposed in place,
-         # at the MoE training step's shapes (wi + wg + wo)
-         "dx": {k: moe_bwd["dx"][k] for k in (
-             "max_abs_err", "ms", "ms_b2b", "plain_ms", "library_ms",
-             "bound_ms", "bound_by", "shapes")}},
+             "bound_by", "shapes")}},
         {"name": "flash_dense", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_dense.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:51",
@@ -2427,6 +2500,18 @@ def main(argv) -> int:
              "train": train_launches["flash_dense_bwd_dkdv"],
              "moe_train": moe_train_launches["flash_dense_bwd_dkdv"]},
          "tolerance": f"{BWD_REL_TOL}*max|plain| per gradient", **bwd},
+        {"name": "gmm_dx", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gmm.cu",
+         "replaces": "src/repro/models/moe.py:143",
+         "replaces_note": "no Pallas kernel: the reference differentiates "
+                          "moe_ragged's expert einsums by autodiff; dX = dY "
+                          "W^T on an expert-major raster",
+         "launches": moe_train_launches["gmm_dx"],
+         "launches_by_path": {"moe_train": moe_train_launches["gmm_dx"]},
+         "tolerance": f"{ATOL} + {RTOL}*|plain|",
+         **{k: moe_bwd["dx"][k] for k in (
+             "max_abs_err", "ms", "ms_b2b", "plain_ms", "library_ms",
+             "library_ms_b2b", "bound_ms", "bound_by", "shapes", "digest")}},
         {"name": "gmm_dw", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gmm.cu",
          "replaces": "src/repro/models/moe.py:143",
@@ -2437,7 +2522,7 @@ def main(argv) -> int:
          "tolerance": f"{ATOL} + {RTOL}*|plain|",
          **{k: moe_bwd["dw"][k] for k in (
              "max_abs_err", "ms", "ms_b2b", "plain_ms", "library_ms",
-             "bound_ms", "bound_by", "shapes")}},
+             "library_ms_b2b", "bound_ms", "bound_by", "shapes")}},
     ]
     for kern in kernels:
         assert all(math.isfinite(kern[x]) for x in

@@ -125,6 +125,9 @@ class CheckpointStore:
         return sorted(out)
 
     def latest_step(self) -> Optional[int]:
+        """The newest step, counting one whose write is still running (it
+        is waited for: a restart right after a save must find it)."""
+        self.wait()
         s = self.steps()
         return s[-1] if s else None
 
@@ -138,6 +141,7 @@ class CheckpointStore:
             raise NotImplementedError(
                 "restore(shardings=...) waits for the sharding slice "
                 "(ROADMAP.md section 1, item 6); one GPU needs none")
+        self.wait()
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         arrays = []

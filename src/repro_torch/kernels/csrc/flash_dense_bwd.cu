@@ -23,11 +23,12 @@
 //     (b, h, s_pad) beside lse log2(e), s_pad = s rounded up to 128; rows
 //     past s get D = 0 and lse = +inf, so that P = exp2(S - inf) = 0 there
 //     and a tile that runs past s needs no mask for its q rows.
-//   * dkdv: a CTA owns a KV head's 128-row k block and walks the GQA
-//     group's query heads and the 64-row q tiles the mask lets see the
-//     block, so dK and dV are summed over the group inside the CTA and
-//     written once.
-//   * dq: a CTA owns a head's 128-row q block and walks its k tiles.
+//   * dkdv: a CTA owns a KV head's 128-row k block (64 rows at padded
+//     head dim 256) and walks the GQA group's query heads and the 64-row
+//     q tiles the mask lets see the block, so dK and dV are summed over
+//     the group inside the CTA and written once.
+//   * dq: a CTA owns a head's 128-row q block (64 rows at 256) and walks
+//     its k tiles.
 //
 // Design at padded head dims 64 and 128 (TMA + wgmma + warp
 // specialisation, the forward's hardware; flash_hopper.cuh):
@@ -58,14 +59,29 @@
 //   * dK (scaled), dV and dQ (scaled) are written as bf16 straight from the
 //     accumulators, rows below s and columns below the real head dim.
 //
-// Padded head dim 256 (recurrentgemma-2b: MQA 10 / 1, window 2048) keeps
-// the simple design of warp-level mma.sync.m16n8k16 from padded
-// shared-memory tiles (no TMA, no wgmma, no pipelining): dK + dV for 64
-// rows at 256 columns would be 256 fp32 registers a thread, so each of its
-// kernels splits the head dim of its output between two CTAs (DSPLIT),
-// each recomputing S and dP over the full depth.  One CTA of 4 warps per
-// (b, KV head, 64-row k block, half) in dkdv, walking 32-row q tiles; per
-// (b, head, 64-row q block, half) in dq, walking 64-row k tiles.
+// Padded head dim 256 (recurrentgemma-2b: MQA 10 / 1, window 2048) runs
+// the same hardware in another split, since dK + dV for 64 rows at 256
+// columns would be 256 fp32 registers a thread, over setmaxnreg's 240:
+//   * A CTA owns a 64-row block (k in dkdv, q in dq), resident as four
+//     64 x 64 boxes per tile (32 KB), and a ring of 2 stages of two 64-row
+//     tiles (128 KB); every tile comes by TMA over the same 4-D maps.
+//     64-row blocks also give 128 dkdv CTAs at recurrentgemma-2b's shape
+//     (b 2, one KV head, s 4096) where 128-row blocks would give 64 for
+//     132 SMs.
+//   * dkdv splits the outputs between the consumer warpgroups, not the
+//     rows: warpgroup 1 computes S^T = K Q^T (m64n64, SS) and P^T, and
+//     accumulates dV += P^T dO; warpgroup 2 computes dP^T = V dO^T and
+//     accumulates dK += dS^T Q, dS^T formed from warpgroup 1's fp32 P^T,
+//     which passes through a 16 KB shared buffer under two named barriers
+//     (full: warpgroup 1 arrives, 2 waits; empty: the other way round).
+//     Each accumulator is 64 x 256 as two m64n128 RS halves, 128 fp32 a
+//     thread.
+//   * dq: warpgroup 1 computes S = Q K^T and P, warpgroup 2 dP = dO V^T;
+//     the two swap them in fp32 through two 16 KB buffers, each forms dS
+//     and accumulates its half of dQ's 256 columns (m64n128 RS).
+//   * So each product is computed once a tile: 4 in dkdv and 3 in dq, the
+//     7 of the narrower head dims.  No atomics: two runs give the same
+//     bits.  Shared memory: ~210 KB (dkdv), ~226 KB (dq).
 
 #include "flash_hopper.cuh"
 
@@ -523,355 +539,362 @@ dq_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// ----------------------------------------------- mma.sync (hd 256) ---
+// --------------------------------------------------------- wgmma (hd 256) ---
 
-constexpr int BM = 64;           // rows a CTA owns (k rows in dkdv, q in dq)
-constexpr int MT = 128;          // 4 warps, 16 of those rows each
-constexpr int DSPLIT = 2;        // CTAs sharing one block's output columns
+constexpr int BLK256 = 64;       // rows an hd-256 CTA owns (k in dkdv, q in dq)
+constexpr int RING256 = 2;       // stages of its ring
+constexpr int XCH_FULL = 1;      // named barriers of the consumers' exchange
+constexpr int XCH_EMPTY = 2;
 
-// D (16 x 8, fp32) += A (16 x 16, bf16) B (16 x 8, bf16)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// Shared memory of an hd-256 CTA: the resident tiles R0, R1 (64 rows each),
+// RING256 stages of the ring's tiles T0, T1 (64 rows each), the ring's lse
+// / D (dkdv only), NX exchange buffers XB (one fp32 64 x 64 accumulator of
+// a warpgroup each, value v of thread t at v * 128 + t), then the mbarriers
+// res_full, full[], empty[].  A tile is 4 boxes of 64 rows x 64 columns.
+template <int NX>
+struct Layout256 {
+  static constexpr int BOX = BLK256 * 128;
+  static constexpr int TILE = 4 * BOX;                 // 32 KB
+  static constexpr int XBUF = 32 * 128 * 4;            // 16 KB
+  static constexpr int R0 = 0;
+  static constexpr int R1 = R0 + TILE;
+  static constexpr int T0 = R1 + TILE;                 // RING256 tiles
+  static constexpr int T1 = T0 + RING256 * TILE;       // RING256 tiles
+  static constexpr int LD = T1 + RING256 * TILE;       // RING256 x (lse, D)
+  static constexpr int XB = LD + (NX == 1 ? RING256 * 2 * BT * 4 : 0);
+  static constexpr int BAR = XB + NX * XBUF;
+  static constexpr int BYTES = BAR + (1 + 2 * RING256) * 8 + 1024;  // + align
+};
 
-// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A: reg 0 (row g, cols 2t, 2t+1), reg 1 (row g+8, same), reg 2 (row g,
-//      cols 2t+8, 2t+9), reg 3 (row g+8, same);
-//   B: reg 0 (rows 2t, 2t+1 of column g), reg 1 (rows 2t+8, 2t+9);
-//   C: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, same).
-
-// A (16 x 16) from rows r0.. and columns c0.. of a row-major tile
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* x,
-                                       int ld, int r0, int c0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = x + (r0 + g) * ld + c0 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// B (16 x 8) with B(kk, n) = y[n0 + n][k0 + kk]: y holds B transposed, so a
-// register's pair is contiguous
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[2], const bf16* y,
-                                          int ld, int n0, int k0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = y + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B (16 x 8) with B(kk, n) = y[k0 + kk][n0 + n]: a register's pair is two
-// rows apart, read as two halves
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[2], const bf16* y,
-                                          int ld, int k0, int n0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const unsigned short* p =
-      reinterpret_cast<const unsigned short*>(y) + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[ld]) << 16);
-  b[1] = static_cast<uint32_t>(p[8 * ld]) |
-         (static_cast<uint32_t>(p[9 * ld]) << 16);
-}
-
-// rows [row0, row0 + rows) of one head of a contiguous (b, s, heads, hd)
-// tensor into a (rows, HD + 8) shared tile; rows past s and columns past
-// hd are zeros
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int b,
-                                          int head, int heads, int row0,
-                                          int rows, int s, int hd) {
-  constexpr int LD = HD + 8;
-  constexpr int VEC = HD / 8;        // 16-byte vectors a row
-  for (int i = threadIdx.x; i < rows * VEC; i += MT) {
-    const int r = i / VEC, c = (i % VEC) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < s && c < hd)
-      val = *reinterpret_cast<const uint4*>(
-          src + ((static_cast<long long>(b) * s + row) * heads + head) * hd +
-          c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+// acc (64 x 64) = A (64 x 256) B^T (256 x 64), A and B 64-row tiles, both
+// K-major
+__device__ __forceinline__ void ss256(float* acc, uint64_t da, uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const int off = (kk / 4) * (Layout256<1>::BOX / 16) + (kk % 4) * 2;
+    wgmma_m64n64k16_ss<0>(acc, da + off, db + off, kk);
   }
 }
 
-__device__ __forceinline__ bool live(int row, int col, const BwdParams& P) {
-  return row < P.s && col < P.s && live_pair(row, col, P.causal, P.window);
+// D (64 x 128) += A (64 x 16, registers) times rows 16 kk .. 16 kk + 15 and
+// columns 128 h .. 128 h + 127 of a 64-row tile read MN-major (db: the
+// tile's descriptor, 64-column boxes BOX bytes apart)
+__device__ __forceinline__ void rs_half(float* d, const uint32_t* a,
+                                        uint64_t db, int h, int kk) {
+  constexpr int half = 2 * Layout256<1>::BOX / 16;     // two boxes on
+  wgmma_m64n128k16_rs<1>(d, a, db + h * half + 128 * kk, 1);
 }
 
-// BN: q rows a tile of the inner loop; blockIdx.y: the half of the head
-// dim this CTA's dK and dV cover
-template <int HD, int BN>
-__global__ void __launch_bounds__(MT)
-dkdv_mma(const BwdParams P) {
-  constexpr int LD = HD + 8;
-  constexpr int NT = HD / 8 / DSPLIT;   // 8-column output tiles a CTA
+// dkdv at hd 256: the CTA owns a 64-row k block.  Warpgroup 1 computes S^T
+// = K Q^T, P^T, and dV += P^T dO; warpgroup 2 computes dP^T = V dO^T and,
+// with warpgroup 1's fp32 P^T from the exchange buffer, dS^T and dK +=
+// dS^T Q.  Each holds one 64 x 256 output (128 fp32 a thread).
+__global__ void __launch_bounds__(NTHREADS, 1)
+dkdv_wgmma_hd256(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap omap, const BwdParams P) {
+  using L = Layout256<1>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BM * LD;
-  bf16* sQ = sV + BM * LD;
-  bf16* sO = sQ + BN * LD;           // dO
-  float* sL = reinterpret_cast<float*>(sO + BN * LD);   // lse log2(e)
-  float* sD = sL + BN;
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = res_full + 1;
+  uint64_t* empty = full + RING256;
+  float* ld = reinterpret_cast<float*>(smem + L::LD);
+  float* xb = reinterpret_cast<float*>(smem + L::XB);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  if (tid == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < RING256; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
 
   const int kvh = P.H / P.group;
   const int lanes = P.batch * kvh;
+  // low k blocks, which see the most q tiles under the causal mask, first
   const int kb = static_cast<int>(blockIdx.x) / lanes;
   const int lane_id = static_cast<int>(blockIdx.x) % lanes;
   const int b = lane_id / kvh, kh = lane_id % kvh;
-  const int k0 = kb * BM;
-  const int n_lo = static_cast<int>(blockIdx.y) * NT * 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = 16 * warp;          // this warp's first row of the block
+  const int k0 = kb * BLK256;
+  // q tiles that see the block: [t_lo, t_hi), for each of the group's heads
+  const int t_lo = P.causal ? k0 / BT : 0;
+  const int t_hi =
+      (P.window > 0 ? min(P.s, k0 + BLK256 - 1 + P.window) : P.s) + BT - 1;
+  const int ntiles = t_hi / BT - t_lo;
+  const int n = P.group * ntiles;
 
-  load_tile<HD>(sK, P.k, b, kh, kvh, k0, BM, P.s, P.hd);
-  load_tile<HD>(sV, P.v, b, kh, kvh, k0, BM, P.s, P.hd);
-
-  // q rows that see the block: [q_lo, q_hi)
-  const int q_lo = P.causal ? k0 : 0;
-  const int q_hi = P.window > 0 ? min(P.s, k0 + BM - 1 + P.window) : P.s;
-
-  float dk[NT][4], dv[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
-
-  for (int j = 0; j < P.group; ++j) {
-    const int hh = kh * P.group + j;
-    const long long lrow = (static_cast<long long>(b) * P.H + hh) * P.s_pad;
-    for (int q0 = q_lo / BN * BN; q0 < q_hi; q0 += BN) {
-      __syncthreads();   // the previous tile is read (and K / V stored)
-      load_tile<HD>(sQ, P.q, b, hh, P.H, q0, BN, P.s, P.hd);
-      load_tile<HD>(sO, P.dout, b, hh, P.H, q0, BN, P.s, P.hd);
-      for (int i = threadIdx.x; i < BN; i += MT) {
-        sL[i] = P.lse2[lrow + q0 + i];
-        sD[i] = P.delta[lrow + q0 + i];
+  if (wg == 0) {
+    // ---- producer ----
+    reg_dealloc<24>();
+    if (tid == 0) {
+      mbar_expect_tx(res_full, 2 * L::TILE);
+      for (int j = 0; j < 4; ++j) {
+        tma_load_4d(smem + L::R0 + j * L::BOX, &kmap, res_full, 64 * j, k0,
+                    kh, b);
+        tma_load_4d(smem + L::R1 + j * L::BOX, &vmap, res_full, 64 * j, k0,
+                    kh, b);
       }
-      __syncthreads();
-
-      // S^T = K Q^T (16 k rows x BN q columns a warp)
-      float st[BN / 8][4];
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) st[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, sK, LD, wr, 16 * kk, lane);
-#pragma unroll
-        for (int n = 0; n < BN / 8; ++n) {
-          uint32_t bb[2];
-          load_b_nk(bb, sQ, LD, 8 * n, 16 * kk, lane);
-          mma(st[n], a, bb);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % RING256;
+        const int hh = kh * P.group + i / ntiles;
+        const int q0 = (t_lo + i % ntiles) * BT;
+        const long long lrow = (static_cast<long long>(b) * P.H + hh) * P.s_pad;
+        mbar_wait(&empty[s], ((i / RING256) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * L::TILE + 2 * BT * 4);
+        for (int j = 0; j < 4; ++j) {
+          tma_load_4d(smem + L::T0 + s * L::TILE + j * L::BOX, &qmap,
+                      &full[s], 64 * j, q0, hh, b);
+          tma_load_4d(smem + L::T1 + s * L::TILE + j * L::BOX, &omap,
+                      &full[s], 64 * j, q0, hh, b);
         }
-      }
-      // P^T = exp2(S^T scale log2(e) - lse) on live pairs, 0 elsewhere
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kr = k0 + wr + g + 8 * (i >> 1);
-          const int qc = 8 * n + 2 * t + (i & 1);
-          st[n][i] = live(q0 + qc, kr, P)
-                         ? exp2f(fmaf(st[n][i], P.scale_log2, -sL[qc]))
-                         : 0.f;
-        }
-      // dV += P^T dO
-#pragma unroll
-      for (int ks = 0; ks < BN / 16; ++ks) {
-        const uint32_t a[4] = {pack_bf16(st[2 * ks][0], st[2 * ks][1]),
-                               pack_bf16(st[2 * ks][2], st[2 * ks][3]),
-                               pack_bf16(st[2 * ks + 1][0], st[2 * ks + 1][1]),
-                               pack_bf16(st[2 * ks + 1][2], st[2 * ks + 1][3])};
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          uint32_t bb[2];
-          load_b_kn(bb, sO, LD, 16 * ks, n_lo + 8 * n, lane);
-          mma(dv[n], a, bb);
-        }
-      }
-      // dP^T = V dO^T
-      float dpt[BN / 8][4];
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dpt[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, sV, LD, wr, 16 * kk, lane);
-#pragma unroll
-        for (int n = 0; n < BN / 8; ++n) {
-          uint32_t bb[2];
-          load_b_nk(bb, sO, LD, 8 * n, 16 * kk, lane);
-          mma(dpt[n], a, bb);
-        }
-      }
-      // dS^T = P^T o (dP^T - D)
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          dpt[n][i] = st[n][i] * (dpt[n][i] - sD[8 * n + 2 * t + (i & 1)]);
-      // dK += dS^T Q
-#pragma unroll
-      for (int ks = 0; ks < BN / 16; ++ks) {
-        const uint32_t a[4] = {
-            pack_bf16(dpt[2 * ks][0], dpt[2 * ks][1]),
-            pack_bf16(dpt[2 * ks][2], dpt[2 * ks][3]),
-            pack_bf16(dpt[2 * ks + 1][0], dpt[2 * ks + 1][1]),
-            pack_bf16(dpt[2 * ks + 1][2], dpt[2 * ks + 1][3])};
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          uint32_t bb[2];
-          load_b_kn(bb, sQ, LD, 16 * ks, n_lo + 8 * n, lane);
-          mma(dk[n], a, bb);
-        }
+        bulk_load(ld + s * 2 * BT, P.lse2 + lrow + q0, BT * 4, &full[s]);
+        bulk_load(ld + s * 2 * BT + BT, P.delta + lrow + q0, BT * 4,
+                  &full[s]);
       }
     }
-  }
+  } else {
+    // ---- consumers: c 0 owns dV, c 1 dK, both for k rows k0 .. k0 + 63 ----
+    reg_alloc<240>();
+    const int c = wg - 1;
+    const int tq = tid % 128;
+    const int lane = tid % 32;
 
-  // dK (scaled) and dV for the rows below s and the columns below hd
+    float acc[128];                 // two n128 halves: columns 0-127, 128-255
 #pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2) {
-    const int row = k0 + wr + g + 8 * h2;
-    if (row >= P.s) continue;
-    const long long base =
-        ((static_cast<long long>(b) * P.s + row) * kvh + kh) * P.hd;
+    for (int v = 0; v < 128; ++v) acc[v] = 0.f;
+
+    // K (c 0) or V (c 1), the A of S^T = K Q^T or dP^T = V dO^T
+    const uint64_t ra = smem_desc(smem + (c ? L::R1 : L::R0), 16, 1024);
+    mbar_wait(res_full, 0);
+    if (c == 1) named_bar_arrive(XCH_EMPTY, 256);   // the buffer starts empty
+
+    for (int i = 0; i < n; ++i) {
+      const int s = i % RING256;
+      const int q0 = (t_lo + i % ntiles) * BT;
+      unsigned char* qs = smem + L::T0 + s * L::TILE;
+      unsigned char* os = smem + L::T1 + s * L::TILE;
+      const float* lse2 = ld + s * 2 * BT;
+      const float* dl = lse2 + BT;
+      mbar_wait(&full[s], (i / RING256) & 1);
+
+      // c 0: S^T = K Q^T; c 1: dP^T = V dO^T
+      float x[32];
+      wgmma_fence();
+      ss256(x, ra, smem_desc(c ? os : qs, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<32>(x);
+
+      if (c == 0) {
+        // P^T = exp2(S^T scale log2(e) - lse) (0 where masked), handed to
+        // warpgroup 2 in fp32
+        const bool mask = (P.causal && q0 < k0 + BLK256 - 1) ||
+                          (P.window > 0 && q0 + BT - 1 - k0 >= P.window);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int col = n_lo + 8 * n + 2 * t;
-      if (col >= P.hd) break;
-      *reinterpret_cast<uint32_t*>(P.dk + base + col) = pack_bf16(
-          dk[n][2 * h2] * P.scale, dk[n][2 * h2 + 1] * P.scale);
-      *reinterpret_cast<uint32_t*>(P.dv + base + col) =
-          pack_bf16(dv[n][2 * h2], dv[n][2 * h2 + 1]);
+        for (int v = 0; v < 32; ++v) {
+          const int col = acc_col(tq, v);
+          float p = fast_exp2(fmaf(x[v], P.scale_log2, -lse2[col]));
+          if (mask && !live_pair(q0 + col, k0 + acc_row(tq, v), P.causal,
+                                 P.window))
+            p = 0.f;
+          x[v] = p;
+        }
+        named_bar_sync(XCH_EMPTY, 256);
+#pragma unroll
+        for (int v = 0; v < 32; ++v) xb[v * 128 + tq] = x[v];
+        named_bar_arrive(XCH_FULL, 256);
+      } else {
+        // dS^T = P^T o (dP^T - D)
+        named_bar_sync(XCH_FULL, 256);
+#pragma unroll
+        for (int v = 0; v < 32; ++v)
+          x[v] = xb[v * 128 + tq] * (x[v] - dl[acc_col(tq, v)]);
+        if (i + 1 < n) named_bar_arrive(XCH_EMPTY, 256);
+      }
+
+      // c 0: dV += P^T dO; c 1: dK += dS^T Q (the stage read MN-major)
+      uint32_t fr[4][4];
+      pack_frags(x, fr);
+      const uint64_t db = smem_desc(c ? qs : os, L::BOX, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        rs_half(acc, fr[kk], db, 0, kk);
+        rs_half(acc + 64, fr[kk], db, 1, kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<128>(acc);
+      fence_regs<16>(&fr[0][0]);
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
+
+    // dV, or dK (scaled), at the KV head, rows below s
+    const int r_lo = k0 + acc_row(tq, 0);
+    const long long base = static_cast<long long>(b) * P.s * kvh + kh;
+    store_acc<256>((c ? P.dk : P.dv) + base * P.hd,
+                   static_cast<long long>(kvh) * P.hd, acc,
+                   c ? P.scale : 1.f, r_lo, P.s, lane, P.hd);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(MT)
-dq_mma(const BwdParams P) {
-  constexpr int LD = HD + 8;
-  constexpr int NT = HD / 8 / DSPLIT;
-  constexpr int BN = 64;             // k rows a tile of the inner loop
+// dq at hd 256: the CTA owns a head's 64-row q block.  Warpgroup 1
+// computes S = Q K^T and P, warpgroup 2 dP = dO V^T; they swap P and dP in
+// fp32 through the exchange buffers, each forms dS = P o (dP - D) (the same
+// arithmetic on the same values, so the same bits) and accumulates half of
+// dQ += dS K: columns 0-127 (c 0) or 128-255 (c 1), 64 fp32 a thread.
+__global__ void __launch_bounds__(NTHREADS, 1)
+dq_wgmma_hd256(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const __grid_constant__ CUtensorMap omap, const BwdParams P) {
+  using L = Layout256<2>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sO = sQ + BM * LD;           // dO
-  bf16* sK = sO + BM * LD;
-  bf16* sV = sK + BN * LD;
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = res_full + 1;
+  uint64_t* empty = full + RING256;
+  float* xb = reinterpret_cast<float*>(smem + L::XB);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  if (tid == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < RING256; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
 
   const int lanes = P.batch * P.H;
-  const int nqb = (P.s + BM - 1) / BM;
+  const int nqb = (P.s + BLK256 - 1) / BLK256;
+  // high q blocks, which see the most k tiles under the causal mask, first
   const int qb = nqb - 1 - static_cast<int>(blockIdx.x) / lanes;
   const int lane_id = static_cast<int>(blockIdx.x) % lanes;
   const int b = lane_id / P.H, hh = lane_id % P.H;
-  const int kh = hh / P.group, kvh = P.H / P.group;
-  const int q0 = qb * BM;
-  const int n_lo = static_cast<int>(blockIdx.y) * NT * 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = 16 * warp;
+  const int kh = hh / P.group;
+  const int q0 = qb * BLK256;
+  // k columns the block sees: tiles [t_lo, t_lo + ntiles)
+  const int t_lo = P.window > 0 ? max(0, q0 - P.window + 1) / BT : 0;
+  const int c_hi = P.causal ? min(P.s, q0 + BLK256) : P.s;
+  const int ntiles = (c_hi + BT - 1) / BT - t_lo;
 
-  load_tile<HD>(sQ, P.q, b, hh, P.H, q0, BM, P.s, P.hd);
-  load_tile<HD>(sO, P.dout, b, hh, P.H, q0, BM, P.s, P.hd);
-
-  // this thread's rows q0 + wr + g and + 8: lse log2(e) and D
-  const long long lrow = (static_cast<long long>(b) * P.H + hh) * P.s_pad;
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2) {
-    const int row = q0 + wr + g + 8 * h2;
-    lse2[h2] = P.lse2[lrow + row];
-    dlt[h2] = P.delta[lrow + row];
-  }
-
-  // k columns the block sees: [c_lo, c_hi)
-  const int c_lo = P.window > 0 ? max(0, q0 - P.window + 1) : 0;
-  const int c_hi = P.causal ? min(P.s, q0 + BM) : P.s;
-
-  float dq[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
-
-  for (int c0 = c_lo / BN * BN; c0 < c_hi; c0 += BN) {
-    __syncthreads();   // the previous tile is read (and Q / dO stored)
-    load_tile<HD>(sK, P.k, b, kh, kvh, c0, BN, P.s, P.hd);
-    load_tile<HD>(sV, P.v, b, kh, kvh, c0, BN, P.s, P.hd);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T (16 q rows x BN k columns a warp)
-    float sc[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4], ao[4];
-      load_a(a, sQ, LD, wr, 16 * kk, lane);
-      load_a(ao, sO, LD, wr, 16 * kk, lane);
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n) {
-        uint32_t bk[2], bv[2];
-        load_b_nk(bk, sK, LD, 8 * n, 16 * kk, lane);
-        mma(sc[n], a, bk);
-        load_b_nk(bv, sV, LD, 8 * n, 16 * kk, lane);
-        mma(dp[n], ao, bv);
+  if (wg == 0) {
+    // ---- producer ----
+    reg_dealloc<24>();
+    if (tid == 0) {
+      mbar_expect_tx(res_full, 2 * L::TILE);
+      for (int j = 0; j < 4; ++j) {
+        tma_load_4d(smem + L::R0 + j * L::BOX, &qmap, res_full, 64 * j, q0,
+                    hh, b);
+        tma_load_4d(smem + L::R1 + j * L::BOX, &omap, res_full, 64 * j, q0,
+                    hh, b);
+      }
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % RING256;
+        const int c0 = (t_lo + i) * BT;
+        mbar_wait(&empty[s], ((i / RING256) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * L::TILE);
+        for (int j = 0; j < 4; ++j) {
+          tma_load_4d(smem + L::T0 + s * L::TILE + j * L::BOX, &kmap,
+                      &full[s], 64 * j, c0, kh, b);
+          tma_load_4d(smem + L::T1 + s * L::TILE + j * L::BOX, &vmap,
+                      &full[s], 64 * j, c0, kh, b);
+        }
       }
     }
-    // P = exp2(S scale log2(e) - lse) on live pairs; dS = P o (dP - D)
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h2 = i >> 1;
-        const int qr = q0 + wr + g + 8 * h2;
-        const int kc = c0 + 8 * n + 2 * t + (i & 1);
-        const float p = live(qr, kc, P)
-                            ? exp2f(fmaf(sc[n][i], P.scale_log2, -lse2[h2]))
-                            : 0.f;
-        dp[n][i] = p * (dp[n][i] - dlt[h2]);
-      }
-    // dQ += dS K
-#pragma unroll
-    for (int ks = 0; ks < BN / 16; ++ks) {
-      const uint32_t a[4] = {pack_bf16(dp[2 * ks][0], dp[2 * ks][1]),
-                             pack_bf16(dp[2 * ks][2], dp[2 * ks][3]),
-                             pack_bf16(dp[2 * ks + 1][0], dp[2 * ks + 1][1]),
-                             pack_bf16(dp[2 * ks + 1][2], dp[2 * ks + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t bb[2];
-        load_b_kn(bb, sK, LD, 16 * ks, n_lo + 8 * n, lane);
-        mma(dq[n], a, bb);
-      }
-    }
-  }
+  } else {
+    // ---- consumers: q rows q0 .. q0 + 63, dQ columns 128 c .. ----
+    reg_alloc<240>();
+    const int c = wg - 1;
+    const int tq = tid % 128;
+    const int lane = tid % 32;
+    const int r_lo = q0 + acc_row(tq, 0);       // and r_lo + 8
+    // this thread's rows' lse log2(e) and D (rows past s: +inf and 0)
+    const long long lrow = (static_cast<long long>(b) * P.H + hh) * P.s_pad;
+    const float lse2[2] = {P.lse2[lrow + r_lo], P.lse2[lrow + r_lo + 8]};
+    const float dl[2] = {P.delta[lrow + r_lo], P.delta[lrow + r_lo + 8]};
+    float* mine = xb + c * 32 * 128;
+    const float* other = xb + (1 - c) * 32 * 128;
 
+    float dq[64];
 #pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2) {
-    const int row = q0 + wr + g + 8 * h2;
-    if (row >= P.s) continue;
-    const long long base =
-        ((static_cast<long long>(b) * P.s + row) * P.H + hh) * P.hd;
+    for (int v = 0; v < 64; ++v) dq[v] = 0.f;
+
+    // Q (c 0) or dO (c 1), the A of S = Q K^T or dP = dO V^T
+    const uint64_t ra = smem_desc(smem + (c ? L::R1 : L::R0), 16, 1024);
+    mbar_wait(res_full, 0);
+
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % RING256;
+      const int c0 = (t_lo + i) * BT;
+      unsigned char* ks = smem + L::T0 + s * L::TILE;
+      unsigned char* vs = smem + L::T1 + s * L::TILE;
+      mbar_wait(&full[s], (i / RING256) & 1);
+
+      // c 0: S = Q K^T; c 1: dP = dO V^T
+      float x[32];
+      wgmma_fence();
+      ss256(x, ra, smem_desc(c ? vs : ks, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<32>(x);
+
+      if (c == 0) {
+        // P = exp2(S scale log2(e) - lse) (0 where masked or past s)
+        const bool mask = (P.causal && c0 + BT - 1 > q0) ||
+                          (P.window > 0 && q0 + BLK256 - 1 - c0 >= P.window) ||
+                          c0 + BT > P.s;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int col = n_lo + 8 * n + 2 * t;
-      if (col >= P.hd) break;
-      *reinterpret_cast<uint32_t*>(P.dq + base + col) = pack_bf16(
-          dq[n][2 * h2] * P.scale, dq[n][2 * h2 + 1] * P.scale);
+        for (int v = 0; v < 32; ++v) {
+          const int j = (v >> 1) & 1;
+          float p = fast_exp2(fmaf(x[v], P.scale_log2, -lse2[j]));
+          const int kc = c0 + acc_col(tq, v);
+          if (mask && (kc >= P.s || !live_pair(r_lo + 8 * j, kc, P.causal,
+                                               P.window)))
+            p = 0.f;
+          x[v] = p;
+        }
+      }
+      // swap P and dP: the other warpgroup has read the previous tile's
+      named_bar_sync(XCH_EMPTY, 256);
+#pragma unroll
+      for (int v = 0; v < 32; ++v) mine[v * 128 + tq] = x[v];
+      named_bar_sync(XCH_FULL, 256);
+      // dS = P o (dP - D)
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        const float y = other[v * 128 + tq];
+        const float p = c ? y : x[v], dp = c ? x[v] : y;
+        x[v] = p * (dp - dl[(v >> 1) & 1]);
+      }
+
+      // dQ[:, 128 c ..] += dS K (the stage read MN-major)
+      uint32_t fr[4][4];
+      pack_frags(x, fr);
+      const uint64_t db = smem_desc(ks, L::BOX, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) rs_half(dq, fr[kk], db, c, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<64>(dq);
+      fence_regs<16>(&fr[0][0]);
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
+
+    const long long base = static_cast<long long>(b) * P.s * P.H + hh;
+    store_acc<128>(P.dq + base * P.hd + 128 * c,
+                   static_cast<long long>(P.H) * P.hd, dq, P.scale, r_lo, P.s,
+                   lane, P.hd - 128 * c);
   }
 }
 
@@ -944,30 +967,22 @@ int launch_wgmma(const BwdParams& P, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, int BN>
-int launch_dkdv_mma(const BwdParams& P, cudaStream_t st) {
-  constexpr int LD = HD + 8;
-  constexpr int smem = (2 * BM + 2 * BN) * LD * 2 + 2 * BN * 4;
+template <bool DKDV>
+int launch_wgmma_hd256(const BwdParams& P, cudaStream_t st) {
+  CUtensorMap m[4];
+  // resident and ring tiles are both 64 rows
+  int rc = encode_maps(m, P, BT, BLK256);
+  if (rc != 0) return rc;
+  constexpr int bytes = DKDV ? Layout256<1>::BYTES : Layout256<2>::BYTES;
+  auto kern = DKDV ? dkdv_wgmma_hd256 : dq_wgmma_hd256;
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_mma<HD, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long grid = static_cast<long long>(P.batch) * (P.H / P.group) *
-                         ((P.s + BM - 1) / BM);
-  dkdv_mma<HD, BN><<<dim3(static_cast<unsigned>(grid), DSPLIT), MT, smem,
-                     st>>>(P);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int HD>
-int launch_dq_mma(const BwdParams& P, cudaStream_t st) {
-  constexpr int LD = HD + 8;
-  constexpr int smem = (2 * BM + 2 * 64) * LD * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long grid =
-      static_cast<long long>(P.batch) * P.H * ((P.s + BM - 1) / BM);
-  dq_mma<HD><<<dim3(static_cast<unsigned>(grid), DSPLIT), MT, smem, st>>>(P);
+  const long long lanes =
+      static_cast<long long>(P.batch) * (DKDV ? P.H / P.group : P.H);
+  const long long grid = lanes * ((P.s + BLK256 - 1) / BLK256);
+  kern<<<static_cast<unsigned>(grid), NTHREADS, bytes, st>>>(m[0], m[1], m[2],
+                                                             m[3], P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1006,7 +1021,7 @@ extern "C" int flash_dense_bwd_dkdv_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 64) return launch_wgmma<64, true>(P, st);
   if (hd <= 128) return launch_wgmma<128, true>(P, st);
-  return launch_dkdv_mma<256, 32>(P, st);
+  return launch_wgmma_hd256<true>(P, st);
 }
 
 // dQ (b, s, H, hd) of the same inputs
@@ -1022,7 +1037,7 @@ extern "C" int flash_dense_bwd_dq_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 64) return launch_wgmma<64, false>(P, st);
   if (hd <= 128) return launch_wgmma<128, false>(P, st);
-  return launch_dq_mma<256>(P, st);
+  return launch_wgmma_hd256<false>(P, st);
 }
 
 extern "C" const char* flash_dense_bwd_error_string(int code) {

@@ -54,15 +54,24 @@
 //     whatever CTA runs it, so outputs are bit-identical for every schedule
 //     and every p.
 //
-// The backward's dX = dY W^T (training the ragged MoE) is the same kernel
-// with the weights read K-major (template flag WT, launch flag `wt`): the
-// product is x (T, bm, K) @ w[e]^T with w (E, N, K), so the reduction K is
-// w's contiguous dim.  The w map is the same (E, d, f) map; each stage then
-// loads the boxes (64 k x 64 n) at (k, n) = (f, d) coordinates, which lay
-// a 256-row n block out row after row as wgmma wants a K-major B (the same
-// layout as K in S = Q K^T), and the wgmma runs with trans-b = 0.  No
-// transposed copy of w is made.  The d tail past K (here w's f) is
-// zero-filled by the map within the expert, as before.
+// The backward's dX = dY W^T (training the ragged MoE) is gmm_dx_kernel,
+// which needs no plan (the reference differentiates its einsums), so it
+// takes the raster that suits the weights.  Each output block is computed
+// as the forward's kernel computes one (BK 64, BN 256 or 128 at the tail, 4
+// stages, the same k order and epilogue, no split-k, no atomics), with w
+// (E, d, f) read in place: the stage loads w's boxes (64 k x 64 n) at
+// (k, n) = (f, d) coordinates, which lay a 256-row n block out row after
+// row as wgmma wants a K-major B (trans-b 0), zero-filled past f within the
+// expert.  Work units are (expert, 256-column n block of d, 128-row m
+// tile), numbered with the m tile innermost, then the n block, then the
+// expert, and CTA w of p runs units w, w + p, ... as gmm_dw_kernel does.
+// The <= 5 m tiles of one (expert, n block) then run at the same time on
+// neighbouring CTAs and read one weight panel (f x 256 bf16: 384 KB for wi
+// and wg, 1 MB for wo) from device memory once and from L2 after that; the
+// live set, ~26 panels and their dY tiles, stays well inside the 50 MB L2.
+// (Walking an expert's tiles in the forward's identity order instead, one
+// span per CTA, put ~132 experts' whole weights in flight at once, ~400 MB
+// a projection, so every tile streamed its 3 MB again from memory.)
 
 #include "hopper_common.cuh"
 
@@ -116,10 +125,10 @@ struct Walk {
 // four 16-deep wgmmas, hand the previous stage back once its group retired.
 // An operand stage is K-major (trans 0: the next 16-deep step is 32 bytes on
 // inside the 128-byte row) or MN-major (trans 1: 16 rows = 2048 bytes on).
-// gmm: A (x) K-major, B (w (E, K, N)) MN-major, or K-major with WT
-// (w (E, N, K)); gmm_dw: A (X^T) and B (dY) both MN-major.  Consumer c's A
-// rows start 8 KB into the stage either way: 64 of the x box's 128 rows, or
-// the second 64-row m box of X.
+// gmm: A (x) K-major, B (w (E, K, N)) MN-major; gmm_dx: A (dY) and B (w
+// (E, N, K)) both K-major; gmm_dw: A (X^T) and B (dY) both MN-major.
+// Consumer c's A rows start 8 KB into the stage either way: 64 of the x (or
+// dY) box's 128 rows, or the second 64-row m box of X.
 template <int N, int TA, int TB>
 __device__ __forceinline__ void mainloop(float* acc, unsigned char* smem,
                                          uint64_t* full, uint64_t* empty,
@@ -189,7 +198,6 @@ __device__ __forceinline__ void epilogue(const float* acc, unsigned char* cst,
   }
 }
 
-template <bool WT>
 __global__ void __launch_bounds__(NTHREADS, 1)
 gmm_kernel(const __grid_constant__ CUtensorMap xmap,
            const __grid_constant__ CUtensorMap wmap,
@@ -233,14 +241,9 @@ gmm_kernel(const __grid_constant__ CUtensorMap xmap,
               mbar_expect_tx(&full[s], A_BYTES + nbox * B_BOX);
               tma_load_3d(smem + SMEM_A + s * A_BYTES, &xmap, &full[s],
                           kb * BK, mb * BM, t);
-              for (int j = 0; j < nbox; ++j) {
-                if constexpr (WT)
-                  tma_load_3d(smem + SMEM_B + s * B_BYTES + j * B_BOX, &wmap,
-                              &full[s], kb * BK, col + 64 * j, e);
-                else
-                  tma_load_3d(smem + SMEM_B + s * B_BYTES + j * B_BOX, &wmap,
-                              &full[s], col + 64 * j, kb * BK, e);
-              }
+              for (int j = 0; j < nbox; ++j)
+                tma_load_3d(smem + SMEM_B + s * B_BYTES + j * B_BOX, &wmap,
+                            &full[s], col + 64 * j, kb * BK, e);
               ++g;
             }
           }
@@ -263,13 +266,87 @@ gmm_kernel(const __grid_constant__ CUtensorMap xmap,
           const int col = nbi * BN;
           const int row = mb * BM + 64 * c;
           if (P.n - col >= 256) {
-            mainloop<256, 0, !WT>(acc, smem, full, empty, c, nk, g, tq % 32);
+            mainloop<256, 0, 1>(acc, smem, full, empty, c, nk, g, tq % 32);
             epilogue<256>(acc, cst, &omap, t, row, col, c, tq, qc);
           } else {
-            mainloop<128, 0, !WT>(acc, smem, full, empty, c, nk, g, tq % 32);
+            mainloop<128, 0, 1>(acc, smem, full, empty, c, nk, g, tq % 32);
             epilogue<128>(acc, cst, &omap, t, row, col, c, tq, qc);
           }
         }
+      }
+    }
+    if (tq == 0) bulk_wait();
+  }
+}
+
+// dX[e] = dY[e] w[e]^T: dY (E, R, f) as T = E R / 128 tiles (T, 128, f),
+// w (E, d, f) -> dX (T, 128, d).  A unit is (expert, n block, m tile), the
+// m tile innermost; CTA w of p runs units w, w + p, ... (see the header).
+__global__ void __launch_bounds__(NTHREADS, 1)
+gmm_dx_kernel(const __grid_constant__ CUtensorMap ymap,
+              const __grid_constant__ CUtensorMap wmap,
+              const __grid_constant__ CUtensorMap omap, int E, int nmt, int d,
+              int f) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SMEM_BAR);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int nnb = (d + BN - 1) / BN;
+  const int units = E * nnb * nmt;
+  const int nk = (f + BK - 1) / BK;
+
+  if (wg == 0) {
+    reg_dealloc<40>();
+    if (tid == 0) {
+      int g = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int e = u / (nnb * nmt);
+        const int col = ((u / nmt) % nnb) * BN;
+        const int t = e * nmt + u % nmt;
+        const int nbox = min(BN, d - col) / 64;
+        for (int kb = 0; kb < nk; ++kb) {
+          const int s = g % STAGES;
+          mbar_wait(&empty[s], ((g / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], A_BYTES + nbox * B_BOX);
+          tma_load_3d(smem + SMEM_A + s * A_BYTES, &ymap, &full[s], kb * BK,
+                      0, t);
+          for (int j = 0; j < nbox; ++j)
+            tma_load_3d(smem + SMEM_B + s * B_BYTES + j * B_BOX, &wmap,
+                        &full[s], kb * BK, col + 64 * j, e);
+          ++g;
+        }
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int c = wg - 1;
+    const int tq = tid % 128;
+    unsigned char* cst = smem + SMEM_C + c * C_BYTES;
+    float acc[BN / 2];
+    int g = 0;
+    int qc = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int e = u / (nnb * nmt);
+      const int col = ((u / nmt) % nnb) * BN;
+      const int t = e * nmt + u % nmt;
+      if (d - col >= 256) {
+        mainloop<256, 0, 0>(acc, smem, full, empty, c, nk, g, tq % 32);
+        epilogue<256>(acc, cst, &omap, t, 64 * c, col, c, tq, qc);
+      } else {
+        mainloop<128, 0, 0>(acc, smem, full, empty, c, nk, g, tq % 32);
+        epilogue<128>(acc, cst, &omap, t, 64 * c, col, c, tq, qc);
       }
     }
     if (tq == 0) bulk_wait();
@@ -356,29 +433,28 @@ gmm_dw_kernel(const __grid_constant__ CUtensorMap xmap,
 
 }  // namespace
 
-// x (T, bm, d), w (E, d, f) -> out (T, bm, f); with wt, x (T, bm, f) and
-// out (T, bm, d): each tile times its expert's w^T (w read in place)
+// x (T, bm, d), w (E, d, f) -> out (T, bm, f): each tile times its
+// expert's w
 extern "C" int gmm_launch(const void* x, const void* w, void* out,
                           const void* order, const void* tile_expert,
                           const void* bounds, int p, int n_span, int T, int bm,
-                          int d, int f, int E, int wt, void* stream) {
-  const int K = wt ? f : d, N = wt ? d : f;
-  if (p <= 0 || T <= 0 || E <= 0 || bm % BM != 0 || N % 128 != 0 ||
-      K % 32 != 0)
+                          int d, int f, int E, void* stream) {
+  if (p <= 0 || T <= 0 || E <= 0 || bm % BM != 0 || f % 128 != 0 ||
+      d % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   using u64 = cuuint64_t;
   CUtensorMap xmap, wmap, omap;
-  // x (T, bm, K): boxes of 128 rows x 64 k
-  const u64 xd[3] = {(u64)K, (u64)bm, (u64)T};
-  const u64 xs[2] = {(u64)K * 2, (u64)bm * K * 2};
+  // x (T, bm, d): boxes of 128 rows x 64 d
+  const u64 xd[3] = {(u64)d, (u64)bm, (u64)T};
+  const u64 xs[2] = {(u64)d * 2, (u64)bm * d * 2};
   const cuuint32_t xb[3] = {BK, BM, 1};
   // w (E, d, f): boxes of 64 x 64, zero past d and f within the expert
   const u64 wd[3] = {(u64)f, (u64)d, (u64)E};
   const u64 ws[2] = {(u64)f * 2, (u64)d * f * 2};
   const cuuint32_t wb[3] = {64, 64, 1};
-  // out (T, bm, N): boxes of 64 rows x 64 n
-  const u64 od[3] = {(u64)N, (u64)bm, (u64)T};
-  const u64 os[2] = {(u64)N * 2, (u64)bm * N * 2};
+  // out (T, bm, f): boxes of 64 rows x 64 f
+  const u64 od[3] = {(u64)f, (u64)bm, (u64)T};
+  const u64 os[2] = {(u64)f * 2, (u64)bm * f * 2};
   const cuuint32_t ob[3] = {64, 64, 1};
   int rc = encode_bf16(&xmap, x, 3, xd, xs, xb);
   if (rc == 0) rc = encode_bf16(&wmap, w, 3, wd, ws, wb);
@@ -388,13 +464,49 @@ extern "C" int gmm_launch(const void* x, const void* w, void* out,
   P.order = static_cast<const int*>(order);
   P.tile_expert = static_cast<const int*>(tile_expert);
   P.bounds = static_cast<const int*>(bounds);
-  P.n_span = n_span; P.T = T; P.bm = bm; P.k = K; P.n = N;
-  auto kern = wt ? gmm_kernel<true> : gmm_kernel<false>;
+  P.n_span = n_span; P.T = T; P.bm = bm; P.k = d; P.n = f;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      gmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<p, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  gmm_kernel<<<p, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       xmap, wmap, omap, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dX (E, R, d) = dy (E, R, f) w[e]^T with w (E, d, f) read in place, on
+// p persistent CTAs over the expert-major units
+extern "C" int gmm_dx_launch(const void* dy, const void* w, void* dx, int E,
+                             int R, int d, int f, int p, void* stream) {
+  if (p <= 0 || E <= 0 || R <= 0 || R % BM != 0 || d % 128 != 0 ||
+      f % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using u64 = cuuint64_t;
+  const int nmt = R / BM;
+  const u64 T = (u64)E * nmt;
+  CUtensorMap ymap, wmap, omap;
+  // dy as (T, 128, f): boxes of 128 rows x 64 f, zero past f
+  const u64 yd[3] = {(u64)f, (u64)BM, T};
+  const u64 ys[2] = {(u64)f * 2, (u64)BM * f * 2};
+  const cuuint32_t yb[3] = {BK, BM, 1};
+  // w (E, d, f): boxes of 64 f x 64 d, zero past f within the expert
+  const u64 wd[3] = {(u64)f, (u64)d, (u64)E};
+  const u64 ws[2] = {(u64)f * 2, (u64)d * f * 2};
+  const cuuint32_t wb[3] = {64, 64, 1};
+  // dx as (T, 128, d): boxes of 64 rows x 64 d
+  const u64 od[3] = {(u64)d, (u64)BM, T};
+  const u64 os[2] = {(u64)d * 2, (u64)BM * d * 2};
+  const cuuint32_t ob[3] = {64, 64, 1};
+  int rc = encode_bf16(&ymap, dy, 3, yd, ys, yb);
+  if (rc == 0) rc = encode_bf16(&wmap, w, 3, wd, ws, wb);
+  if (rc == 0) rc = encode_bf16(&omap, dx, 3, od, os, ob);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      gmm_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int units = E * ((d + BN - 1) / BN) * nmt;
+  gmm_dx_kernel<<<p < units ? p : units, NTHREADS, SMEM_BYTES,
+                  static_cast<cudaStream_t>(stream)>>>(ymap, wmap, omap, E,
+                                                       nmt, d, f);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,9 +17,8 @@ Dispatch implementations:
     an unsupported dtype or shape raises there; on a CPU tensor it
     computes the same products with ``grouped_matmul_tiles_plain``.  Under
     autograd each product is an ``_ExpertMatmul`` whose backward computes
-    dX with ``gmm`` (the weights read transposed) and dW with ``gmm_dw``
-    on the card, and with ``grouped_matmul_bwd_plain`` on the CPU.  The
-    combine gathers each token's ``top_k`` contributions and sums them in
+    dX with ``gmm_dx`` and dW with ``gmm_dw`` on the card, and with
+    ``grouped_matmul_bwd_plain`` on the CPU.  The combine gathers each token's ``top_k`` contributions and sums them in
     k order (no atomics), so one input gives one output on every run.
 """
 

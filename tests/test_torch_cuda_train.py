@@ -1,7 +1,6 @@
 """Training on the card: ``flash_dense``'s backward against its plain
 version at every head dim the configs use, and the ragged MoE's backward
-kernels (dX by ``gmm`` with the weights read transposed, dW by ``gmm_dw``)
-against theirs.
+kernels (dX by ``gmm_dx``, dW by ``gmm_dw``) against theirs.
 
 Every test here carries the ``cuda`` marker and skips without a GPU.  On a
 machine with one:
@@ -151,12 +150,13 @@ def _check_grads(got, want, where):
 
 def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
     """Head dim 80 (stablelm-3b, computed at 128) and 256 (recurrentgemma-2b:
-    MQA, windows narrower and wider than a tile, the model's 2048): the
-    backward against the plain version, and two runs bit-identical."""
+    MQA, its 10 / 1 heads, windows narrower and wider than a tile, the
+    model's 2048): the backward against the plain version, and two runs
+    bit-identical."""
     for i, (b, s, h, kvh, hd, window) in enumerate((
             (2, 300, 4, 4, 80, 0), (1, 1000, 4, 2, 80, 100),
             (1, 700, 5, 1, 256, 0), (2, 300, 4, 1, 256, 32),
-            (1, 2500, 2, 1, 256, 2048))):
+            (1, 2500, 2, 1, 256, 2048), (2, 520, 10, 1, 256, 130))):
         q, k, v, do = _inputs(dev, b, s, h, kvh, hd, seed=40 + i)
         got = _bwd(q, k, v, do, True, window)
         assert all(torch.equal(x, y) for x, y in
@@ -166,29 +166,34 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
 
 
 def test_moe_bwd_kernels_match_plain(dev):
-    """``grouped_matmul_bwd`` on the card (dX by ``gmm`` reading the weights
-    transposed, dW by ``gmm_dw``) against ``grouped_matmul_bwd_plain`` at
-    widths with a 128-column tail and a depth tail, one launch each, two
-    runs bit-identical; ``_expert_matmul`` under autograd reaches both."""
+    """``grouped_matmul_bwd`` on the card (dX by ``gmm_dx``, dW by
+    ``gmm_dw``) against ``grouped_matmul_bwd_plain`` at widths with a
+    128-column tail and a depth tail, and at 5 m tiles an expert with units
+    that wrap ``sched_p`` several times; one launch each, two runs
+    bit-identical; ``_expert_matmul`` under autograd reaches both."""
     from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
     from repro_torch.models import moe as tmoe
-    for e, r, d, f in ((3, 256, 384, 640), (2, 128, 128, 96 + 128)):
+    for e, r, d, f, p in ((3, 256, 384, 640, 7), (2, 128, 128, 96 + 128, 8),
+                          (3, 640, 384, 256, 4)):
         xe = _randn(dev, e, r, d, seed=50)
         w = _randn(dev, e, d, f, seed=51, scale=d ** -0.5)
         dy = _randn(dev, e, r, f, seed=52)
         if f % 128:
             # gmm_dw needs f % 128 == 0: only dX here (depth f with a tail)
-            before = gm.GMM.launches
-            dx, dw = gm.grouped_matmul_bwd(xe, w, dy, need_dw=False)
-            assert dw is None and gm.GMM.launches == before + 1
+            before = gm.GMM_DX.launches
+            dx, dw = gm.grouped_matmul_bwd(xe, w, dy, need_dw=False,
+                                           sched_p=p)
+            assert dw is None and gm.GMM_DX.launches == before + 1
+            assert torch.equal(dx, gm.grouped_matmul_bwd(
+                xe, w, dy, need_dw=False, sched_p=p)[0])
             want, _ = gm.grouped_matmul_bwd_plain(xe, w, dy, need_dw=False)
             _check_moe(dx, want)
             continue
-        before = (gm.GMM.launches, gm.GMM_DW.launches)
-        dx, dw = gm.grouped_matmul_bwd(xe, w, dy, sched_p=7)
-        assert (gm.GMM.launches, gm.GMM_DW.launches) == (before[0] + 1,
-                                                         before[1] + 1)
-        again = gm.grouped_matmul_bwd(xe, w, dy, sched_p=7)
+        before = (gm.GMM_DX.launches, gm.GMM_DW.launches)
+        dx, dw = gm.grouped_matmul_bwd(xe, w, dy, sched_p=p)
+        assert (gm.GMM_DX.launches, gm.GMM_DW.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+        again = gm.grouped_matmul_bwd(xe, w, dy, sched_p=p)
         assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
         want_dx, want_dw = gm.grouped_matmul_bwd_plain(xe, w, dy)
         _check_moe(dx, want_dx)

@@ -12,6 +12,7 @@ keeps the last ``keep`` steps.  Everything here is exact.
 
 import dataclasses
 import json
+import time
 
 import jax
 import jax.experimental
@@ -159,3 +160,25 @@ def test_checksum_mismatch_raises_and_gc_keeps_k(tmp_path):
     store.restore(4, tree, validate=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         store.restore(5, tree, shardings=object())
+
+
+def test_latest_step_and_restore_see_a_pending_write(tmp_path, monkeypatch):
+    """A step whose asynchronous write is still running counts: the
+    Trainer's recovery calls ``latest_step`` right after a failure, which
+    may come before the last checkpoint's writer thread has committed."""
+    _, tree = _state()
+    real = CheckpointStore._write
+
+    def slow_write(self, *args):
+        time.sleep(0.5)
+        real(self, *args)
+
+    monkeypatch.setattr(CheckpointStore, "_write", slow_write)
+    store = CheckpointStore(str(tmp_path))
+    store.save(4, tree, {"next_step": 4})
+    assert store.latest_step() == 4
+    store.save(8, tree, {"next_step": 8})
+    restored, extra = store.restore(8, tree)
+    assert extra == {"next_step": 8}
+    for a, b in zip(tree_leaves(restored), tree_leaves(tree)):
+        assert torch.equal(a, b)

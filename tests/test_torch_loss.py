@@ -196,14 +196,18 @@ def test_remat_policies_agree(monkeypatch):
 
 def test_flash_plain_backward_matches_reference_autodiff():
     """dq, dk, dv of the dense function (GQA, MQA, causal, windows
-    narrower and wider than the sequence, a head dim of 40) against
+    narrower and wider than the sequence, head dims of 40 and 256) against
     ``jax.vjp`` of the reference's ``_attend_flash``."""
     rng = np.random.default_rng(0)
     for b, s, h, kvh, hd, window in ((2, 40, 4, 2, 16, 0),
                                      (1, 33, 4, 1, 8, 7),
                                      (2, 24, 2, 2, 16, 100),
                                      # a head dim the card pads (to 64)
-                                     (1, 20, 2, 1, 40, 9)):
+                                     (1, 20, 2, 1, 40, 9),
+                                     # recurrentgemma-2b's geometry: MQA
+                                     # 10 / 1 at head dim 256, a window
+                                     # narrower than s
+                                     (1, 48, 10, 1, 256, 16)):
         q, k, v, do = (rng.normal(size=(b, s, n, hd)).astype(np.float32)
                        for n in (h, kvh, kvh, h))
         _, vjp = jax.vjp(lambda q_, k_, v_: ja._attend_flash(

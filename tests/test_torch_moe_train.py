@@ -1,6 +1,6 @@
 """The backward of the ragged MoE's expert product on the CPU: the plain
-dX / dW (``grouped_matmul_bwd_plain``, the versions ``gmm`` with the
-weights read transposed and ``gmm_dw`` are held to on the card) and
+dX / dW (``grouped_matmul_bwd_plain``, the versions ``gmm_dx`` and
+``gmm_dw`` are held to on the card) and
 ``models.moe._ExpertMatmul`` against ``jax.vjp`` of the reference's grouped
 product (``repro.kernels.grouped_matmul.ref.grouped_matmul_ref``).
 
