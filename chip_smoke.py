@@ -20,19 +20,25 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
   small        both kernels against the plain oracles at small, ragged
                shapes (partial blocks, 64-column kv blocks inside a
                128-column tile, windows narrower than a tile, a lane of
-               kv_len 0, strided heads, dead tiles)
+               kv_len 0, strided heads, dead tiles; flash_sched at head
+               dims 32, 64, 80, 128 and 256)
   flash_sched  the kernel against its plain version at the main path's
                shapes, bit-identity across schedules and sched_p, timing
                (single calls and back to back) and the host planning of a
-               call split into its pieces (``plan_split_ms``)
+               call split into its pieces (``plan_split_ms``); per head dim
+               80 and 256 (``by_head_dim``) the same ragged lanes at 32 / 8
+               heads, fac2, sched_p = SM count: the kernel against its
+               plain version, its times, the bound and
+               ``scaled_dot_product_attention``'s with the same boolean
+               mask
   gmm          the same for the grouped matmul (wi and wo shapes), and
                back-to-back times of the fac2 order, the identity order and
                the identity order with every tile on expert 0
   flash_dense  the dense kernel against its plain version at the prefill's
                shape (qwen3-4b: 1 x 4096, 32 q heads, 8 KV heads,
                head_dim 128, causal), at the full attention shapes of
-               stablelm-3b (1 x 4096, 32 / 32 heads, head_dim 80, computed
-               at 128, causal) and recurrentgemma-2b (1 x 4096, 10 / 1
+               stablelm-3b (1 x 4096, 32 / 32 heads, head_dim 80 at its
+               exact width, causal) and recurrentgemma-2b (1 x 4096, 10 / 1
                heads, head_dim 256, window 2048), and at small ragged
                shapes (s not a multiple of the tile, MQA, head_dims 64, 80
                and 256, windows from 1 to 2048); per full shape
@@ -170,8 +176,8 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                a digest of the dX outputs
   kernels      the summary line, one entry per kernel; ``launches`` sums
                the counted runs of every path that launches the kernel
-               (``launches_by_path``); flash_dense's entry carries
-               ``by_head_dim``
+               (``launches_by_path``); flash_sched's and flash_dense's
+               entries carry ``by_head_dim``
 
 then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises and the
@@ -179,19 +185,26 @@ script exits non-zero; it also exits non-zero, printing no result, when no
 CUDA device is present or ``src/repro_torch`` is missing beside it.
 
     python3 chip_smoke.py --dense-digest [SRC]
+    python3 chip_smoke.py --hd80-digest [SRC]
+    python3 chip_smoke.py --sched-digest [SRC]
     python3 chip_smoke.py --dense-times [SRC]
     python3 chip_smoke.py --bwd-times [SRC]
     python3 chip_smoke.py --moe-bwd-times [SRC]
 
-print only that digest, or only ``flash_dense``'s single-call and
-back-to-back times at the prefill's shape (head_dim 128, causal) and at
-head_dim 64 with a window of 200, or only ``flash_dense_bwd``'s
-back-to-back times at the train phase's four shapes (``bwd_times``), or
-only the MoE backward's dX and dW back-to-back times at the moe_train
-step's shapes with a digest of the dX outputs (``moe_bwd_times``), for
-the package under ``SRC`` (default: this checkout's ``src``), so that
-another tree's kernels can be held against this one bit for bit, and
-timed against it in turns (parent, change, change, parent) in one call.
+print only that digest (``dense_digest``; ``hd80_digest``: ``flash_dense``'s
+output and lse and ``flash_dense_bwd``'s dQ, dK, dV at stablelm-3b's
+shape; ``sched_digest``: ``flash_sched``'s outputs at head dims 64 and 128
+on small ragged shapes), or only ``flash_dense``'s single-call and
+back-to-back times at the prefill's shape (head_dim 128, causal), at
+head_dim 64 with a window of 200 and at stablelm-3b's head_dim 80 (with
+SDPA's time beside it), or only ``flash_dense_bwd``'s back-to-back times
+at the train phase's four shapes with SDPA's backward beside them
+(``bwd_times``), or only the MoE backward's dX and dW back-to-back times
+at the moe_train step's shapes with a digest of the dX outputs
+(``moe_bwd_times``), for the package under ``SRC`` (default: this
+checkout's ``src``), so that another tree's kernels can be held against
+this one bit for bit, and timed against it in turns (parent, change,
+change, parent) in one call.
 
 Tolerance of the 2-layer ``forward`` / ``decode_step`` comparison (bf16
 compute), also held by the recurrent ``forward`` / ``decode_step``
@@ -262,6 +275,9 @@ RECURRENT_PARITY_S, RECURRENT_PROFILE_S = 640, 512
 RECURRENT_REQUESTS, RECURRENT_SLOTS = 4, 2
 # this slice: flash_dense at head dim 80 (src/repro/configs/stablelm_3b.py)
 DENSE80_ARCH = "stablelm-3b"
+# flash_sched at the head dims of stablelm-3b and recurrentgemma-2b: the
+# main path's 8 ragged lanes of 4096 at 32 / 8 heads
+SCHED_WIDE_HEAD_DIMS, SCHED_WIDE_KVH = (80, 256), 8
 # the campaign phase: time-steps of each Table 1 config (of 352.nab's 1,002)
 CAMPAIGN_TIMESTEPS = 3
 IDENTITY_SCHEDULES = ("static", "ss", "gss", "fac2", "awf_b", "ws_rr",
@@ -302,16 +318,17 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 2.0 ** -4
 # pass's (the embedding's backward sums with atomics on the card)
 TRAIN_FAIL_AT, TRAIN_REPLAY_TOL = 6, 1e-3
 # the backward at every head dim the configs use: 80 (stablelm-3b, 32 / 32
-# heads, computed at 128) and 256 (recurrentgemma-2b, 10 / 1, window 2048),
+# heads, its exact width) and 256 (recurrentgemma-2b, 10 / 1, window 2048),
 # b 2 x 4096; then a full-width step of each model with the kernels against
 # plain attention: stablelm-3b at 2 layers, recurrentgemma-2b at one
 # block-pattern period (rglru, rglru, local_attn)
 BWD_WIDE_ARCHS = {"80": ("stablelm-3b", 2), "256": ("recurrentgemma-2b", 3)}
 # the backward's dkdv and dq kernels at each head dim (all TMA + wgmma)
 BWD_KERNELS_BY_HEAD_DIM = {
-    "64": "dkdv_wgmma<64>, dq_wgmma<64>",
-    "128": "dkdv_wgmma<128>, dq_wgmma<128>",
-    "80": "dkdv_wgmma<128>, dq_wgmma<128> (padded to 128)",
+    "64": "dkdv_wgmma<64, 64>, dq_wgmma<64, 64>",
+    "128": "dkdv_wgmma<128, 128>, dq_wgmma<128, 128>",
+    "80": "dkdv_wgmma<128, 80>, dq_wgmma<128, 80> (tiles of 128, products "
+          "at width 80)",
     "256": "dkdv_wgmma_hd256, dq_wgmma_hd256 (64-row blocks, the outputs "
            "split between the consumer warpgroups)"}
 # the ragged MoE's training: qwen3-moe-30b-a3b at full width, dispatch
@@ -581,7 +598,69 @@ def dense_kernel_ms(q, k, v, window):
     return cuda_ms(kernel, REPS), cuda_ms_b2b(kernel, REPS)
 
 
-def dense_full_shape(dev, randn, plain, b, s, h, kvh, hd, window):
+def window_mask(s, window, dev):
+    """The (s, s) boolean mask of causal attention within ``window``."""
+    import torch
+    i = torch.arange(s, device=dev)
+    return (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+
+
+def ragged_mask(kv_lens, dev):
+    """The (B, 1, S, S) boolean mask of causal attention over each lane's
+    first ``kv_lens`` columns."""
+    import torch
+    i = torch.arange(S, device=dev)
+    return (i[None, :] <= i[:, None])[None, None] & (
+        i[None, None, None, :] < torch.as_tensor(
+            kv_lens, device=dev)[:, None, None, None])
+
+
+def sdpa_fn(q, k, v, window, mask=None):
+    """``scaled_dot_product_attention`` on (b, s, h|kvh, hd) q, k, v in its
+    (b, h, s, hd) layout, KV heads repeated, causal (the ``window`` as a
+    boolean mask when > 0, or the (b, 1, s, s) boolean ``mask`` given): a
+    yardstick the port never calls.  Returns a function of no arguments."""
+    import torch
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.permute(0, 2, 1, 3)
+    kt, vt = (x.permute(0, 2, 1, 3).repeat_interleave(
+        q.shape[2] // k.shape[2], dim=1) for x in (k, v))
+    if mask is None and window > 0:
+        mask = window_mask(q.shape[1], window, q.device)
+    if mask is None:
+        return lambda: sdpa(qt, kt, vt, is_causal=True)
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask)
+
+
+def sdpa_grad_fns(q, k, v, do, window):
+    """SDPA's backward and forward + backward on (b, s, h|kvh, hd) q, k, v
+    and the output gradient do (``enable_gqa``; causal, the ``window`` as a
+    boolean mask when > 0): a yardstick the port never calls.  Returns two
+    functions of no arguments: the backward through one retained graph,
+    and forward + backward."""
+    import torch
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.permute(0, 2, 1, 3).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.permute(0, 2, 1, 3)
+    mask_kw = ({"attn_mask": window_mask(q.shape[1], window, q.device)}
+               if window > 0 else {"is_causal": True})
+    with torch.enable_grad():
+        graph = sdpa(qt, kt, vt, enable_gqa=True, **mask_kw)
+
+    def backward():
+        return torch.autograd.grad(graph, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            o = sdpa(qt, kt, vt, enable_gqa=True, **mask_kw)
+            return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    return backward, fwd_bwd
+
+
+def dense_full_shape(randn, plain, b, s, h, kvh, hd, window):
     """``flash_dense`` at one full (b, s, h, kvh, hd, window) shape, causal:
     the kernel against its plain version, its times (single calls and back
     to back), the plain version's, ``scaled_dot_product_attention``'s with
@@ -597,19 +676,7 @@ def dense_full_shape(dev, randn, plain, b, s, h, kvh, hd, window):
     call_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
                                               window=window), REPS)
     plain_ms = cuda_ms(lambda: plain(q, k, v, True, window), 3)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt = q.permute(0, 2, 1, 3)
-    kt, vt = (x.permute(0, 2, 1, 3).repeat_interleave(h // kvh, dim=1)
-              for x in (k, v))
-    if window > 0:
-        i = torch.arange(s, device=dev)
-        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
-
-        def run_sdpa():
-            return sdpa(qt, kt, vt, attn_mask=mask)
-    else:
-        def run_sdpa():
-            return sdpa(qt, kt, vt, is_causal=True)
+    run_sdpa = sdpa_fn(q, k, v, window)
     library_ms = cuda_ms(run_sdpa, REPS)
     sdpa_err = float((run_sdpa().permute(0, 2, 1, 3).float()
                       - out.float()).abs().max())
@@ -626,27 +693,140 @@ def dense_full_shape(dev, randn, plain, b, s, h, kvh, hd, window):
                 sdpa_max_abs_diff=sdpa_err, flops=flops, bytes=nbytes), out
 
 
+def sched_full_shape(dev, randn, hd, kv_lens, n_sm):
+    """``flash_sched`` at the main path's ragged lanes (B x S, causal, fac2,
+    sched_p = SM count) at head dim ``hd`` with 32 / SCHED_WIDE_KVH heads:
+    the kernel against its plain version, bit-identity with static at
+    sched_p 8, its times (single calls and back to back), the plain
+    version's, ``scaled_dot_product_attention``'s with the same boolean
+    mask (a yardstick) and the bound from the live (row, column) pairs."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    kvh = SCHED_WIDE_KVH
+    q, k, v = randn(B, S, H, hd), randn(B, S, kvh, hd), randn(B, S, kvh, hd)
+    out = flash_attention(q, k, v, causal=True, schedule="fac2",
+                          kv_lens=kv_lens, sched_p=n_sm)
+    assert torch.equal(out, flash_attention(
+        q, k, v, causal=True, schedule="static", kv_lens=kv_lens,
+        sched_p=8)), f"flash_sched hd {hd}: static at p 8 differs"
+    qf, kf, vf = fa.broadcast_flatten(q, k, v)
+    lane_lens = np.repeat(kv_lens, H)
+
+    def plain():
+        return fa.flash_attention_sched_plain(qf, kf, vf, kv_lens=lane_lens,
+                                              causal=True)
+
+    err = check_close(f"flash_sched hd {hd}", out,
+                      plain().reshape(B, H, S, hd).permute(0, 2, 1, 3))
+    plain_ms = cuda_ms(plain, 3)
+    del qf, kf, vf
+    desc, plan = fa._plan_kv_descriptors(
+        B * H, S, 512, 512, causal=True, window=0, kv_lens=lane_lens,
+        schedule="fac2", p=n_sm)
+    bounds = fa.descriptor_bounds(desc, plan)
+
+    def kernel():
+        return fa._flash_sched_cuda(q, k, v, desc, bounds, block_q=512,
+                                    block_k=512, causal=True, window=0)
+
+    library_ms = cuda_ms(sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev)),
+                         REPS)
+    pairs = sum(H * int(np.minimum(np.arange(1, S + 1), lim).sum())
+                for lim in kv_lens)
+    flops = 4 * hd * pairs
+    nbytes = 2 * (2 * B * S * H * hd
+                  + 2 * kvh * hd * int(np.minimum(kv_lens, S).sum()))
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(shape=[B, S, H, kvh, hd], max_abs_err=err,
+                ms=cuda_ms(kernel, REPS), ms_b2b=cuda_ms_b2b(kernel, REPS),
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, flops=flops, bytes=nbytes)
+
+
 def dense_times(dev):
-    """``flash_dense``'s ms and ms_b2b at the qwen3-4b prefill's shape and
-    at head_dim 64, window 200, on inputs of a seed of their own."""
+    """``flash_dense``'s ms and ms_b2b at the qwen3-4b prefill's shape, at
+    head_dim 64, window 200, and at stablelm-3b's prefill shape (head_dim
+    80, with SDPA's ms_b2b beside it), on inputs of a seed of their own."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     for key, (b, s, h, kvh, hd, win) in (
             ("hd128", (1, PREFILL_S, 32, 8, 128, 0)),
-            ("hd64_w200", (1, PREFILL_S, 32, 8, 64, 200))):
+            ("hd64_w200", (1, PREFILL_S, 32, 8, 64, 200)),
+            ("hd80", (1, PREFILL_S, 32, 32, 80, 0))):
         q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev)
                    .to(torch.bfloat16) for n in (h, kvh, kvh))
         ms, ms_b2b = dense_kernel_ms(q, k, v, win)
         out[key] = {"ms": ms, "ms_b2b": ms_b2b}
+        if hd == 80:
+            out[key]["sdpa_ms_b2b"] = cuda_ms_b2b(sdpa_fn(q, k, v, win), REPS)
     return out
+
+
+def hd80_digest(dev):
+    """sha256 (16 hex digits) of ``flash_dense``'s bf16 output and fp32 lse
+    and ``flash_dense_bwd``'s dQ, dK and dV at stablelm-3b's attention shape
+    (2 x 4096, 32 / 32 heads, head_dim 80, causal), on inputs from a
+    generator of their own (seed 80), so that two builds can be held bit
+    for bit against each other."""
+    import hashlib
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    cfg = get_arch(DENSE80_ARCH)
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(80)
+    q, k, v, do = (torch.randn(TRAIN_BATCH, TRAIN_S, n, hd, generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for n in (h, kvh, kvh, h))
+    out, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=0,
+                                    with_lse=True)
+    grads = fa._flash_dense_bwd_cuda(q, k, v, out, do, lse, causal=True,
+                                     window=0)
+    digest = hashlib.sha256()
+    for x in (out, lse, *grads):
+        digest.update(x.contiguous().view(torch.uint8).cpu().numpy()
+                      .tobytes())
+    return digest.hexdigest()[:16]
+
+
+def sched_digest(dev):
+    """sha256 (16 hex digits) of ``flash_sched``'s bf16 outputs at head dims
+    64 and 128 on small ragged shapes (GQA, MQA, windows, 64- and 512-row
+    blocks, causal and not; fac2, sched_p 7), on inputs from a generator of
+    their own (seed 64)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(64)
+    rng = np.random.default_rng(64)
+    digest = hashlib.sha256()
+    for b, s, h, kvh, hd, win, blk, causal in (
+            (2, 1000, 8, 2, 128, 0, 128, True),
+            (3, 700, 4, 1, 64, 100, 64, True),
+            (2, 2048, 8, 4, 128, 300, 512, True),
+            (2, 513, 4, 2, 64, 0, 512, True),
+            (2, 600, 4, 2, 128, 0, 128, False)):
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                   .to(torch.bfloat16) for n in (h, kvh, kvh))
+        out = flash_attention(q, k, v, causal=causal, window=win,
+                              schedule="fac2", block_q=blk, block_k=blk,
+                              kv_lens=rng.integers(1, s + 1, size=b),
+                              sched_p=7)
+        digest.update(out.view(torch.int16).cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
 
 
 def bwd_times(dev):
     """``flash_dense_bwd``'s ms_b2b (the three launches of one backward) at
     the train phase's shapes (b 2, s 4096, causal; head dims 128, 64, 80
     and 256 with the configs' heads and windows), on inputs of a seed of
-    their own."""
+    their own, and SDPA's backward beside it on the same tensors."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -663,6 +843,8 @@ def bwd_times(dev):
         out[str(hd)] = {"arch": arch, "ms_b2b": cuda_ms_b2b(
             lambda: fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
                                              window=cfg.window), REPS)}
+        out[str(hd)]["sdpa_bwd_ms_b2b"] = cuda_ms_b2b(
+            sdpa_grad_fns(q, k, v, do, cfg.window)[0], REPS)
         del q, k, v, do, o, lse
     return out
 
@@ -705,7 +887,7 @@ def phase_flash_dense(dev, randn):
         cfg = get_arch(arch)
         assert cfg.window in (0, window), (arch, cfg.window)
         fields, _ = dense_full_shape(
-            dev, randn, plain, 1, PREFILL_S, cfg.num_heads, cfg.num_kv_heads,
+            randn, plain, 1, PREFILL_S, cfg.num_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim, window)
         by_head_dim[str(cfg.resolved_head_dim)] = dict(arch=arch, **fields)
     main = by_head_dim["128"]
@@ -1520,25 +1702,10 @@ def bwd_shape(dev, seed, b, s, h, kvh, hd, window=0):
         q, k, v, do, window=window), 3)
     ms, ms_b2b = cuda_ms(backward, REPS), cuda_ms_b2b(backward, REPS)
     fb_ms, fb_b2b = cuda_ms(fwd_bwd, REPS), cuda_ms_b2b(fwd_bwd, REPS)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.permute(0, 2, 1, 3).detach().requires_grad_(True)
-                  for x in (q, k, v))
-    dot = do.permute(0, 2, 1, 3)
-    mask_kw = {"is_causal": True}
-    if window > 0:
-        i = torch.arange(s, device=dev)
-        mask_kw = {"attn_mask": (i[None, :] <= i[:, None])
-                   & (i[:, None] - i[None, :] < window)}
-    graph = sdpa(qt, kt, vt, enable_gqa=True, **mask_kw)
-
-    def sdpa_fwd_bwd():
-        o = sdpa(qt, kt, vt, enable_gqa=True, **mask_kw)
-        return torch.autograd.grad(o, (qt, kt, vt), dot)
-
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        graph, (qt, kt, vt), dot, retain_graph=True), REPS)
+    sdpa_bwd, sdpa_fwd_bwd = sdpa_grad_fns(q, k, v, do, window)
+    library_ms = cuda_ms(sdpa_bwd, REPS)
     library_fb_ms = cuda_ms(sdpa_fwd_bwd, REPS)
-    del graph
+    del sdpa_bwd, sdpa_fwd_bwd
     # the backward's MMA work at the real head dim: 5 products of depth hd
     # per live pair, 2.5x the forward's 2; bytes: q, k, v, o, dO and lse
     # read, dq, dk, dv written
@@ -2063,35 +2230,25 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    # --dense-digest / --dense-times / --bwd-times / --moe-bwd-times [SRC]:
-    # print only dense_digest(), dense_times(), bwd_times() or
-    # moe_bwd_times() of the package under SRC (default: this checkout's
-    # src), to hold two trees' builds against each other
-    dense_only = argv[:1] in (["--dense-digest"], ["--dense-times"],
-                              ["--bwd-times"], ["--moe-bwd-times"])
+    # --dense-digest / --hd80-digest / --sched-digest / --dense-times /
+    # --bwd-times / --moe-bwd-times [SRC]: print only that function's result
+    # for the package under SRC (default: this checkout's src), to hold two
+    # trees' builds against each other
+    modes = {"--dense-digest": dense_digest, "--hd80-digest": hd80_digest,
+             "--sched-digest": sched_digest, "--dense-times": dense_times,
+             "--bwd-times": bwd_times, "--moe-bwd-times": moe_bwd_times}
+    mode = modes.get(argv[0]) if argv else None
     src = ROOT / "src"
-    if dense_only and len(argv) > 1:
+    if mode is not None and len(argv) > 1:
         src = Path(argv[1]).resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} is missing; run "
               "from a checkout of the repository", file=sys.stderr)
         return 3
     sys.path.insert(0, str(src))
-    if argv[:1] == ["--dense-digest"]:
-        print(json.dumps({"dense_digest": dense_digest(
-            torch.device("cuda", 0)), "src": str(src)}), flush=True)
-        return 0
-    if argv[:1] == ["--dense-times"]:
-        print(json.dumps({"dense_times": dense_times(
-            torch.device("cuda", 0)), "src": str(src)}), flush=True)
-        return 0
-    if argv[:1] == ["--bwd-times"]:
-        print(json.dumps({"bwd_times": bwd_times(
-            torch.device("cuda", 0)), "src": str(src)}), flush=True)
-        return 0
-    if argv[:1] == ["--moe-bwd-times"]:
-        print(json.dumps({"moe_bwd_times": moe_bwd_times(
-            torch.device("cuda", 0)), "src": str(src)}), flush=True)
+    if mode is not None:
+        print(json.dumps({mode.__name__: mode(torch.device("cuda", 0)),
+                          "src": str(src)}), flush=True)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2192,7 +2349,13 @@ def main(argv) -> int:
             # one row past a tile; a lane of kv_len 0 (zeros)
             (3, 129, 4, 2, 128, 0, 128, [0, 129, 77], False),
             # q, k, v strided from one (b, s, 3, h, hd) buffer
-            (2, 300, 4, 2, 64, 0, 128, None, True)):
+            (2, 300, 4, 2, 64, 0, 128, None, True),
+            # head dims 32 (padded to 64), 80 (its exact width) and 256
+            # (64-column kv tiles): GQA, windowed MQA, one row past a tile
+            (2, 300, 4, 2, 32, 0, 128, None, False),
+            (2, 300, 4, 1, 80, 40, 64, None, False),
+            (2, 129, 4, 2, 256, 0, 128, None, False),
+            (2, 333, 10, 1, 256, 100, 128, None, False)):
         if strided:
             buf = randn(bs, ss, 3, hs, hd)
             qs, ks, vs = buf[:, :, 0], buf[:, :, 1, :kvhs], buf[:, :, 2, :kvhs]
@@ -2280,22 +2443,11 @@ def main(argv) -> int:
         qf, kf, vf, kv_lens=lane_lens, causal=True), 3)
     del qf, kf, vf
     # yardstick only: one PyTorch call for the same function
-    qt = q.permute(0, 2, 1, 3)
-    kt, vt = (x.permute(0, 2, 1, 3).repeat_interleave(H // KVH, dim=1)
-              for x in (k, v))
-    idx = torch.arange(S, device=dev)
-    mask = (idx[None, :] <= idx[:, None])[None, None] & (
-        idx[None, None, None, :] < torch.as_tensor(
-            kv_lens, device=dev)[:, None, None, None])
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def run_sdpa():
-        return sdpa(qt, kt, vt, attn_mask=mask)
-
+    run_sdpa = sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev))
     library_ms = cuda_ms(run_sdpa, REPS)
     sdpa_err = float((run_sdpa().permute(0, 2, 1, 3).float()
                       - attn.float()).abs().max())
-    del mask, qt, kt, vt
+    del run_sdpa
     pairs = sum(H * int(np.minimum(np.arange(1, S + 1), lim).sum())
                 for lim in kv_lens)
     flash_flops = 4 * HD * pairs
@@ -2303,6 +2455,9 @@ def main(argv) -> int:
                        + 2 * KVH * HD * int(np.minimum(kv_lens, S).sum()))
     flash_bound = 1e3 * max(flash_flops / PEAK_BF16_FLOPS,
                             flash_bytes / PEAK_BYTES)
+    sched_by_head_dim = {str(hd): sched_full_shape(dev, randn, hd, kv_lens,
+                                                   n_sm)
+                         for hd in SCHED_WIDE_HEAD_DIMS}
     emit("flash_sched", shape=[B, S, H, KVH, HD], kv_lens=kv_lens.tolist(),
          max_abs_err=flash_err, sdpa_max_abs_diff=sdpa_err,
          identical_schedules=list(IDENTITY_SCHEDULES),
@@ -2318,7 +2473,8 @@ def main(argv) -> int:
          flops=flash_flops, bytes=flash_bytes, groups=int(plan.n),
          descriptors=int(desc[0].shape[0]),
          percent_imbalance=plan.percent_imbalance,
-         percent_imbalance_p8=plan8.percent_imbalance)
+         percent_imbalance_p8=plan8.percent_imbalance,
+         by_head_dim=sched_by_head_dim)
 
     # ---- gmm at the main path's shapes (wi and wo) -----------------------
     gmm_rows = {}
@@ -2444,7 +2600,10 @@ def main(argv) -> int:
          "bound_by": ("operations" if flash_flops / PEAK_BF16_FLOPS
                       >= flash_bytes / PEAK_BYTES else "bytes"),
          "library_ms": library_ms,
-         "percent_imbalance": plan.percent_imbalance},
+         "percent_imbalance": plan.percent_imbalance,
+         "by_head_dim": {hd: {k: r[k] for k in (
+             "shape", "max_abs_err", "ms", "ms_b2b", "plain_ms", "library_ms",
+             "bound_ms", "bound_by")} for hd, r in sched_by_head_dim.items()}},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gmm.cu",
          "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:37",

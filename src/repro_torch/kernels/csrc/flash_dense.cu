@@ -19,8 +19,14 @@
 // The kernel computes at a padded width HD of 64, 128 or 256: the tensor
 // maps keep the real head dim, so TMA fills the columns past it with zeros,
 // which change neither Q K^T nor the live columns of P V, and only the real
-// columns are written.  stablelm-3b's 80 runs at 128: 1.6x the MMA work of
-// an exact-width kernel.  At HD 256 (recurrentgemma-2b) neither the shared
+// columns are written.  stablelm-3b's 80 keeps the tiles of 128 (two boxes,
+// zeros past column 80) but runs its products at their exact width (HDW
+// 80): S = Q K^T in 5 k steps of 16 instead of 8, O += P V as one
+// wgmma.m64n80k16 instead of an n128, so O is 40 registers a thread, not
+// 64.  The steps dropped add only products of zeros (+0.0 to each fp32
+// sum) and the n80's columns are the n128's first 80, so the output has the
+// bits of the padded kernel at 0.625x its MMA work.  At HD 256
+// (recurrentgemma-2b) neither the shared
 // memory nor the registers of the 128-column tile fit (Q 64 KB + 3 x 128 KB
 // of K / V; O alone is 128 registers a thread), so that instantiation takes
 // 64-column K / V tiles in 2 stages (Q 64 KB + 2 x 64 KB; S 32, P hi + lo
@@ -91,7 +97,7 @@ struct DenseParams {
   float scale_log2;   // softmax scale * log2(e)
 };
 
-template <int HD, int NKV, int NST>
+template <int HD, int NKV, int NST, int HDW>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -161,9 +167,9 @@ flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
     const int r0 = row0 + 64 * c;
     const int r_lo = r0 + 16 * (tq / 32) + lane / 4;   // and r_lo + 8
 
-    float o[HD / 2];
+    float o[HDW / 2];
 #pragma unroll
-    for (int v = 0; v < HD / 2; ++v) o[v] = 0.f;
+    for (int v = 0; v < HDW / 2; ++v) o[v] = 0.f;
     float m[2] = {NEG_INF, NEG_INF};
     float l[2] = {0.f, 0.f};
 
@@ -186,19 +192,19 @@ flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
       float sacc[NKV / 2];
       const uint64_t dk = smem_desc(smem + L::K + s * L::KVTILE, 16, 1024);
       mbar_wait(&k_full[s], ph);
-      issue_s<HD, NKV>(sacc, dq, dk, c);
+      issue_s<HDW, NKV>(sacc, dq, dk, c);
 
       uint32_t phi[NKV / 16][4], plo[NKV / 16][4];
       if (mask)
-        softmax<HD, true, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane, P);
+        softmax<HDW, true, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane, P);
       else
-        softmax<HD, false, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane, P);
+        softmax<HDW, false, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane, P);
 
       // O += (P_hi + P_lo) V
       const uint64_t dv = smem_desc(smem + L::V + s * L::KVTILE, L::KVBOX,
                                     1024);
       mbar_wait(&v_full[s], ph);
-      issue_pv<HD, NKV>(o, phi, plo, dv);
+      issue_pv<HDW, NKV>(o, phi, plo, dv);
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
@@ -207,7 +213,7 @@ flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // out = o / l for the rows below s and the columns below hd; rows that
     // never saw a live column (m <= NEG_INF / 2) are written as 0
-    store_rows<HD>(P.o + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m, l, r_lo,
+    store_rows<HDW>(P.o + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m, l, r_lo,
                    P.s, lane, P.hd);
     // lse = (m + log2 l) ln 2 of the rows below s (+inf for a row with no
     // live column, so that the backward's exp(S - lse) is 0 there)
@@ -225,8 +231,9 @@ flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// HD: the padded head dim; NKV, NST: the K / V tile's columns and stages
-template <int HD, int NKV, int NST>
+// HD: the padded head dim; NKV, NST: the K / V tile's columns and stages;
+// HDW: the width the products run at
+template <int HD, int NKV, int NST, int HDW = HD>
 int launch_hd(const void* q, const void* k, const void* v, int batch, int kvh,
               int hd, const long long* qs, const long long* ks,
               const long long* vs, const DenseParams& P, cudaStream_t st) {
@@ -239,11 +246,11 @@ int launch_hd(const void* q, const void* k, const void* v, int batch, int kvh,
   if (rc != 0) return rc;
   constexpr int bytes = Layout<HD, NKV, NST>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dense_kernel<HD, NKV, NST>,
+      flash_dense_kernel<HD, NKV, NST, HDW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long grid = static_cast<long long>(P.lanes) * P.nq;
-  flash_dense_kernel<HD, NKV, NST>
+  flash_dense_kernel<HD, NKV, NST, HDW>
       <<<static_cast<unsigned>(grid), NTHREADS, bytes, st>>>(qm, km, vm, P);
   return static_cast<int>(cudaGetLastError());
 }
@@ -276,6 +283,9 @@ extern "C" int flash_dense_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 64)
     return launch_hd<64, 128, 3>(q, k, v, batch, kvh, hd, qs, ks, vs, P, st);
+  if (hd == 80)
+    return launch_hd<128, 128, 3, 80>(q, k, v, batch, kvh, hd, qs, ks, vs, P,
+                                      st);
   if (hd <= 128)
     return launch_hd<128, 128, 3>(q, k, v, batch, kvh, hd, qs, ks, vs, P, st);
   return launch_hd<256, 64, 2>(q, k, v, batch, kvh, hd, qs, ks, vs, P, st);

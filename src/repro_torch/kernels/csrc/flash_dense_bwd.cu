@@ -39,7 +39,13 @@
 //     values (a 1-D bulk copy each) in dkdv, K and V tiles of 64 rows in
 //     dq.  q, k, v and dO are mapped as 4-D (b, s, heads, hd) tensors, so
 //     GQA's KV head is read in place; rows past s and columns past the
-//     real head dim arrive as zeros (hd 80 runs the 128 instantiation).
+//     real head dim arrive as zeros.  hd 80 keeps the tiles of 128 but
+//     runs its products at their exact width (HDW 80): the depth-hd
+//     products (S^T, dP^T, S, dP) in 5 k steps of 16 instead of 8, the
+//     width-hd ones (dV, dK, dQ) as wgmma.m64n80k16 instead of n128, so
+//     dK + dV take 80 fp32 registers a thread, not 128.  The steps dropped
+//     add only products of zeros and an n80's columns are the n128's first
+//     80, so the gradients keep the padded kernels' bits.
 //   * Warpgroups 1 and 2 (240 registers) own rows 0-63 and 64-127 of the
 //     block.  dkdv, per q tile: S^T = K Q^T and dP^T = V dO^T by SS wgmma
 //     (m64n64, K and V K-major as A, the Q / dO stage K-major as B); P^T =
@@ -169,22 +175,25 @@ struct BwdLayout {
   static constexpr int BYTES = BAR + (1 + 2 * RING) * 8 + 1024;  // + align
 };
 
-// D (64 x HD) += A (64 x 16, registers) * B (16 x HD, smem, MN-major)
-template <int HD>
+// D (64 x HDW) += A (64 x 16, registers) * B (16 x HDW, smem, MN-major)
+template <int HDW>
 __device__ __forceinline__ void rs_hd(float* d, const uint32_t* a,
                                       uint64_t db) {
-  if constexpr (HD == 128)
+  if constexpr (HDW == 128)
     wgmma_m64n128k16_rs<1>(d, a, db, 1);
+  else if constexpr (HDW == 80)
+    wgmma_m64n80k16_rs<1>(d, a, db, 1);
   else
     wgmma_m64n64k16_rs<1>(d, a, db, 1);
 }
 
-// acc (64 x 64) = A (64 x HD) B^T (HD x 64): A rows of a resident BLK-row
-// tile (da: its row offset included), B a BT-row stage, both K-major
-template <int HD>
+// acc (64 x 64) = A (64 x HDW) B^T (HDW x 64), ceil(HDW / 16) k steps: A
+// rows of a resident BLK-row tile (da: its row offset included), B a
+// BT-row stage, both K-major
+template <int HDW>
 __device__ __forceinline__ void ss_hd(float* acc, uint64_t da, uint64_t db) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < (HDW + 15) / 16; ++kk) {
     const int aoff = (kk / 4) * (BLK * 128 / 16) + (kk % 4) * 2;
     const int boff = (kk / 4) * (BT * 128 / 16) + (kk % 4) * 2;
     wgmma_m64n64k16_ss<0>(acc, da + aoff, db + boff, kk);
@@ -211,9 +220,9 @@ __device__ __forceinline__ void pack_frags(const float* x,
 }
 
 // rows r_lo, r_lo + 8 (below row_end) and the columns below hd of a
-// 64 x HD fp32 accumulator, times mul, as bf16 into the (row, hd) plane
+// 64 x HDW fp32 accumulator, times mul, as bf16 into the (row, hd) plane
 // at ob, rows o_ss elements apart
-template <int HD>
+template <int HDW>
 __device__ __forceinline__ void store_acc(bf16* ob, long long o_ss,
                                           const float* acc, float mul,
                                           int r_lo, int row_end, int lane,
@@ -223,7 +232,7 @@ __device__ __forceinline__ void store_acc(bf16* ob, long long o_ss,
     const int row = r_lo + 8 * j;
     if (row >= row_end) continue;
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt) {
+    for (int nt = 0; nt < HDW / 8; ++nt) {
       if (nt * 8 >= hd) break;
       const int col = nt * 8 + 2 * (lane & 3);
       *reinterpret_cast<uint32_t*>(ob + row * o_ss + col) = pack_bf16(
@@ -238,7 +247,8 @@ __device__ __forceinline__ bool live_pair(int qr, int kr, int causal,
   return (!causal || kr <= qr) && (window <= 0 || qr - kr < window);
 }
 
-template <int HD>
+// HD: the tiles' padded head dim; HDW: the width the products run at
+template <int HD, int HDW>
 __global__ void __launch_bounds__(NTHREADS, 1)
 dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
            const __grid_constant__ CUtensorMap kmap,
@@ -317,9 +327,9 @@ dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     const int lane = tid % 32;
     const int kr0 = k0 + 64 * c;
 
-    float dk[HD / 2], dv[HD / 2];
+    float dk[HDW / 2], dv[HDW / 2];
 #pragma unroll
-    for (int v = 0; v < HD / 2; ++v) dk[v] = dv[v] = 0.f;
+    for (int v = 0; v < HDW / 2; ++v) dk[v] = dv[v] = 0.f;
 
     const uint64_t ka = smem_desc(smem + L::R0 + c * 64 * 128, 16, 1024);
     const uint64_t va = smem_desc(smem + L::R1 + c * 64 * 128, 16, 1024);
@@ -339,9 +349,9 @@ dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
         // S^T = K Q^T and dP^T = V dO^T, two groups
         float st[32], dpt[32];
         wgmma_fence();
-        ss_hd<HD>(st, ka, smem_desc(qs, 16, 1024));
+        ss_hd<HDW>(st, ka, smem_desc(qs, 16, 1024));
         wgmma_commit();
-        ss_hd<HD>(dpt, va, smem_desc(os, 16, 1024));
+        ss_hd<HDW>(dpt, va, smem_desc(os, 16, 1024));
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs<32>(st);
@@ -367,7 +377,7 @@ dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          rs_hd<HD>(dv, pf[kk], smem_desc(os, L::TBOX, 1024) + 128 * kk);
+          rs_hd<HDW>(dv, pf[kk], smem_desc(os, L::TBOX, 1024) + 128 * kk);
         wgmma_commit();
 
         // dS^T = P^T o (dP^T - D); dK += dS^T Q
@@ -379,11 +389,11 @@ dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          rs_hd<HD>(dk, sf[kk], smem_desc(qs, L::TBOX, 1024) + 128 * kk);
+          rs_hd<HDW>(dk, sf[kk], smem_desc(qs, L::TBOX, 1024) + 128 * kk);
         wgmma_commit();
         wgmma_wait<0>();
-        fence_regs<HD / 2>(dv);
-        fence_regs<HD / 2>(dk);
+        fence_regs<HDW / 2>(dv);
+        fence_regs<HDW / 2>(dk);
         fence_regs<16>(&pf[0][0]);
         fence_regs<16>(&sf[0][0]);
         if (lane == 0) mbar_arrive(&empty[s]);
@@ -393,14 +403,14 @@ dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     // dK (scaled) and dV at the KV head, rows below s
     const int r_lo = kr0 + acc_row(tq, 0);
     const long long base = static_cast<long long>(b) * P.s * kvh + kh;
-    store_acc<HD>(P.dk + base * P.hd, static_cast<long long>(kvh) * P.hd, dk,
-                  P.scale, r_lo, P.s, lane, P.hd);
-    store_acc<HD>(P.dv + base * P.hd, static_cast<long long>(kvh) * P.hd, dv,
-                  1.f, r_lo, P.s, lane, P.hd);
+    store_acc<HDW>(P.dk + base * P.hd, static_cast<long long>(kvh) * P.hd, dk,
+                   P.scale, r_lo, P.s, lane, P.hd);
+    store_acc<HDW>(P.dv + base * P.hd, static_cast<long long>(kvh) * P.hd, dv,
+                   1.f, r_lo, P.s, lane, P.hd);
   }
 }
 
-template <int HD>
+template <int HD, int HDW>
 __global__ void __launch_bounds__(NTHREADS, 1)
 dq_wgmma(const __grid_constant__ CUtensorMap qmap,
          const __grid_constant__ CUtensorMap kmap,
@@ -475,9 +485,9 @@ dq_wgmma(const __grid_constant__ CUtensorMap qmap,
     const float lse2[2] = {P.lse2[lrow + r_lo], P.lse2[lrow + r_lo + 8]};
     const float dl[2] = {P.delta[lrow + r_lo], P.delta[lrow + r_lo + 8]};
 
-    float dq[HD / 2];
+    float dq[HDW / 2];
 #pragma unroll
-    for (int v = 0; v < HD / 2; ++v) dq[v] = 0.f;
+    for (int v = 0; v < HDW / 2; ++v) dq[v] = 0.f;
 
     const uint64_t qa = smem_desc(smem + L::R0 + c * 64 * 128, 16, 1024);
     const uint64_t oa = smem_desc(smem + L::R1 + c * 64 * 128, 16, 1024);
@@ -493,9 +503,9 @@ dq_wgmma(const __grid_constant__ CUtensorMap qmap,
       // S = Q K^T and dP = dO V^T, two groups
       float sc[32], dp[32];
       wgmma_fence();
-      ss_hd<HD>(sc, qa, smem_desc(ks, 16, 1024));
+      ss_hd<HDW>(sc, qa, smem_desc(ks, 16, 1024));
       wgmma_commit();
-      ss_hd<HD>(dp, oa, smem_desc(vs, 16, 1024));
+      ss_hd<HDW>(dp, oa, smem_desc(vs, 16, 1024));
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs<32>(sc);
@@ -525,17 +535,17 @@ dq_wgmma(const __grid_constant__ CUtensorMap qmap,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        rs_hd<HD>(dq, sf[kk], smem_desc(ks, L::TBOX, 1024) + 128 * kk);
+        rs_hd<HDW>(dq, sf[kk], smem_desc(ks, L::TBOX, 1024) + 128 * kk);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<HD / 2>(dq);
+      fence_regs<HDW / 2>(dq);
       fence_regs<16>(&sf[0][0]);
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
     const long long base = static_cast<long long>(b) * P.s * P.H + hh;
-    store_acc<HD>(P.dq + base * P.hd, static_cast<long long>(P.H) * P.hd, dq,
-                  P.scale, r_lo, P.s, lane, P.hd);
+    store_acc<HDW>(P.dq + base * P.hd, static_cast<long long>(P.H) * P.hd, dq,
+                   P.scale, r_lo, P.s, lane, P.hd);
   }
 }
 
@@ -947,7 +957,7 @@ int encode_maps(CUtensorMap* m, const BwdParams& P, int qrows, int krows) {
   return rc;
 }
 
-template <int HD, bool DKDV>
+template <int HD, bool DKDV, int HDW = HD>
 int launch_wgmma(const BwdParams& P, cudaStream_t st) {
   CUtensorMap m[4];
   // dkdv: q / dO in the ring (BT rows), k / v resident (BLK); dq: the other
@@ -955,7 +965,7 @@ int launch_wgmma(const BwdParams& P, cudaStream_t st) {
   int rc = DKDV ? encode_maps(m, P, BT, BLK) : encode_maps(m, P, BLK, BT);
   if (rc != 0) return rc;
   constexpr int bytes = BwdLayout<HD>::BYTES;
-  auto kern = DKDV ? dkdv_wgmma<HD> : dq_wgmma<HD>;
+  auto kern = DKDV ? dkdv_wgmma<HD, HDW> : dq_wgmma<HD, HDW>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1020,6 +1030,7 @@ extern "C" int flash_dense_bwd_dkdv_launch(
   if (int rc = check_params(P)) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 64) return launch_wgmma<64, true>(P, st);
+  if (hd == 80) return launch_wgmma<128, true, 80>(P, st);
   if (hd <= 128) return launch_wgmma<128, true>(P, st);
   return launch_wgmma_hd256<true>(P, st);
 }
@@ -1036,6 +1047,7 @@ extern "C" int flash_dense_bwd_dq_launch(
   if (int rc = check_params(P)) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 64) return launch_wgmma<64, false>(P, st);
+  if (hd == 80) return launch_wgmma<128, false, 80>(P, st);
   if (hd <= 128) return launch_wgmma<128, false>(P, st);
   return launch_wgmma_hd256<false>(P, st);
 }

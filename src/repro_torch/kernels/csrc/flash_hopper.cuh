@@ -16,9 +16,13 @@
 //   * O += P V with two RS wgmmas (four at head dim 256: two n128 halves),
 //     P = hi + lo in bf16 kept fp32 as in the reference, V MN-major through
 //     the transpose bit (issue_pv);
-// and writes out = o / l from the accumulators (store_rows).  HD is the
-// padded head dim (64, 128 or 256): columns past the real head dim arrive
-// as zeros from TMA and are not written.
+// and writes out = o / l from the accumulators (store_rows).  The tiles
+// have a padded head dim (64, 128 or 256): columns past the real head dim
+// arrive as zeros from TMA and are not written.  The products run at a
+// width HDW, the padded head dim or, for head dim 80 (tiles of 128),
+// exactly 80: S = Q K^T takes ceil(HDW / 16) k steps (the steps dropped
+// would add only products of zeros) and O += P V one m64n80 (its columns
+// are the first 80 of the m64n128), so o holds HDW / 2 floats a thread.
 //
 // Every block here is inline: an out-of-line block shared by the producer
 // and the consumers would make ptxas compile both roles for the launch's
@@ -67,11 +71,12 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // scores of this thread (m64n{NKV} accumulator layout) -> P = exp2(S scale
 // log2(e) - m) as bf16 hi / lo A fragments of the NKV / 16 16-column slices;
-// updates m, l (log2 domain) and rescales o.  MASK: columns >= P.s, above
+// updates m, l (log2 domain) and rescales o (HDW / 2 floats).  MASK:
+// columns >= P.s, above
 // the diagonal (P.causal) or outside the window (P.window) get NEG_INF
 // first; without it the scale is folded into one FFMA per score.  MP is
 // any type with the fields s, causal, window and scale_log2.
-template <int HD, bool MASK, int NKV = BKV, class MP>
+template <int HDW, bool MASK, int NKV = BKV, class MP>
 __device__ __forceinline__ void softmax(float* sacc, float (&m)[2],
                                         float (&l)[2], float* o,
                                         uint32_t (&phi)[NKV / 16][4],
@@ -135,21 +140,22 @@ __device__ __forceinline__ void softmax(float* sacc, float (&m)[2],
     m[j] = mx[j];
   }
 #pragma unroll
-  for (int v = 0; v < HD / 2; ++v) o[v] *= corr[(v >> 1) & 1];
+  for (int v = 0; v < HDW / 2; ++v) o[v] *= corr[(v >> 1) & 1];
 }
 
 // S = Q K^T for consumer c's 64 rows (dq: its rows of the Q tile, dk: the
 // K stage of NKV rows), on its turn: wait for it (named barrier TURN + c),
 // issue, hand the turn to the other consumer, wait for the result.  The K
 // stage must have landed.  A 16-wide k step moves 32 bytes inside a
-// 64-column box; the next box of Q is BOX bytes on, of K NKV * 128.
-template <int HD, int NKV = BKV>
+// 64-column box; the next box of Q is BOX bytes on, of K NKV * 128.  The
+// depth is HDW columns, ceil(HDW / 16) k steps.
+template <int HDW, int NKV = BKV>
 __device__ __forceinline__ void issue_s(float* sacc, uint64_t dq, uint64_t dk,
                                         int c) {
   named_bar_sync(TURN + c, 256);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < (HDW + 15) / 16; ++kk) {
     const int off = (kk / 4) * (BOX / 16) + (kk % 4) * 2;
     const int koff = (kk / 4) * (NKV * 128 / 16) + (kk % 4) * 2;
     if constexpr (NKV == 128)
@@ -164,25 +170,29 @@ __device__ __forceinline__ void issue_s(float* sacc, uint64_t dq, uint64_t dk,
 }
 
 // O += (P_hi + P_lo) V for an NKV-row V stage (dv, MN-major: 64-column
-// boxes NKV * 128 bytes apart), then wait.  At HD 256 the output is two
+// boxes NKV * 128 bytes apart), then wait.  At HDW 256 the output is two
 // n128 halves, accumulators o[0..63] (columns 0-127, boxes 0-1) and
-// o[64..127] (columns 128-255, boxes 2-3): the layout of one m64n256.
-template <int HD, int NKV = BKV>
+// o[64..127] (columns 128-255, boxes 2-3): the layout of one m64n256.  At
+// HDW 80 it is one n80 over box 0 and the first 16 columns of box 1.
+template <int HDW, int NKV = BKV>
 __device__ __forceinline__ void issue_pv(float* o, uint32_t (&phi)[NKV / 16][4],
                                          uint32_t (&plo)[NKV / 16][4],
                                          uint64_t dv) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < NKV / 16; ++kk) {
-    if constexpr (HD == 256) {
+    if constexpr (HDW == 256) {
       constexpr int half = 2 * NKV * 128 / 16;      // two boxes on
       wgmma_m64n128k16_rs<1>(o, phi[kk], dv + 128 * kk, 1);
       wgmma_m64n128k16_rs<1>(o + 64, phi[kk], dv + half + 128 * kk, 1);
       wgmma_m64n128k16_rs<1>(o, plo[kk], dv + 128 * kk, 1);
       wgmma_m64n128k16_rs<1>(o + 64, plo[kk], dv + half + 128 * kk, 1);
-    } else if constexpr (HD == 128) {
+    } else if constexpr (HDW == 128) {
       wgmma_m64n128k16_rs<1>(o, phi[kk], dv + 128 * kk, 1);
       wgmma_m64n128k16_rs<1>(o, plo[kk], dv + 128 * kk, 1);
+    } else if constexpr (HDW == 80) {
+      wgmma_m64n80k16_rs<1>(o, phi[kk], dv + 128 * kk, 1);
+      wgmma_m64n80k16_rs<1>(o, plo[kk], dv + 128 * kk, 1);
     } else {
       wgmma_m64n64k16_rs<1>(o, phi[kk], dv + 128 * kk, 1);
       wgmma_m64n64k16_rs<1>(o, plo[kk], dv + 128 * kk, 1);
@@ -190,21 +200,21 @@ __device__ __forceinline__ void issue_pv(float* o, uint32_t (&phi)[NKV / 16][4],
   }
   wgmma_commit();
   wgmma_wait<0>();
-  fence_regs<HD / 2>(o);
+  fence_regs<HDW / 2>(o);
   fence_regs<NKV / 4>(&phi[0][0]);
   fence_regs<NKV / 4>(&plo[0][0]);
 }
 
 // out = o / l as bf16 for this thread's rows r_lo and r_lo + 8 that lie
 // below row_end and its columns below hd, a multiple of 8 (ob: the
-// (row, hd) plane of the output head, rows o_ss apart); rows that never saw
-// a live column (m <= NEG_INF / 2) are written as 0
-template <int HD>
+// (row, hd) plane of the output head, rows o_ss apart; o holds HDW
+// columns); rows that never saw a live column (m <= NEG_INF / 2) are
+// written as 0
+template <int HDW>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, long long o_ss,
                                            const float* o, const float (&m)[2],
                                            const float (&l)[2], int r_lo,
-                                           int row_end, int lane,
-                                           int hd = HD) {
+                                           int row_end, int lane, int hd) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int row = r_lo + 8 * j;
@@ -212,7 +222,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, long long o_ss,
     const float inv = m[j] > NEG_INF * 0.5f
                           ? __fdividef(1.f, fmaxf(l[j], 1e-30f)) : 0.f;
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt) {
+    for (int nt = 0; nt < HDW / 8; ++nt) {
       if (nt * 8 >= hd) break;
       const int col = nt * 8 + 2 * (lane & 3);
       *reinterpret_cast<uint32_t*>(ob + row * o_ss + col) =

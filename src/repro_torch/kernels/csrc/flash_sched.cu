@@ -23,25 +23,32 @@
 //     flag: one (lane, q block) and its live kv blocks, a contiguous
 //     ascending run as the planner emits them; its descriptors are read
 //     once.  Its units are its 128-row q tiles in ascending order, its kv
-//     tiles the 128-column tiles from the group's first kv column on.  A
+//     tiles the NKV-column tiles from the group's first kv column on.  A
 //     tile dead for every row of the unit (above the diagonal, at or past
 //     the lane's `lim`, below the window, or past the group's last kv
 //     block) is never loaded; the live tiles of a unit are one range,
 //     computed, not searched.  A unit's result depends on the unit alone,
 //     so the output is bit-identical for every schedule and every p.
+//   * Head dims: any multiple of 8 up to 256, instantiated as flash_dense.cu
+//     is: up to 64 at a padded width of 64, 80 at its exact width on tiles
+//     of 128, the others up to 128 at 128 (NKV 128-column K / V tiles, 3
+//     stages), 136-256 at 256 with 64-column K / V tiles in 2 stages (Q 64
+//     KB + 2 x (32 + 32) KB).  TMA fills the columns past the real head dim
+//     with zeros and only the real columns are written.
 //   * Three warpgroups, as in flash_dense.cu.  One thread of warpgroup 0
 //     (the producer, registers cut to 24 by setmaxnreg) loads each unit's
-//     Q tile and its K and V tiles into a 3-stage ring with TMA; q, k and v
-//     are mapped as 4-D (b, s, heads, hd) tensors from their strides, so
-//     the model layout and GQA's KV head hh / (H / KVH) are read in place.
-//     The producer and the consumers walk the same unit and tile sequence
-//     through one inline iterator (Walk).
-//   * Q + 3 K/V stages fill 224 KB, so Q is single-buffered: the consumers
-//     release it on their own mbarrier (q_empty) as soon as the unit's last
-//     S = Q K^T has completed, and the producer loads the next unit's Q
-//     while they run the last P V and the epilogue.  The ring's and Q's
-//     mbarrier phases carry on across units and groups: the pipeline does
-//     not drain between units, and p = 1 wraps the ring many times.
+//     Q tile and its K and V tiles into a ring of NST stages with TMA; q, k
+//     and v are mapped as 4-D (b, s, heads, hd) tensors from their strides,
+//     so the model layout and GQA's KV head hh / (H / KVH) are read in
+//     place.  The producer and the consumers walk the same unit and tile
+//     sequence through one inline iterator (Walk).
+//   * Q + 3 K/V stages fill 224 KB at head dim 128, so Q is single-buffered:
+//     the consumers release it on their own mbarrier (q_empty) as soon as
+//     the unit's last S = Q K^T has completed, and the producer loads the
+//     next unit's Q while they run the last P V and the epilogue.  The
+//     ring's and Q's mbarrier phases carry on across units and groups: the
+//     pipeline does not drain between units, and p = 1 wraps the ring many
+//     times.
 //   * Warpgroups 1 and 2 (the consumers, 240 registers) own q rows 0-63
 //     and 64-127 of the unit and run flash_hopper.cuh's S = Q K^T (SS
 //     wgmma, turns on named barriers), online softmax in the log2 domain
@@ -68,7 +75,7 @@ struct SchedParams {
   long long o_sb, o_sh, o_ss;
   const int* desc;     // 6 x G int32: bi, qi, kj, first, last, lim
   const int* bounds;   // p + 1 int32: CTA w owns descriptors [b[w], b[w+1])
-  int G, s, H, group, block_q, block_k, causal, window;
+  int G, s, H, group, hd, block_q, block_k, causal, window;
   float scale_log2;    // softmax scale * log2(e)
 };
 
@@ -80,9 +87,9 @@ struct MaskParams {
 };
 
 // The unit sequence of one CTA, identical in the producer and the
-// consumers.  next() moves to the next unit (reading a new group's
-// descriptors when the group is done) and returns false at the end of the
-// CTA's share.
+// consumers.  next<NKV>() moves to the next unit (reading a new group's
+// descriptors when the group is done), its live kv tiles counted in
+// NKV-column tiles, and returns false at the end of the CTA's share.
 struct Walk {
   int gend, gstop;                 // the next group starts at gend
   int lane_id, qb1, c_lo, c_end;   // the group: lane, row end, columns
@@ -91,6 +98,7 @@ struct Walk {
   __device__ __forceinline__ Walk(const SchedParams& P, int w)
       : gend(P.bounds[w]), gstop(P.bounds[w + 1]), qb1(0), row0(0) {}
 
+  template <int NKV>
   __device__ __forceinline__ bool next(const SchedParams& P) {
     row0 += BQ;
     if (row0 >= qb1) {
@@ -112,34 +120,36 @@ struct Walk {
     int lo = c_lo, hi = c_end;
     if (P.window > 0) lo = max(lo, row0 - P.window + 1);
     if (P.causal) hi = min(hi, rend);
-    const int i0 = (lo - c_lo) / BKV;
-    tile0 = c_lo + i0 * BKV;
-    ntiles = hi > lo ? (hi - 1 - c_lo) / BKV - i0 + 1 : 0;
+    const int i0 = (lo - c_lo) / NKV;
+    tile0 = c_lo + i0 * NKV;
+    ntiles = hi > lo ? (hi - 1 - c_lo) / NKV - i0 + 1 : 0;
     return true;
   }
 };
 
-template <int HD>
+// HD: the padded head dim; NKV, NST: the K / V tile's columns and stages;
+// HDW: the width the products run at
+template <int HD, int NKV, int NST, int HDW>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_sched_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    const SchedParams P) {
-  using L = Layout<HD>;
+  using L = Layout<HD, NKV, NST>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
   uint64_t* q_empty = q_full + 1;
   uint64_t* k_full = q_full + 2;
-  uint64_t* v_full = k_full + STAGES;
-  uint64_t* empty = v_full + STAGES;
+  uint64_t* v_full = k_full + NST;
+  uint64_t* empty = v_full + NST;
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
   if (tid == 0) {
     mbar_init(q_full, 1);
     mbar_init(q_empty, CONSUMER_WARPS);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&empty[s], CONSUMER_WARPS);
@@ -149,13 +159,13 @@ flash_sched_kernel(const __grid_constant__ CUtensorMap qmap,
   __syncthreads();
 
   Walk w(P, blockIdx.x);
-  int it = 0;   // kv tiles so far: stage it % STAGES, phase it / STAGES
+  int it = 0;   // kv tiles so far: stage it % NST, phase it / NST
   int qn = 0;   // Q tiles so far: phase qn
   if (wg == 0) {
     // ---- producer ----
     reg_dealloc<24>();
     if (tid == 0) {
-      while (w.next(P)) {
+      while (w.next<NKV>(P)) {
         if (w.ntiles == 0) continue;
         const int b = w.lane_id / P.H;
         const int hh = w.lane_id % P.H;
@@ -167,17 +177,17 @@ flash_sched_kernel(const __grid_constant__ CUtensorMap qmap,
                       b);
         ++qn;
         for (int i = 0; i < w.ntiles; ++i, ++it) {
-          const int s = it % STAGES;
-          const int col0 = w.tile0 + i * BKV;
-          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-          mbar_expect_tx(&k_full[s], L::TILE);
+          const int s = it % NST;
+          const int col0 = w.tile0 + i * NKV;
+          mbar_wait(&empty[s], ((it / NST) & 1) ^ 1);
+          mbar_expect_tx(&k_full[s], L::KVTILE);
           for (int j = 0; j < L::NBOX; ++j)
-            tma_load_4d(smem + L::K + s * L::TILE + j * BOX, &kmap, &k_full[s],
-                        64 * j, col0, kvh, b);
-          mbar_expect_tx(&v_full[s], L::TILE);
+            tma_load_4d(smem + L::K + s * L::KVTILE + j * L::KVBOX, &kmap,
+                        &k_full[s], 64 * j, col0, kvh, b);
+          mbar_expect_tx(&v_full[s], L::KVTILE);
           for (int j = 0; j < L::NBOX; ++j)
-            tma_load_4d(smem + L::V + s * L::TILE + j * BOX, &vmap, &v_full[s],
-                        64 * j, col0, kvh, b);
+            tma_load_4d(smem + L::V + s * L::KVTILE + j * L::KVBOX, &vmap,
+                        &v_full[s], 64 * j, col0, kvh, b);
         }
       }
     }
@@ -193,13 +203,13 @@ flash_sched_kernel(const __grid_constant__ CUtensorMap qmap,
     // consumer c's turn) across every unit; consumer 0 goes first
     if (c == 1) named_bar_arrive(TURN, 256);
 
-    while (w.next(P)) {
+    while (w.next<NKV>(P)) {
       const int r0 = w.row0 + 64 * c;
       const int r_lo = r0 + 16 * (tq / 32) + lane / 4;   // and r_lo + 8
       const MaskParams mp{w.c_end, P.causal, P.window, P.scale_log2};
-      float o[HD / 2];
+      float o[HDW / 2];
 #pragma unroll
-      for (int v = 0; v < HD / 2; ++v) o[v] = 0.f;
+      for (int v = 0; v < HDW / 2; ++v) o[v] = 0.f;
       float m[2] = {NEG_INF, NEG_INF};
       float l[2] = {0.f, 0.f};
 
@@ -208,38 +218,41 @@ flash_sched_kernel(const __grid_constant__ CUtensorMap qmap,
         ++qn;
       }
       for (int i = 0; i < w.ntiles; ++i, ++it) {
-        const int s = it % STAGES;
-        const uint32_t ph = (it / STAGES) & 1;
-        const int col0 = w.tile0 + i * BKV;
-        const bool mask = col0 + BKV > w.c_end ||
-                          (P.causal && col0 + BKV - 1 > r0) ||
+        const int s = it % NST;
+        const uint32_t ph = (it / NST) & 1;
+        const int col0 = w.tile0 + i * NKV;
+        const bool mask = col0 + NKV > w.c_end ||
+                          (P.causal && col0 + NKV - 1 > r0) ||
                           (P.window > 0 && r0 + 63 - col0 >= P.window);
 
         // S = Q K^T; after the unit's last one, Q goes back to the producer
-        float sacc[64];
-        const uint64_t dk = smem_desc(smem + L::K + s * L::TILE, 16, 1024);
+        float sacc[NKV / 2];
+        const uint64_t dk = smem_desc(smem + L::K + s * L::KVTILE, 16, 1024);
         mbar_wait(&k_full[s], ph);
-        issue_s<HD>(sacc, dq, dk, c);
+        issue_s<HDW, NKV>(sacc, dq, dk, c);
         if (i == w.ntiles - 1 && lane == 0) mbar_arrive(q_empty);
 
-        uint32_t phi[8][4], plo[8][4];
+        uint32_t phi[NKV / 16][4], plo[NKV / 16][4];
         if (mask)
-          softmax<HD, true>(sacc, m, l, o, phi, plo, col0, r_lo, lane, mp);
+          softmax<HDW, true, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane,
+                                  mp);
         else
-          softmax<HD, false>(sacc, m, l, o, phi, plo, col0, r_lo, lane, mp);
+          softmax<HDW, false, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane,
+                                   mp);
 
         // O += (P_hi + P_lo) V
-        const uint64_t dv = smem_desc(smem + L::V + s * L::TILE, BOX, 1024);
+        const uint64_t dv = smem_desc(smem + L::V + s * L::KVTILE, L::KVBOX,
+                                      1024);
         mbar_wait(&v_full[s], ph);
-        issue_pv<HD>(o, phi, plo, dv);
+        issue_pv<HDW, NKV>(o, phi, plo, dv);
         if (lane == 0) mbar_arrive(&empty[s]);
       }
 
       // the unit's rows only; dead rows (no live column) are written as 0
       const int b = w.lane_id / P.H;
       const int hh = w.lane_id % P.H;
-      store_rows<HD>(P.o + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m, l, r_lo,
-                     w.rend, lane);
+      store_rows<HDW>(P.o + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m, l, r_lo,
+                      w.rend, lane, P.hd);
     }
 
     // consumer 1's last hand-over is taken here, so every turn is matched
@@ -247,16 +260,26 @@ flash_sched_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int HD>
-int launch_hd(const CUtensorMap& qm, const CUtensorMap& km,
-              const CUtensorMap& vm, const SchedParams& P, int p,
-              cudaStream_t st) {
-  constexpr int bytes = Layout<HD>::BYTES;
+// q, k, v (b, s, heads, hd) by element strides, qs / ks / vs = (batch,
+// head, row) strides; the K / V maps' boxes are NKV rows
+template <int HD, int NKV = BKV, int NST = STAGES, int HDW = HD>
+int launch_hd(const void* q, const void* k, const void* v, int batch,
+              const long long* qs, const long long* ks, const long long* vs,
+              const SchedParams& P, int p, cudaStream_t st) {
+  CUtensorMap qm, km, vm;
+  const int kvh = P.H / P.group;
+  int rc = encode_bshd(&qm, q, batch, P.s, P.H, P.hd, qs[0], qs[1], qs[2]);
+  if (rc == 0)
+    rc = encode_bshd(&km, k, batch, P.s, kvh, P.hd, ks[0], ks[1], ks[2], NKV);
+  if (rc == 0)
+    rc = encode_bshd(&vm, v, batch, P.s, kvh, P.hd, vs[0], vs[1], vs[2], NKV);
+  if (rc != 0) return rc;
+  constexpr int bytes = Layout<HD, NKV, NST>::BYTES;
+  auto kern = flash_sched_kernel<HD, NKV, NST, HDW>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_sched_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_sched_kernel<HD><<<p, NTHREADS, bytes, st>>>(qm, km, vm, P);
+  kern<<<p, NTHREADS, bytes, st>>>(qm, km, vm, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -271,27 +294,27 @@ extern "C" int flash_sched_launch(
     long long o_sb, long long o_sh, long long o_ss, float scale,
     void* stream) {
   if (p <= 0 || G < 0 || batch <= 0 || s <= 0 || H <= 0 || group <= 0 ||
-      H % group != 0 || block_q <= 0 || block_k <= 0 ||
-      (hd != 64 && hd != 128))
+      H % group != 0 || block_q <= 0 || block_k <= 0 || hd <= 0 ||
+      hd > 256 || hd % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap qm, km, vm;
-  const int kvh = H / group;
-  int rc = encode_bshd(&qm, q, batch, s, H, hd, q_sb, q_sh, q_ss);
-  if (rc == 0) rc = encode_bshd(&km, k, batch, s, kvh, hd, k_sb, k_sh, k_ss);
-  if (rc == 0) rc = encode_bshd(&vm, v, batch, s, kvh, hd, v_sb, v_sh, v_ss);
-  if (rc != 0) return rc;
+  const long long qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss},
+                  vs[3] = {v_sb, v_sh, v_ss};
   SchedParams P;
   P.o = static_cast<__nv_bfloat16*>(o);
   P.o_sb = o_sb; P.o_sh = o_sh; P.o_ss = o_ss;
   P.desc = static_cast<const int*>(desc);
   P.bounds = static_cast<const int*>(bounds);
-  P.G = G; P.s = s; P.H = H; P.group = group;
+  P.G = G; P.s = s; P.H = H; P.group = group; P.hd = hd;
   P.block_q = block_q; P.block_k = block_k;
   P.causal = causal; P.window = window;
   P.scale_log2 = scale * LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return hd == 128 ? launch_hd<128>(qm, km, vm, P, p, st)
-                   : launch_hd<64>(qm, km, vm, P, p, st);
+  if (hd <= 64) return launch_hd<64>(q, k, v, batch, qs, ks, vs, P, p, st);
+  if (hd == 80)
+    return launch_hd<128, BKV, STAGES, 80>(q, k, v, batch, qs, ks, vs, P, p,
+                                           st);
+  if (hd <= 128) return launch_hd<128>(q, k, v, batch, qs, ks, vs, P, p, st);
+  return launch_hd<256, 64, 2>(q, k, v, batch, qs, ks, vs, P, p, st);
 }
 
 extern "C" const char* flash_sched_error_string(int code) {

@@ -15,10 +15,10 @@ kernel's pure-JAX twin ``_attend_flash`` by autodiff): on a CUDA tensor
 ``flash_attention_dense_bshd`` runs ``_FlashDense``, an autograd Function
 whose forward also asks ``flash_dense`` for each row's log-sum-exp and
 whose backward launches ``csrc/flash_dense_bwd.cu`` (D = rowsum(dO o O),
-then dK and dV, then dQ; TMA + wgmma at padded head dims 64 and 128,
-mma.sync at 256; every head dim the forward takes).  On a CPU tensor autograd
-differentiates the plain version; ``flash_attention_dense_bwd_plain``
-computes the same gradients explicitly, for the checks on the card.
+then dK and dV, then dQ; TMA + wgmma at every head dim the forward
+takes).  On a CPU tensor autograd differentiates the plain version;
+``flash_attention_dense_bwd_plain`` computes the same gradients
+explicitly, for the checks on the card.
 
 Schedule-aware (``flash_attention_sched_bhsd``): the host side is kept
 byte-faithful and is array arithmetic: each (lane, q block) group's live kv
@@ -36,9 +36,11 @@ only permutes whole groups, and each 128-row q tile is computed inside one
 CTA, its kv tiles ascending.
 
 Both CUDA launchers read the model layout (b, s, h|kvh, hd) and the KV
-heads in place through 4-D TMA tensor maps built from the strides.
-``flash_dense`` takes any head dim that is a multiple of 8 up to 256 (the
-configs use 64, 80, 128 and 256); ``flash_sched`` takes 64 and 128.
+heads in place through 4-D TMA tensor maps built from the strides.  Both
+take any head dim that is a multiple of 8 up to 256 (the configs use 64,
+80, 128 and 256): they compute at a padded width of 64, 128 or 256, TMA
+filling the columns past the real head dim with zeros, except 80, whose
+products run at its exact width on tiles of 128.
 """
 
 from __future__ import annotations
@@ -55,12 +57,11 @@ from ...device import check_device
 from .._build import Kernel
 from .ref import attention_ref
 
-#: padded head dims ``flash_dense`` is instantiated for: it takes any
+#: padded head dims the flash kernels are instantiated for: they take any
 #: multiple of 8 up to the largest, computing at the next of these (TMA
-#: fills the columns past the real head dim with zeros)
-DENSE_HEAD_DIMS = (64, 128, 256)
-#: head dims ``flash_sched`` is instantiated for
-SCHED_HEAD_DIMS = (64, 128)
+#: fills the columns past the real head dim with zeros; 80 runs its
+#: products at their exact width)
+PADDED_HEAD_DIMS = (64, 128, 256)
 
 _c = ctypes
 FLASH_SCHED = Kernel(
@@ -235,16 +236,11 @@ def _check_kernel_inputs(name: str, q, k, v) -> None:
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes bfloat16 q, k and v, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    # flash_dense: multiples of 8 (16-byte rows for TMA) up to its widest
-    # padded instantiation
-    if name == "flash_dense" and (hd % 8 or not
-                                  0 < hd <= DENSE_HEAD_DIMS[-1]):
-        raise ValueError(f"flash_dense supports a head_dim that is a "
-                         f"multiple of 8 up to {DENSE_HEAD_DIMS[-1]}, "
-                         f"got {hd}")
-    if name == "flash_sched" and hd not in SCHED_HEAD_DIMS:
-        raise ValueError(f"flash_sched supports head_dim in "
-                         f"{SCHED_HEAD_DIMS}, got {hd}")
+    # multiples of 8 (16-byte rows for TMA) up to the widest padded
+    # instantiation
+    if hd % 8 or not 0 < hd <= PADDED_HEAD_DIMS[-1]:
+        raise ValueError(f"{name} supports a head_dim that is a multiple of "
+                         f"8 up to {PADDED_HEAD_DIMS[-1]}, got {hd}")
     for nm, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) \
                 or t.data_ptr() % 16:

@@ -53,21 +53,28 @@ def _assert_close(got, want):
     # kv_lens None draws them from the seed s
     ((2, 300, 4, 2, 128, 128, 0, True, None, False),
      (2, 129, 4, 2, 128, 128, 0, True, None, False),    # one row past a tile
-     (2, 300, 4, 2, 128, 64, 0, True, None, False)),    # 64-blocks, ragged s
+     (2, 300, 4, 2, 128, 64, 0, True, None, False),     # 64-blocks, ragged s
+     # hd 256 (64-column kv tiles): one row past a q tile, ragged lens
+     (2, 129, 4, 2, 256, 128, 0, True, None, False)),
     ((3, 200, 2, 1, 64, 64, 70, True, None, False),
      (2, 300, 4, 2, 128, 64, 0, True, None, False),     # a tile spans 2 blocks
-     (2, 300, 4, 1, 128, 128, 32, True, None, False)),  # window < a tile
+     (2, 300, 4, 1, 128, 128, 32, True, None, False),   # window < a tile
+     (2, 300, 4, 1, 80, 64, 40, True, None, False)),    # hd 80, MQA, window
     ((1, 96, 2, 2, 128, 512, 0, False, None, False),
      (3, 300, 4, 2, 128, 128, 0, True, [0, 300, 77], False),   # kv_len 0
-     (2, 300, 2, 2, 64, 64, 40, False, [0, 129], False)),
+     (2, 300, 2, 2, 64, 64, 40, False, [0, 129], False),
+     (3, 200, 4, 2, 32, 64, 0, True, [0, 200, 77], False)),    # hd 32
     ((2, 1024, 8, 2, 128, 512, 0, True, None, False),
      (2, 300, 4, 2, 128, 128, 0, True, None, True),     # strided heads
-     (2, 300, 4, 2, 64, 64, 32, True, None, True)),
+     (2, 300, 4, 2, 64, 64, 32, True, None, True),
+     (2, 333, 10, 1, 256, 128, 100, True, None, False),  # hd 256 MQA, window
+     (2, 300, 4, 2, 80, 128, 0, True, None, True)),     # hd 80, strided
 ])
 def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
     """Each case against the plain version, then bit-identical for all 27
     techniques at sched_p 1 (one CTA wraps the stage ring across every
-    unit), 8 and the SM count.
+    unit), 8 and the SM count; head dims 64 and 128, and 32 (padded to
+    64), 80 (its exact width) and 256 (64-column kv tiles in 2 stages).
 
     The edge cases share the four items instead of being items of their
     own only while the reference's order-dependent
@@ -109,9 +116,18 @@ def test_flash_bhsd_entry_and_errors(dev):
     _assert_close(out, fa.flash_attention_sched_plain(q, q, q))
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(*(q[:, :, None].float(),) * 3, schedule="fac2")
-    with pytest.raises(ValueError, match="head_dim"):
-        x = _randn(dev, 1, 64, 1, 32)
-        flash_attention(x, x, x, schedule="fac2")
+    # any head dim that is a multiple of 8 up to 256 runs (32: padded to 64)
+    x = _randn(dev, 2, 200, 32)
+    before = fa.FLASH_SCHED.launches
+    _assert_close(fa.flash_attention_sched_bhsd(x, x, x, schedule="fac2"),
+                  fa.flash_attention_sched_plain(x, x, x))
+    assert fa.FLASH_SCHED.launches == before + 1
+    # others raise, with no route to the plain version
+    for hd in (20, 264):
+        with pytest.raises(ValueError, match="head_dim"):
+            y = _randn(dev, 1, 64, 1, hd)
+            flash_attention(y, y, y, schedule="fac2")
+    assert fa.FLASH_SCHED.launches == before + 1
 
 
 @pytest.mark.parametrize("case", [
@@ -130,7 +146,8 @@ def test_flash_dense_matches_plain(dev, case):
 
 def test_flash_dense_tile_edges(dev):
     """The edges of the kernel's 128 x 128 tiles, and the head dims that
-    are padded inside the kernel: 80 (stablelm-3b, computed at 128) and 256
+    are padded inside the kernel: 80 (stablelm-3b, tiles of 128, products
+    at its exact width) and 256
     (recurrentgemma-2b, 64-column K / V tiles in 2 stages), causal, windowed
     MQA, non-causal, a window of 2048 and windows narrower than a tile.
 

@@ -149,10 +149,10 @@ def _check_grads(got, want, where):
 
 
 def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
-    """Head dim 80 (stablelm-3b, computed at 128) and 256 (recurrentgemma-2b:
-    MQA, its 10 / 1 heads, windows narrower and wider than a tile, the
-    model's 2048): the backward against the plain version, and two runs
-    bit-identical."""
+    """Head dim 80 (stablelm-3b, tiles of 128, products at its exact
+    width) and 256 (recurrentgemma-2b: MQA, its 10 / 1 heads, windows
+    narrower and wider than a tile, the model's 2048): the backward
+    against the plain version, and two runs bit-identical."""
     for i, (b, s, h, kvh, hd, window) in enumerate((
             (2, 300, 4, 4, 80, 0), (1, 1000, 4, 2, 80, 100),
             (1, 700, 5, 1, 256, 0), (2, 300, 4, 1, 256, 32),

@@ -156,6 +156,27 @@ def test_bhsd_entry_matches_jax():
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+def test_sched_wide_head_dims_match_jax_and_pass_the_kernel_check():
+    """The schedule-aware path at the head dims of stablelm-3b (80) and
+    recurrentgemma-2b (256): ragged lens and a window, against the
+    reference kernel in interpret mode.  Then the check the CUDA launcher
+    runs first, on bf16 CPU tensors: every multiple of 8 up to 256 passes,
+    20 and 264 raise."""
+    for hd, lens, window in ((80, [33, 130], 40), (256, [130, 71], 0)):
+        q, k, v = _inputs(hd, 2, 130, 4, 1, hd)
+        kw = dict(block_q=32, block_k=32, window=window, schedule="fac2",
+                  kv_lens=np.asarray(lens), sched_p=3)
+        np.testing.assert_allclose(_port(q, k, v, **kw), _jax(q, k, v, **kw),
+                                   atol=ATOL)
+    for hd in range(8, 257, 8):
+        x = torch.zeros(1, 16, 2, hd, dtype=torch.bfloat16)
+        fa._check_kernel_inputs("flash_sched", x, x[:, :, :1], x[:, :, :1])
+    for hd in (20, 264):
+        x = torch.zeros(1, 16, 2, hd, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa._check_kernel_inputs("flash_sched", x, x, x)
+
+
 def test_kv_lens_require_schedule():
     with pytest.raises(ValueError, match="kv_lens requires schedule"):
         _port(Q, K, V, kv_lens=np.array([100]))
