@@ -100,6 +100,29 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                digests through ``repro_torch.trials`` against
                ``tests/data/pr8_trial_digests.json``, and a
                ``ResilienceConfig()`` trial of the thermal scenario
+  sample       the sampler (``repro_torch.random``, ``jax.random``'s
+               threefry bits) on the card against the same calls on the
+               CPU: ``split`` and ``bits`` for keys 0, 1 and 42 at odd and
+               large shapes, ``uniform`` at (4, 151936) (qwen3-4b's and
+               qwen3-moe-30b-a3b's padded vocabulary), bit for bit; the
+               Gumbel noise within 4 ulp of max(|g|, 1); ``categorical``
+               on CUDA logits against the CPU on the same logits, every
+               token equal (counted); the time, kernel count and device
+               time of one decode step's sampling (a split and a
+               categorical at 4 x 151936)
+  moe_serve_sampled
+               the MoE model of moe_serve (8 layers, fp32) saved with
+               ``CheckpointStore`` under the temporary directory, restored
+               with ``shardings=`` (``param_shardings`` under
+               ``launch.mesh.production_rules``) onto a (1, 1) CUDA
+               ``DeviceMesh`` over a 1-rank ``nccl`` group, every leaf a
+               DTensor equal bit for bit to the saved one; then
+               ``DecodeEngine(greedy=False, seed=3)`` on the restored
+               leaves: 8 requests, 4 slots, max_len 256, fac2, the counts
+               from 0 around the run (gmm: 3 a layer and step), tokens/s,
+               step ms median and p90; then 4 requests at max_len 64 with
+               seed 3 (profiled: the device idle share), again with seed
+               3 (identical tokens) and with seed 4 (other tokens)
   recurrent    xlstm-1.3b and recurrentgemma-2b at full width and depth:
                a 4096-token prefill (launch counts from 0; recurrentgemma's
                8 ``local_attn`` layers launch flash_dense at head_dim 256,
@@ -177,7 +200,9 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
   kernels      the summary line, one entry per kernel; ``launches`` sums
                the counted runs of every path that launches the kernel
                (``launches_by_path``); flash_sched's and flash_dense's
-               entries carry ``by_head_dim``
+               entries carry ``by_head_dim`` and ``bound_ms_fp32_pv``, the
+               bound of the work at the reference's precision (S = Q K^T
+               once and P V twice: P in fp32 as bf16 hi + lo)
 
 then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises and the
@@ -190,6 +215,7 @@ CUDA device is present or ``src/repro_torch`` is missing beside it.
     python3 chip_smoke.py --dense-times [SRC]
     python3 chip_smoke.py --bwd-times [SRC]
     python3 chip_smoke.py --moe-bwd-times [SRC]
+    python3 chip_smoke.py --yardsticks [SRC]
 
 print only that digest (``dense_digest``; ``hd80_digest``: ``flash_dense``'s
 output and lse and ``flash_dense_bwd``'s dQ, dK, dV at stablelm-3b's
@@ -201,7 +227,11 @@ SDPA's time beside it), or only ``flash_dense_bwd``'s back-to-back times
 at the train phase's four shapes with SDPA's backward beside them
 (``bwd_times``), or only the MoE backward's dX and dW back-to-back times
 at the moe_train step's shapes with a digest of the dX outputs
-(``moe_bwd_times``), for the package under ``SRC`` (default: this
+(``moe_bwd_times``), or only the yardsticks that could send a kernel back
+to the bring_up queue (``yardsticks``: ``flex_attention`` against
+``flash_dense`` at head_dim 256, ``torch.linalg.vecdot`` against the
+backward's delta pass, ``torch.bmm`` against ``gmm_dw`` in turns), for
+the package under ``SRC`` (default: this
 checkout's ``src``), so that another tree's kernels can be held against
 this one bit for bit, and timed against it in turns (parent, change,
 change, parent) in one call.
@@ -282,6 +312,16 @@ SCHED_WIDE_HEAD_DIMS, SCHED_WIDE_KVH = (80, 256), 8
 CAMPAIGN_TIMESTEPS = 3
 IDENTITY_SCHEDULES = ("static", "ss", "gss", "fac2", "awf_b", "ws_rr",
                       "dls_steal")
+# the sample phase: the sampler on the card against the CPU for these keys,
+# split / bits at these shapes, uniform and categorical at the vocabulary of
+# qwen3-4b and qwen3-moe-30b-a3b (151936, padded), categorical on
+# SAMPLE_ROWS rows a key; the Gumbel noise within SAMPLE_GUMBEL_ULPS ulp of
+# max(|g|, 1) (its logs run in float64 on both, rounded once to float32)
+SAMPLE_SEEDS = (0, 1, 42)
+SAMPLE_SHAPES = ((), (1,), (5,), (3, 7, 11), (4, 151936))
+SAMPLE_VOCAB, SAMPLE_ROWS, SAMPLE_GUMBEL_ULPS = 151936, 16, 4
+# moe_serve_sampled: the engine's seed (run twice), then another seed
+SAMPLED_SEEDS = (3, 4)
 # the cluster phase: launch.serve --replicas at the launcher's defaults
 # (16 requests, 4 slots, max_len 128), and the MoE model on 2 replicas
 CLUSTER_REQUESTS, CLUSTER_REPLICAS, CLUSTER_SLOTS, CLUSTER_MAX_LEN = \
@@ -690,6 +730,7 @@ def dense_full_shape(randn, plain, b, s, h, kvh, hd, window):
     return dict(shape=[b, s, h, kvh, hd], window=window, max_abs_err=err,
                 ms=ms, ms_b2b=ms_b2b, call_ms=call_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_ms_fp32_pv=bound(flops * 3 // 2, nbytes)[0],
                 sdpa_max_abs_diff=sdpa_err, flops=flops, bytes=nbytes), out
 
 
@@ -742,7 +783,9 @@ def sched_full_shape(dev, randn, hd, kv_lens, n_sm):
     return dict(shape=[B, S, H, kvh, hd], max_abs_err=err,
                 ms=cuda_ms(kernel, REPS), ms_b2b=cuda_ms_b2b(kernel, REPS),
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, flops=flops, bytes=nbytes)
+                bound_by=bound_by,
+                bound_ms_fp32_pv=bound(flops * 3 // 2, nbytes)[0],
+                flops=flops, bytes=nbytes)
 
 
 def dense_times(dev):
@@ -849,6 +892,116 @@ def bwd_times(dev):
     return out
 
 
+def yardsticks(dev):
+    """Times that decide whether a kernel goes back to the bring_up queue,
+    each beside the kernel it measures, on inputs of a seed of their own:
+
+      * ``flash_dense`` at recurrentgemma-2b's shape (1 x 4096, 10 / 1
+        heads, hd 256, causal, window 2048) back to back, against
+        ``torch.nn.attention.flex_attention`` compiled with that
+        sliding-window causal block mask and SDPA with the window as a
+        boolean mask (yardsticks only, never on the path; a compile error
+        is reported as it is);
+      * ``flash_dense_bwd``'s delta pass at qwen3-4b's training shape (2 x
+        4096, 32 heads, hd 128) against ``torch.linalg.vecdot(do.float(),
+        o.float())``, with its bytes bound (o and dO read, lse read, lse
+        log2(e) and D written at the padded rows);
+      * ``gmm_dw`` (wi + wg + wo) against ``torch.bmm(x^T, dy)`` at the
+        moe_train step's shapes, back to back in turns (kernel, bmm, bmm,
+        kernel)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    cfg = get_arch("recurrentgemma-2b")
+    h, kvh, hd, win = (cfg.num_heads, cfg.num_kv_heads,
+                       cfg.resolved_head_dim, cfg.window)
+    q, k, v = rnd(1, PREFILL_S, h, hd), rnd(1, PREFILL_S, kvh, hd), \
+        rnd(1, PREFILL_S, kvh, hd)
+    flash = fa._flash_dense_cuda(q, k, v, causal=True, window=win)
+    row = {"shape": [1, PREFILL_S, h, kvh, hd], "window": win,
+           "flash_dense_ms_b2b": dense_kernel_ms(q, k, v, win)[1],
+           "sdpa_masked_ms_b2b": cuda_ms_b2b(sdpa_fn(q, k, v, win), REPS)}
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        def sliding_causal(b, hh, qi, ki):
+            return (ki <= qi) & (qi - ki < win)
+
+        mask = create_block_mask(sliding_causal, None, None, PREFILL_S,
+                                 PREFILL_S, device=dev)
+        flex = torch.compile(flex_attention)
+        qt, kt, vt = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+        t0 = time.perf_counter()
+        got = flex(qt, kt, vt, block_mask=mask, enable_gqa=True)
+        torch.cuda.synchronize()
+        row["flex_compile_s"] = time.perf_counter() - t0
+        row["flex_max_abs_diff"] = float(
+            (got.permute(0, 2, 1, 3).float() - flash.float()).abs().max())
+        row["flex_ms_b2b"] = cuda_ms_b2b(
+            lambda: flex(qt, kt, vt, block_mask=mask, enable_gqa=True), REPS)
+    except Exception as exc:  # a yardstick: report why it did not run
+        row["flex_error"] = f"{type(exc).__name__}: {str(exc)[:300]}"
+    out["flash_dense_hd256"] = row
+    del q, k, v, flash
+
+    cfg = get_arch(ARCH)
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    b, s = TRAIN_BATCH, TRAIN_S
+    o, do = rnd(b, s, h, hd), rnd(b, s, h, hd)
+    lse = torch.randn(b, h, s, generator=gen, device=dev)
+    s_pad = -(-s // fa.BWD_ROW_PAD) * fa.BWD_ROW_PAD
+    lse2, delta = torch.empty((2, b, h, s_pad), dtype=torch.float32,
+                              device=dev).unbind(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def delta_pass():
+        fa.FLASH_DENSE_BWD_DELTA.launch(
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), lse2.data_ptr(),
+            delta.data_ptr(), b, s, s_pad, h, hd, stream)
+
+    def vecdot():
+        return torch.linalg.vecdot(do.float(), o.float())
+
+    delta_pass()
+    err = float((delta[:, :, :s] - vecdot().permute(0, 2, 1)).abs().max())
+    nbytes = 2 * o.numel() * 2 + lse.numel() * 4 + 2 * b * h * s_pad * 4
+    out["delta_kernel"] = {
+        "shape": [b, s, h, hd], "max_abs_diff_vecdot": err,
+        "ms_b2b": cuda_ms_b2b(delta_pass, REPS),
+        "vecdot_ms_b2b": cuda_ms_b2b(vecdot, REPS), "bytes": nbytes,
+        "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"}
+    del o, do, lse, lse2, delta
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    mcfg, _ = moe_train_cfg()
+    rows = moe_train_rows(mcfg)
+    calls = moe_bwd_calls(dev, mcfg, rows)
+
+    def dw_ms():
+        return sum(cuda_ms_b2b(lambda xi=xi, w=w, dy=dy: gm.grouped_matmul_bwd(
+            xi, w, dy, need_dx=False, sched_p=n_sm), REPS)
+            for xi, w, dy in calls)
+
+    def bmm_ms():
+        return sum(cuda_ms_b2b(lambda xi=xi, dy=dy: torch.bmm(
+            xi.transpose(1, 2), dy), REPS) for xi, _, dy in calls)
+
+    turns = [("gmm_dw", dw_ms), ("bmm", bmm_ms), ("bmm", bmm_ms),
+             ("gmm_dw", dw_ms)]
+    out["gmm_dw"] = {"rows": rows, "turns_ms_b2b": [
+        [name, fn()] for name, fn in turns]}
+    return out
+
+
 def phase_flash_dense(dev, randn):
     """The dense kernel against its plain version at the prefill's shape,
     at the full attention shapes of stablelm-3b (head dim 80, computed at
@@ -902,7 +1055,7 @@ def phase_flash_dense(dev, randn):
     fields["by_head_dim"] = {
         hd: {k: r[k] for k in ("arch", "shape", "window", "max_abs_err", "ms",
                                "ms_b2b", "plain_ms", "library_ms", "bound_ms",
-                               "bound_by")}
+                               "bound_by", "bound_ms_fp32_pv")}
         for hd, r in by_head_dim.items()}
     return fields
 
@@ -1010,6 +1163,41 @@ def serve_rows(dev, cfg, params, n, slots, max_len, seed=0):
                 step_ms_median=float(np.median(stats.step_ms)),
                 step_ms_p90=float(np.percentile(stats.step_ms, 90)),
                 sample_output=eng.output(0)[:8]), eng
+
+
+def serve_times(dev):
+    """Serving alone, to hold two trees' engines against each other on one
+    card: qwen3-4b at full width, greedy, then the MoE model of moe_serve
+    (MOE_LAYERS layers, ragged dispatch), greedy and then sampled (seed
+    SAMPLED_SEEDS[0]); each SERVE_REQUESTS requests on SERVE_SLOTS slots
+    after a 4-request warm-up.  The engine's numbers per run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_decoder
+    base = get_arch(MOE_ARCH)
+    moe = dataclasses.replace(base, num_layers=MOE_LAYERS, moe=dataclasses.
+                              replace(base.moe, dispatch="ragged"))
+    out = {}
+    for cfg in (get_arch(ARCH), moe):
+        params, _ = init_decoder(0, cfg, device=dev)
+        serve_rows(dev, cfg, params, 4, SERVE_SLOTS, 64, seed=1)
+        out[f"{cfg.name}_greedy"], _ = serve_rows(
+            dev, cfg, params, SERVE_REQUESTS, SERVE_SLOTS, SERVE_MAX_LEN)
+        if cfg is moe:
+            stats, _ = sampled_run(dev, cfg, params, SERVE_REQUESTS,
+                                   SERVE_MAX_LEN, SAMPLED_SEEDS[0])
+            out[f"{cfg.name}_sampled"] = dict(
+                tok_per_s=stats.tok_per_s,
+                step_ms_median=float(np.median(stats.step_ms)),
+                step_ms_p90=float(np.percentile(stats.step_ms, 90)))
+        for row in out.values():
+            row.pop("sample_output", None)
+        del params
+        torch.cuda.empty_cache()
+    return out
 
 
 def gmm_model_shapes(dev, cfg, n_sm, randn):
@@ -1233,6 +1421,182 @@ def phase_moe_serve(dev, cfg, params):
          technique="fac2", kv="bf16", launches=launches,
          profile_4_requests=prof, **row)
     return launches
+
+
+def phase_sample(dev):
+    """The sampler (``repro_torch.random``) on the card against the same
+    calls on the CPU: ``split`` and ``bits`` bit for bit for SAMPLE_SEEDS,
+    ``uniform`` at (4, the vocabulary), the Gumbel noise within
+    SAMPLE_GUMBEL_ULPS ulp of max(|g|, 1), and ``categorical`` on CUDA
+    logits, from a key on the card and from one on the host, against the
+    CPU on the same logits copied over, every token equal; then the
+    device time of one decode step's sampling as the engine samples (a
+    split on the host and a categorical at SERVE_SLOTS rows of the
+    vocabulary)."""
+    import numpy as np
+    import torch
+    from repro_torch import random as trandom
+    rng = np.random.default_rng(0)
+    worst, compared, equal = 0.0, 0, 0
+    for seed in SAMPLE_SEEDS:
+        kg, kc = trandom.key(seed, device=dev), trandom.key(seed, device="cpu")
+        for num in (2, 3, 7):
+            assert torch.equal(trandom.split(kg, num).cpu(),
+                               trandom.split(kc, num)), ("split", seed, num)
+        for shape in SAMPLE_SHAPES:
+            assert torch.equal(trandom.bits(kg, shape).cpu(),
+                               trandom.bits(kc, shape)), ("bits", seed, shape)
+        shape = (SERVE_SLOTS, SAMPLE_VOCAB)
+        assert torch.equal(trandom.uniform(kg, shape).cpu(),
+                           trandom.uniform(kc, shape)), ("uniform", seed)
+        want = trandom.gumbel(kc, shape).numpy()
+        got = trandom.gumbel(kg, shape).cpu().numpy()
+        ulp = np.spacing(np.maximum(np.abs(want), 1).astype(np.float32))
+        worst = max(worst, float((np.abs(got - want) / ulp).max()))
+        logits = torch.from_numpy((3 * rng.standard_normal(
+            (SAMPLE_ROWS, SAMPLE_VOCAB))).astype(np.float32))
+        tc = trandom.categorical(kc, logits)
+        for k in (kg, kc):
+            tg = trandom.categorical(k, logits.to(dev)).cpu()
+            compared += tc.numel()
+            equal += int((tc == tg).sum())
+    key = trandom.key(0, device="cpu")
+    logits = torch.randn(SERVE_SLOTS, SAMPLE_VOCAB, device=dev)
+
+    def step():
+        # as DecodeEngine samples: the key split on the host, drawn here
+        return trandom.categorical(trandom.split(key)[1], logits)
+
+    prof = device_profile(step, top=3)
+    emit("sample", seeds=list(SAMPLE_SEEDS),
+         shapes=[list(x) for x in SAMPLE_SHAPES],
+         uniform_shape=[SERVE_SLOTS, SAMPLE_VOCAB], split_bits_equal=True,
+         uniform_equal=True, gumbel_max_gap_ulp=worst,
+         gumbel_tolerance_ulp=SAMPLE_GUMBEL_ULPS, tokens_compared=compared,
+         tokens_equal=equal, step_sample_ms=cuda_ms(step, REPS),
+         step_sample_ms_b2b=cuda_ms_b2b(step, REPS),
+         step_sample_kernels=prof["launches"],
+         step_sample_device_ms=prof["device_ms"])
+    assert worst <= SAMPLE_GUMBEL_ULPS, worst
+    assert compared == 2 * SAMPLE_ROWS * len(SAMPLE_SEEDS), compared
+    assert equal == compared, (equal, compared)
+
+
+def sampled_run(dev, cfg, params, n, max_len, seed):
+    """``DecodeEngine(greedy=False, seed=seed)`` on ``n`` requests drawn as
+    the launcher draws them (seed 0), SERVE_SLOTS slots, fac2; raises
+    unless all complete with the tokens asked for, in the vocabulary.
+    Returns (stats, {rid: tokens})."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import DecodeEngine
+    requests = make_requests(n, max_len, 0)
+    eng = DecodeEngine(cfg, params, slots=SERVE_SLOTS, max_len=max_len,
+                       technique="fac2", greedy=False, seed=seed, device=dev)
+    for r in requests:
+        eng.submit(r)
+    stats = eng.run()
+    assert stats.completed == n, (cfg.name, stats)
+    outs = {r.rid: eng.output(r.rid) for r in requests}
+    for r in requests:
+        assert len(outs[r.rid]) == min(r.max_new_tokens, max_len // 2)
+        assert all(0 <= t < cfg.padded_vocab for t in outs[r.rid])
+    return stats, outs
+
+
+def phase_moe_serve_sampled(dev, cfg, params):
+    """The MoE model of moe_serve saved with ``CheckpointStore``, restored
+    with ``shardings=`` onto a (1, 1) CUDA ``DeviceMesh`` (placements from
+    ``production_rules``), each leaf held bit for bit to the saved one;
+    then sampled serving from the restored leaves: 8 requests on 4 slots
+    with the counts from 0 around the run; then a short run (4 requests,
+    max_len 64) under a device profile, again with the same seed
+    (identical tokens) and with another seed (other tokens).  Returns the
+    launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh, production_rules
+    from repro_torch.models import init_decoder_axes
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.serve.engine import prepare_params
+    from repro_torch.sharding import param_shardings
+    from repro_torch.tree import tree_leaves, tree_map
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        store = CheckpointStore(str(tmp / "ckpt"), keep=1)
+        t0 = time.perf_counter()
+        store.save(1, params)
+        store.wait()
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / "ckpt").rglob("*"))
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        mesh = make_host_mesh()
+        assert mesh.shape == (1, 1) and mesh.device_type == dev.type
+        shardings = param_shardings(
+            production_rules(mesh, dict(cfg.sharding_overrides) or None),
+            params, init_decoder_axes(cfg))
+        t0 = time.perf_counter()
+        restored, _ = store.restore(1, params, shardings=shardings)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        leaves = 0
+        for got, want, sh in zip(tree_leaves(restored), tree_leaves(params),
+                                 tree_leaves(shardings)):
+            assert isinstance(got, DTensor), type(got)
+            assert tuple(got.placements) == sh.placements
+            assert torch.equal(got.to_local(), want), "restore differs"
+            leaves += 1
+        # one GPU holds each leaf whole: serve from the local shards
+        local = prepare_params(tree_map(lambda t: t.to_local(), restored),
+                               dtype_of(cfg.compute_dtype), dev)
+        del restored
+        _build.reset_launches()
+        stats, first = sampled_run(dev, cfg, local, SERVE_REQUESTS,
+                                   SERVE_MAX_LEN, SAMPLED_SEEDS[0])
+        launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
+        assert launches["gmm"] == 3 * cfg.num_layers * stats.steps, (
+            launches, stats.steps)
+        # determinism on short runs (4 requests, max_len 64): the first
+        # profiled, again with its seed, then with the other seed
+        short = {}
+        prof = device_profile(lambda: short.update(
+            first=sampled_run(dev, cfg, local, 4, 64, SAMPLED_SEEDS[0])[1]),
+            watch=("gmm",))
+        first_short = short["first"]
+        again = sampled_run(dev, cfg, local, 4, 64, SAMPLED_SEEDS[0])[1]
+        other = sampled_run(dev, cfg, local, 4, 64, SAMPLED_SEEDS[1])[1]
+        emit("moe_serve_sampled", arch=cfg.name, layers=cfg.num_layers,
+             dispatch="ragged", requests=SERVE_REQUESTS, slots=SERVE_SLOTS,
+             max_len=SERVE_MAX_LEN, technique="fac2", seeds=SAMPLED_SEEDS,
+             mesh={"shape": list(mesh.shape),
+                   "names": list(mesh.mesh_dim_names)},
+             checkpoint={"leaves": leaves, "bytes": ckpt_bytes,
+                         "save_s": save_s, "restore_s": restore_s,
+                         "bit_equal": True},
+             launches=launches, completed=f"{stats.completed}/"
+             f"{SERVE_REQUESTS}", steps=stats.steps, tokens=stats.tokens,
+             tok_per_s=stats.tok_per_s, wall_s=stats.wall_s,
+             step_ms_median=float(np.median(stats.step_ms)),
+             step_ms_p90=float(np.percentile(stats.step_ms, 90)),
+             idle_share=prof["idle_share"], profile_4_requests=prof,
+             same_seed_identical=again == first_short,
+             other_seed_differs=other != first_short,
+             sample_output=first[0][:8])
+        assert again == first_short, "the same seed gave other tokens"
+        assert other != first_short, "another seed gave the same tokens"
+        return launches
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def cluster_run(dev, cfg, params, node, *, replicas, n):
@@ -2231,12 +2595,14 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     # --dense-digest / --hd80-digest / --sched-digest / --dense-times /
-    # --bwd-times / --moe-bwd-times [SRC]: print only that function's result
+    # --bwd-times / --moe-bwd-times / --yardsticks / --serve-times [SRC]:
+    # print only that function's result
     # for the package under SRC (default: this checkout's src), to hold two
     # trees' builds against each other
     modes = {"--dense-digest": dense_digest, "--hd80-digest": hd80_digest,
              "--sched-digest": sched_digest, "--dense-times": dense_times,
-             "--bwd-times": bwd_times, "--moe-bwd-times": moe_bwd_times}
+             "--bwd-times": bwd_times, "--moe-bwd-times": moe_bwd_times,
+             "--yardsticks": yardsticks, "--serve-times": serve_times}
     mode = modes.get(argv[0]) if argv else None
     src = ROOT / "src"
     if mode is not None and len(argv) > 1:
@@ -2455,6 +2821,7 @@ def main(argv) -> int:
                        + 2 * KVH * HD * int(np.minimum(kv_lens, S).sum()))
     flash_bound = 1e3 * max(flash_flops / PEAK_BF16_FLOPS,
                             flash_bytes / PEAK_BYTES)
+    flash_bound_fp32_pv = bound(flash_flops * 3 // 2, flash_bytes)[0]
     sched_by_head_dim = {str(hd): sched_full_shape(dev, randn, hd, kv_lens,
                                                    n_sm)
                          for hd in SCHED_WIDE_HEAD_DIMS}
@@ -2470,7 +2837,7 @@ def main(argv) -> int:
          ms_b2b_ss=flash_ms_b2b_ss, live_tiles_max_cta_ss=tiles_cta_ss,
          percent_imbalance_ss=plan_ss.percent_imbalance,
          plain_ms=plain_ms, library_ms=library_ms, bound_ms=flash_bound,
-         flops=flash_flops, bytes=flash_bytes, groups=int(plan.n),
+         bound_ms_fp32_pv=flash_bound_fp32_pv, flops=flash_flops, bytes=flash_bytes, groups=int(plan.n),
          descriptors=int(desc[0].shape[0]),
          percent_imbalance=plan.percent_imbalance,
          percent_imbalance_p8=plan8.percent_imbalance,
@@ -2565,6 +2932,10 @@ def main(argv) -> int:
     serve_launches = phase_moe_serve(dev, moe_cfg, moe_params)
     cluster_launches, cluster_gmm_err = phase_cluster(
         dev, cluster_dense, moe_cfg, moe_params)
+
+    # ---- this slice: sampled decoding, from a sharded restore -----------
+    phase_sample(dev)
+    sampled_launches = phase_moe_serve_sampled(dev, moe_cfg, moe_params)
     del moe_params
     torch.cuda.empty_cache()
     recurrent_launches = {arch: phase_recurrent(dev, arch)
@@ -2603,17 +2974,21 @@ def main(argv) -> int:
          "percent_imbalance": plan.percent_imbalance,
          "by_head_dim": {hd: {k: r[k] for k in (
              "shape", "max_abs_err", "ms", "ms_b2b", "plain_ms", "library_ms",
-             "bound_ms", "bound_by")} for hd, r in sched_by_head_dim.items()}},
+             "bound_ms", "bound_by", "bound_ms_fp32_pv")}
+             for hd, r in sched_by_head_dim.items()},
+         "bound_ms_fp32_pv": flash_bound_fp32_pv},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gmm.cu",
          "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:37",
          "launches": (launches["gmm"] + moe_launches["gmm"]
                       + serve_launches["gmm"] + cluster_launches["gmm"]
+                      + sampled_launches["gmm"]
                       + moe_train_launches["gmm"]),
          "launches_by_path": {"main_path": launches["gmm"],
                               "moe_prefill": moe_launches["gmm"],
                               "moe_serve": serve_launches["gmm"],
                               "cluster_moe": cluster_launches["gmm"],
+                              "moe_serve_sampled": sampled_launches["gmm"],
                               "moe_train": moe_train_launches["gmm"]},
          "max_abs_err": max(max(r["max_abs_err"] for r in gmm_rows.values()),
                             cluster_gmm_err),

@@ -14,7 +14,9 @@ the port's own (``tree.tree_structure``); restore does not read it.
 
 Features: atomic directory commit (tmp + rename), keep-last-k GC, async
 background writer (training continues while the previous step persists),
-checksum validation on restore, and `latest_step` discovery for restart.
+leaves written and read by a pool of threads, checksum validation on
+restore, resharding onto a mesh on restore, and `latest_step` discovery
+for restart.
 """
 
 from __future__ import annotations
@@ -24,17 +26,22 @@ import json
 import os
 import shutil
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from ..tree import tree_flatten_with_path, tree_structure, tree_unflatten
+from ..tree import (tree_flatten_with_path, tree_leaves, tree_structure,
+                    tree_unflatten)
 
 __all__ = ["CheckpointStore"]
 
 _KEY_FORMAT = {"index": "[{}]", "key": "['{}']", "attr": ".{}"}
+#: leaves written or read at once: file I/O and sha256 release the
+#: interpreter lock, so a large checkpoint moves at several threads' rate
+_IO_THREADS = 8
 
 
 def _leaf_paths(tree) -> list[tuple[str, Any]]:
@@ -47,6 +54,15 @@ def _leaf_paths(tree) -> list[tuple[str, Any]]:
         key = key.replace("'", "").replace(".", "_").replace("/", "__")
         out.append((key or "root", leaf))
     return out
+
+
+def _sha(path: Path) -> str:
+    """The manifest's checksum: sha256 of the file, 16 hex digits."""
+    digest = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            digest.update(chunk)
+    return digest.hexdigest()[:16]
 
 
 def _to_host(x) -> np.ndarray:
@@ -89,15 +105,18 @@ class CheckpointStore:
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
-        manifest = {"step": step, "extra": extra,
-                    "treedef": treedef, "leaves": []}
-        for i, (key, leaf) in enumerate(host):
+
+        def write(item):
+            i, (key, leaf) = item
             fname = f"{i:04d}_{key[:80]}.npy"
             np.save(tmp / fname, leaf)
-            digest = hashlib.sha256((tmp / fname).read_bytes()).hexdigest()[:16]
-            manifest["leaves"].append(
-                dict(file=fname, key=key, shape=list(np.shape(leaf)),
-                     dtype=str(leaf.dtype), sha=digest))
+            return dict(file=fname, key=key, shape=list(np.shape(leaf)),
+                        dtype=str(leaf.dtype), sha=_sha(tmp / fname))
+
+        with ThreadPoolExecutor(_IO_THREADS) as pool:
+            leaves = list(pool.map(write, enumerate(host)))
+        manifest = {"step": step, "extra": extra,
+                    "treedef": treedef, "leaves": leaves}
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         if final.exists():
             shutil.rmtree(final)
@@ -135,28 +154,38 @@ class CheckpointStore:
                 validate: bool = True):
         """Restore into the structure of ``like_tree``: a tensor leaf of it
         gives the restored tensor its device, any other leaf leaves a numpy
-        array.  ``shardings`` (the reference's resharding on a mesh) waits
-        for the sharding slice (ROADMAP.md section 1, item 6)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) waits for the sharding slice "
-                "(ROADMAP.md section 1, item 6); one GPU needs none")
+        array.  ``shardings``, a tree of ``sharding.NamedSharding`` shaped
+        like ``like_tree`` (``param_shardings``' output), puts each leaf on
+        its mesh as a DTensor instead: every rank reads the whole array and
+        keeps its own shard, so no data crosses ranks, and the mesh may
+        differ from the one that saved (elastic restart)."""
         self.wait()
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
-        arrays = []
-        for leaf_info in manifest["leaves"]:
-            raw = (d / leaf_info["file"]).read_bytes()
-            if validate:
-                digest = hashlib.sha256(raw).hexdigest()[:16]
-                if digest != leaf_info["sha"]:
-                    raise IOError(
-                        f"checksum mismatch for {leaf_info['file']}")
-            arrays.append(np.load(d / leaf_info["file"]))
+
+        def load(leaf_info):
+            path = d / leaf_info["file"]
+            if validate and _sha(path) != leaf_info["sha"]:
+                raise IOError(f"checksum mismatch for {leaf_info['file']}")
+            return np.load(path)
+
+        with ThreadPoolExecutor(_IO_THREADS) as pool:
+            arrays = list(pool.map(load, manifest["leaves"]))
         likes = [leaf for _, leaf in tree_flatten_with_path(like_tree)]
         if len(likes) != len(arrays):
             raise ValueError(f"checkpoint holds {len(arrays)} leaves, the "
                              f"tree {len(likes)}")
-        leaves = [torch.from_numpy(a).to(like.device) if torch.is_tensor(like)
-                  else a for a, like in zip(arrays, likes)]
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+            flat_s = tree_leaves(shardings)
+            if len(flat_s) != len(arrays):
+                raise ValueError(f"{len(flat_s)} shardings for "
+                                 f"{len(arrays)} leaves")
+            leaves = [distribute_tensor(torch.from_numpy(a), s.mesh,
+                                        s.placements, src_data_rank=None)
+                      for a, s in zip(arrays, flat_s)]
+        else:
+            leaves = [torch.from_numpy(a).to(like.device)
+                      if torch.is_tensor(like) else a
+                      for a, like in zip(arrays, likes)]
         return tree_unflatten(like_tree, leaves), manifest["extra"]

@@ -15,7 +15,9 @@ arrays numpy can read (``np.asarray`` of each leaf; JAX arrays qualify):
     KV caches and recurrent states alike;
   * ``adamw_state_from_jax``: a reference ``AdamWState`` (step, mu, nu) ->
     the port's, the moments nested as ``decoder_params_from_jax`` nests
-    parameters.
+    parameters;
+  * ``key_from_jax``: ``jax.random.key_data`` of a key -> the port's key
+    (``repro_torch.random``), so both packages draw from one key.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from .models.recurrent import MLSTMState, RGLRUState, SLSTMState
 from .optim.adamw import AdamWState
 
 __all__ = ["params_from_jax", "flatten_tree", "decoder_params_from_jax",
-           "decode_state_from_jax", "adamw_state_from_jax"]
+           "decode_state_from_jax", "adamw_state_from_jax", "key_from_jax"]
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
@@ -116,3 +118,15 @@ def adamw_state_from_jax(state: Any, *,
     return AdamWState(step=_tensor(state.step, dev),
                       mu=decoder_params_from_jax(state.mu, device=dev),
                       nu=decoder_params_from_jax(state.nu, device=dev))
+
+
+def key_from_jax(key_data: Any, *,
+                 device: Optional[Union[str, torch.device]] = None
+                 ) -> torch.Tensor:
+    """The (2,) uint32 pair of ``jax.random.key_data`` -> the port's key, the
+    same words in int64 on ``device`` (the card unless ``"cpu"``)."""
+    arr = np.asarray(key_data)
+    if arr.shape != (2,) or arr.dtype != np.uint32:
+        raise ValueError(f"want a (2,) uint32 key data, got {arr.shape} "
+                         f"{arr.dtype}")
+    return torch.from_numpy(arr.astype(np.int64)).to(resolve_device(device))

@@ -4,8 +4,10 @@ Copy of ``src/repro/core/schedule.py`` for the PyTorch port, kept
 byte-faithful so both packages resolve the same specs to the same
 registry entries.  The port's ``torch_sched`` binds the closed graph
 forms and ``graph_sim`` the campaign forms, as the reference's modules
-do; the docs generator (``python -m repro.core.schedule --doc``) stays
-with the reference.
+do.  The docs generator (``python -m repro_torch.core.schedule --doc``,
+``--out FILE``, ``--check FILE``) renders the technique reference from
+this registry, byte for byte the reference generator's text; it writes
+only to the ``--out`` path it is given.
 
 This is the repo's ``OMP_SCHEDULE`` / user-defined-scheduling API (after
 Kale et al., "Toward a Standard Interface for User-Defined Scheduling in
@@ -597,3 +599,218 @@ def resolve(spec: "ScheduleSpec | str | None", *,
     if chunk_param is not None:
         out = out.with_chunk_param(chunk_param)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Documentation generator — `python -m repro_torch.core.schedule --doc`
+# ---------------------------------------------------------------------------
+
+# the reference generator's marker, word for word: the output is its text
+_DOC_MARKER = ("<!-- AUTO-GENERATED by `python -m repro.core.schedule --doc "
+               "--out docs/techniques.md` — DO NOT EDIT. CI regenerates this "
+               "file and fails on any diff (docs-sync). -->")
+
+
+def _planning_form(entry: TechniqueEntry) -> str:
+    g = entry.graph
+    if g is None or (g.builder is None and g.next_size is None):
+        # step-only graph forms (the adaptive campaign band) are not
+        # plannable: the chunk sequence depends on measured telemetry
+        return "host band"
+    if g.builder is not None:
+        return "in-graph (array builder)"
+    return ("in-graph (while-loop, batched)" if g.batched
+            else "in-graph (while-loop)")
+
+
+def _graph_band(entry: TechniqueEntry) -> str:
+    # the band `graph_sim.simulate_batch_graph` runs this technique on
+    g = entry.graph
+    if g is not None and g.step is not None:
+        return "lax.scan campaign"
+    if g is not None and (g.builder is not None or g.next_size is not None):
+        return "planned (closed form)"
+    return "host fallback"
+
+
+def _chunk_param_semantics(entry: TechniqueEntry) -> str:
+    # paper Sec. 3, "Significance of chunk parameter" — read off the
+    # registry metadata (TechniqueSpec.chunk_exact), never a name list
+    return "exact chunk size" if entry.meta.chunk_exact else "lower bound"
+
+
+def _batch_band(entry: TechniqueEntry) -> str:
+    # the band `simulate_batch` routes this technique through (mirrors
+    # the routing predicate in core/batch_sim.py)
+    m = entry.meta
+    if not (m.adaptive or m.worker_dependent):
+        return "plan precompute"
+    if entry.step_batch is not None and m.sync != "mutex":
+        return "lockstep (steal)" if m.stealing else "lockstep (step_batch)"
+    return "event oracle"
+
+
+def generate_techniques_doc(registry: "TechniqueRegistry") -> str:
+    """Render the technique reference from the live registry.
+
+    Every cell is read off :class:`TechniqueEntry` (host class, graph
+    form, :class:`TechniqueSpec` metadata), so the document cannot drift
+    from the portfolio — CI regenerates it and fails on any diff.
+    """
+    entries = [registry[n] for n in registry]
+    paper = [e.name for e in entries if e.paper_set]
+    graph = [e.name for e in entries if e.graph is not None
+             and (e.graph.builder is not None
+                  or e.graph.next_size is not None)]
+    scan = [e.name for e in entries if e.graph is not None
+            and e.graph.step is not None]
+    adaptive = [e.name for e in entries if e.meta.adaptive]
+    stepb = [e.name for e in entries if e.step_batch is not None]
+    steal = [e.name for e in entries if e.meta.stealing]
+    lines = [
+        "# Technique reference",
+        "",
+        _DOC_MARKER,
+        "",
+        f"{len(entries)} registered techniques "
+        f"({len(paper)} in the paper's LB4OMP set, {len(adaptive)} "
+        f"adaptive, {len(steal)} in the work-stealing band, "
+        f"{len(graph)} with an in-graph closed form, "
+        f"{len(stepb)} with a vectorized `step_batch` form, "
+        f"{len(scan)} with an in-graph campaign (`lax.scan`) form).  "
+        "Rows are in registration order — the portfolio order the paper "
+        "tables use.  Aliases: "
+        + ", ".join(f"`{a}` -> `{t}`" for a, t in sorted(_ALIASES.items()))
+        + ".",
+        "",
+        "| technique | host class | band | planning form | batch engine | "
+        "graph band | "
+        "`chunk_param` | adaptive | profiling | sync | o_cs | worker-dep "
+        "| paper set |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for e in entries:
+        m = e.meta
+        lines.append(
+            f"| `{e.name}` | `{e.cls.__name__}` | "
+            f"{'steal' if m.stealing else 'self-sched'} | "
+            f"{_planning_form(e)} | "
+            f"{_batch_band(e)} | "
+            f"{_graph_band(e)} | "
+            f"{_chunk_param_semantics(e)} | "
+            f"{'yes' if m.adaptive else 'no'} | "
+            f"{'yes' if m.requires_profiling else 'no'} | "
+            f"{m.sync} | {m.o_cs:g} | "
+            f"{'yes' if m.worker_dependent else 'no'} | "
+            f"{'yes' if e.paper_set else 'no'} |")
+    lines += [
+        "",
+        "## Column semantics",
+        "",
+        "- **host class** — the reference state machine in "
+        "`repro.core.techniques` (`spec.make(n=..., p=...)` instantiates "
+        "it); drives the discrete-event simulator and the host planner.",
+        "- **planning form** — *in-graph* techniques carry a jit-"
+        "compatible closed form (`repro.core.jax_sched.plan_chunks` / "
+        "`ScheduleSpec(backend=\"graph\")`): either a direct array "
+        "builder or a per-request `lax.while_loop` rule (*batched* = the "
+        "factoring family, chunk frozen per batch of P requests).  *Host "
+        "band* techniques plan through the reference class only.",
+        "- **band** — scheduling paradigm: *self-sched* techniques pull "
+        "chunks from a shared queue governed by a chunk calculus; "
+        "*steal* techniques (`repro.core.stealing`) pre-partition the "
+        "iteration space into per-worker deques and redistribute via "
+        "victim polling, paying `o_steal` per probe instead of per-chunk "
+        "queue synchronization.",
+        "- **batch engine** — the band `repro.core.simulate_batch` runs "
+        "the technique on: *plan precompute* (chunk sequence is a pure "
+        "function of the config — materialized up front, stepped in "
+        "vectorized rounds), *lockstep (step_batch)* (adaptive / worker-"
+        "dependent calculus with a vectorized lane-parallel form bound "
+        "via `bind_step_batch` — all lanes advance one chunk round per "
+        "NumPy step), or *event oracle* (one heapq event at a time).  "
+        "All three agree with the discrete-event oracle bit-for-bit.",
+        "- **graph band** — the band the jitted campaign engine "
+        "(`repro.core.graph_sim.simulate_batch_graph`) runs the technique "
+        "on: *lax.scan campaign* (adaptive/worker-dependent calculus "
+        "generated from the technique's `TechniqueDef` — dense `(L, p)` "
+        "state as jax arrays, `lax.scan` over chunk rounds, `vmap` over "
+        "lanes), *planned (closed form)* (non-adaptive sequence "
+        "materialized via `jax_sched.plan_chunks`), or *host fallback* "
+        "(delegated to `simulate_batch`'s host bands).",
+        "- **`chunk_param`** — OpenMP chunk parameter: the exact chunk "
+        "size for `static`/`ss`, a lower-bound threshold for every other "
+        "technique (paper Sec. 3).",
+        "- **adaptive** — chunk sizes fold measured telemetry "
+        "(`complete_chunk` / `adapt_every` cadence); adaptivity is what "
+        "`MoEBalancer` and the serving scheduler rely on.",
+        "- **profiling** — needs per-iteration mu/sigma (or overhead h) "
+        "up front: the `profile_workload` inputs from paper Sec. 4.4.",
+        "- **sync** — synchronization primitive on a shared queue "
+        "(`none` / `atomic` / `mutex`); with **o_cs**, the relative "
+        "chunk-calculation cost, it parameterizes the simulator's "
+        "three-factor overhead model (o_sr, o_cs, o_sync).",
+        "- **worker-dep** — chunk sizes depend on the requesting "
+        "worker's identity (e.g. WF2's fixed weights); tells the batch "
+        "engine the sequence is not precomputable.",
+        "- **paper set** — one of the 14 techniques LB4OMP adds over "
+        "standard OpenMP scheduling (paper Sec. 3.1).",
+        "",
+        "Plugins registered with `@register_technique` (see "
+        "`examples/custom_technique.py`) appear here automatically on "
+        "regeneration.",
+        "",
+    ]
+    return "\n".join(lines)
+
+
+def _main(argv: Optional[Sequence[str]] = None) -> None:
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.core.schedule",
+        description="Generate docs/techniques.md from the live registry.")
+    ap.add_argument("--doc", action="store_true",
+                    help="print the generated technique reference")
+    ap.add_argument("--out", metavar="FILE",
+                    help="write the generated reference to FILE")
+    ap.add_argument("--check", metavar="FILE",
+                    help="exit 1 unless FILE matches the generator output "
+                         "byte-for-byte (the CI docs-sync gate)")
+    args = ap.parse_args(argv)
+    if not (args.doc or args.out or args.check):
+        ap.error("pass --doc, --out FILE, or --check FILE")
+
+    # Populate the *canonical* registry: under `python -m`, this file runs
+    # as __main__ with its own empty REGISTRY; the host classes and graph
+    # forms registered into repro_torch.core.schedule's instance.
+    import repro_torch.core  # noqa: F401  (techniques, torch_sched, graph_sim)
+    from repro_torch.core.schedule import REGISTRY as canonical
+
+    doc = generate_techniques_doc(canonical)
+    if args.check:
+        try:
+            with open(args.check, encoding="utf-8") as f:
+                current = f.read()
+        except FileNotFoundError:
+            current = None
+        if current != doc:
+            sys.stderr.write(
+                f"docs-sync: {args.check} is stale — regenerate with\n"
+                f"  PYTHONPATH=src python -m repro_torch.core.schedule --doc "
+                f"--out {args.check}\n")
+            raise SystemExit(1)
+        print(f"docs-sync OK: {args.check} matches the registry "
+              f"({len(canonical)} techniques)")
+        return
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            f.write(doc)
+        print(f"wrote {args.out}")
+    else:
+        sys.stdout.write(doc)
+
+
+if __name__ == "__main__":  # pragma: no cover - exercised via CI docs-sync
+    _main()

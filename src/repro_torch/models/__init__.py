@@ -9,6 +9,7 @@ from .decoder import (  # noqa: F401
     forward,
     init_decode_state,
     init_decoder,
+    init_decoder_axes,
     loss_fn,
 )
-from .attention import KVCache, init_kv_cache  # noqa: F401
+from .attention import KVCache, init_kv_cache, kv_cache_specs  # noqa: F401

@@ -102,6 +102,30 @@ def init_kv_cache_q(cfg, batch: int, max_len: int, window: int = 0, *,
         pos=torch.zeros((batch,), dtype=torch.int32, device=dev))
 
 
+def kv_cache_specs(cfg, batch: int, max_len: int, window: int = 0,
+                   dtype=torch.bfloat16) -> KVCache:
+    """``init_kv_cache``'s tensors on the meta device (shape and dtype, no
+    storage), the reference's ShapeDtypeStruct version."""
+    shape = _cache_shape(cfg, batch, max_len, window)
+    return KVCache(k=torch.empty(shape, dtype=dtype, device="meta"),
+                   v=torch.empty(shape, dtype=dtype, device="meta"),
+                   pos=torch.empty((batch,), dtype=torch.int32, device="meta"))
+
+
+def kv_cache_q_specs(cfg, batch: int, max_len: int, window: int = 0
+                     ) -> KVCacheQ:
+    """``init_kv_cache_q``'s tensors on the meta device."""
+    shape = _cache_shape(cfg, batch, max_len, window)
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    return KVCacheQ(k=meta(shape, torch.int8), v=meta(shape, torch.int8),
+                    k_scale=meta(shape[:3], torch.float32),
+                    v_scale=meta(shape[:3], torch.float32),
+                    pos=meta((batch,), torch.int32))
+
+
 def _quantize_token(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x (b, 1, kvh, hd) -> (int8 values, f32 scale (b, 1, kvh)).
 

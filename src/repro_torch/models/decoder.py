@@ -39,11 +39,15 @@ from ..device import resolve_device
 from ..sharding import Ax
 from ..tree import tree_leaves, tree_map
 from .attention import (
+    KVCache,
+    KVCacheQ,
     attention,
     attention_decode,
     init_attention,
     init_kv_cache,
     init_kv_cache_q,
+    kv_cache_q_specs,
+    kv_cache_specs,
 )
 from .layers import (
     dtype_of,
@@ -58,6 +62,9 @@ from .layers import (
 from .mlp import init_mlp, mlp
 from .moe import init_moe, moe
 from .recurrent import (
+    MLSTMState,
+    RGLRUState,
+    SLSTMState,
     init_mlstm,
     init_mlstm_state,
     init_rglru,
@@ -179,7 +186,11 @@ def init_decoder(seed: int, cfg, *, device=None):
     """(params, axes) of the decoder, drawn from ``torch.Generator`` seeded
     with ``seed`` on ``device`` (the card unless ``"cpu"``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return _init_decoder(torch.Generator(device=dev).manual_seed(int(seed)),
+                         cfg)
+
+
+def _init_decoder(gen: torch.Generator, cfg):
     g, pattern, remainder = _group_split(cfg)
     params: dict[str, Any] = {}
     axes: dict[str, Any] = {}
@@ -188,7 +199,7 @@ def init_decoder(seed: int, cfg, *, device=None):
     if not cfg.tie_embeddings:
         params["unembed"], axes["unembed"] = embed_init(
             gen, cfg.padded_vocab, cfg.d_model)
-    params["final_norm"] = norm_init(cfg.d_model, device=dev)[0]
+    params["final_norm"] = norm_init(cfg.d_model, device=gen.device)[0]
     axes["final_norm"] = Ax("embed")
 
     grp_p, grp_a = [], []
@@ -208,6 +219,27 @@ def init_decoder(seed: int, cfg, *, device=None):
     params["remainder"] = tuple(rem_p)
     axes["remainder"] = tuple(rem_a)
     return params, axes
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is ``meta``: the initialisers allocate
+    on ``gen.device``, and on the meta device they draw nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def decoder_param_specs(cfg):
+    """(parameter tree on the meta device, axes tree): shapes and dtypes
+    without allocation, the reference's ``eval_shape`` of
+    ``init_decoder``."""
+    return _init_decoder(_MetaGenerator(), cfg)
+
+
+def init_decoder_axes(cfg):
+    """Axes tree without allocating params."""
+    return decoder_param_specs(cfg)[1]
 
 
 def _layers(params, cfg):
@@ -335,12 +367,19 @@ class DecodeState(NamedTuple):
 
 
 def _cache_for(cfg, kind: str, batch: int, max_len: int,
-               device: Optional[torch.device]):
+               device: Optional[torch.device], spec: bool = False):
+    """A fresh cache of ``kind`` on ``device``; with ``spec`` (``device``
+    then meta), its meta-tensor stand-in."""
     if kind in ("attn", "local_attn"):
         window = cfg.window if kind == "local_attn" else 0
+        if spec:
+            if cfg.kv_cache_dtype == "int8":
+                return kv_cache_q_specs(cfg, batch, max_len, window=window)
+            return kv_cache_specs(cfg, batch, max_len, window=window)
         init = (init_kv_cache_q if cfg.kv_cache_dtype == "int8"
                 else init_kv_cache)
         return init(cfg, batch, max_len, window=window, device=device)
+    # the recurrent states allocate on ``device`` as given: meta for a spec
     if kind == "mlstm":
         return init_mlstm_state(cfg, batch, device=device)
     if kind == "slstm":
@@ -351,19 +390,55 @@ def _cache_for(cfg, kind: str, batch: int, max_len: int,
 
 
 def init_decode_state(cfg, batch: int, max_len: int, *,
-                      device=None) -> DecodeState:
-    dev = resolve_device(device)
+                      device=None, spec: bool = False) -> DecodeState:
+    """Fresh decode caches on ``device`` (the card unless ``"cpu"``); with
+    ``spec``, meta tensors of their shapes and dtypes (no allocation)."""
+    dev = torch.device("meta") if spec else resolve_device(device)
     g, pattern, remainder = _group_split(cfg)
     group_caches = tuple(
         tree_map(lambda *a: torch.stack(a),
-                  *[_cache_for(cfg, kind, batch, max_len, dev)
+                  *[_cache_for(cfg, kind, batch, max_len, dev, spec)
                     for _ in range(g)])
         for kind in pattern) if g > 0 else ()
-    rem = tuple(_cache_for(cfg, kind, batch, max_len, dev)
+    rem = tuple(_cache_for(cfg, kind, batch, max_len, dev, spec)
                 for kind in remainder)
     return DecodeState(group_caches=group_caches, rem_caches=rem,
                        pos=torch.zeros((batch,), dtype=torch.int32,
                                        device=dev))
+
+
+def _cache_axes_for(cfg, kind: str):
+    if kind in ("attn", "local_attn"):
+        if cfg.kv_cache_dtype == "int8":
+            return KVCacheQ(
+                k=Ax("batch", "seq_cache", "kv_heads", "head_dim"),
+                v=Ax("batch", "seq_cache", "kv_heads", "head_dim"),
+                k_scale=Ax("batch", "seq_cache", "kv_heads"),
+                v_scale=Ax("batch", "seq_cache", "kv_heads"),
+                pos=Ax())
+        return KVCache(k=Ax("batch", "seq_cache", "kv_heads", "head_dim"),
+                       v=Ax("batch", "seq_cache", "kv_heads", "head_dim"),
+                       pos=Ax())
+    if kind == "mlstm":
+        return MLSTMState(c=Ax("batch", "heads", None, None),
+                          n=Ax("batch", "heads", None), m=Ax("batch", "heads"))
+    if kind == "slstm":
+        return SLSTMState(c=Ax("batch", None), n=Ax("batch", None),
+                          h=Ax("batch", None), m=Ax("batch", None))
+    if kind == "rglru":
+        return RGLRUState(h=Ax("batch", "lru"), conv=Ax("batch", None, "lru"))
+    raise KeyError(kind)
+
+
+def decode_state_axes(cfg) -> DecodeState:
+    """Logical axes tree matching init_decode_state (for shardings)."""
+    g, pattern, remainder = _group_split(cfg)
+    group_caches = tuple(
+        tree_map(lambda a: Ax("stack", *a.names), _cache_axes_for(cfg, kind))
+        for kind in pattern)
+    rem = tuple(_cache_axes_for(cfg, kind) for kind in remainder)
+    return DecodeState(group_caches=group_caches, rem_caches=rem,
+                       pos=Ax("batch"))
 
 
 def decode_step(params, cfg, state: DecodeState, tokens):

@@ -67,6 +67,11 @@ def init_mlstm_state(cfg, batch: int, dtype=torch.float32, *,
     )
 
 
+def mlstm_state_specs(cfg, batch: int, dtype=torch.float32) -> MLSTMState:
+    """``init_mlstm_state``'s tensors on the meta device (no storage)."""
+    return init_mlstm_state(cfg, batch, dtype, device="meta")
+
+
 def _mlstm_proj(params, cfg, x):
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
@@ -223,6 +228,11 @@ def init_slstm_state(cfg, batch: int, dtype=torch.float32, *,
                                    device=device))
 
 
+def slstm_state_specs(cfg, batch: int, dtype=torch.float32) -> SLSTMState:
+    """``init_slstm_state``'s tensors on the meta device (no storage)."""
+    return init_slstm_state(cfg, batch, dtype, device="meta")
+
+
 def _slstm_step(params, cfg, state: SLSTMState, zx) -> SLSTMState:
     """zx: (b, 4d) pre-activations from the input projection."""
     b = zx.shape[0]
@@ -313,6 +323,11 @@ def init_rglru_state(cfg, batch: int, dtype=torch.float32, *,
         h=torch.zeros((batch, w), dtype=dtype, device=device),
         conv=torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype,
                          device=device))
+
+
+def rglru_state_specs(cfg, batch: int, dtype=torch.float32) -> RGLRUState:
+    """``init_rglru_state``'s tensors on the meta device (no storage)."""
+    return init_rglru_state(cfg, batch, dtype, device="meta")
 
 
 _LRU_C = 8.0

@@ -9,7 +9,7 @@ states) are reset in place to a fresh single-lane state and the new
 request's prompt is prefilled token by token through the same step
 function.
 
-Differences from the reference, none of which changes a greedy output:
+Differences from the reference, none of which changes an output:
   * eager PyTorch, no ``jit``;
   * the matmul weights that the reference casts at their use (attention,
     FFN and expert stacks, the recurrent mixers' projections) are cast to
@@ -18,9 +18,12 @@ Differences from the reference, none of which changes a greedy output:
     ``lam``, conv taps), embeddings and norms stay as given.  A tree
     that ``prepare_params`` already made is taken as it is, so engines
     built on one such tree share its tensors (``launch.serve.run_cluster``);
-  * the decode state is updated in place;
-  * sampled decoding (``greedy=False``) draws from a ``torch.Generator``
-    seeded with ``seed``; it cannot give ``jax.random``'s bits.
+  * the decode state is updated in place.
+Sampled decoding (``greedy=False``) draws with ``repro_torch.random``,
+``jax.random``'s threefry bits on the engine's device: the key of ``seed``,
+split once a step as the reference splits it, greedy or not.  The key
+stays on the host, so the split is a little numpy work and launches
+nothing on the card.
 On the card every step is timed with CUDA events (``EngineStats.step_ms``).
 """
 
@@ -39,6 +42,7 @@ from ..core.torch_sched import kernel_plan_cache_stats, plan_tiles_cached
 from ..device import resolve_device
 from ..models import decode_step, init_decode_state
 from ..models.layers import dtype_of
+from ..random import categorical, key, split
 from .scheduler import Request, RequestScheduler
 
 __all__ = ["DecodeEngine", "EngineStats", "prepare_params"]
@@ -114,7 +118,7 @@ class DecodeEngine:
                                        device=self.device)
         self.greedy = greedy
         self.temperature = temperature
-        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._rng = key(seed, device="cpu")
         # per-slot run state
         self._queue: list[list[Request]] = [[] for _ in range(slots)]
         self._active: list[Optional[Request]] = [None] * slots
@@ -324,14 +328,14 @@ class DecodeEngine:
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
             ev0.record()
+        self._rng, sub = split(self._rng)
         logits, self.state = decode_step(self.params, self.cfg, self.state,
                                          tokens)
         last = logits[:, -1, :]
         if self.greedy:
             nxt = torch.argmax(last, dim=-1)
         else:
-            probs = torch.softmax(last / self.temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+            nxt = categorical(sub, last / self.temperature, axis=-1)
         if timed:
             ev1.record()
         nxt = nxt.cpu().numpy()          # waits for the step

@@ -20,6 +20,7 @@ import torch
 from ..core.schedule import ScheduleSpec, resolve
 from ..models import decode_step, loss_fn
 from ..optim.adamw import AdamWState, OptimizerConfig, adamw_update
+from ..random import categorical
 from ..tree import tree_leaves, tree_unflatten
 
 
@@ -122,19 +123,20 @@ def make_prefill_step(cfg):
 
 
 def make_serve_step(cfg, sample: bool = False, temperature: float = 1.0):
-    """One greedy decode step: (params, state, tokens (b,1), rng) ->
-    (next_tokens (b,1), state).  ``rng`` is unused; sampling waits for
-    ROADMAP.md section 1, item 7 (the reference draws from
-    ``jax.random``, whose bits a ``torch.Generator`` cannot give)."""
-    if sample:
-        raise NotImplementedError(
-            "make_serve_step(sample=True) waits for sampled decoding "
-            "(ROADMAP.md section 1, item 7); greedy decoding is ported")
+    """One decode step: (params, state, tokens (b,1), rng) ->
+    (next_tokens (b,1), state).  ``sample`` draws with
+    ``repro_torch.random.categorical`` from the key ``rng`` (the reference's
+    key data), as the reference draws with ``jax.random``; greedy decoding
+    takes no key."""
 
     @torch.no_grad()
     def serve_step(params, state, tokens, rng=None):
         logits, new_state = decode_step(params, cfg, state, tokens)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1)
+        logits = logits[:, -1, :]
+        if sample:
+            nxt = categorical(rng, logits / temperature, axis=-1)
+        else:
+            nxt = torch.argmax(logits, dim=-1)
         return nxt[:, None].to(torch.int32), new_state
 
     return serve_step

@@ -158,7 +158,9 @@ def test_checksum_mismatch_raises_and_gc_keeps_k(tmp_path):
     with pytest.raises(IOError, match="checksum"):
         store.restore(4, tree)
     store.restore(4, tree, validate=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a shardings tree must hold one sharding a leaf (the sharded restore
+    # itself: test_torch_compression.py)
+    with pytest.raises(ValueError, match="shardings for"):
         store.restore(5, tree, shardings=object())
 
 

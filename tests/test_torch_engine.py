@@ -293,8 +293,8 @@ def test_engine_shedding_matches(models, slo, disable):
 
 
 def test_sampled_decoding_is_seeded(models):
-    """Sampling draws from a torch.Generator seeded with ``seed``: it cannot
-    give jax.random's bits, so it is held to itself, not to the reference."""
+    """Sampling from one seed gives the same tokens twice, all in the
+    vocabulary (the reference's tokens: test_torch_random.py)."""
     _, _, tcfg, tparams, _ = models["port"]
 
     def sample(seed):

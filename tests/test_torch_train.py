@@ -278,7 +278,7 @@ def test_trainer_with_a_failure_matches_reference(tmp_path):
 
 def test_prefill_and_greedy_serve_steps_match_reference():
     """Last-position prefill logits within 1e-4; three greedy decode steps
-    give the reference's tokens; sampling is not ported yet."""
+    give the reference's tokens (the sampled step: test_torch_random.py)."""
     rcfg, pcfg = _cfgs()
     params, _ = jm.init_decoder(jax.random.key(0), rcfg)
     tparams = decoder_params_from_jax(jax.tree.map(np.asarray, params),
@@ -300,8 +300,6 @@ def test_prefill_and_greedy_serve_steps_match_reference():
         tok, state = step(tparams, state, tok)
         np.testing.assert_array_equal(tok.numpy(), np.asarray(rtok))
     assert init_decode_state(pcfg, 2, 16, device="cpu").pos.shape == (2,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_serve_step(pcfg, sample=True)
 
 
 def test_launch_train_on_cpu(tmp_path):
