@@ -197,6 +197,35 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                against ``grouped_matmul_bwd_plain``, two runs
                bit-identical, their times, ``torch.bmm``'s, the bound and
                a digest of the dX outputs
+  kernels_any_dtype
+               the general kernels (``gmm_simt.cu``, ``flash_simt.cu``,
+               ``flash_simt_bwd.cu``: plain fp32 FMA, the dtypes and shapes
+               the wgmma kernels do not take) against their plain versions:
+               gmm, gmm_dx and gmm_dw in fp32 and bf16 at the reference MoE
+               demo's shape (4 experts x 16 rows, 8-row tiles, d 64, f 32)
+               and at qwen3-moe-30b-a3b's width in 8-row tiles (128 x 64
+               rows, d 2048, f 768), each with the kernel its route took;
+               the fp32 flash forward dense and causal at head dims 64,
+               80, 128 and 256 (the models' heads; hd 256 with window
+               2048) and ragged at the main path's lanes in a fac2 plan;
+               the fp32 backward at qwen3-4b's training shape.  Each: its
+               time (single calls and back to back), the plain version's,
+               ``torch.bmm`` / SDPA in fp32 on the same tensors, and the
+               bound (fp32 operations at 67 TFLOP/s).  Then launch counts
+               set to 0 and the fp32 model path: ``flash_attention`` with
+               a schedule at the main path's lanes, one loss and gradient
+               of qwen3-4b and of the ragged qwen3-moe-30b-a3b at full
+               width, 2 layers, compute_dtype "float32", on 2 x 4096
+               tokens; the counts read right after (every general kernel
+               launched), then the gradients against the plain attention's
+               and the plain grouped matmul's
+  examples     the seven twins of ``examples/`` (``torch_*.py``), each in
+               its own process at its default arguments, launch counts from
+               0 at its start and read at its end: exit code, wall seconds
+               and the numbers each prints (losses, checkpoint steps, the
+               restart step and shares, tokens/s, the tile plan's p.i.);
+               moe_balance_demo under ``torch.profiler``: 2 launches of
+               ``gmm_simt``, no plain version
   kernels      the summary line, one entry per kernel; ``launches`` sums
                the counted runs of every path that launches the kernel
                (``launches_by_path``); flash_sched's and flash_dense's
@@ -382,10 +411,58 @@ MOE_GMM_PER_LAYER, MOE_DX_PER_LAYER, MOE_DW_PER_LAYER = 6, 3, 3
 # ln(vocab) plus about half the logits' variance (qwen3-4b's 16 layers read
 # 0.48 above ln 151936, these 2 MoE layers 0.64 above)
 MOE_TRAIN_LOSS0_BAND = 1.0
+# the general kernels (gmm_simt.cu, flash_simt.cu, flash_simt_bwd.cu): every
+# dtype and shape the reference's kernel entries take, in plain fp32 FMA.
+# Their bound counts fp32 operations at the card's rate outside the tensor
+# cores (bf16 and fp16 ones at the tensor cores' bf16 rate).  Tolerances
+# against the fp32 plain versions (TF32 off): SIMT_GMM_TOL + SIMT_GMM_TOL
+# |plain| for the grouped matmul family, SIMT_FLASH_TOL likewise for flash
+# attention (sums of up to thousands of fp32 products in another order);
+# a bf16 output within ATOL + RTOL |plain| as the wgmma kernels
+PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 rate outside the tensor cores
+SIMT_GMM_TOL, SIMT_FLASH_TOL = 1e-5, 1e-4
+# the grouped matmul family at the reference MoE demo's fp32 call (4
+# experts x 16 rows in 8-row tiles, d 64, f 32) and at qwen3-moe-30b-a3b's
+# width in 8-row tiles (128 experts x 64 rows, d 2048, f 768): (E, rows, d,
+# f, block_rows)
+SIMT_GMM_SHAPES = {"demo": (4, 16, 64, 32, 8),
+                   "qwen3_moe": (128, 64, 2048, 768, 8)}
+# the fp32 flash forward, dense and causal at each head dim's model shape
+# (granite-moe-1b-a400m 16 / 8 heads, stablelm-3b 32 / 32, qwen3-4b 32 / 8,
+# recurrentgemma-2b 10 / 1 with its window of 2048): (b, s, h, kvh, hd,
+# window); ragged at the main path's lanes in a fac2 plan; the backward at
+# qwen3-4b's training shape
+SIMT_DENSE_SHAPES = {"64": (1, 4096, 16, 8, 64, 0),
+                     "80": (1, 4096, 32, 32, 80, 0),
+                     "128": (1, 4096, 32, 8, 128, 0),
+                     "256": (1, 4096, 10, 1, 256, 2048)}
+SIMT_BWD_SHAPE = (2, 4096, 32, 8, 128)
+# the fp32 model path: qwen3-4b and qwen3-moe-30b-a3b (ragged) at full
+# width, FP32_MODEL_LAYERS layers, compute_dtype "float32", one loss and
+# gradient on TRAIN_BATCH x TRAIN_S tokens (above flash_threshold)
+FP32_MODEL_LAYERS = 2
+SIMT_KERNELS = ("gmm_simt", "gmm_dx_simt", "gmm_dw_simt", "flash_dense_simt",
+                "flash_sched_simt", "flash_simt_bwd_delta",
+                "flash_simt_bwd_dkdv", "flash_simt_bwd_dq")
+# the examples phase: the seven twins of examples/, each in its own process
+# at its default arguments (their printed lines are held against the
+# originals' on the CPU by tests/test_torch_examples_*.py)
+EXAMPLES = ("torch_cluster_demo", "torch_quickstart",
+            "torch_custom_technique", "torch_serve_demo",
+            "torch_moe_balance_demo", "torch_train_100m",
+            "torch_elastic_restart")
+EXAMPLES_TOGETHER = ("torch_cluster_demo", "torch_quickstart",
+                     "torch_custom_technique")
+EXAMPLE_TIMEOUT_S = 300
+
+
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the script's elapsed seconds ``t``."""
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - T0,
+                      **fields}), flush=True)
 
 
 def check_close(name, got, want):
@@ -2589,6 +2666,424 @@ def phase_moe_train(dev, n_sm):
     return launches, kernels
 
 
+def check_tol(name, got, want, tol):
+    """Max abs error of a kernel output; raises outside
+    |got - want| <= tol + tol |want|."""
+    diff = (got.float() - want.float()).abs()
+    bad = diff > tol + tol * want.float().abs()
+    err = float(diff.max())
+    assert not bool(bad.any()), (
+        f"{name}: {int(bad.sum())} elements outside tolerance {tol}, "
+        f"max abs err {err}")
+    return err
+
+
+def simt_bound(flops, nbytes, dtype):
+    """(bound_ms, bound_by) of a general kernel's call: operations over the
+    rate of its type (fp32 outside the tensor cores, bf16 / fp16 in them)
+    against bytes over the memory rate."""
+    import torch
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def measured(name, kernel, run, plain, library, flops, nbytes, dtype, tol,
+             reps=REPS):
+    """One general-kernel check: ``run`` launches ``kernel`` once (the path
+    taken), its outputs against ``plain``'s, then the times of the call
+    (single calls and back to back), of the plain version and of the one
+    PyTorch call ``library`` (a yardstick), and the bound."""
+    import torch
+    before = kernel.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1, (name, kernel.name)
+    want = plain()
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    err = max(check_tol(name, g, w, tol) for g, w in pairs)
+    del got, want
+    bound_ms, bound_by = simt_bound(flops, nbytes, dtype)
+    return dict(kernel=kernel.name, dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=err, tolerance=f"{tol} + {tol}*|plain|",
+                ms=cuda_ms(run, reps), ms_b2b=cuda_ms_b2b(run, reps),
+                plain_ms=cuda_ms(plain, 2), library_ms=cuda_ms(library, reps),
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                bytes=nbytes)
+
+
+def simt_gmm_rows(dev, n_sm):
+    """The grouped matmul family at SIMT_GMM_SHAPES in fp32 and bf16: the
+    forward through ``grouped_matmul`` (fac2 over the rows, sched_p = SM
+    count), dX and dW through their launchers; the route each call takes
+    (``gmm_simt`` unless the shape fits gmm.cu's blocks), against the
+    plain versions, with ``torch.bmm`` on the same tensors."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = SIMT_GMM_TOL if dtype == torch.float32 else ATOL
+        esz = torch.finfo(dtype).bits // 8
+        for name, (e, c, d, f, bm) in SIMT_GMM_SHAPES.items():
+            def rnd(*shape, scale=1.0):
+                return (torch.randn(*shape, generator=gen, device=dev)
+                        * scale).to(dtype)
+
+            x, w = rnd(e, c, d), rnd(e, d, f, scale=d ** -0.5)
+            dy = rnd(e, c, f)
+            live = np.random.default_rng(e).integers(c // 2, c + 1, size=e)
+            t = e * (c // bm)
+            te = torch.arange(t, device=dev) // (c // bm)
+            kern = {"wgmma": gm.GMM, "simt": gm.GMM_SIMT}
+            fwd = measured(
+                f"gmm {name} {dtype}",
+                kern[gm.gmm_route(dtype, dtype, bm, d, f)],
+                lambda: grouped_matmul(x, w, block_rows=bm, schedule="fac2",
+                                       expert_rows=live, sched_p=n_sm),
+                lambda: gm.grouped_matmul_tiles_plain(
+                    x.reshape(t, bm, d), w, te).reshape(e, c, f),
+                lambda: torch.bmm(x, w), 2 * e * c * d * f,
+                esz * (e * c * d + e * d * f + e * c * f), dtype, tol)
+            out = grouped_matmul(x, w, block_rows=bm, schedule="fac2",
+                                 expert_rows=live, sched_p=n_sm)
+            for kw in ({"sched_p": 8}, {"schedule": "gss",
+                                        "expert_rows": live, "sched_p": 1}):
+                assert torch.equal(grouped_matmul(x, w, block_rows=bm, **kw),
+                                   out), (name, dtype, kw)
+            dx = measured(
+                f"gmm_dx {name} {dtype}",
+                {"wgmma": gm.GMM_DX, "simt": gm.GMM_DX_SIMT}[
+                    gm.gmm_dx_route(dtype, dtype, c, d, f)],
+                lambda: gm.gmm_dx_cuda(dy, w, sched_p=n_sm),
+                lambda: gm.grouped_matmul_bwd_plain(x, w, dy,
+                                                    need_dw=False)[0],
+                lambda: torch.bmm(dy, w.transpose(1, 2)), 2 * e * c * d * f,
+                esz * (e * c * f + e * d * f + e * c * d), dtype, tol)
+            dw = measured(
+                f"gmm_dw {name} {dtype}",
+                {"wgmma": gm.GMM_DW, "simt": gm.GMM_DW_SIMT}[
+                    gm.gmm_dw_route(dtype, dtype, c, d, f)],
+                lambda: gm.gmm_dw_cuda(x, dy, sched_p=n_sm),
+                lambda: gm.grouped_matmul_bwd_plain(x, w, dy,
+                                                    need_dx=False)[1],
+                lambda: torch.bmm(x.transpose(1, 2), dy), 2 * e * c * d * f,
+                esz * (e * c * d + e * c * f + e * d * f), dtype, tol)
+            key = f"{name}_{str(dtype).replace('torch.', '')}"
+            rows[key] = dict(shape=[e, c, d, f, bm], gmm=fwd, gmm_dx=dx,
+                             gmm_dw=dw)
+            del x, w, dy
+    return rows
+
+
+def simt_flash_rows(dev, n_sm):
+    """fp32 flash attention on the general kernels: dense causal at
+    SIMT_DENSE_SHAPES (with recurrentgemma-2b's window at head dim 256),
+    ragged in a fac2 plan at the main path's lanes (sched_p = SM count),
+    and the backward at SIMT_BWD_SHAPE, each against its plain version,
+    with SDPA in fp32 (TF32 off) on the same tensors as the yardstick."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    rows = {"dense": {}}
+    for key, (b, s, h, kvh, hd, window) in SIMT_DENSE_SHAPES.items():
+        q, k, v = rnd(b, s, h, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd)
+        pairs = live_pairs(s, window)
+        rows["dense"][key] = dict(shape=[b, s, h, kvh, hd], window=window,
+                                  **measured(
+            f"flash_dense_simt hd {hd}", fa.FLASH_DENSE_SIMT,
+            lambda: flash_attention(q, k, v, causal=True, window=window),
+            lambda: fa.flash_attention_dense_plain(
+                *fa.broadcast_flatten(q, k, v), causal=True,
+                window=window).reshape(b, h, s, hd).permute(0, 2, 1, 3),
+            sdpa_fn(q, k, v, window), 4 * hd * b * h * pairs,
+            4 * (2 * b * s * h * hd + 2 * b * s * kvh * hd), torch.float32,
+            SIMT_FLASH_TOL, reps=5))
+        del q, k, v
+    # ragged: the main path's lanes and kv_lens (seed 0), fac2
+    kv_lens = np.random.default_rng(0).integers(64, S + 1, size=B)
+    kv_lens[0] = S
+    q, k, v = rnd(B, S, H, HD), rnd(B, S, KVH, HD), rnd(B, S, KVH, HD)
+    pairs = sum(H * int(np.minimum(np.arange(1, S + 1), lim).sum())
+                for lim in kv_lens)
+
+    def sched():
+        return flash_attention(q, k, v, causal=True, schedule="fac2",
+                               kv_lens=kv_lens, sched_p=n_sm)
+
+    rows["sched"] = dict(shape=[B, S, H, KVH, HD], kv_lens=kv_lens.tolist(),
+                         **measured(
+        "flash_sched_simt", fa.FLASH_SCHED_SIMT, sched,
+        lambda: fa.flash_attention_sched_plain(
+            *fa.broadcast_flatten(q, k, v), kv_lens=np.repeat(kv_lens, H),
+            causal=True).reshape(B, H, S, HD).permute(0, 2, 1, 3),
+        sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev)), 4 * HD * pairs,
+        4 * (2 * B * S * H * HD
+             + 2 * KVH * HD * int(np.minimum(kv_lens, S).sum())),
+        torch.float32, SIMT_FLASH_TOL, reps=5))
+    out = sched()
+    for tech, p in (("static", 8), ("gss", 1)):
+        assert torch.equal(flash_attention(
+            q, k, v, causal=True, schedule=tech, kv_lens=kv_lens,
+            sched_p=p), out), tech
+    del q, k, v, out
+    # the backward at qwen3-4b's training shape
+    b, s, h, kvh, hd = SIMT_BWD_SHAPE
+    q, k, v, do = rnd(b, s, h, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd), \
+        rnd(b, s, h, hd)
+    o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=0,
+                                  with_lse=True)
+
+    def backward():
+        return fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
+                                        window=0)
+
+    first = backward()
+    assert all(torch.equal(x, y) for x, y in zip(first, backward()))
+    del first
+    sdpa_bwd = sdpa_grad_fns(q, k, v, do, 0)[0]
+    pairs = live_pairs(s)
+    rows["bwd"] = dict(shape=[b, s, h, kvh, hd], **measured(
+        "flash_simt_bwd", fa.FLASH_SIMT_BWD_DKDV, backward,
+        lambda: tuple(fa.flash_attention_dense_bwd_plain(q, k, v, do)),
+        sdpa_bwd, 10 * hd * b * h * pairs,
+        4 * (4 * b * s * h * hd + 4 * b * s * kvh * hd) + 4 * b * h * s,
+        torch.float32, SIMT_FLASH_TOL, reps=5))
+    del q, k, v, do, o, lse, sdpa_bwd
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fp32_model_path(dev, n_sm):
+    """The path of a float32 model above flash_threshold, counts from 0
+    before it and read after: ``flash_attention`` with a schedule at the
+    main path's lanes in fp32, then one loss and gradient of qwen3-4b and
+    of qwen3-moe-30b-a3b (ragged dispatch) at full width, FP32_MODEL_LAYERS
+    layers, compute_dtype "float32", on TRAIN_BATCH x TRAIN_S tokens.
+    Then, outside the counted run, the gradients against the plain
+    attention's and the plain grouped matmul's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import init_decoder
+    from repro_torch.models import moe as tmoe
+    from repro_torch.train import steps as tsteps
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    kv_lens = np.random.default_rng(0).integers(64, S + 1, size=B)
+    q, k, v = (torch.randn(B, S, n, HD, generator=gen, device=dev)
+               for n in (H, KVH, KVH))
+    dense_cfg = dataclasses.replace(get_arch(ARCH), compute_dtype="float32",
+                                    num_layers=FP32_MODEL_LAYERS)
+    moe_cfg = dataclasses.replace(moe_train_cfg()[0], compute_dtype="float32",
+                                  num_layers=FP32_MODEL_LAYERS)
+    models = []
+    for cfg in (dense_cfg, moe_cfg):
+        params, _ = init_decoder(0, cfg, device=dev)
+        batch = {k_: torch.from_numpy(x).to(dev) for k_, x in
+                 train_batches(cfg, 1)[0].items()
+                 if k_ in ("tokens", "labels")}
+        models.append((cfg, params, batch))
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    attn = flash_attention(q, k, v, causal=True, schedule="fac2",
+                           kv_lens=kv_lens, sched_p=n_sm)
+    results = [tsteps._grads(params, batch["tokens"], batch["labels"], None,
+                             cfg) for cfg, params, batch in models]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: kern.launches for n, kern in _build.KERNELS.items()
+                if kern.launches}
+    for n in SIMT_KERNELS:
+        assert launches.get(n, 0) > 0, (n, launches)
+    assert bool(torch.isfinite(attn).all()) and attn.dtype == torch.float32
+    del attn, q, k, v
+
+    out = dict(seconds=seconds, launches=launches, models={})
+    for (cfg, params, batch), (loss_k, _, grads_k) in zip(models, results):
+        assert math.isfinite(float(loss_k)), cfg.name
+        if cfg.family == "moe":
+            real, swap = tmoe, ("_expert_matmul",
+                                lambda xe, w: plain_grouped_matmul(
+                                    xe, w, block_rows=BLOCK_ROWS))
+        else:
+            real, swap = tattn, ("flash_attention", plain_attention)
+        saved = getattr(real, swap[0])
+        setattr(real, swap[0], swap[1])
+        try:
+            loss_p, _, grads_p = tsteps._grads(params, batch["tokens"],
+                                               batch["labels"], None, cfg)
+            torch.cuda.synchronize()
+        finally:
+            setattr(real, swap[0], saved)
+        rel = grads_agree(params, grads_k, grads_p)
+        loss_diff = abs(float(loss_k) - float(loss_p))
+        assert loss_diff <= TRAIN_LOSS_TOL, (cfg.name, loss_diff)
+        out["models"][cfg.name] = dict(
+            layers=cfg.num_layers, loss_kernel=float(loss_k),
+            loss_plain=float(loss_p), loss_abs_diff=loss_diff,
+            max_grad_rel_err=max(rel.values()))
+        del grads_p
+    del models, results
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels_any_dtype(dev, n_sm):
+    """The general kernels against their plain versions at every dtype and
+    shape of this slice, then the fp32 model path (counted).  Returns the
+    rows and the path's launch counts."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gmm_rows = simt_gmm_rows(dev, n_sm)
+    flash_rows = simt_flash_rows(dev, n_sm)
+    model = fp32_model_path(dev, n_sm)
+    emit("kernels_any_dtype", seconds=time.perf_counter() - t0,
+         gmm=gmm_rows, flash=flash_rows, model_path=model)
+    return gmm_rows, flash_rows, model["launches"]
+
+
+EXAMPLE_RUNNER = """
+import json, runpy, sys, time
+sys.path.insert(0, 'src')
+import torch
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.grouped_matmul import grouped_matmul
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+path, prof = sys.argv[1], sys.argv[2] == '1'
+sys.argv = [path]
+_build.reset_launches()
+t0 = time.perf_counter()
+if prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        runpy.run_path(path, run_name='__main__')
+        torch.cuda.synchronize()
+else:
+    runpy.run_path(path, run_name='__main__')
+    torch.cuda.synchronize()
+res = {'seconds': time.perf_counter() - t0,
+       'launches': {n: k.launches for n, k in _build.KERNELS.items()
+                    if k.launches}}
+if prof:
+    res['device_kernels'] = {
+        ev.key[:120]: ev.count for ev in p.key_averages()
+        if ev.device_type == DeviceType.CUDA}
+print('EXAMPLE_RESULT ' + json.dumps(res), flush=True)
+"""
+
+
+def example_numbers(name, lines):
+    """The key numbers an example prints, parsed from its lines."""
+    import re
+    text = "\n".join(lines)
+
+    def grab(pattern, cast=float):
+        m = re.search(pattern, text)
+        return cast(m.group(1)) if m else None
+
+    steps = re.findall(r"^step (\d+) loss=([0-9.]+)", text, re.M)
+    out = {"lines": len(lines)}
+    if steps:
+        out["last_logged_step"], out["last_logged_loss"] = \
+            int(steps[-1][0]), float(steps[-1][1])
+    if name == "torch_train_100m":
+        out["first10"] = grab(r"first10=([0-9.]+)")
+        out["last10"] = grab(r"last10=([0-9.]+)")
+        out["checkpoints"] = grab(r"checkpoints: (\[[0-9, ]*\])", json.loads)
+    elif name == "torch_elastic_restart":
+        out["phase1_checkpoints"] = grab(
+            r"phase 1 checkpoints: (\[[0-9, ]*\])", json.loads)
+        out["resumed_at"] = grab(r"resumed at step (\d+)", int)
+        out["final_shares"] = grab(r"final shares=(\[[0-9, ]*\])",
+                                   json.loads)
+    elif name == "torch_serve_demo":
+        out["tokens_per_s"] = grab(r"\((\d+) tok/s on")
+        out["decode_s"] = grab(r"tokens in ([0-9.]+)s")
+    elif name == "torch_moe_balance_demo":
+        out["kernel_pi_percent"] = grab(r"kernel p\.i\. ([0-9.]+)%")
+        out["peak_over_mean_last"] = float(re.findall(
+            r"^\s*\d+\s+([0-9.]+)$", text, re.M)[-1])
+    elif name == "torch_quickstart":
+        out["runtime_line"] = grab(r"(schedule\(runtime\) -> .*)", str)
+    return out
+
+
+def phase_examples(dev):
+    """The seven example twins on the card, each in its own process at its
+    default arguments, launch counts from 0 at its start and read at its
+    end.  The host demos (EXAMPLES_TOGETHER: the simulator, the planners,
+    the cluster layer; ~9 s of each process is its start) run at the same
+    time, the others one after another.  moe_balance_demo runs under
+    ``torch.profiler``: its two grouped matmuls are two launches of the
+    general kernel, no plain version.  The checkpoint directories of
+    train_100m and elastic_restart are made anew in the temporary
+    directory and removed after."""
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    del dev
+    rows = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    env = dict(os.environ, TMPDIR=tmp)
+
+    def run(name):
+        prof = name == "torch_moe_balance_demo"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXAMPLE_RUNNER,
+             str(ROOT / "examples" / f"{name}.py"), "1" if prof else "0"],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=EXAMPLE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, (name, proc.stderr[-3000:])
+        lines = proc.stdout.splitlines()
+        res = json.loads(lines[-1].removeprefix("EXAMPLE_RESULT "))
+        row = dict(exit_code=proc.returncode, wall_s=wall,
+                   run_s=res["seconds"], launches=res["launches"],
+                   together=name in EXAMPLES_TOGETHER,
+                   **example_numbers(name, lines[:-1]))
+        if prof:
+            gmm = {k: c for k, c in res["device_kernels"].items()
+                   if "gmm" in k}
+            assert sum(gmm.values()) == 2 and all(
+                "gmm_simt_kernel" in k for k in gmm), gmm
+            assert res["launches"].get("gmm_simt") == 2, res["launches"]
+            row["gmm_kernels_profiled"] = gmm
+        rows[name] = row
+
+    try:
+        with ThreadPoolExecutor(len(EXAMPLES_TOGETHER)) as pool:
+            for fut in [pool.submit(run, n) for n in EXAMPLES_TOGETHER]:
+                fut.result()
+        for name in EXAMPLES:
+            if name not in EXAMPLES_TOGETHER:
+                run(name)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("examples", **{n: rows[n] for n in EXAMPLES})
+    return rows
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2959,6 +3454,27 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     moe_train_launches, moe_bwd = phase_moe_train(dev, n_sm)
 
+    # ---- this slice: every dtype and shape, and the examples ------------
+    simt_gmm, simt_flash, fp32_launches = phase_kernels_any_dtype(dev, n_sm)
+    torch.cuda.empty_cache()
+    examples = phase_examples(dev)
+    demo_launches = examples["torch_moe_balance_demo"]["launches"]
+
+    def simt_entry(name, source, replaces, row, launches_by_path, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(launches_by_path.values()),
+                "launches_by_path": launches_by_path,
+                **{k: row[k] for k in (
+                    "max_abs_err", "tolerance", "ms", "ms_b2b", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "dtype")},
+                **extra}
+
+    gmm_simt_row = simt_gmm["qwen3_moe_float32"]
+    simt_src = "src/repro_torch/kernels/csrc/"
+    moe_note = ("no Pallas kernel: the reference differentiates moe_ragged's "
+                "expert einsums by autodiff")
+
     gmm_flops = total("flops")
     gmm_bytes = total("bytes")
     kernels = [
@@ -3057,6 +3573,49 @@ def main(argv) -> int:
          **{k: moe_bwd["dw"][k] for k in (
              "max_abs_err", "ms", "ms_b2b", "plain_ms", "library_ms",
              "library_ms_b2b", "bound_ms", "bound_by", "shapes")}},
+        simt_entry(
+            "gmm_simt", simt_src + "gmm_simt.cu",
+            "src/repro/kernels/grouped_matmul/grouped_matmul.py:37",
+            gmm_simt_row["gmm"],
+            {"fp32_model": fp32_launches["gmm_simt"],
+             "moe_balance_demo": demo_launches["gmm_simt"]},
+            shape=gmm_simt_row["shape"],
+            by_shape={k: r["gmm"] for k, r in simt_gmm.items()}),
+        simt_entry(
+            "gmm_dx_simt", simt_src + "gmm_simt.cu",
+            "src/repro/models/moe.py:143", gmm_simt_row["gmm_dx"],
+            {"fp32_model": fp32_launches["gmm_dx_simt"]},
+            replaces_note=moe_note, shape=gmm_simt_row["shape"],
+            by_shape={k: r["gmm_dx"] for k, r in simt_gmm.items()}),
+        simt_entry(
+            "gmm_dw_simt", simt_src + "gmm_simt.cu",
+            "src/repro/models/moe.py:143", gmm_simt_row["gmm_dw"],
+            {"fp32_model": fp32_launches["gmm_dw_simt"]},
+            replaces_note=moe_note, shape=gmm_simt_row["shape"],
+            by_shape={k: r["gmm_dw"] for k, r in simt_gmm.items()}),
+        simt_entry(
+            "flash_dense_simt", simt_src + "flash_simt.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:51",
+            simt_flash["dense"]["128"],
+            {"fp32_model": fp32_launches["flash_dense_simt"]},
+            shape=simt_flash["dense"]["128"]["shape"],
+            by_head_dim=simt_flash["dense"]),
+        simt_entry(
+            "flash_sched_simt", simt_src + "flash_simt.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:168",
+            simt_flash["sched"],
+            {"fp32_model": fp32_launches["flash_sched_simt"]},
+            shape=simt_flash["sched"]["shape"]),
+        simt_entry(
+            "flash_simt_bwd", simt_src + "flash_simt_bwd.cu",
+            "src/repro/models/attention.py:191", simt_flash["bwd"],
+            {"fp32_model": fp32_launches["flash_simt_bwd_dkdv"]},
+            replaces_note="no Pallas kernel: the reference differentiates "
+                          "_attend_flash by autodiff",
+            launches_by_kernel={n: fp32_launches[n] for n in (
+                "flash_simt_bwd_delta", "flash_simt_bwd_dkdv",
+                "flash_simt_bwd_dq")},
+            shape=simt_flash["bwd"]["shape"]),
     ]
     for kern in kernels:
         assert all(math.isfinite(kern[x]) for x in

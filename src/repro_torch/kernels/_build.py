@@ -30,8 +30,10 @@ import time
 from pathlib import Path
 from typing import Optional, Sequence
 
-__all__ = ["BUILD_DIR", "CSRC", "KERNELS", "Kernel", "build_all",
-           "build_info", "reset_launches"]
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC", "KERNELS", "Kernel", "SIMT_DTYPES",
+           "build_all", "build_info", "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -149,6 +151,10 @@ class Kernel:
 
 #: every kernel of the port, by name (filled as the kernel modules import)
 KERNELS: dict[str, Kernel] = {}
+
+#: the element types of the general kernels (``csrc/*_simt.cu``) and their
+#: codes there (``simt::DType`` in ``csrc/simt_common.cuh``)
+SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def reset_launches() -> None:

@@ -41,6 +41,14 @@ take any head dim that is a multiple of 8 up to 256 (the configs use 64,
 80, 128 and 256): they compute at a padded width of 64, 128 or 256, TMA
 filling the columns past the real head dim with zeros, except 80, whose
 products run at its exact width on tiles of 128.
+
+Those kernels take bf16.  The reference casts q, k and v to fp32 inside
+its kernels and so takes any float dtype: fp32 and fp16, and bf16 at a
+head dim or stride the TMA boxes cannot describe, run the general kernels
+instead, ``csrc/flash_simt.cu`` (dense and schedule-aware entries, the
+same plan walk) and ``csrc/flash_simt_bwd.cu`` (the backward), in plain
+fp32 FMA.  ``_check_kernel_inputs`` picks the kernel from the dtype, the
+head dim and the strides alone; nothing falls back on a failure.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ import torch
 
 from ...core.torch_sched import plan_tiles_for_kernel, worker_bounds
 from ...device import check_device
-from .._build import Kernel
+from .._build import SIMT_DTYPES, Kernel
 from .ref import attention_ref
 
 #: padded head dims the flash kernels are instantiated for: they take any
@@ -88,6 +96,28 @@ FLASH_DENSE_BWD_DQ = Kernel(
     argtypes=[_c.c_void_p] * 7 + [_c.c_int] * 8 + [_c.c_float, _c.c_void_p])
 #: the backward's (b, h, s_pad) rows: s rounded up to its 128-row blocks
 BWD_ROW_PAD = 128
+#: the general kernels (``csrc/flash_simt.cu``, ``csrc/flash_simt_bwd.cu``):
+#: every dtype of ``SIMT_DTYPES``, any head dim up to 256
+FLASH_SCHED_SIMT = Kernel(
+    "flash_sched_simt", source="flash_simt", symbol="flash_sched_simt_launch",
+    argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 12 + [_c.c_longlong] * 12
+    + [_c.c_float, _c.c_void_p])
+FLASH_DENSE_SIMT = Kernel(
+    "flash_dense_simt", source="flash_simt", symbol="flash_dense_simt_launch",
+    argtypes=[_c.c_void_p] * 5 + [_c.c_int] * 8 + [_c.c_longlong] * 12
+    + [_c.c_float, _c.c_void_p])
+FLASH_SIMT_BWD_DELTA = Kernel(
+    "flash_simt_bwd_delta", source="flash_simt_bwd",
+    symbol="flash_simt_bwd_delta_launch",
+    argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 5 + [_c.c_void_p])
+FLASH_SIMT_BWD_DKDV = Kernel(
+    "flash_simt_bwd_dkdv", source="flash_simt_bwd",
+    symbol="flash_simt_bwd_dkdv_launch",
+    argtypes=[_c.c_void_p] * 8 + [_c.c_int] * 8 + [_c.c_float, _c.c_void_p])
+FLASH_SIMT_BWD_DQ = Kernel(
+    "flash_simt_bwd_dq", source="flash_simt_bwd",
+    symbol="flash_simt_bwd_dq_launch",
+    argtypes=[_c.c_void_p] * 7 + [_c.c_int] * 8 + [_c.c_float, _c.c_void_p])
 
 
 def broadcast_flatten(q, k, v):
@@ -224,28 +254,40 @@ def flash_attention_sched_plain(q, k, v, *,
     return torch.cat(outs, dim=0)
 
 
-def _check_kernel_inputs(name: str, q, k, v) -> None:
-    """Raise unless q (b, s, h, hd), k/v (b, s, kvh, hd) are what the CUDA
-    kernel ``name`` takes: a GQA layout, bfloat16, a head dim it is built
-    for, a contiguous last dim, 16-byte aligned rows."""
+def flash_route(dtype, hd: int, tma_ok: bool = True) -> str:
+    """The kernel family a flash call of this dtype and head dim runs on
+    the card: ``"wgmma"`` (``flash_dense`` / ``flash_sched`` and
+    ``flash_dense_bwd``) for bfloat16 with a head dim that is a multiple of
+    8 and ``tma_ok`` (strides and alignment TMA can describe), ``"simt"``
+    (the general kernels) for every other float32 / bfloat16 / float16
+    call with a head dim up to 256.  Raises for another dtype or head dim,
+    which no kernel takes."""
+    if dtype not in SIMT_DTYPES:
+        raise TypeError(f"the flash kernels take float32, bfloat16 or "
+                        f"float16, got {dtype}")
+    if not 0 < hd <= PADDED_HEAD_DIMS[-1]:
+        raise ValueError(f"the flash kernels take a head_dim up to "
+                         f"{PADDED_HEAD_DIMS[-1]}, got {hd}")
+    return ("wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 and tma_ok
+            else "simt")
+
+
+def _check_kernel_inputs(name: str, q, k, v) -> str:
+    """Check q (b, s, h, hd), k/v (b, s, kvh, hd) and return the kernel
+    family that takes them (:func:`flash_route`): a GQA layout and one
+    dtype; the wgmma kernels also need a contiguous last dim, strides that
+    are multiples of 8 and 16-byte aligned data."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     if k.shape != (b, s, kvh, hd) or v.shape != k.shape or h % kvh:
         raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / "
                          f"v {tuple(v.shape)} do not form a GQA layout")
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name} takes bfloat16 q, k and v, got "
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} takes q, k and v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    # multiples of 8 (16-byte rows for TMA) up to the widest padded
-    # instantiation
-    if hd % 8 or not 0 < hd <= PADDED_HEAD_DIMS[-1]:
-        raise ValueError(f"{name} supports a head_dim that is a multiple of "
-                         f"8 up to {PADDED_HEAD_DIMS[-1]}, got {hd}")
-    for nm, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"{nm} needs a contiguous last dim, strides "
-                             f"that are multiples of 8 and 16-byte alignment")
+    tma_ok = all(t.stride(3) == 1 and not any(st % 8 for st in t.stride()[:3])
+                 and t.data_ptr() % 16 == 0 for t in (q, k, v))
+    return flash_route(q.dtype, hd, tma_ok)
 
 
 def _strides(*tensors) -> list[int]:
@@ -263,9 +305,12 @@ def _upload_table(desc, bounds, device) -> torch.Tensor:
 
 def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
                       causal: bool, window: int):
-    """Launch ``flash_sched`` on q (b, s, h, hd), k/v (b, s, kvh, hd) in
-    place of their strides; returns a new (b, s, h, hd) tensor."""
-    _check_kernel_inputs("flash_sched", q, k, v)
+    """Launch ``flash_sched`` (or ``flash_sched_simt``) on q (b, s, h, hd),
+    k/v (b, s, kvh, hd) in place of their strides; returns a new
+    (b, s, h, hd) tensor."""
+    route = _check_kernel_inputs("flash_sched", q, k, v)
+    if route == "simt":
+        q, k, v = _unit_stride(q, k, v)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
@@ -275,12 +320,16 @@ def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
     # queued after the kernel on the same stream
     table = _upload_table(desc, bounds, q.device)
     d_ptr = table.data_ptr()
-    FLASH_SCHED.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        d_ptr, d_ptr + 6 * g * 4,
-        g, p, b, s, h, h // kvh, hd, block_q, block_k, int(causal),
-        int(window), *_strides(q, k, v, out),
-        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    shape = (g, p, b, s, h, h // kvh, hd, block_q, block_k, int(causal),
+             int(window))
+    tail = (*_strides(q, k, v, out), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            d_ptr, d_ptr + 6 * g * 4)
+    if route == "wgmma":
+        FLASH_SCHED.launch(*ptrs, *shape, *tail)
+    else:
+        FLASH_SCHED_SIMT.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
     return out
 
 
@@ -290,31 +339,41 @@ def _flash_dense_cuda(q, k, v, *, causal: bool, window: int,
     place of their strides; returns a new (b, s, h, hd) tensor, and with
     ``with_lse`` also each row's log-sum-exp (b, h, s) fp32 (the output is
     the same bits either way)."""
-    _check_kernel_inputs("flash_dense", q, k, v)
+    route = _check_kernel_inputs("flash_dense", q, k, v)
+    if route == "simt":
+        q, k, v = _unit_stride(q, k, v)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    FLASH_DENSE.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        b, s, h, h // kvh, hd, int(causal), int(window),
-        *_strides(q, k, v, out),
-        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
+    shape = (b, s, h, h // kvh, hd, int(causal), int(window))
+    tail = (*_strides(q, k, v, out), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if route == "wgmma":
+        FLASH_DENSE.launch(*ptrs, *shape, *tail)
+    else:
+        FLASH_DENSE_SIMT.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
     return (out, lse) if with_lse else out
 
 
 def _flash_dense_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int):
     """Launch the three backward kernels on the forward's q (b, s, h, hd),
     k/v (b, s, kvh, hd), output o, its gradient do and lse (b, h, s); returns
-    (dq, dk, dv) in the inputs' shapes, bfloat16."""
-    _check_kernel_inputs("flash_dense", q, k, v)
+    (dq, dk, dv) in the inputs' shapes and dtype.  The general kernels
+    (``flash_simt_bwd``) take what ``flash_dense_bwd`` does not, by the
+    forward's route."""
+    route = _check_kernel_inputs("flash_dense", q, k, v)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do.to(q.dtype)))
     lse = lse.contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "simt":
+        return _flash_simt_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                    window=window, stream=stream)
     s_pad = -(-s // BWD_ROW_PAD) * BWD_ROW_PAD
     # lse log2(e) and D, (b, h, s_pad): +inf and 0 past s
     lse2, delta = torch.empty((2, b, h, s_pad), dtype=torch.float32,
@@ -330,6 +389,33 @@ def _flash_dense_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int):
     FLASH_DENSE_BWD_DKDV.launch(*ins, dk.data_ptr(), dv.data_ptr(), *shape)
     FLASH_DENSE_BWD_DQ.launch(*ins, dq.data_ptr(), *shape)
     return dq, dk, dv
+
+
+def _flash_simt_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int,
+                         stream):
+    """The general backward on contiguous q (b, s, h, hd), k/v
+    (b, s, kvh, hd), o, do and the forward's lse (b, h, s): D, then dK and
+    dV, then dQ."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    code = SIMT_DTYPES[q.dtype]
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    FLASH_SIMT_BWD_DELTA.launch(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                                b, s, h, hd, code, stream)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    shape = (b, s, h, h // kvh, hd, int(causal), int(window), code,
+             1.0 / math.sqrt(hd), stream)
+    FLASH_SIMT_BWD_DKDV.launch(*ins, dk.data_ptr(), dv.data_ptr(), *shape)
+    FLASH_SIMT_BWD_DQ.launch(*ins, dq.data_ptr(), *shape)
+    return dq, dk, dv
+
+
+def _unit_stride(*tensors):
+    """The tensors with their last dim contiguous, as the general kernels
+    read them (a copy only where it is not)."""
+    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in tensors)
 
 
 class _FlashDense(torch.autograd.Function):

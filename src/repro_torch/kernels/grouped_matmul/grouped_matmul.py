@@ -11,7 +11,11 @@ across ``p`` workers gives each near-equal work.
 On a CUDA tensor the list drives ``csrc/gmm.cu``: a persistent kernel with
 ``p`` CTAs, CTA ``w`` walking its plan share in order and then its
 round-robin part of the dead tiles, fed by TMA and computed with wgmma;
-see the note at the top of that file.
+see the note at the top of that file.  That kernel takes bf16 with rows,
+columns and depth in whole blocks; every other dtype and shape the
+reference takes (fp32 and fp16, any ``bm``, ``d`` and ``f``) runs
+``csrc/gmm_simt.cu`` instead, the same walk over the plan in plain fp32
+FMA.  ``gmm_route`` picks the kernel from the dtype and the shape alone.
 On a CPU tensor ``grouped_matmul_tiles_plain`` computes the same function.
 Tiles are independent, so the output is bit-identical for every order.
 
@@ -24,8 +28,10 @@ expert-major raster: the 128-row tiles that share one (expert, 256-column)
 weight panel run at once on neighbouring CTAs, which read the panel from
 device memory once and from L2 after that, the weights read K-major in
 place.  ``gmm_dw`` runs one CTA per (expert, dW tile) at a time, the rows
-summed in ascending order.  On a CPU tensor ``grouped_matmul_bwd_plain``
-computes both.
+summed in ascending order.  ``gmm_dx_simt`` and ``gmm_dw_simt``
+(``csrc/gmm_simt.cu``) take the other dtypes and shapes, as
+``gmm_simt`` does for the forward.  On a CPU tensor
+``grouped_matmul_bwd_plain`` computes both.
 """
 
 from __future__ import annotations
@@ -36,10 +42,10 @@ import numpy as np
 import torch
 
 from ...device import check_device
-from .._build import Kernel
+from .._build import SIMT_DTYPES, Kernel
 from .ref import grouped_matmul_ref
 
-#: what the CUDA kernels take: rows and output widths multiples of their
+#: what the wgmma kernels take: rows and output widths multiples of their
 #: 128-row, 128-column output blocks (256 columns where the width allows),
 #: the reduction depth a multiple of 32 (64-deep stages are zero-filled
 #: past it); gmm: block_rows, f and d; gmm_dx: R, d and f
@@ -52,6 +58,63 @@ GMM_DX = Kernel("gmm_dx", source="gmm", symbol="gmm_dx_launch",
                 argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 5 + [_c.c_void_p])
 GMM_DW = Kernel("gmm_dw", source="gmm", symbol="gmm_dw_launch",
                 argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 5 + [_c.c_void_p])
+#: the general kernels (``csrc/gmm_simt.cu``): any dtype of ``SIMT_DTYPES``,
+#: any shape, plain fp32 FMA
+GMM_SIMT = Kernel("gmm_simt", source="gmm_simt", symbol="gmm_simt_launch",
+                  argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 8 + [_c.c_void_p])
+GMM_DX_SIMT = Kernel("gmm_dx_simt", source="gmm_simt",
+                     symbol="gmm_simt_dx_launch",
+                     argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 6
+                     + [_c.c_void_p])
+GMM_DW_SIMT = Kernel("gmm_dw_simt", source="gmm_simt",
+                     symbol="gmm_simt_dw_launch",
+                     argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 6
+                     + [_c.c_void_p])
+
+
+
+def _route(name: str, dtypes, aligned: bool) -> str:
+    """``"wgmma"`` when every operand is bfloat16 and ``aligned`` (the
+    shape and the data fit the wgmma kernel's blocks), else ``"simt"``;
+    raises TypeError for a dtype neither kernel takes."""
+    dtypes = set(dtypes)
+    if len(dtypes) != 1 or not dtypes <= set(SIMT_DTYPES):
+        raise TypeError(f"{name} takes float32, bfloat16 or float16 operands "
+                        f"of one dtype, got {sorted(map(str, dtypes))}")
+    return "wgmma" if dtypes == {torch.bfloat16} and aligned else "simt"
+
+
+def gmm_route(x_dtype, w_dtype, bm: int, d: int, f: int,
+              aligned: bool = True) -> str:
+    """The kernel ``gmm_cuda`` launches for x tiles (T, bm, d) and weights
+    (E, d, f) of these dtypes: ``"wgmma"`` (``gmm``) for bfloat16 with bm
+    and f multiples of 128 and d of 32, ``"simt"`` (``gmm_simt``) for every
+    other shape and for float32 / float16.  ``aligned``: both operands'
+    data 16-byte aligned."""
+    return _route("gmm", (x_dtype, w_dtype), aligned and bm > 0
+                  and bm % KERNEL_BLOCK_ROWS == 0
+                  and f % KERNEL_BLOCK_COLS == 0 and d % KERNEL_BLOCK_D == 0)
+
+
+def gmm_dx_route(dy_dtype, w_dtype, r: int, d: int, f: int,
+                 aligned: bool = True) -> str:
+    """As :func:`gmm_route` for dX = dY W^T (``gmm_dx`` needs R and d
+    multiples of 128, f of 32)."""
+    return _route("gmm_dx", (dy_dtype, w_dtype), aligned and r > 0
+                  and r % KERNEL_BLOCK_ROWS == 0
+                  and d % KERNEL_BLOCK_COLS == 0 and f % KERNEL_BLOCK_D == 0)
+
+
+def gmm_dw_route(x_dtype, dy_dtype, r: int, d: int, f: int,
+                 aligned: bool = True) -> str:
+    """As :func:`gmm_route` for dW = X^T dY (``gmm_dw`` needs d and f
+    multiples of 128, R > 0)."""
+    return _route("gmm_dw", (x_dtype, dy_dtype), aligned and r > 0
+                  and d % KERNEL_BLOCK_ROWS == 0 and f % KERNEL_BLOCK_COLS == 0)
+
+
+def _aligned(*tensors) -> bool:
+    return all(x.data_ptr() % 16 == 0 for x in tensors)
 
 
 def span_bounds(n: int, p: int) -> np.ndarray:
@@ -68,12 +131,13 @@ def grouped_matmul_tiles_plain(x_tiles, weights, tile_expert):
 
 
 def gmm_cuda(x_tiles, weights, tile_expert, order, bounds, n_span: int):
-    """Launch ``gmm``: step i of ``order`` multiplies x tile ``order[i]`` by
+    """Launch ``gmm`` or ``gmm_simt`` (:func:`gmm_route`): step i of
+    ``order`` multiplies x tile ``order[i]`` by
     expert ``tile_expert[order[i]]`` into output tile ``order[i]``.
 
     ``bounds`` (p + 1,) gives each CTA's live steps ``[b[w], b[w+1])`` of
     the first ``n_span`` steps; steps from ``n_span`` on are dealt
-    round-robin.  Returns a new (T, bm, f) tensor.
+    round-robin.  Returns a new (T, bm, f) tensor of x's dtype.
     """
     t, bm, k = x_tiles.shape
     e, d, f = weights.shape
@@ -81,15 +145,9 @@ def gmm_cuda(x_tiles, weights, tile_expert, order, bounds, n_span: int):
         raise ValueError(f"x_tiles {tuple(x_tiles.shape)}, weights "
                          f"{tuple(weights.shape)} and tile_expert "
                          f"{tuple(tile_expert.shape)} do not agree")
-    if x_tiles.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16:
-        raise TypeError(f"gmm takes bfloat16 x and weights, got "
-                        f"{x_tiles.dtype}, {weights.dtype}")
-    if bm % KERNEL_BLOCK_ROWS or f % KERNEL_BLOCK_COLS or d % KERNEL_BLOCK_D:
-        raise ValueError(
-            f"gmm needs block_rows % {KERNEL_BLOCK_ROWS} == 0, f % "
-            f"{KERNEL_BLOCK_COLS} == 0 and d % {KERNEL_BLOCK_D} == 0; "
-            f"got bm={bm}, d={d}, f={f}")
-    _check_operands(x_tiles=x_tiles, weights=weights)
+    _check_contiguous(x_tiles=x_tiles, weights=weights)
+    route = gmm_route(x_tiles.dtype, weights.dtype, bm, d, f,
+                      _aligned(x_tiles, weights))
     order = np.asarray(order, np.int32).reshape(-1)
     if not np.array_equal(np.sort(order), np.arange(t)) or not 0 <= n_span <= t:
         raise ValueError("order must be a permutation of the T tiles and "
@@ -103,24 +161,28 @@ def gmm_cuda(x_tiles, weights, tile_expert, order, bounds, n_span: int):
                                                    non_blocking=True)
     te = tile_expert.to(device=x_tiles.device, dtype=torch.int32).contiguous()
     ptr = table.data_ptr()
-    GMM.launch(x_tiles.data_ptr(), weights.data_ptr(), out.data_ptr(),
-               ptr, te.data_ptr(), ptr + 4 * t, len(bounds) - 1, n_span, t,
-               bm, d, f, e,
-               torch.cuda.current_stream(x_tiles.device).cuda_stream)
+    args = (x_tiles.data_ptr(), weights.data_ptr(), out.data_ptr(), ptr,
+            te.data_ptr(), ptr + 4 * t, len(bounds) - 1, n_span, t, bm, d, f,
+            e)
+    stream = torch.cuda.current_stream(x_tiles.device).cuda_stream
+    if route == "wgmma":
+        GMM.launch(*args, stream)
+    else:
+        GMM_SIMT.launch(*args, SIMT_DTYPES[x_tiles.dtype], stream)
     return out
 
 
-def _check_operands(**tensors) -> None:
+def _check_contiguous(**tensors) -> None:
     for name, x in tensors.items():
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def gmm_dx_cuda(dy, weights, *, sched_p: int):
-    """Launch ``gmm_dx``: dX[e] = dy[e] weights[e]^T for dy (E, R, f) and
-    weights (E, d, f), bfloat16, read in place, fp32 sums over f, on
-    ``sched_p`` persistent CTAs over the expert-major units.  Returns a new
-    (E, R, d) bfloat16 tensor."""
+    """Launch ``gmm_dx`` (or ``gmm_dx_simt``, :func:`gmm_dx_route`): dX[e] =
+    dy[e] weights[e]^T for dy (E, R, f) and weights (E, d, f), read in
+    place, fp32 sums over f, on ``sched_p`` persistent CTAs over the
+    expert-major units.  Returns a new (E, R, d) tensor of dy's dtype."""
     if dy.dim() != 3 or weights.dim() != 3:
         raise ValueError(f"dy {tuple(dy.shape)} and weights "
                          f"{tuple(weights.shape)} must be 3-D")
@@ -129,41 +191,39 @@ def gmm_dx_cuda(dy, weights, *, sched_p: int):
         raise ValueError(f"dy {tuple(dy.shape)} and weights "
                          f"{tuple(weights.shape)} do not agree")
     d = weights.shape[1]
-    if dy.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16:
-        raise TypeError(f"gmm_dx takes bfloat16 dy and weights, got "
-                        f"{dy.dtype}, {weights.dtype}")
-    if (r == 0 or r % KERNEL_BLOCK_ROWS or d % KERNEL_BLOCK_COLS
-            or f % KERNEL_BLOCK_D):
-        raise ValueError(
-            f"gmm_dx needs R % {KERNEL_BLOCK_ROWS} == 0, d % "
-            f"{KERNEL_BLOCK_COLS} == 0 and f % {KERNEL_BLOCK_D} == 0; got "
-            f"R={r}, d={d}, f={f}")
-    _check_operands(dy=dy, weights=weights)
+    _check_contiguous(dy=dy, weights=weights)
+    route = gmm_dx_route(dy.dtype, weights.dtype, r, d, f,
+                         _aligned(dy, weights))
     dx = torch.empty((e, r, d), dtype=dy.dtype, device=dy.device)
-    GMM_DX.launch(dy.data_ptr(), weights.data_ptr(), dx.data_ptr(), e, r, d,
-                  f, sched_p, torch.cuda.current_stream(dy.device).cuda_stream)
+    args = (dy.data_ptr(), weights.data_ptr(), dx.data_ptr(), e, r, d, f,
+            sched_p)
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    if route == "wgmma":
+        GMM_DX.launch(*args, stream)
+    else:
+        GMM_DX_SIMT.launch(*args, SIMT_DTYPES[dy.dtype], stream)
     return dx
 
 
 def gmm_dw_cuda(xe, dy, *, sched_p: int):
-    """Launch ``gmm_dw``: dW[e] = xe[e]^T dy[e] for xe (E, R, d) and dy
-    (E, R, f), bfloat16, fp32 sums over the R rows in ascending order, on
-    ``sched_p`` persistent CTAs.  Returns a new (E, d, f) bfloat16 tensor."""
+    """Launch ``gmm_dw`` (or ``gmm_dw_simt``, :func:`gmm_dw_route`): dW[e] =
+    xe[e]^T dy[e] for xe (E, R, d) and dy (E, R, f), fp32 sums over the R
+    rows in ascending order, on ``sched_p`` persistent CTAs.  Returns a new
+    (E, d, f) tensor of xe's dtype."""
     e, r, d = xe.shape
     if dy.dim() != 3 or dy.shape[:2] != xe.shape[:2]:
         raise ValueError(f"xe {tuple(xe.shape)} and dy {tuple(dy.shape)} do "
                          "not agree")
     f = dy.shape[2]
-    if xe.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16:
-        raise TypeError(f"gmm_dw takes bfloat16 xe and dy, got {xe.dtype}, "
-                        f"{dy.dtype}")
-    if d % KERNEL_BLOCK_ROWS or f % KERNEL_BLOCK_COLS or r == 0:
-        raise ValueError(f"gmm_dw needs d % {KERNEL_BLOCK_ROWS} == 0 and f % "
-                         f"{KERNEL_BLOCK_COLS} == 0; got d={d}, f={f}, R={r}")
-    _check_operands(xe=xe, dy=dy)
+    _check_contiguous(xe=xe, dy=dy)
+    route = gmm_dw_route(xe.dtype, dy.dtype, r, d, f, _aligned(xe, dy))
     dw = torch.empty((e, d, f), dtype=xe.dtype, device=xe.device)
-    GMM_DW.launch(xe.data_ptr(), dy.data_ptr(), dw.data_ptr(), e, r, d, f,
-                  sched_p, torch.cuda.current_stream(xe.device).cuda_stream)
+    args = (xe.data_ptr(), dy.data_ptr(), dw.data_ptr(), e, r, d, f, sched_p)
+    stream = torch.cuda.current_stream(xe.device).cuda_stream
+    if route == "wgmma":
+        GMM_DW.launch(*args, stream)
+    else:
+        GMM_DW_SIMT.launch(*args, SIMT_DTYPES[xe.dtype], stream)
     return dw
 
 
@@ -185,7 +245,8 @@ def grouped_matmul_bwd_plain(xe, weights, dy, *, need_dx: bool = True,
 def grouped_matmul_bwd(xe, weights, dy, *, need_dx: bool = True,
                        need_dw: bool = True, sched_p: int = 8):
     """(dx, dw) of xe (E, R, d) @ weights (E, d, f) for dy (E, R, f), None
-    where not asked for.  On the card dx is ``gmm_dx`` and dw ``gmm_dw``,
+    where not asked for, in the operands' one dtype.  On the
+    card dx is ``gmm_dx`` and dw ``gmm_dw`` (or their general kernels),
     each on ``sched_p`` persistent CTAs; on the CPU the plain version."""
     dev = check_device(xe, weights, dy)
     if dev.type == "cpu":

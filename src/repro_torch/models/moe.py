@@ -13,13 +13,16 @@ Dispatch implementations:
     gathers them into expert rows.  The three expert matmuls (wi, wg, wo)
     go through ``kernels/grouped_matmul/ops.grouped_matmul``, one call
     each over all groups: on a CUDA tensor it launches ``gmm``
-    (``csrc/gmm.cu``) with one CTA per SM over the identity tile order, and
-    an unsupported dtype or shape raises there; on a CPU tensor it
-    computes the same products with ``grouped_matmul_tiles_plain``.  Under
-    autograd each product is an ``_ExpertMatmul`` whose backward computes
-    dX with ``gmm_dx`` and dW with ``gmm_dw`` on the card, and with
-    ``grouped_matmul_bwd_plain`` on the CPU.  The combine gathers each token's ``top_k`` contributions and sums them in
-    k order (no atomics), so one input gives one output on every run.
+    (``csrc/gmm.cu``) with one CTA per SM over the identity tile order, or
+    the general ``gmm_simt`` (``csrc/gmm_simt.cu``) for an fp32 model or a
+    width off gmm.cu's blocks; on a CPU tensor it computes the same
+    products with ``grouped_matmul_tiles_plain``.  Under autograd each
+    product is an ``_ExpertMatmul`` whose backward computes dX with
+    ``gmm_dx`` and dW with ``gmm_dw`` (or their general kernels) on the
+    card, in the operands' dtype, and with ``grouped_matmul_bwd_plain`` on
+    the CPU.  The combine gathers each token's ``top_k`` contributions and
+    sums them in k order (no atomics), so one input gives one output on
+    every run.
 """
 
 from __future__ import annotations
@@ -167,8 +170,9 @@ class _ExpertMatmul(torch.autograd.Function):
 def _expert_matmul(xe, w):
     """xe (E, R, d) expert rows @ w (E, d, f) -> (E, R, f), R a multiple of
     the kernel's row tile.  On a CUDA tensor ``gmm`` runs with one CTA per
-    SM over the identity order, forward and backward; a CPU tensor takes
-    the plain versions."""
+    SM over the identity order, forward and backward (bf16 at its blocks;
+    the general kernels for fp32 and for a d or f off them); a CPU tensor
+    takes the plain versions."""
     sched_p = _sm_count(xe.device.index) if xe.is_cuda else 8
     return _ExpertMatmul.apply(xe, w, sched_p)
 

@@ -16,7 +16,13 @@ on the CPU and on the card alike:
     exponent of 1.0, minus 1), then ``u * (maxval - minval) + minval`` as
     one fused multiply-add, as XLA compiles it;
   * ``gumbel``: ``-log(-log(uniform(tiny, 1)))`` (``mode="low"``);
-  * ``categorical``: Gumbel-max, ``argmax(gumbel + logits)``.
+  * ``categorical``: Gumbel-max, ``argmax(gumbel + logits)``;
+  * ``fold_in(key, data)``: threefry of the counter pair ``(0, data)``;
+  * ``randint``: two words an element from the two halves of a split,
+    folded into the span with 32-bit wrapping arithmetic (``_randint``);
+  * ``normal``: ``sqrt(2) erfinv(uniform(nextafter(-1, 0), 1))``, erfinv
+    by the float32 polynomial XLA lowers ``erf_inv`` to (Giles'), its
+    multiply-adds fused.
 
 A key is the reference's key data, a (2,) pair of uint32 words, held in an
 int64 tensor (CUDA implements few uint32 operators): every word stays in
@@ -28,7 +34,9 @@ on the host in Python ints, and ``bits``, ``uniform``, ``gumbel`` and
 words as scalars.  A decode step that keeps its key on the host thus
 launches nothing on the card for its split.
 
-Everything up to the uniform's floats is exact.  The Gumbel noise takes
+Everything up to the uniform's floats is exact, and so are ``fold_in``
+and ``randint``.  ``normal`` is within a few ulp of XLA's (the
+polynomial's log1p is PyTorch's; 3 at most in the tests, held to 4).  The Gumbel noise takes
 both logs in float64 and rounds once to float32, so it is the same on
 every device and path to the last bit but for rare double roundings, and
 within an ulp or two of XLA's float32 logs; the sampled tokens agree
@@ -44,7 +52,8 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["key", "split", "bits", "uniform", "gumbel", "categorical"]
+__all__ = ["key", "split", "fold_in", "bits", "uniform", "randint",
+           "normal", "gumbel", "categorical"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -79,6 +88,15 @@ def threefry2x32(k0, k1, x0, x1):
         x0 = (x0 + ks[(i + 1) % 3]) & _MASK
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
     return x0, x1
+
+
+def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: the key of threefry of ``(0, data mod
+    2^32)`` under ``k``, on the key's device."""
+    x0, x1 = threefry2x32(*_words(k), 0, int(data) & _MASK)
+    if k.device.type == "cpu":
+        return torch.tensor([x0, x1], dtype=torch.int64)
+    return torch.stack([x0, x1])
 
 
 def _counters(shape: Sequence[int], device: torch.device
@@ -136,6 +154,76 @@ def uniform(k: torch.Tensor, shape: Union[int, Sequence[int]] = (),
     lo = torch.tensor(minval, dtype=dtype, device=floats.device)
     hi = torch.tensor(maxval, dtype=dtype, device=floats.device)
     return torch.maximum(lo, torch.addcmul(lo, floats, hi - lo))
+
+
+def randint(k: torch.Tensor, shape: Union[int, Sequence[int]], minval: int,
+            maxval: int, dtype: torch.dtype = torch.int32,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint`` for int32 (the reference's default integer
+    type) and scalar int32 bounds: integers in [minval, maxval) on
+    ``device`` (default: the key's).  As ``jax._src.random._randint``:
+    higher and lower words from the two keys of
+    ``split(k)``, ``((hi % span) * (2^32 % span) + lo % span) % span`` in
+    uint32 arithmetic, added to minval."""
+    if dtype != torch.int32:
+        raise TypeError(f"randint draws int32, got {dtype}")
+    minval, maxval = int(minval), int(maxval)
+    if not -2 ** 31 <= min(minval, maxval) <= max(minval, maxval) < 2 ** 31:
+        # the reference (64-bit mode off) refuses such bounds as well
+        raise OverflowError(f"randint bounds must fit int32, got {minval}, "
+                            f"{maxval}")
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    # XLA's unsigned remainder by 0 (a full 2^32 span) leaves x as it is
+    def rem(x):
+        return x % span if span else x
+
+    mult = rem((rem(1 << 16) ** 2) & _MASK)        # a uint32 square
+    k1, k2 = split(k)
+    higher = bits(k1, shape, device)
+    lower = bits(k2, shape, device)
+    # rem(higher) < 2^32 and mult < 2^16: the product fits in int64
+    off = rem((((rem(higher) * mult) & _MASK) + rem(lower)) & _MASK)
+    val = (minval + off + 2 ** 31) & _MASK
+    return (val - 2 ** 31).to(torch.int32)
+
+
+#: the float32 coefficients of XLA's erf_inv (Giles' polynomial), for
+#: w = -log1p(-x^2) < 5 (in w - 2.5) and >= 5 (in sqrt(w) - 3)
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 erf_inv: each step ``c + p w`` one fused multiply-add
+    (taken in float64, where the product is exact, and rounded once)."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    lt = torch.tensor(_ERFINV_LT5, dtype=torch.float32).double()
+    ge = torch.tensor(_ERFINV_GE5, dtype=torch.float32).double()
+    p = torch.where(small, lt[0].to(x.device), ge[0].to(x.device))
+    for i in range(1, len(_ERFINV_LT5)):
+        c = torch.where(small, lt[i].to(x.device), ge[i].to(x.device))
+        p = torch.addcmul(c, p, w).float().double()
+    out = p.float() * x
+    return torch.where(x.abs() == 1, x * math.inf, out)
+
+
+def normal(k: torch.Tensor, shape: Union[int, Sequence[int]] = (),
+           dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """``jax.random.normal``: float32 standard normals on ``device``
+    (default: the key's), ``sqrt(2) erfinv(u)`` of a uniform u in
+    (-1, 1), within a few ulp of the reference's (module docstring)."""
+    if dtype != torch.float32:
+        raise TypeError(f"normal draws float32, got {dtype}")
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(k, shape, dtype, minval=lo, maxval=1.0, device=device)
+    sqrt2 = torch.tensor(math.sqrt(2), dtype=dtype, device=u.device)
+    return sqrt2 * _erfinv_f32(u)
 
 
 def gumbel(k: torch.Tensor, shape: Union[int, Sequence[int]] = (),

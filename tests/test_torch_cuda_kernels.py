@@ -9,8 +9,12 @@ The file imports only torch, numpy and ``repro_torch`` so that it runs
 where JAX is not installed.  Tolerance for bf16 outputs:
 |kernel - plain| <= 2^-7 + 2^-7 * |plain| (about two bf16 rounding steps;
 the kernels sum in another order than the fp32 plain versions before the
-final rounding).  Across schedules and ``sched_p`` the outputs must be
-bit-identical.
+final rounding).  The general kernels' fp32 outputs (``gmm_simt``,
+``flash_*_simt``; plain fp32 FMA, TF32 off on both sides) are held to
+1e-5 + 1e-5 |plain| for the grouped matmul and 1e-4 + 1e-4 |plain| for
+flash attention (sums of up to thousands of products in another order);
+fp16 outputs to 2^-10 + 2^-10 |plain| (two fp16 rounding steps).  Across
+schedules and ``sched_p`` the outputs must be bit-identical.
 """
 
 import numpy as np
@@ -25,6 +29,9 @@ from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
 
 TOL = 2.0 ** -7
+#: the general kernels' tolerances by output dtype: (gmm, flash)
+SIMT_TOL = {torch.float32: (1e-5, 1e-4), torch.float16: (2.0 ** -10,) * 2,
+            torch.bfloat16: (TOL, TOL)}
 pytestmark = pytest.mark.cuda
 
 
@@ -37,15 +44,14 @@ def dev():
     return torch.device("cuda")
 
 
-def _randn(dev, *shape, seed=0, scale=1.0):
+def _randn(dev, *shape, seed=0, scale=1.0, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return (torch.randn(*shape, generator=g, device=dev) * scale).to(
-        torch.bfloat16)
+    return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
 
 
-def _assert_close(got, want):
+def _assert_close(got, want, tol=TOL):
     diff = (got.float() - want.float()).abs()
-    assert bool((diff <= TOL + TOL * want.float().abs()).all()), float(diff.max())
+    assert bool((diff <= tol + tol * want.float().abs()).all()), float(diff.max())
 
 
 @pytest.mark.parametrize("case", [
@@ -83,26 +89,32 @@ def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
     queue, and that reference test then fails.
     """
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    for b, s, h, kvh, hd, blk, window, causal, lens, strided in case:
+    # the first case of each group also in fp32, on the general kernel
+    runs = [(c, dt) for i, c in enumerate(case)
+            for dt in ((torch.bfloat16, torch.float32) if i == 0
+                       else (torch.bfloat16,))]
+    for (b, s, h, kvh, hd, blk, window, causal, lens, strided), dt in runs:
         if strided:
             # q, k and v as views of one (b, s, 3, h, hd) buffer
-            buf = _randn(dev, b, s, 3, h, hd, seed=5)
+            buf = _randn(dev, b, s, 3, h, hd, seed=5, dtype=dt)
             q, k, v = buf[:, :, 0], buf[:, :, 1, :kvh], buf[:, :, 2, :kvh]
         else:
-            q, k, v = (_randn(dev, b, s, n, hd, seed=i)
+            q, k, v = (_randn(dev, b, s, n, hd, seed=i, dtype=dt)
                        for i, n in enumerate((h, kvh, kvh)))
         lens = (np.random.default_rng(s).integers(1, s + 1, size=b)
                 if lens is None else np.asarray(lens))
         kw = dict(causal=causal, window=window, block_q=blk, block_k=blk,
                   kv_lens=lens)
-        before = fa.FLASH_SCHED.launches
+        kernel = fa.FLASH_SCHED if dt == torch.bfloat16 else fa.FLASH_SCHED_SIMT
+        before = kernel.launches
         out = flash_attention(q, k, v, schedule="static", sched_p=5, **kw)
-        assert fa.FLASH_SCHED.launches == before + 1
+        assert kernel.launches == before + 1
         qf, kf, vf = fa.broadcast_flatten(q, k, v)
         want = fa.flash_attention_sched_plain(
             qf, kf, vf, kv_lens=np.repeat(lens, h), causal=causal,
             window=window)
-        _assert_close(out, want.reshape(b, h, s, hd).permute(0, 2, 1, 3))
+        _assert_close(out, want.reshape(b, h, s, hd).permute(0, 2, 1, 3),
+                      SIMT_TOL[dt][1])
         for tech in REGISTRY:
             for p in (1, 8, n_sm):
                 assert torch.equal(flash_attention(
@@ -110,23 +122,37 @@ def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
 
 
 def test_flash_bhsd_entry_and_errors(dev):
+    """The bhsd entry; fp32, fp16 and a bf16 head dim of 20 on the general
+    kernel (hd 80 and 256 in fp32 with ragged lens and a window); what no
+    kernel takes raises, with no route to the plain version."""
     q = _randn(dev, 4, 256, 64)
     out = fa.flash_attention_sched_bhsd(q, q, q, schedule="gss", block_q=128,
                                         block_k=128)
     _assert_close(out, fa.flash_attention_sched_plain(q, q, q))
-    with pytest.raises(TypeError, match="bfloat16"):
-        flash_attention(*(q[:, :, None].float(),) * 3, schedule="fac2")
     # any head dim that is a multiple of 8 up to 256 runs (32: padded to 64)
     x = _randn(dev, 2, 200, 32)
     before = fa.FLASH_SCHED.launches
     _assert_close(fa.flash_attention_sched_bhsd(x, x, x, schedule="fac2"),
                   fa.flash_attention_sched_plain(x, x, x))
     assert fa.FLASH_SCHED.launches == before + 1
-    # others raise, with no route to the plain version
-    for hd in (20, 264):
-        with pytest.raises(ValueError, match="head_dim"):
-            y = _randn(dev, 1, 64, 1, hd)
-            flash_attention(y, y, y, schedule="fac2")
+    for dt, hd in ((torch.float32, 64), (torch.float16, 128),
+                   (torch.bfloat16, 20), (torch.float32, 80),
+                   (torch.float32, 256)):
+        y = _randn(dev, 3, 300, hd, seed=hd, dtype=dt)
+        lens = [300, 77, 1]
+        simt = fa.FLASH_SCHED_SIMT.launches
+        got = fa.flash_attention_sched_bhsd(y, y, y, schedule="fac2",
+                                            kv_lens=lens, window=50,
+                                            block_q=128, block_k=64)
+        assert fa.FLASH_SCHED_SIMT.launches == simt + 1
+        assert got.dtype == dt
+        _assert_close(got, fa.flash_attention_sched_plain(
+            y, y, y, kv_lens=lens, window=50), SIMT_TOL[dt][1])
+    y = _randn(dev, 1, 64, 1, 264)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(y, y, y, schedule="fac2")
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        flash_attention(*(q[:, :, None].double(),) * 3, schedule="fac2")
     assert fa.FLASH_SCHED.launches == before + 1
 
 
@@ -169,18 +195,28 @@ def test_flash_dense_tile_edges(dev):
                  (1, 300, 2, 2, 256, 63, True),    # window 63 < a kv tile
                  (1, 200, 2, 2, 256, 0, False)):   # hd 256, non-causal
         _check_flash_dense(dev, case)
+    # fp32 on the general kernel: every padded width, its 64-row q tiles'
+    # edges, a window of 2048, non-causal, and an odd head dim
+    for case in ((1, 300, 4, 2, 64, 0, True), (2, 129, 4, 1, 80, 40, True),
+                 (1, 300, 4, 2, 128, 1, True), (1, 65, 2, 2, 128, 0, False),
+                 (1, 2100, 4, 1, 256, 2048, True),
+                 (2, 200, 4, 4, 100, 63, True)):
+        _check_flash_dense(dev, case, torch.float32)
 
 
-def _check_flash_dense(dev, case):
+def _check_flash_dense(dev, case, dtype=torch.bfloat16):
     b, s, h, kvh, hd, window, causal = case
-    q, k, v = (_randn(dev, b, s, n, hd, seed=i)
+    q, k, v = (_randn(dev, b, s, n, hd, seed=i, dtype=dtype)
                for i, n in enumerate((h, kvh, kvh)))
-    before = fa.FLASH_DENSE.launches
+    kernel = (fa.FLASH_DENSE if fa.flash_route(dtype, hd) == "wgmma"
+              else fa.FLASH_DENSE_SIMT)
+    before = kernel.launches
     out = flash_attention(q, k, v, causal=causal, window=window)
-    assert fa.FLASH_DENSE.launches == before + 1
+    assert kernel.launches == before + 1
     want = fa.flash_attention_dense_plain(*fa.broadcast_flatten(q, k, v),
                                           causal=causal, window=window)
-    _assert_close(out, want.reshape(b, h, s, hd).permute(0, 2, 1, 3))
+    _assert_close(out, want.reshape(b, h, s, hd).permute(0, 2, 1, 3),
+                  SIMT_TOL[dtype][1])
     # block sizes name the TPU's blocking; the kernel's result ignores them
     assert torch.equal(flash_attention(q, k, v, causal=causal, window=window,
                                        block_q=128, block_k=64), out)
@@ -214,16 +250,25 @@ def test_flash_dense_bhsd_entry_and_errors(dev):
     out = fa.flash_attention_bhsd(q, q, q, window=100)
     _assert_close(out, fa.flash_attention_dense_plain(q, q, q, window=100))
     x = q[:, :, None]
-    with pytest.raises(TypeError, match="bfloat16"):
-        flash_attention(*(x.float(),) * 3)
+    # fp32 and a bf16 head dim of 84 run the general kernel
+    before = fa.FLASH_DENSE_SIMT.launches
+    _assert_close(flash_attention(*(x.float(),) * 3, window=100),
+                  fa.flash_attention_dense_plain(*(q.float(),) * 3,
+                                                 window=100)[:, :, None],
+                  SIMT_TOL[torch.float32][1])
+    y = _randn(dev, 2, 200, 84)
+    _assert_close(fa.flash_attention_bhsd(y, y, y),
+                  fa.flash_attention_dense_plain(y, y, y))
+    assert fa.FLASH_DENSE_SIMT.launches == before + 2
     # any head dim that is a multiple of 8 up to 256 (72: padded to 128)
     y = _randn(dev, 2, 200, 72)
     _assert_close(fa.flash_attention_bhsd(y, y, y),
                   fa.flash_attention_dense_plain(y, y, y))
-    for hd in (264, 84):
-        with pytest.raises(ValueError, match="head_dim"):
-            y = _randn(dev, 1, 64, 1, hd)
-            flash_attention(y, y, y)
+    with pytest.raises(ValueError, match="head_dim"):
+        y = _randn(dev, 1, 64, 1, 264)
+        flash_attention(y, y, y)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        flash_attention(*(x.double(),) * 3)
     with pytest.raises(ValueError, match="different devices"):
         flash_attention(x, x.cpu(), x)
     with pytest.raises(ValueError, match="GQA layout"):
@@ -236,19 +281,21 @@ def test_gmm_matches_plain_and_is_schedule_free(dev, shape):
     _check_gmm(dev, shape)
 
 
-def _check_gmm(dev, shape):
+def _check_gmm(dev, shape, dtype=torch.bfloat16):
     e, c, d, f, bm = shape
-    x = _randn(dev, e, c, d, seed=1)
-    w = _randn(dev, e, d, f, seed=2, scale=d ** -0.5)
+    x = _randn(dev, e, c, d, seed=1, dtype=dtype)
+    w = _randn(dev, e, d, f, seed=2, scale=d ** -0.5, dtype=dtype)
     rows = np.random.default_rng(e).integers(0, c + 1, size=e)
-    before = gm.GMM.launches
+    kernel = (gm.GMM if gm.gmm_route(dtype, dtype, bm, d, f) == "wgmma"
+              else gm.GMM_SIMT)
+    before = kernel.launches
     out = grouped_matmul(x, w, block_rows=bm, schedule="fac2",
                          expert_rows=rows, sched_p=3)
-    assert gm.GMM.launches == before + 1
+    assert kernel.launches == before + 1 and out.dtype == dtype
     t = e * (c // bm)
     te = torch.arange(t, device=dev) // (c // bm)
     want = gm.grouped_matmul_tiles_plain(x.reshape(t, bm, d), w, te)
-    _assert_close(out, want.reshape(e, c, f))
+    _assert_close(out, want.reshape(e, c, f), SIMT_TOL[dtype][0])
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for tech in REGISTRY:
         for p in (8, n_sm):
@@ -330,6 +377,15 @@ def test_gmm_tails_and_one_cta_ring(dev, monkeypatch):
     # 128 tail
     _check_gmm(dev, (2, 256, 160, 384, 128))
     _check_gmm(dev, (1, 128, 64, 128, 128))   # one expert, a single tile
+    # the general kernel: the reference MoE demo's fp32 call (bm 8, d 64,
+    # f 32), bf16 at that shape, the qwen3-moe width in 8-row tiles, and
+    # ragged widths in fp32 and fp16
+    for shape, dt in (((4, 16, 64, 32, 8), torch.float32),
+                      ((4, 16, 64, 32, 8), torch.bfloat16),
+                      ((3, 32, 2048, 768, 8), torch.float32),
+                      ((2, 256, 100, 200, 128), torch.float32),
+                      ((3, 96, 40, 72, 24), torch.float16)):
+        _check_gmm(dev, shape, dt)
     e, c, d, f, bm = 4, 512, 256, 512, 128
     x = _randn(dev, e, c, d, seed=3)
     w = _randn(dev, e, d, f, seed=4, scale=d ** -0.5)
@@ -346,34 +402,54 @@ def test_gmm_tails_and_one_cta_ring(dev, monkeypatch):
     _check_moe_ragged(dev, monkeypatch)
 
 
-def test_gmm_rejects_what_the_kernel_does_not_take(dev):
-    """Also through the MoE model's ragged dispatch: fp32 tensors and an
-    expert d_ff that is not a multiple of 128 raise; nothing falls back to
-    the einsum."""
+def test_gmm_rejects_what_the_kernel_does_not_take(dev, monkeypatch):
+    """What the wgmma kernel does not take runs the general kernel, also
+    through the MoE model's ragged dispatch: fp32 tensors and an expert
+    d_ff that is not a multiple of 128, one ``gmm_simt`` launch a
+    projection, against the same call on the plain version.  What no
+    kernel takes raises; nothing falls back to the einsum."""
     import dataclasses
 
-    from repro_torch.models.moe import moe_ragged
+    from repro_torch.models import moe as tmoe
 
     x = _randn(dev, 2, 128, 64)
-    with pytest.raises(ValueError, match="f %"):
-        grouped_matmul(x, _randn(dev, 2, 64, 96), block_rows=128)
-    with pytest.raises(TypeError, match="bfloat16"):
-        grouped_matmul(x.float(), _randn(dev, 2, 64, 128).float(),
-                       block_rows=128)
+    w96 = _randn(dev, 2, 64, 96)
+    before = gm.GMM_SIMT.launches
+    _assert_close(grouped_matmul(x, w96, block_rows=128),
+                  _plain_grouped_matmul(x, w96, block_rows=128))
+    assert gm.GMM_SIMT.launches == before + 1
+    with pytest.raises(TypeError, match="gmm takes"):
+        grouped_matmul(x.float(), _randn(dev, 2, 64, 128), block_rows=128)
+    with pytest.raises(TypeError, match="gmm takes"):
+        grouped_matmul(x.double(), w96.double(), block_rows=128)
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.gmm_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), w96,
+                    torch.zeros(2, dtype=torch.int32, device=dev),
+                    [0, 1], gm.span_bounds(2, 2), 2)
     cfg, params, xm = _moe_case(dev)
-    with pytest.raises(TypeError, match="bfloat16"):
-        moe_ragged(params, cfg, xm.float())
     cfg96 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                              d_ff=96))
     params96 = {k: (v[..., :96] if k in ("wi", "wg") else
                     v[:, :96] if k == "wo" else v) for k, v in params.items()}
-    with pytest.raises(ValueError, match="f %"):
-        moe_ragged(params96, cfg96, xm)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    # (general, wgmma) launches: at d_ff 96, wo (d 96, f 256) fits gmm.cu
+    for c, p, xx, dt, n in ((cfg32, params, xm.float(), torch.float32, (3, 0)),
+                            (cfg96, params96, xm, torch.bfloat16, (2, 1))):
+        before = (gm.GMM_SIMT.launches, gm.GMM.launches)
+        y = tmoe.moe_ragged(p, c, xx)[0]
+        assert (gm.GMM_SIMT.launches - before[0],
+                gm.GMM.launches - before[1]) == n and y.dtype == dt
+        with monkeypatch.context() as m:
+            m.setattr(tmoe, "grouped_matmul", _plain_grouped_matmul)
+            want = tmoe.moe_ragged(p, c, xx)[0]
+        _assert_close(y, want, SIMT_TOL[dt][0] if dt == torch.bfloat16
+                      else 1e-4)
 
 
 def test_build_is_cached_and_counted(dev):
     libs = _build.build_all()
-    assert set(libs) == {"flash_dense", "flash_dense_bwd", "flash_sched", "gmm"}
+    assert set(libs) == {"flash_dense", "flash_dense_bwd", "flash_sched",
+                         "gmm", "gmm_simt", "flash_simt", "flash_simt_bwd"}
     assert all(p.is_file() for p in libs.values())
     _build.reset_launches()
     assert all(k.launches == 0 for k in _build.KERNELS.values())

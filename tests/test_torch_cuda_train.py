@@ -23,6 +23,11 @@ The MoE backward's bf16 dX and dW against ``grouped_matmul_bwd_plain``
 (fp32 sums, one rounding): |kernel - plain| <= 2^-7 + 2^-7 |plain|
 elementwise, about two bf16 steps, the gate of the forward kernels; two
 runs give the same bits.
+
+The general kernels (``flash_simt_bwd.cu``, ``gmm_dx_simt`` /
+``gmm_dw_simt``) in fp32, plain fp32 FMA against the fp32 plain versions
+with TF32 off: flash gradients within 1e-4 + 1e-4 |plain| elementwise, dX
+and dW within 1e-5 + 1e-5 |plain| (sums in another order).
 """
 
 import math
@@ -33,6 +38,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as fa
 
+FP32_FLASH_TOL, FP32_GMM_TOL = 1e-4, 1e-5
 GRAD_TOL = 2.0 ** -6
 GRAD_ATOL = 1e-5
 LSE_TOL = 1e-3
@@ -49,17 +55,23 @@ def dev():
     return torch.device("cuda")
 
 
-def _randn(dev, *shape, seed=0, scale=1.0):
+def _randn(dev, *shape, seed=0, scale=1.0, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return (torch.randn(*shape, generator=g, device=dev) * scale).to(
-        torch.bfloat16)
+    return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
 
 
-def _inputs(dev, b, s, h, kvh, hd, seed):
-    return (_randn(dev, b, s, h, hd, seed=seed),
-            _randn(dev, b, s, kvh, hd, seed=seed + 1),
-            _randn(dev, b, s, kvh, hd, seed=seed + 2),
-            _randn(dev, b, s, h, hd, seed=seed + 3))
+def _inputs(dev, b, s, h, kvh, hd, seed, dtype=torch.bfloat16):
+    return (_randn(dev, b, s, h, hd, seed=seed, dtype=dtype),
+            _randn(dev, b, s, kvh, hd, seed=seed + 1, dtype=dtype),
+            _randn(dev, b, s, kvh, hd, seed=seed + 2, dtype=dtype),
+            _randn(dev, b, s, h, hd, seed=seed + 3, dtype=dtype))
+
+
+def _assert_close(got, want, tol):
+    assert got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol + tol * want.float().abs()).all()), \
+        float(diff.max())
 
 
 def _plain_lse(q, k, causal, window):
@@ -163,6 +175,37 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
                    zip(got, _bwd(q, k, v, do, True, window)))
         want = fa.flash_attention_dense_bwd_plain(q, k, v, do, window=window)
         _check_grads(got[2:], want, (b, s, h, kvh, hd, window))
+    # fp32 (the general kernels, forward and backward): every padded width,
+    # GQA / MQA, windows, non-causal, an odd head dim; under autograd one
+    # launch of each pass, two runs bit-identical
+    for i, (b, s, h, kvh, hd, window, causal) in enumerate((
+            (2, 300, 4, 2, 64, 0, True), (1, 200, 4, 1, 80, 70, True),
+            (1, 129, 4, 2, 128, 0, True), (2, 100, 2, 2, 128, 0, False),
+            (1, 700, 5, 1, 256, 2048, True), (1, 150, 2, 1, 100, 30, True))):
+        q, k, v, do = _inputs(dev, b, s, h, kvh, hd, seed=60 + i,
+                              dtype=torch.float32)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        _build.reset_launches()
+        out = fa.flash_attention_dense_bshd(*leaves, causal=causal,
+                                            window=window)
+        out.backward(do)
+        torch.cuda.synchronize()
+        launches = {n: _build.KERNELS[n].launches for n in (
+            "flash_dense_simt", "flash_simt_bwd_delta",
+            "flash_simt_bwd_dkdv", "flash_simt_bwd_dq")}
+        assert launches == dict.fromkeys(launches, 1), launches
+        got = _bwd(q, k, v, do, causal, window)
+        assert all(torch.equal(a, g) for a, g in
+                   zip((l.grad for l in leaves), got[2:]))
+        assert all(torch.equal(a, g) for a, g in
+                   zip(got, _bwd(q, k, v, do, causal, window)))
+        assert float((got[1] - _plain_lse(q, k, causal, window)).abs().max()) \
+            <= FP32_FLASH_TOL
+        want = fa.flash_attention_dense_bwd_plain(q, k, v, do, causal=causal,
+                                                  window=window)
+        for g, ref in zip(got[2:], want):
+            assert g.dtype == torch.float32
+            _assert_close(g, ref, FP32_FLASH_TOL)
 
 
 def test_moe_bwd_kernels_match_plain(dev):
@@ -202,6 +245,34 @@ def test_moe_bwd_kernels_match_plain(dev):
         tmoe._expert_matmul(*leaves).backward(dy)
         assert torch.equal(leaves[0].grad, dx)
         assert torch.equal(leaves[1].grad, dw)
+    # the general kernels: the reference MoE demo's fp32 shape, the
+    # qwen3-moe width, rows, widths and depths off every block, fp16; the
+    # fp32 ones also under autograd through ``_expert_matmul``
+    for (e, r, d, f, p), dt in (((4, 16, 64, 32, 8), torch.float32),
+                                ((2, 256, 2048, 768, 132), torch.float32),
+                                ((3, 256, 200, 72, 5), torch.float32),
+                                ((2, 100, 200, 72, 3), torch.bfloat16),
+                                ((2, 40, 24, 56, 7), torch.float16)):
+        xe = _randn(dev, e, r, d, seed=53, dtype=dt)
+        w = _randn(dev, e, d, f, seed=54, scale=d ** -0.5, dtype=dt)
+        dy = _randn(dev, e, r, f, seed=55, dtype=dt)
+        before = (gm.GMM_DX_SIMT.launches, gm.GMM_DW_SIMT.launches)
+        dx, dw = gm.grouped_matmul_bwd(xe, w, dy, sched_p=p)
+        assert (gm.GMM_DX_SIMT.launches, gm.GMM_DW_SIMT.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert dx.dtype == dw.dtype == dt
+        again = gm.grouped_matmul_bwd(xe, w, dy, sched_p=p)
+        assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+        want_dx, want_dw = gm.grouped_matmul_bwd_plain(xe, w, dy)
+        tol = {torch.float32: FP32_GMM_TOL, torch.bfloat16: MOE_TOL,
+               torch.float16: 2.0 ** -10}[dt]
+        _assert_close(dx, want_dx, tol)
+        _assert_close(dw, want_dw, tol)
+        if dt == torch.float32 and r % 128 == 0:
+            leaves = [x.clone().requires_grad_(True) for x in (xe, w)]
+            tmoe._expert_matmul(*leaves).backward(dy)
+            assert torch.equal(leaves[0].grad, dx)
+            assert torch.equal(leaves[1].grad, dw)
 
 
 def _check_moe(got, want):

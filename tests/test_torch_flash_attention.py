@@ -160,8 +160,8 @@ def test_sched_wide_head_dims_match_jax_and_pass_the_kernel_check():
     """The schedule-aware path at the head dims of stablelm-3b (80) and
     recurrentgemma-2b (256): ragged lens and a window, against the
     reference kernel in interpret mode.  Then the check the CUDA launcher
-    runs first, on bf16 CPU tensors: every multiple of 8 up to 256 passes,
-    20 and 264 raise."""
+    runs first, on bf16 CPU tensors: every multiple of 8 up to 256 goes to
+    the wgmma kernels, 20 to the general kernel, 264 raises."""
     for hd, lens, window in ((80, [33, 130], 40), (256, [130, 71], 0)):
         q, k, v = _inputs(hd, 2, 130, 4, 1, hd)
         kw = dict(block_q=32, block_k=32, window=window, schedule="fac2",
@@ -170,11 +170,13 @@ def test_sched_wide_head_dims_match_jax_and_pass_the_kernel_check():
                                    atol=ATOL)
     for hd in range(8, 257, 8):
         x = torch.zeros(1, 16, 2, hd, dtype=torch.bfloat16)
-        fa._check_kernel_inputs("flash_sched", x, x[:, :, :1], x[:, :, :1])
-    for hd in (20, 264):
-        x = torch.zeros(1, 16, 2, hd, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="head_dim"):
-            fa._check_kernel_inputs("flash_sched", x, x, x)
+        assert fa._check_kernel_inputs(
+            "flash_sched", x, x[:, :, :1], x[:, :, :1]) == "wgmma"
+    x = torch.zeros(1, 16, 2, 20, dtype=torch.bfloat16)
+    assert fa._check_kernel_inputs("flash_sched", x, x, x) == "simt"
+    x = torch.zeros(1, 16, 2, 264, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._check_kernel_inputs("flash_sched", x, x, x)
 
 
 def test_kv_lens_require_schedule():

@@ -1,0 +1,92 @@
+"""Which hand-written kernel takes a call, decided on the CPU from the
+dtype and the shape alone: the routing functions of the grouped matmul
+and of the flash kernels (``gmm_route`` / ``gmm_dx_route`` /
+``gmm_dw_route``, ``flash_route`` and ``_check_kernel_inputs``).
+
+bf16 at the wgmma kernels' blocks goes to them ("wgmma"); fp32, fp16, and
+bf16 at any other shape or alignment go to the general kernels ("simt");
+what neither takes raises, on the CPU as on the card.  The kernels
+themselves are held to their plain versions on the card
+(``tests/test_torch_cuda_kernels.py``, ``tests/test_torch_cuda_train.py``).
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+
+BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16
+
+
+def test_gmm_routes_by_dtype_and_shape():
+    # the aligned bf16 shapes of gmm.cu's blocks: bm, f % 128, d % 32
+    assert gm.gmm_route(BF16, BF16, 128, 2048, 768) == "wgmma"
+    assert gm.gmm_route(BF16, BF16, 256, 160, 384) == "wgmma"
+    assert gm.gmm_route(BF16, BF16, 128, 96, 128, aligned=False) == "simt"
+    # the reference MoE demo's call and the qwen3-moe width in 8-row tiles
+    for dt in (F32, BF16, F16):
+        assert gm.gmm_route(dt, dt, 8, 64, 32) == "simt"
+        assert gm.gmm_route(dt, dt, 8, 2048, 768) == "simt"
+    for shape in ((128, 2048, 96), (128, 100, 128), (64, 128, 128)):
+        assert gm.gmm_route(BF16, BF16, *shape) == "simt"
+        assert gm.gmm_route(F32, F32, *shape) == "simt"
+    assert gm.gmm_route(F32, F32, 128, 2048, 768) == "simt"
+    for pair in ((F32, BF16), (torch.float64, torch.float64),
+                 (torch.int32, torch.int32)):
+        with pytest.raises(TypeError, match="gmm takes"):
+            gm.gmm_route(*pair, 128, 128, 128)
+
+
+def test_gmm_backward_routes_by_dtype_and_shape():
+    # gmm_dx: R and d % 128, f % 32; gmm_dw: d and f % 128, R > 0
+    assert gm.gmm_dx_route(BF16, BF16, 640, 2048, 768) == "wgmma"
+    assert gm.gmm_dw_route(BF16, BF16, 640, 2048, 768) == "wgmma"
+    assert gm.gmm_dx_route(BF16, BF16, 128, 128, 224) == "wgmma"
+    assert gm.gmm_dw_route(BF16, BF16, 128, 128, 224) == "simt"
+    for r, d, f in ((8, 64, 32), (640, 2048, 100), (0, 128, 128)):
+        assert gm.gmm_dx_route(BF16, BF16, r, d, f) == "simt"
+        assert gm.gmm_dw_route(BF16, BF16, r, d, f) == "simt"
+    # rows that are no multiple of 128: dX's m tiles, dW's zero-filled depth
+    assert gm.gmm_dx_route(BF16, BF16, 100, 256, 256) == "simt"
+    assert gm.gmm_dw_route(BF16, BF16, 100, 256, 256) == "wgmma"
+    for dt in (F32, F16):
+        assert gm.gmm_dx_route(dt, dt, 640, 2048, 768) == "simt"
+        assert gm.gmm_dw_route(dt, dt, 640, 2048, 768) == "simt"
+    with pytest.raises(TypeError, match="gmm_dx takes"):
+        gm.gmm_dx_route(F32, BF16, 128, 128, 128)
+    with pytest.raises(TypeError, match="gmm_dw takes"):
+        gm.gmm_dw_route(torch.float64, torch.float64, 128, 128, 128)
+
+
+def test_flash_routes_by_dtype_head_dim_and_strides():
+    for hd in range(8, 257, 8):
+        assert fa.flash_route(BF16, hd) == "wgmma"
+        assert fa.flash_route(F32, hd) == "simt"
+        assert fa.flash_route(F16, hd) == "simt"
+    for hd in (1, 20, 100, 250):
+        assert fa.flash_route(BF16, hd) == "simt"
+        assert fa.flash_route(F32, hd) == "simt"
+    assert fa.flash_route(BF16, 128, tma_ok=False) == "simt"
+    for hd in (0, 264, 512):
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_route(F32, hd)
+    for dt in (torch.float64, torch.int32):
+        with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+            fa.flash_route(dt, 128)
+
+
+def test_flash_kernel_check_reads_layout_and_strides():
+    q = torch.zeros(1, 16, 4, 128, dtype=BF16)
+    kv = torch.zeros(1, 16, 2, 128, dtype=BF16)
+    assert fa._check_kernel_inputs("flash_dense", q, kv, kv) == "wgmma"
+    assert fa._check_kernel_inputs("flash_dense", q.float(), kv.float(),
+                                   kv.float()) == "simt"
+    # a head dim the TMA boxes cannot step (strides not multiples of 8)
+    odd = torch.zeros(1, 16, 4, 132, dtype=BF16)[..., :128]
+    assert fa._check_kernel_inputs("flash_dense", odd, kv, kv) == "simt"
+    with pytest.raises(TypeError, match="one dtype"):
+        fa._check_kernel_inputs("flash_dense", q, kv.float(), kv)
+    with pytest.raises(ValueError, match="GQA layout"):
+        fa._check_kernel_inputs("flash_dense", torch.zeros(1, 16, 3, 128),
+                                kv.float(), kv.float())
