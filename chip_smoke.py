@@ -198,13 +198,22 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                bit-identical, their times, ``torch.bmm``'s, the bound and
                a digest of the dX outputs
   kernels_any_dtype
-               the general kernels (``gmm_simt.cu``, ``flash_simt.cu``,
-               ``flash_simt_bwd.cu``: plain fp32 FMA, the dtypes and shapes
-               the wgmma kernels do not take) against their plain versions:
-               gmm, gmm_dx and gmm_dw in fp32 and bf16 at the reference MoE
-               demo's shape (4 experts x 16 rows, 8-row tiles, d 64, f 32)
-               and at qwen3-moe-30b-a3b's width in 8-row tiles (128 x 64
-               rows, d 2048, f 768), each with the kernel its route took;
+               the kernels for the dtypes and shapes the block-aligned
+               wgmma kernels do not take (``gmm_any.cu``: bf16 / fp16 on
+               TMA and wgmma; ``gmm_simt.cu``, ``flash_simt.cu``,
+               ``flash_simt_bwd.cu``: plain fp32 FMA) against their plain
+               versions: gmm, gmm_dx and gmm_dw in fp32, bf16 and fp16 at
+               the reference MoE demo's shape (4 experts x 16 rows, 8-row
+               tiles, d 64, f 32) and at qwen3-moe-30b-a3b's width in 8-row
+               tiles (128 x 64 rows, d 2048, f 768), and in bf16 at f 764
+               (rows TMA cannot describe), each with the kernel its route
+               took, bit-identical across schedules and ``sched_p``;
+               ``gmm_digest`` (the fp32 family's outputs) equal to the
+               first general kernel's (``PARENT_GMM_DIGEST``); the
+               off-block path (counts from 0: ``grouped_matmul`` in bf16
+               and fp16 at block_rows 8 and ``grouped_matmul_bwd`` in bf16
+               at 64 rows an expert, ``gmm_any`` 2, ``gmm_dx_any`` 1 and
+               ``gmm_dw`` 1 launches);
                the fp32 flash forward dense and causal at head dims 64,
                80, 128 and 256 (the models' heads; hd 256 with window
                2048) and ragged at the main path's lanes in a fac2 plan;
@@ -245,6 +254,8 @@ CUDA device is present or ``src/repro_torch`` is missing beside it.
     python3 chip_smoke.py --bwd-times [SRC]
     python3 chip_smoke.py --moe-bwd-times [SRC]
     python3 chip_smoke.py --yardsticks [SRC]
+    python3 chip_smoke.py --gmm-digest [SRC]
+    python3 chip_smoke.py --gmm-times [SRC]
 
 print only that digest (``dense_digest``; ``hd80_digest``: ``flash_dense``'s
 output and lse and ``flash_dense_bwd``'s dQ, dK, dV at stablelm-3b's
@@ -259,7 +270,12 @@ at the moe_train step's shapes with a digest of the dX outputs
 (``moe_bwd_times``), or only the yardsticks that could send a kernel back
 to the bring_up queue (``yardsticks``: ``flex_attention`` against
 ``flash_dense`` at head_dim 256, ``torch.linalg.vecdot`` against the
-backward's delta pass, ``torch.bmm`` against ``gmm_dw`` in turns), for
+backward's delta pass, ``torch.bmm`` against ``gmm_dw`` in turns), or
+only a hash of the fp32 grouped matmul family's outputs at both
+SIMT_GMM_SHAPES (``gmm_digest``: the forward in a fac2 plan, dX, dW), or
+only that family's back-to-back times at qwen3-moe's width in 8-row
+tiles in fp32, bf16 and fp16 with ``torch.bmm`` beside them and the
+routes taken (``gmm_times``), for
 the package under ``SRC`` (default: this
 checkout's ``src``), so that another tree's kernels can be held against
 this one bit for bit, and timed against it in turns (parent, change,
@@ -427,6 +443,9 @@ SIMT_GMM_TOL, SIMT_FLASH_TOL = 1e-5, 1e-4
 # f, block_rows)
 SIMT_GMM_SHAPES = {"demo": (4, 16, 64, 32, 8),
                    "qwen3_moe": (128, 64, 2048, 768, 8)}
+# bf16 whose rows TMA cannot describe (f not a multiple of 8): the 2-byte
+# path of gmm_simt.cu, 16 experts at qwen3-moe's depth
+SIMT_GMM_OFF8 = {"f764": (16, 64, 2048, 764, 8)}
 # the fp32 flash forward, dense and causal at each head dim's model shape
 # (granite-moe-1b-a400m 16 / 8 heads, stablelm-3b 32 / 32, qwen3-4b 32 / 8,
 # recurrentgemma-2b 10 / 1 with its window of 2048): (b, s, h, kvh, hd,
@@ -441,6 +460,13 @@ SIMT_BWD_SHAPE = (2, 4096, 32, 8, 128)
 # width, FP32_MODEL_LAYERS layers, compute_dtype "float32", one loss and
 # gradient on TRAIN_BATCH x TRAIN_S tokens (above flash_threshold)
 FP32_MODEL_LAYERS = 2
+# gmm_digest() of the fp32 grouped matmul family as the first general
+# kernel computed it (one 8-row tile a step, on an H100): the SGEMM keeps
+# every bit
+PARENT_GMM_DIGEST = "136d16b43e67d0d8"
+# bf16 / fp16 off gmm.cu's blocks (gmm_any.cu), launched on the off-block
+# path: grouped_matmul at block_rows 8, the backward at 64 rows an expert
+ANY_KERNELS = ("gmm_any", "gmm_dx_any")
 SIMT_KERNELS = ("gmm_simt", "gmm_dx_simt", "gmm_dw_simt", "flash_dense_simt",
                 "flash_sched_simt", "flash_simt_bwd_delta",
                 "flash_simt_bwd_dkdv", "flash_simt_bwd_dq")
@@ -2713,70 +2739,209 @@ def measured(name, kernel, run, plain, library, flops, nbytes, dtype, tol,
                 bytes=nbytes)
 
 
+def gmm_kernel_of(route_fn, kerns, dtype, *shape):
+    """The kernel object a gmm-family call of this dtype and shape takes."""
+    return kerns[route_fn(dtype, dtype, *shape)]
+
+
+def planned_gmm(x, w, bm, live, n_sm):
+    """``grouped_matmul``'s call with ``schedule="fac2"`` and ``sched_p``
+    = n_sm, its tile plan made once here: a function that runs the kernel
+    on that plan, so that a timing leaves out the host planner."""
+    from repro_torch.balance.moe import plan_tiles
+    from repro_torch.kernels.grouped_matmul.ops import _grouped_matmul_core
+    order, plan = plan_tiles(live, bm, p=n_sm, technique="fac2",
+                             capacity_rows=x.shape[1], return_plan=True)
+    return lambda: _grouped_matmul_core(x, w, order, block_rows=bm,
+                                        sched_p=n_sm, plan=plan)
+
+
 def simt_gmm_rows(dev, n_sm):
-    """The grouped matmul family at SIMT_GMM_SHAPES in fp32 and bf16: the
-    forward through ``grouped_matmul`` (fac2 over the rows, sched_p = SM
-    count), dX and dW through their launchers; the route each call takes
-    (``gmm_simt`` unless the shape fits gmm.cu's blocks), against the
-    plain versions, with ``torch.bmm`` on the same tensors."""
+    """The grouped matmul family at SIMT_GMM_SHAPES in fp32, bf16 and fp16,
+    and in bf16 at SIMT_GMM_OFF8: the forward on ``grouped_matmul``'s fac2
+    plan (sched_p = SM count; timed with the plan made beforehand, and its
+    output equal to ``grouped_matmul``'s own call), dX and dW through their
+    launchers; the kernel each call's route takes (``gmm_simt`` for fp32
+    and rows TMA cannot describe, ``gmm_any`` for the other 2-byte calls
+    off gmm.cu's blocks), against the plain versions, with ``torch.bmm``
+    on the same tensors; the outputs bit-identical across schedules and
+    ``sched_p``."""
     import numpy as np
     import torch
     from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
     from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
     gen = torch.Generator(device=dev).manual_seed(24)
+    fwd_k = {"wgmma": gm.GMM, "wgmma_any": gm.GMM_ANY, "simt": gm.GMM_SIMT}
+    dx_k = {"wgmma": gm.GMM_DX, "wgmma_any": gm.GMM_DX_ANY,
+            "simt": gm.GMM_DX_SIMT}
+    dw_k = {"wgmma": gm.GMM_DW, "simt": gm.GMM_DW_SIMT}
+    cases = [(name, shape, dt)
+             for dt in (torch.float32, torch.bfloat16, torch.float16)
+             for name, shape in SIMT_GMM_SHAPES.items()]
+    cases += [(name, shape, torch.bfloat16)
+              for name, shape in SIMT_GMM_OFF8.items()]
     rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for name, (e, c, d, f, bm), dtype in cases:
         tol = SIMT_GMM_TOL if dtype == torch.float32 else ATOL
         esz = torch.finfo(dtype).bits // 8
-        for name, (e, c, d, f, bm) in SIMT_GMM_SHAPES.items():
-            def rnd(*shape, scale=1.0):
-                return (torch.randn(*shape, generator=gen, device=dev)
-                        * scale).to(dtype)
 
-            x, w = rnd(e, c, d), rnd(e, d, f, scale=d ** -0.5)
-            dy = rnd(e, c, f)
-            live = np.random.default_rng(e).integers(c // 2, c + 1, size=e)
-            t = e * (c // bm)
-            te = torch.arange(t, device=dev) // (c // bm)
-            kern = {"wgmma": gm.GMM, "simt": gm.GMM_SIMT}
-            fwd = measured(
-                f"gmm {name} {dtype}",
-                kern[gm.gmm_route(dtype, dtype, bm, d, f)],
-                lambda: grouped_matmul(x, w, block_rows=bm, schedule="fac2",
-                                       expert_rows=live, sched_p=n_sm),
-                lambda: gm.grouped_matmul_tiles_plain(
-                    x.reshape(t, bm, d), w, te).reshape(e, c, f),
-                lambda: torch.bmm(x, w), 2 * e * c * d * f,
-                esz * (e * c * d + e * d * f + e * c * f), dtype, tol)
-            out = grouped_matmul(x, w, block_rows=bm, schedule="fac2",
-                                 expert_rows=live, sched_p=n_sm)
-            for kw in ({"sched_p": 8}, {"schedule": "gss",
-                                        "expert_rows": live, "sched_p": 1}):
-                assert torch.equal(grouped_matmul(x, w, block_rows=bm, **kw),
-                                   out), (name, dtype, kw)
-            dx = measured(
-                f"gmm_dx {name} {dtype}",
-                {"wgmma": gm.GMM_DX, "simt": gm.GMM_DX_SIMT}[
-                    gm.gmm_dx_route(dtype, dtype, c, d, f)],
-                lambda: gm.gmm_dx_cuda(dy, w, sched_p=n_sm),
-                lambda: gm.grouped_matmul_bwd_plain(x, w, dy,
-                                                    need_dw=False)[0],
-                lambda: torch.bmm(dy, w.transpose(1, 2)), 2 * e * c * d * f,
-                esz * (e * c * f + e * d * f + e * c * d), dtype, tol)
-            dw = measured(
-                f"gmm_dw {name} {dtype}",
-                {"wgmma": gm.GMM_DW, "simt": gm.GMM_DW_SIMT}[
-                    gm.gmm_dw_route(dtype, dtype, c, d, f)],
-                lambda: gm.gmm_dw_cuda(x, dy, sched_p=n_sm),
-                lambda: gm.grouped_matmul_bwd_plain(x, w, dy,
-                                                    need_dx=False)[1],
-                lambda: torch.bmm(x.transpose(1, 2), dy), 2 * e * c * d * f,
-                esz * (e * c * d + e * c * f + e * d * f), dtype, tol)
-            key = f"{name}_{str(dtype).replace('torch.', '')}"
-            rows[key] = dict(shape=[e, c, d, f, bm], gmm=fwd, gmm_dx=dx,
-                             gmm_dw=dw)
-            del x, w, dy
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=dev)
+                    * scale).to(dtype)
+
+        x, w = rnd(e, c, d), rnd(e, d, f, scale=d ** -0.5)
+        dy = rnd(e, c, f)
+        live = np.random.default_rng(e).integers(c // 2, c + 1, size=e)
+        t = e * (c // bm)
+        te = torch.arange(t, device=dev) // (c // bm)
+        run = planned_gmm(x, w, bm, live, n_sm)
+        fwd = measured(
+            f"gmm {name} {dtype}",
+            gmm_kernel_of(gm.gmm_route, fwd_k, dtype, bm, d, f), run,
+            lambda: gm.grouped_matmul_tiles_plain(
+                x.reshape(t, bm, d), w, te).reshape(e, c, f),
+            lambda: torch.bmm(x, w), 2 * e * c * d * f,
+            esz * (e * c * d + e * d * f + e * c * f), dtype, tol)
+        out = grouped_matmul(x, w, block_rows=bm, schedule="fac2",
+                             expert_rows=live, sched_p=n_sm)
+        assert torch.equal(run(), out), (name, dtype)
+        for kw in ({"sched_p": 8}, {"schedule": "gss",
+                                    "expert_rows": live, "sched_p": 1}):
+            assert torch.equal(grouped_matmul(x, w, block_rows=bm, **kw),
+                               out), (name, dtype, kw)
+        dx = measured(
+            f"gmm_dx {name} {dtype}",
+            gmm_kernel_of(gm.gmm_dx_route, dx_k, dtype, c, d, f),
+            lambda: gm.gmm_dx_cuda(dy, w, sched_p=n_sm),
+            lambda: gm.grouped_matmul_bwd_plain(x, w, dy,
+                                                need_dw=False)[0],
+            lambda: torch.bmm(dy, w.transpose(1, 2)), 2 * e * c * d * f,
+            esz * (e * c * f + e * d * f + e * c * d), dtype, tol)
+        assert torch.equal(gm.gmm_dx_cuda(dy, w, sched_p=8),
+                           gm.gmm_dx_cuda(dy, w, sched_p=n_sm)), (name, dtype)
+        dw = measured(
+            f"gmm_dw {name} {dtype}",
+            gmm_kernel_of(gm.gmm_dw_route, dw_k, dtype, c, d, f),
+            lambda: gm.gmm_dw_cuda(x, dy, sched_p=n_sm),
+            lambda: gm.grouped_matmul_bwd_plain(x, w, dy,
+                                                need_dx=False)[1],
+            lambda: torch.bmm(x.transpose(1, 2), dy), 2 * e * c * d * f,
+            esz * (e * c * d + e * c * f + e * d * f), dtype, tol)
+        key = f"{name}_{str(dtype).replace('torch.', '')}"
+        rows[key] = dict(shape=[e, c, d, f, bm], gmm=fwd, gmm_dx=dx,
+                         gmm_dw=dw)
+        del x, w, dy, out
     return rows
+
+
+def off_block_path(dev, n_sm):
+    """The 2-byte calls off gmm.cu's blocks that a user makes, counts from
+    0 just before and read just after: ``grouped_matmul`` in bf16 and in
+    fp16 with block_rows 8 at qwen3-moe-30b-a3b's width (SIMT_GMM_SHAPES)
+    in a fac2 plan, and ``grouped_matmul_bwd`` in bf16 at its 64 rows an
+    expert (dX off gmm_dx's 128-row tiles).  Then, outside the counted
+    run, the outputs against the plain versions."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+    e, c, d, f, bm = SIMT_GMM_SHAPES["qwen3_moe"]
+    gen = torch.Generator(device=dev).manual_seed(28)
+    x = torch.randn(e, c, d, generator=gen, device=dev)
+    w = torch.randn(e, d, f, generator=gen, device=dev) * d ** -0.5
+    dy = torch.randn(e, c, f, generator=gen, device=dev)
+    live = np.random.default_rng(e).integers(c // 2, c + 1, size=e)
+    ins = {dt: (x.to(dt), w.to(dt), dy.to(dt))
+           for dt in (torch.bfloat16, torch.float16)}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    outs = {dt: grouped_matmul(xx, ww, block_rows=bm, schedule="fac2",
+                               expert_rows=live, sched_p=n_sm)
+            for dt, (xx, ww, _) in ins.items()}
+    xb, wb, dyb = ins[torch.bfloat16]
+    dx, dw = gm.grouped_matmul_bwd(xb, wb, dyb, sched_p=n_sm)
+    torch.cuda.synchronize()
+    launches = {n: kern.launches for n, kern in _build.KERNELS.items()
+                if kern.launches}
+    assert launches == {"gmm_any": 2, "gmm_dx_any": 1, "gmm_dw": 1}, launches
+    t = e * (c // bm)
+    te = torch.arange(t, device=dev) // (c // bm)
+    err = {}
+    for dt, (xx, ww, _) in ins.items():
+        want = gm.grouped_matmul_tiles_plain(xx.reshape(t, bm, d), ww, te)
+        err[f"gmm_{dt}"] = check_close("off-block gmm", outs[dt],
+                                       want.reshape(e, c, f))
+    want_dx, want_dw = gm.grouped_matmul_bwd_plain(xb, wb, dyb)
+    err["gmm_dx"] = check_close("off-block gmm_dx", dx, want_dx)
+    err["gmm_dw"] = check_close("off-block gmm_dw", dw, want_dw)
+    del ins, outs, dx, dw
+    return dict(launches=launches, max_abs_err=err,
+                shape=[e, c, d, f, bm])
+
+
+def gmm_digest(dev):
+    """A hash of the fp32 grouped matmul family's outputs at both
+    SIMT_GMM_SHAPES: the forward through ``grouped_matmul`` in a fac2 plan
+    on one CTA per SM, dX and dW through their launchers."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(27)
+    h = hashlib.sha256()
+    for e, c, d, f, bm in SIMT_GMM_SHAPES.values():
+        x = torch.randn(e, c, d, generator=gen, device=dev)
+        w = torch.randn(e, d, f, generator=gen, device=dev) * d ** -0.5
+        dy = torch.randn(e, c, f, generator=gen, device=dev)
+        live = np.random.default_rng(e).integers(c // 2, c + 1, size=e)
+        for out in (grouped_matmul(x, w, block_rows=bm, schedule="fac2",
+                                   expert_rows=live, sched_p=n_sm),
+                    gm.gmm_dx_cuda(dy, w, sched_p=n_sm),
+                    gm.gmm_dw_cuda(x, dy, sched_p=n_sm)):
+            h.update(out.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()[:16]
+
+
+def gmm_times(dev):
+    """Back-to-back times of the grouped matmul family at qwen3-moe's
+    width in 8-row tiles (SIMT_GMM_SHAPES) in fp32, bf16 and fp16 (the
+    forward on ``grouped_matmul``'s fac2 plan, made beforehand; dX and dW
+    through their launchers; one CTA per SM), with ``torch.bmm`` on the
+    same tensors and the route each call takes."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    e, c, d, f, bm = SIMT_GMM_SHAPES["qwen3_moe"]
+    gen = torch.Generator(device=dev).manual_seed(29)
+    live = np.random.default_rng(e).integers(c // 2, c + 1, size=e)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        x = torch.randn(e, c, d, generator=gen, device=dev).to(dt)
+        w = (torch.randn(e, d, f, generator=gen, device=dev)
+             * d ** -0.5).to(dt)
+        dy = torch.randn(e, c, f, generator=gen, device=dev).to(dt)
+        out[str(dt).replace("torch.", "")] = dict(
+            routes=[gm.gmm_route(dt, dt, bm, d, f),
+                    gm.gmm_dx_route(dt, dt, c, d, f),
+                    gm.gmm_dw_route(dt, dt, c, d, f)],
+            gmm=cuda_ms_b2b(planned_gmm(x, w, bm, live, n_sm), REPS),
+            gmm_dx=cuda_ms_b2b(lambda: gm.gmm_dx_cuda(dy, w, sched_p=n_sm),
+                               REPS),
+            gmm_dw=cuda_ms_b2b(lambda: gm.gmm_dw_cuda(x, dy, sched_p=n_sm),
+                               REPS),
+            bmm=cuda_ms_b2b(lambda: torch.bmm(x, w), REPS),
+            bmm_dx=cuda_ms_b2b(lambda: torch.bmm(dy, w.transpose(1, 2)),
+                               REPS),
+            bmm_dw=cuda_ms_b2b(lambda: torch.bmm(x.transpose(1, 2), dy),
+                               REPS))
+        del x, w, dy
+    return out
 
 
 def simt_flash_rows(dev, n_sm):
@@ -2947,17 +3112,22 @@ def fp32_model_path(dev, n_sm):
 
 def phase_kernels_any_dtype(dev, n_sm):
     """The general kernels against their plain versions at every dtype and
-    shape of this slice, then the fp32 model path (counted).  Returns the
-    rows and the path's launch counts."""
+    shape of this slice, the off-block path (counted), then the fp32 model
+    path (counted).  Returns the rows and the paths' launch counts."""
     import torch
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     gmm_rows = simt_gmm_rows(dev, n_sm)
+    digest = gmm_digest(dev)
+    assert digest == PARENT_GMM_DIGEST, (digest, PARENT_GMM_DIGEST)
+    off_block = off_block_path(dev, n_sm)
     flash_rows = simt_flash_rows(dev, n_sm)
     model = fp32_model_path(dev, n_sm)
     emit("kernels_any_dtype", seconds=time.perf_counter() - t0,
-         gmm=gmm_rows, flash=flash_rows, model_path=model)
-    return gmm_rows, flash_rows, model["launches"]
+         gmm=gmm_rows, gmm_digest=digest,
+         gmm_digest_parent=PARENT_GMM_DIGEST, off_block_path=off_block,
+         flash=flash_rows, model_path=model)
+    return gmm_rows, flash_rows, model["launches"], off_block["launches"]
 
 
 EXAMPLE_RUNNER = """
@@ -3066,7 +3236,7 @@ def phase_examples(dev):
             gmm = {k: c for k, c in res["device_kernels"].items()
                    if "gmm" in k}
             assert sum(gmm.values()) == 2 and all(
-                "gmm_simt_kernel" in k for k in gmm), gmm
+                "gmm_f32_kernel" in k for k in gmm), gmm
             assert res["launches"].get("gmm_simt") == 2, res["launches"]
             row["gmm_kernels_profiled"] = gmm
         rows[name] = row
@@ -3090,14 +3260,16 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     # --dense-digest / --hd80-digest / --sched-digest / --dense-times /
-    # --bwd-times / --moe-bwd-times / --yardsticks / --serve-times [SRC]:
+    # --bwd-times / --moe-bwd-times / --yardsticks / --serve-times /
+    # --gmm-digest / --gmm-times [SRC]:
     # print only that function's result
     # for the package under SRC (default: this checkout's src), to hold two
     # trees' builds against each other
     modes = {"--dense-digest": dense_digest, "--hd80-digest": hd80_digest,
              "--sched-digest": sched_digest, "--dense-times": dense_times,
              "--bwd-times": bwd_times, "--moe-bwd-times": moe_bwd_times,
-             "--yardsticks": yardsticks, "--serve-times": serve_times}
+             "--yardsticks": yardsticks, "--serve-times": serve_times,
+             "--gmm-digest": gmm_digest, "--gmm-times": gmm_times}
     mode = modes.get(argv[0]) if argv else None
     src = ROOT / "src"
     if mode is not None and len(argv) > 1:
@@ -3455,7 +3627,8 @@ def main(argv) -> int:
     moe_train_launches, moe_bwd = phase_moe_train(dev, n_sm)
 
     # ---- this slice: every dtype and shape, and the examples ------------
-    simt_gmm, simt_flash, fp32_launches = phase_kernels_any_dtype(dev, n_sm)
+    simt_gmm, simt_flash, fp32_launches, any_launches = (
+        phase_kernels_any_dtype(dev, n_sm))
     torch.cuda.empty_cache()
     examples = phase_examples(dev)
     demo_launches = examples["torch_moe_balance_demo"]["launches"]
@@ -3471,6 +3644,12 @@ def main(argv) -> int:
                 **extra}
 
     gmm_simt_row = simt_gmm["qwen3_moe_float32"]
+    gmm_any_row = simt_gmm["qwen3_moe_bfloat16"]
+
+    def by_shape(kernel, op):
+        return {k: r[op] for k, r in simt_gmm.items()
+                if r[op]["kernel"] == kernel}
+
     simt_src = "src/repro_torch/kernels/csrc/"
     moe_note = ("no Pallas kernel: the reference differentiates moe_ragged's "
                 "expert einsums by autodiff")
@@ -3580,19 +3759,30 @@ def main(argv) -> int:
             {"fp32_model": fp32_launches["gmm_simt"],
              "moe_balance_demo": demo_launches["gmm_simt"]},
             shape=gmm_simt_row["shape"],
-            by_shape={k: r["gmm"] for k, r in simt_gmm.items()}),
+            by_shape=by_shape("gmm_simt", "gmm")),
         simt_entry(
             "gmm_dx_simt", simt_src + "gmm_simt.cu",
             "src/repro/models/moe.py:143", gmm_simt_row["gmm_dx"],
             {"fp32_model": fp32_launches["gmm_dx_simt"]},
             replaces_note=moe_note, shape=gmm_simt_row["shape"],
-            by_shape={k: r["gmm_dx"] for k, r in simt_gmm.items()}),
+            by_shape=by_shape("gmm_dx_simt", "gmm_dx")),
         simt_entry(
             "gmm_dw_simt", simt_src + "gmm_simt.cu",
             "src/repro/models/moe.py:143", gmm_simt_row["gmm_dw"],
             {"fp32_model": fp32_launches["gmm_dw_simt"]},
             replaces_note=moe_note, shape=gmm_simt_row["shape"],
-            by_shape={k: r["gmm_dw"] for k, r in simt_gmm.items()}),
+            by_shape=by_shape("gmm_dw_simt", "gmm_dw")),
+        simt_entry(
+            "gmm_any", simt_src + "gmm_any.cu",
+            "src/repro/kernels/grouped_matmul/grouped_matmul.py:37",
+            gmm_any_row["gmm"], {"off_block": any_launches["gmm_any"]},
+            shape=gmm_any_row["shape"], by_shape=by_shape("gmm_any", "gmm")),
+        simt_entry(
+            "gmm_dx_any", simt_src + "gmm_any.cu",
+            "src/repro/models/moe.py:143", gmm_any_row["gmm_dx"],
+            {"off_block": any_launches["gmm_dx_any"]},
+            replaces_note=moe_note, shape=gmm_any_row["shape"],
+            by_shape=by_shape("gmm_dx_any", "gmm_dx")),
         simt_entry(
             "flash_dense_simt", simt_src + "flash_simt.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:51",

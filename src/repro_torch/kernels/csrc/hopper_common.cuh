@@ -443,6 +443,16 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
+// Makes the current device's primary context current in the calling
+// thread.  cuTensorMapEncodeTiled does not do so itself: in a thread whose
+// first CUDA call is a launcher's (PyTorch's autograd thread for the card,
+// in the first backward) no context is current yet, and it fails with
+// CUDA_ERROR_INVALID_CONTEXT.  cudaSetDevice makes the context current.
+inline void bind_context() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaSetDevice(dev);
+}
+
 // A bf16 tensor map of `rank` dims (sizes innermost first, byte strides of
 // dims 1..rank-1), SWIZZLE_128B boxes of `box`, zero fill outside the
 // tensor.  Returns 0 or an error code for the launcher to return.
@@ -451,6 +461,7 @@ inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
                        const cuuint32_t* box) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return NO_ENCODE_ERROR;
+  bind_context();
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                   static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims,

@@ -12,12 +12,17 @@ On a CUDA tensor the list drives ``csrc/gmm.cu``: a persistent kernel with
 ``p`` CTAs, CTA ``w`` walking its plan share in order and then its
 round-robin part of the dead tiles, fed by TMA and computed with wgmma;
 see the note at the top of that file.  That kernel takes bf16 with rows,
-columns and depth in whole blocks; every other dtype and shape the
-reference takes (fp32 and fp16, any ``bm``, ``d`` and ``f``) runs
-``csrc/gmm_simt.cu`` instead, the same walk over the plan in plain fp32
-FMA.  ``gmm_route`` picks the kernel from the dtype and the shape alone.
-On a CPU tensor ``grouped_matmul_tiles_plain`` computes the same function.
-Tiles are independent, so the output is bit-identical for every order.
+columns and depth in whole blocks.  bf16 and fp16 at any other shape whose
+rows TMA can describe (``d`` and ``f`` multiples of 8, 16-byte aligned
+data) run ``csrc/gmm_any.cu`` (``gmm_any``): the same walk, TMA and wgmma,
+a unit stacking the run of consecutive steps whose tiles share an expert,
+so that the expert's weights are read once per run.  Everything else (fp32,
+and 2-byte rows TMA cannot describe) runs ``csrc/gmm_simt.cu``
+(``gmm_simt``) on the CUDA cores, fp32 as a register-blocked SGEMM over the
+same runs.  ``gmm_route`` picks the kernel from the dtype and the shape
+alone.  On a CPU tensor ``grouped_matmul_tiles_plain`` computes the same
+function.  Tiles are independent, so the output is bit-identical for every
+order.
 
 The backward of the expert-row product Y[e] = X[e] W[e] (no Pallas kernel:
 the reference differentiates its einsums by autodiff), for training the
@@ -28,10 +33,11 @@ expert-major raster: the 128-row tiles that share one (expert, 256-column)
 weight panel run at once on neighbouring CTAs, which read the panel from
 device memory once and from L2 after that, the weights read K-major in
 place.  ``gmm_dw`` runs one CTA per (expert, dW tile) at a time, the rows
-summed in ascending order.  ``gmm_dx_simt`` and ``gmm_dw_simt``
-(``csrc/gmm_simt.cu``) take the other dtypes and shapes, as
-``gmm_simt`` does for the forward.  On a CPU tensor
-``grouped_matmul_bwd_plain`` computes both.
+summed in ascending order.  ``gmm_dx_any`` (``csrc/gmm_any.cu``) takes dX
+in bf16 and fp16 off ``gmm_dx``'s blocks where TMA can describe the rows,
+and ``gmm_dx_simt`` and ``gmm_dw_simt`` (``csrc/gmm_simt.cu``) the rest,
+as for the forward.  On a CPU tensor ``grouped_matmul_bwd_plain``
+computes both.
 """
 
 from __future__ import annotations
@@ -58,8 +64,15 @@ GMM_DX = Kernel("gmm_dx", source="gmm", symbol="gmm_dx_launch",
                 argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 5 + [_c.c_void_p])
 GMM_DW = Kernel("gmm_dw", source="gmm", symbol="gmm_dw_launch",
                 argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 5 + [_c.c_void_p])
+#: bf16 and fp16 off gmm.cu's blocks (``csrc/gmm_any.cu``): TMA and wgmma
+#: wherever d and f are multiples of 8 and the data 16-byte aligned
+GMM_ANY = Kernel("gmm_any", source="gmm_any", symbol="gmm_any_launch",
+                 argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 8 + [_c.c_void_p])
+GMM_DX_ANY = Kernel("gmm_dx_any", source="gmm_any", symbol="gmm_any_dx_launch",
+                    argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 6
+                    + [_c.c_void_p])
 #: the general kernels (``csrc/gmm_simt.cu``): any dtype of ``SIMT_DTYPES``,
-#: any shape, plain fp32 FMA
+#: any shape, plain fp32 FMA on the CUDA cores
 GMM_SIMT = Kernel("gmm_simt", source="gmm_simt", symbol="gmm_simt_launch",
                   argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 8 + [_c.c_void_p])
 GMM_DX_SIMT = Kernel("gmm_dx_simt", source="gmm_simt",
@@ -71,46 +84,65 @@ GMM_DW_SIMT = Kernel("gmm_dw_simt", source="gmm_simt",
                      argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 6
                      + [_c.c_void_p])
 
+#: what gmm_any takes: 2-byte rows TMA can describe (16-byte row strides)
+TMA_ROW_ELEMS = 8
 
 
-def _route(name: str, dtypes, aligned: bool) -> str:
-    """``"wgmma"`` when every operand is bfloat16 and ``aligned`` (the
-    shape and the data fit the wgmma kernel's blocks), else ``"simt"``;
-    raises TypeError for a dtype neither kernel takes."""
+def _route(name: str, dtypes, blocks: bool, tma: bool) -> str:
+    """``"wgmma"`` for bfloat16 that fits the wgmma kernel's blocks
+    (``blocks``, alignment included), ``"wgmma_any"`` for bfloat16 or
+    float16 whose rows TMA can describe (``tma``), else ``"simt"``; raises
+    TypeError for a dtype no kernel takes."""
     dtypes = set(dtypes)
     if len(dtypes) != 1 or not dtypes <= set(SIMT_DTYPES):
         raise TypeError(f"{name} takes float32, bfloat16 or float16 operands "
                         f"of one dtype, got {sorted(map(str, dtypes))}")
-    return "wgmma" if dtypes == {torch.bfloat16} and aligned else "simt"
+    if dtypes == {torch.bfloat16} and blocks:
+        return "wgmma"
+    if dtypes <= {torch.bfloat16, torch.float16} and tma:
+        return "wgmma_any"
+    return "simt"
+
+
+def _tma_rows(aligned: bool, *widths: int) -> bool:
+    return aligned and all(w > 0 and w % TMA_ROW_ELEMS == 0 for w in widths)
 
 
 def gmm_route(x_dtype, w_dtype, bm: int, d: int, f: int,
               aligned: bool = True) -> str:
     """The kernel ``gmm_cuda`` launches for x tiles (T, bm, d) and weights
     (E, d, f) of these dtypes: ``"wgmma"`` (``gmm``) for bfloat16 with bm
-    and f multiples of 128 and d of 32, ``"simt"`` (``gmm_simt``) for every
-    other shape and for float32 / float16.  ``aligned``: both operands'
-    data 16-byte aligned."""
-    return _route("gmm", (x_dtype, w_dtype), aligned and bm > 0
+    and f multiples of 128 and d of 32, ``"wgmma_any"`` (``gmm_any``) for
+    every other bfloat16 or float16 call with d and f multiples of 8,
+    ``"simt"`` (``gmm_simt``) for float32 and the rest.  ``aligned``: both
+    operands' data 16-byte aligned."""
+    tma = bm > 0 and _tma_rows(aligned, d, f)
+    return _route("gmm", (x_dtype, w_dtype), tma
                   and bm % KERNEL_BLOCK_ROWS == 0
-                  and f % KERNEL_BLOCK_COLS == 0 and d % KERNEL_BLOCK_D == 0)
+                  and f % KERNEL_BLOCK_COLS == 0 and d % KERNEL_BLOCK_D == 0,
+                  tma)
 
 
 def gmm_dx_route(dy_dtype, w_dtype, r: int, d: int, f: int,
                  aligned: bool = True) -> str:
     """As :func:`gmm_route` for dX = dY W^T (``gmm_dx`` needs R and d
-    multiples of 128, f of 32)."""
-    return _route("gmm_dx", (dy_dtype, w_dtype), aligned and r > 0
+    multiples of 128, f of 32; ``gmm_dx_any`` R > 0, d and f multiples of
+    8)."""
+    tma = r > 0 and _tma_rows(aligned, d, f)
+    return _route("gmm_dx", (dy_dtype, w_dtype), tma
                   and r % KERNEL_BLOCK_ROWS == 0
-                  and d % KERNEL_BLOCK_COLS == 0 and f % KERNEL_BLOCK_D == 0)
+                  and d % KERNEL_BLOCK_COLS == 0 and f % KERNEL_BLOCK_D == 0,
+                  tma)
 
 
 def gmm_dw_route(x_dtype, dy_dtype, r: int, d: int, f: int,
                  aligned: bool = True) -> str:
     """As :func:`gmm_route` for dW = X^T dY (``gmm_dw`` needs d and f
-    multiples of 128, R > 0)."""
+    multiples of 128, R > 0); dW has no ``"wgmma_any"`` kernel, so every
+    other call is ``"simt"``."""
     return _route("gmm_dw", (x_dtype, dy_dtype), aligned and r > 0
-                  and d % KERNEL_BLOCK_ROWS == 0 and f % KERNEL_BLOCK_COLS == 0)
+                  and d % KERNEL_BLOCK_ROWS == 0
+                  and f % KERNEL_BLOCK_COLS == 0, False)
 
 
 def _aligned(*tensors) -> bool:
@@ -131,7 +163,7 @@ def grouped_matmul_tiles_plain(x_tiles, weights, tile_expert):
 
 
 def gmm_cuda(x_tiles, weights, tile_expert, order, bounds, n_span: int):
-    """Launch ``gmm`` or ``gmm_simt`` (:func:`gmm_route`): step i of
+    """Launch ``gmm``, ``gmm_any`` or ``gmm_simt`` (:func:`gmm_route`): step i of
     ``order`` multiplies x tile ``order[i]`` by
     expert ``tile_expert[order[i]]`` into output tile ``order[i]``.
 
@@ -168,7 +200,8 @@ def gmm_cuda(x_tiles, weights, tile_expert, order, bounds, n_span: int):
     if route == "wgmma":
         GMM.launch(*args, stream)
     else:
-        GMM_SIMT.launch(*args, SIMT_DTYPES[x_tiles.dtype], stream)
+        kernel = GMM_ANY if route == "wgmma_any" else GMM_SIMT
+        kernel.launch(*args, SIMT_DTYPES[x_tiles.dtype], stream)
     return out
 
 
@@ -179,7 +212,8 @@ def _check_contiguous(**tensors) -> None:
 
 
 def gmm_dx_cuda(dy, weights, *, sched_p: int):
-    """Launch ``gmm_dx`` (or ``gmm_dx_simt``, :func:`gmm_dx_route`): dX[e] =
+    """Launch ``gmm_dx`` (or ``gmm_dx_any`` / ``gmm_dx_simt``,
+    :func:`gmm_dx_route`): dX[e] =
     dy[e] weights[e]^T for dy (E, R, f) and weights (E, d, f), read in
     place, fp32 sums over f, on ``sched_p`` persistent CTAs over the
     expert-major units.  Returns a new (E, R, d) tensor of dy's dtype."""
@@ -201,7 +235,8 @@ def gmm_dx_cuda(dy, weights, *, sched_p: int):
     if route == "wgmma":
         GMM_DX.launch(*args, stream)
     else:
-        GMM_DX_SIMT.launch(*args, SIMT_DTYPES[dy.dtype], stream)
+        kernel = GMM_DX_ANY if route == "wgmma_any" else GMM_DX_SIMT
+        kernel.launch(*args, SIMT_DTYPES[dy.dtype], stream)
     return dx
 
 

@@ -9,7 +9,7 @@ The file imports only torch, numpy and ``repro_torch`` so that it runs
 where JAX is not installed.  Tolerance for bf16 outputs:
 |kernel - plain| <= 2^-7 + 2^-7 * |plain| (about two bf16 rounding steps;
 the kernels sum in another order than the fp32 plain versions before the
-final rounding).  The general kernels' fp32 outputs (``gmm_simt``,
+final rounding), also for ``gmm_any``'s.  The general kernels' fp32 outputs (``gmm_simt``,
 ``flash_*_simt``; plain fp32 FMA, TF32 off on both sides) are held to
 1e-5 + 1e-5 |plain| for the grouped matmul and 1e-4 + 1e-4 |plain| for
 flash attention (sums of up to thousands of products in another order);
@@ -286,8 +286,8 @@ def _check_gmm(dev, shape, dtype=torch.bfloat16):
     x = _randn(dev, e, c, d, seed=1, dtype=dtype)
     w = _randn(dev, e, d, f, seed=2, scale=d ** -0.5, dtype=dtype)
     rows = np.random.default_rng(e).integers(0, c + 1, size=e)
-    kernel = (gm.GMM if gm.gmm_route(dtype, dtype, bm, d, f) == "wgmma"
-              else gm.GMM_SIMT)
+    kernel = {"wgmma": gm.GMM, "wgmma_any": gm.GMM_ANY,
+              "simt": gm.GMM_SIMT}[gm.gmm_route(dtype, dtype, bm, d, f)]
     before = kernel.launches
     out = grouped_matmul(x, w, block_rows=bm, schedule="fac2",
                          expert_rows=rows, sched_p=3)
@@ -302,6 +302,7 @@ def _check_gmm(dev, shape, dtype=torch.bfloat16):
             assert torch.equal(grouped_matmul(x, w, block_rows=bm, schedule=tech,
                                               expert_rows=rows, sched_p=p), out)
     assert torch.equal(grouped_matmul(x, w, block_rows=bm), out)
+    assert torch.equal(grouped_matmul(x, w, block_rows=bm, sched_p=1), out)
     perm = np.random.default_rng(0).permutation(t)
     assert torch.equal(grouped_matmul(x, w, tile_order=perm, block_rows=bm), out)
 
@@ -377,14 +378,29 @@ def test_gmm_tails_and_one_cta_ring(dev, monkeypatch):
     # 128 tail
     _check_gmm(dev, (2, 256, 160, 384, 128))
     _check_gmm(dev, (1, 128, 64, 128, 128))   # one expert, a single tile
-    # the general kernel: the reference MoE demo's fp32 call (bm 8, d 64,
+    # off gmm.cu's blocks: the reference MoE demo's fp32 call (bm 8, d 64,
     # f 32), bf16 at that shape, the qwen3-moe width in 8-row tiles, and
-    # ragged widths in fp32 and fp16
+    # ragged widths in fp32 and fp16.  bf16 / fp16 with d and f multiples
+    # of 8 take gmm_any (runs of 8-row tiles stacked up to 128 rows; bm 64;
+    # d and f tails inside a 64-wide box; a 264-column f whose last block
+    # is an n64; bm 5, one tile a unit; bm 200, two row blocks); f 36
+    # keeps bf16 on gmm_simt.  fp32: runs of 24-row tiles, bm 200, and
+    # d 30 / f 34, whose rows take 4-byte copies
     for shape, dt in (((4, 16, 64, 32, 8), torch.float32),
                       ((4, 16, 64, 32, 8), torch.bfloat16),
                       ((3, 32, 2048, 768, 8), torch.float32),
+                      ((3, 64, 2048, 768, 8), torch.bfloat16),
                       ((2, 256, 100, 200, 128), torch.float32),
-                      ((3, 96, 40, 72, 24), torch.float16)):
+                      ((3, 96, 40, 72, 24), torch.float16),
+                      ((3, 96, 40, 72, 24), torch.float32),
+                      ((3, 128, 200, 72, 64), torch.bfloat16),
+                      ((2, 128, 136, 264, 64), torch.float16),
+                      ((4, 64, 72, 40, 8), torch.float16),
+                      ((2, 40, 64, 40, 5), torch.bfloat16),
+                      ((2, 200, 64, 128, 200), torch.bfloat16),
+                      ((2, 200, 64, 96, 200), torch.float32),
+                      ((2, 16, 30, 34, 8), torch.float32),
+                      ((2, 32, 64, 36, 8), torch.bfloat16)):
         _check_gmm(dev, shape, dt)
     e, c, d, f, bm = 4, 512, 256, 512, 128
     x = _randn(dev, e, c, d, seed=3)
@@ -403,21 +419,21 @@ def test_gmm_tails_and_one_cta_ring(dev, monkeypatch):
 
 
 def test_gmm_rejects_what_the_kernel_does_not_take(dev, monkeypatch):
-    """What the wgmma kernel does not take runs the general kernel, also
-    through the MoE model's ragged dispatch: fp32 tensors and an expert
-    d_ff that is not a multiple of 128, one ``gmm_simt`` launch a
-    projection, against the same call on the plain version.  What no
-    kernel takes raises; nothing falls back to the einsum."""
+    """What the wgmma kernel does not take runs another kernel, also
+    through the MoE model's ragged dispatch: fp32 tensors on ``gmm_simt``
+    and an expert d_ff that is not a multiple of 128 on ``gmm_any``, one
+    launch a projection, against the same call on the plain version.  What
+    no kernel takes raises; nothing falls back to the einsum."""
     import dataclasses
 
     from repro_torch.models import moe as tmoe
 
     x = _randn(dev, 2, 128, 64)
     w96 = _randn(dev, 2, 64, 96)
-    before = gm.GMM_SIMT.launches
+    before = gm.GMM_ANY.launches
     _assert_close(grouped_matmul(x, w96, block_rows=128),
                   _plain_grouped_matmul(x, w96, block_rows=128))
-    assert gm.GMM_SIMT.launches == before + 1
+    assert gm.GMM_ANY.launches == before + 1
     with pytest.raises(TypeError, match="gmm takes"):
         grouped_matmul(x.float(), _randn(dev, 2, 64, 128), block_rows=128)
     with pytest.raises(TypeError, match="gmm takes"):
@@ -432,13 +448,15 @@ def test_gmm_rejects_what_the_kernel_does_not_take(dev, monkeypatch):
     params96 = {k: (v[..., :96] if k in ("wi", "wg") else
                     v[:, :96] if k == "wo" else v) for k, v in params.items()}
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    # (general, wgmma) launches: at d_ff 96, wo (d 96, f 256) fits gmm.cu
-    for c, p, xx, dt, n in ((cfg32, params, xm.float(), torch.float32, (3, 0)),
-                            (cfg96, params96, xm, torch.bfloat16, (2, 1))):
-        before = (gm.GMM_SIMT.launches, gm.GMM.launches)
+    # (simt, any, wgmma) launches: at d_ff 96, wo (d 96, f 256) fits gmm.cu
+    kernels = (gm.GMM_SIMT, gm.GMM_ANY, gm.GMM)
+    for c, p, xx, dt, n in ((cfg32, params, xm.float(), torch.float32,
+                             (3, 0, 0)),
+                            (cfg96, params96, xm, torch.bfloat16, (0, 2, 1))):
+        before = [k.launches for k in kernels]
         y = tmoe.moe_ragged(p, c, xx)[0]
-        assert (gm.GMM_SIMT.launches - before[0],
-                gm.GMM.launches - before[1]) == n and y.dtype == dt
+        assert tuple(k.launches - b for k, b in zip(kernels, before)) == n
+        assert y.dtype == dt
         with monkeypatch.context() as m:
             m.setattr(tmoe, "grouped_matmul", _plain_grouped_matmul)
             want = tmoe.moe_ragged(p, c, xx)[0]
@@ -449,7 +467,8 @@ def test_gmm_rejects_what_the_kernel_does_not_take(dev, monkeypatch):
 def test_build_is_cached_and_counted(dev):
     libs = _build.build_all()
     assert set(libs) == {"flash_dense", "flash_dense_bwd", "flash_sched",
-                         "gmm", "gmm_simt", "flash_simt", "flash_simt_bwd"}
+                         "gmm", "gmm_any", "gmm_simt", "flash_simt",
+                         "flash_simt_bwd"}
     assert all(p.is_file() for p in libs.values())
     _build.reset_launches()
     assert all(k.launches == 0 for k in _build.KERNELS.values())

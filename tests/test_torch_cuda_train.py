@@ -27,7 +27,9 @@ runs give the same bits.
 The general kernels (``flash_simt_bwd.cu``, ``gmm_dx_simt`` /
 ``gmm_dw_simt``) in fp32, plain fp32 FMA against the fp32 plain versions
 with TF32 off: flash gradients within 1e-4 + 1e-4 |plain| elementwise, dX
-and dW within 1e-5 + 1e-5 |plain| (sums in another order).
+and dW within 1e-5 + 1e-5 |plain| (sums in another order).  bf16 dX off
+``gmm_dx``'s blocks (``gmm_dx_any``, wgmma) within the bf16 gate above,
+fp16 within 2^-10 + 2^-10 |plain|.
 """
 
 import math
@@ -245,21 +247,31 @@ def test_moe_bwd_kernels_match_plain(dev):
         tmoe._expert_matmul(*leaves).backward(dy)
         assert torch.equal(leaves[0].grad, dx)
         assert torch.equal(leaves[1].grad, dw)
-    # the general kernels: the reference MoE demo's fp32 shape, the
-    # qwen3-moe width, rows, widths and depths off every block, fp16; the
-    # fp32 ones also under autograd through ``_expert_matmul``
+    # off those blocks: the reference MoE demo's fp32 shape, the qwen3-moe
+    # width, rows, widths and depths off every block, fp16; dX in bf16 /
+    # fp16 with d and f multiples of 8 on ``gmm_dx_any`` (R 64, 100, 40 and
+    # 200 rows, one CTA), f 70 keeping bf16 dX on ``gmm_dx_simt``; dW off
+    # gmm_dw's blocks on ``gmm_dw_simt``; the fp32 ones also under
+    # autograd through ``_expert_matmul``
     for (e, r, d, f, p), dt in (((4, 16, 64, 32, 8), torch.float32),
                                 ((2, 256, 2048, 768, 132), torch.float32),
                                 ((3, 256, 200, 72, 5), torch.float32),
                                 ((2, 100, 200, 72, 3), torch.bfloat16),
-                                ((2, 40, 24, 56, 7), torch.float16)):
+                                ((2, 40, 24, 56, 7), torch.float16),
+                                ((3, 64, 2048, 768, 132), torch.bfloat16),
+                                ((2, 200, 264, 136, 1), torch.float16),
+                                ((2, 48, 40, 70, 3), torch.bfloat16),
+                                ((2, 60, 30, 34, 1), torch.float32)):
         xe = _randn(dev, e, r, d, seed=53, dtype=dt)
         w = _randn(dev, e, d, f, seed=54, scale=d ** -0.5, dtype=dt)
         dy = _randn(dev, e, r, f, seed=55, dtype=dt)
-        before = (gm.GMM_DX_SIMT.launches, gm.GMM_DW_SIMT.launches)
+        kx = {"wgmma_any": gm.GMM_DX_ANY, "simt": gm.GMM_DX_SIMT}[
+            gm.gmm_dx_route(dt, dt, r, d, f)]
+        kw = {"wgmma": gm.GMM_DW, "simt": gm.GMM_DW_SIMT}[
+            gm.gmm_dw_route(dt, dt, r, d, f)]
+        before = (kx.launches, kw.launches)
         dx, dw = gm.grouped_matmul_bwd(xe, w, dy, sched_p=p)
-        assert (gm.GMM_DX_SIMT.launches, gm.GMM_DW_SIMT.launches) == (
-            before[0] + 1, before[1] + 1)
+        assert (kx.launches, kw.launches) == (before[0] + 1, before[1] + 1)
         assert dx.dtype == dw.dtype == dt
         again = gm.grouped_matmul_bwd(xe, w, dy, sched_p=p)
         assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])

@@ -3,9 +3,11 @@ dtype and the shape alone: the routing functions of the grouped matmul
 and of the flash kernels (``gmm_route`` / ``gmm_dx_route`` /
 ``gmm_dw_route``, ``flash_route`` and ``_check_kernel_inputs``).
 
-bf16 at the wgmma kernels' blocks goes to them ("wgmma"); fp32, fp16, and
-bf16 at any other shape or alignment go to the general kernels ("simt");
-what neither takes raises, on the CPU as on the card.  The kernels
+bf16 at the wgmma kernels' blocks goes to them ("wgmma"); bf16 and fp16
+at any other shape whose rows TMA can describe (d and f multiples of 8,
+16-byte aligned data) go to ``gmm_any`` / ``gmm_dx_any`` ("wgmma_any"; dW
+has no such kernel); fp32 and the rest go to the general kernels
+("simt"); what none takes raises, on the CPU as on the card.  The kernels
 themselves are held to their plain versions on the card
 (``tests/test_torch_cuda_kernels.py``, ``tests/test_torch_cuda_train.py``).
 """
@@ -24,14 +26,28 @@ def test_gmm_routes_by_dtype_and_shape():
     assert gm.gmm_route(BF16, BF16, 128, 2048, 768) == "wgmma"
     assert gm.gmm_route(BF16, BF16, 256, 160, 384) == "wgmma"
     assert gm.gmm_route(BF16, BF16, 128, 96, 128, aligned=False) == "simt"
-    # the reference MoE demo's call and the qwen3-moe width in 8-row tiles
-    for dt in (F32, BF16, F16):
-        assert gm.gmm_route(dt, dt, 8, 64, 32) == "simt"
-        assert gm.gmm_route(dt, dt, 8, 2048, 768) == "simt"
-    for shape in ((128, 2048, 96), (128, 100, 128), (64, 128, 128)):
-        assert gm.gmm_route(BF16, BF16, *shape) == "simt"
+    # the reference MoE demo's call and the qwen3-moe width in 8-row tiles:
+    # 2-byte rows TMA can describe go to gmm_any, fp32 to gmm_simt
+    for dt in (BF16, F16):
+        assert gm.gmm_route(dt, dt, 8, 64, 32) == "wgmma_any"
+        assert gm.gmm_route(dt, dt, 8, 2048, 768) == "wgmma_any"
+    assert gm.gmm_route(F32, F32, 8, 64, 32) == "simt"
+    assert gm.gmm_route(F32, F32, 8, 2048, 768) == "simt"
+    for shape in ((128, 2048, 96), (64, 128, 128), (5, 40, 64),
+                  (200, 64, 128), (128, 128, 8)):
+        assert gm.gmm_route(BF16, BF16, *shape) == "wgmma_any"
+        assert gm.gmm_route(F16, F16, *shape) == "wgmma_any"
         assert gm.gmm_route(F32, F32, *shape) == "simt"
+    # fp16 at gmm.cu's blocks: gmm.cu is bf16 only
+    assert gm.gmm_route(F16, F16, 128, 2048, 768) == "wgmma_any"
     assert gm.gmm_route(F32, F32, 128, 2048, 768) == "simt"
+    # the edges of TMA's rows: d or f off 8, a misaligned base
+    for shape in ((128, 100, 128), (8, 2048, 764), (8, 2044, 768),
+                  (8, 2048, 4), (64, 0, 128)):
+        assert gm.gmm_route(BF16, BF16, *shape) == "simt"
+        assert gm.gmm_route(F16, F16, *shape) == "simt"
+    assert gm.gmm_route(BF16, BF16, 8, 2048, 768, aligned=False) == "simt"
+    assert gm.gmm_route(F16, F16, 8, 64, 32, aligned=False) == "simt"
     for pair in ((F32, BF16), (torch.float64, torch.float64),
                  (torch.int32, torch.int32)):
         with pytest.raises(TypeError, match="gmm takes"):
@@ -44,14 +60,23 @@ def test_gmm_backward_routes_by_dtype_and_shape():
     assert gm.gmm_dw_route(BF16, BF16, 640, 2048, 768) == "wgmma"
     assert gm.gmm_dx_route(BF16, BF16, 128, 128, 224) == "wgmma"
     assert gm.gmm_dw_route(BF16, BF16, 128, 128, 224) == "simt"
-    for r, d, f in ((8, 64, 32), (640, 2048, 100), (0, 128, 128)):
+    for r, d, f in ((640, 2048, 100), (0, 128, 128), (64, 2044, 768)):
         assert gm.gmm_dx_route(BF16, BF16, r, d, f) == "simt"
         assert gm.gmm_dw_route(BF16, BF16, r, d, f) == "simt"
+    # off gmm_dx's blocks with rows TMA can describe: gmm_dx_any; dW has
+    # no such kernel
+    for r, d, f in ((8, 64, 32), (64, 2048, 768), (100, 200, 72)):
+        for dt in (BF16, F16):
+            assert gm.gmm_dx_route(dt, dt, r, d, f) == "wgmma_any"
+            assert gm.gmm_dx_route(dt, dt, r, d, f, aligned=False) == "simt"
+        assert gm.gmm_dx_route(F32, F32, r, d, f) == "simt"
+    assert gm.gmm_dw_route(BF16, BF16, 8, 64, 32) == "simt"
     # rows that are no multiple of 128: dX's m tiles, dW's zero-filled depth
-    assert gm.gmm_dx_route(BF16, BF16, 100, 256, 256) == "simt"
+    assert gm.gmm_dx_route(BF16, BF16, 100, 256, 256) == "wgmma_any"
     assert gm.gmm_dw_route(BF16, BF16, 100, 256, 256) == "wgmma"
+    assert gm.gmm_dx_route(F16, F16, 640, 2048, 768) == "wgmma_any"
+    assert gm.gmm_dx_route(F32, F32, 640, 2048, 768) == "simt"
     for dt in (F32, F16):
-        assert gm.gmm_dx_route(dt, dt, 640, 2048, 768) == "simt"
         assert gm.gmm_dw_route(dt, dt, 640, 2048, 768) == "simt"
     with pytest.raises(TypeError, match="gmm_dx takes"):
         gm.gmm_dx_route(F32, BF16, 128, 128, 128)
