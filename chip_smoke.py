@@ -200,20 +200,23 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
   kernels_any_dtype
                the kernels for the dtypes and shapes the block-aligned
                wgmma kernels do not take (``gmm_any.cu``: bf16 / fp16 on
-               TMA and wgmma; ``gmm_simt.cu``, ``flash_simt.cu``,
-               ``flash_simt_bwd.cu``: plain fp32 FMA) against their plain
-               versions: gmm, gmm_dx and gmm_dw in fp32, bf16 and fp16 at
-               the reference MoE demo's shape (4 experts x 16 rows, 8-row
-               tiles, d 64, f 32) and at qwen3-moe-30b-a3b's width in 8-row
-               tiles (128 x 64 rows, d 2048, f 768), and in bf16 at f 764
-               (rows TMA cannot describe), each with the kernel its route
-               took, bit-identical across schedules and ``sched_p``;
-               ``gmm_digest`` (the fp32 family's outputs) equal to the
-               first general kernel's (``PARENT_GMM_DIGEST``); the
-               off-block path (counts from 0: ``grouped_matmul`` in bf16
-               and fp16 at block_rows 8 and ``grouped_matmul_bwd`` in bf16
-               at 64 rows an expert, ``gmm_any`` 2, ``gmm_dx_any`` 1 and
-               ``gmm_dw`` 1 launches);
+               wgmma, fed by TMA or by the thread loader; ``gmm_simt.cu``,
+               ``flash_simt.cu``, ``flash_simt_bwd.cu``: plain fp32 FMA)
+               against their plain versions: gmm, gmm_dx and gmm_dw in
+               fp32, bf16 and fp16 at the reference MoE demo's shape (4
+               experts x 16 rows, 8-row tiles, d 64, f 32) and at
+               qwen3-moe-30b-a3b's width in 8-row tiles (128 x 64 rows, d
+               2048, f 768), in bf16 and fp16 at f 764 (rows TMA cannot
+               describe) and in bf16 with x and dY 2 bytes off 16, each
+               with the kernel and route it took, bit-identical across
+               schedules and ``sched_p`` (a misaligned call also to an
+               aligned copy); ``gmm_digest`` (the fp32 family's outputs)
+               equal to the first general kernel's
+               (``PARENT_GMM_DIGEST``); the off-block path (counts from 0:
+               ``grouped_matmul`` and ``grouped_matmul_bwd`` in bf16 and
+               fp16 at qwen3-moe's width, 8-row tiles and 64 rows an
+               expert, and in bf16 at f 764: ``gmm_any`` 3, ``gmm_dx_any``
+               3, ``gmm_dw_any`` 2 and ``gmm_dw`` 1 launches);
                the fp32 flash forward dense and causal at head dims 64,
                80, 128 and 256 (the models' heads; hd 256 with window
                2048) and ragged at the main path's lanes in a fac2 plan;
@@ -274,8 +277,8 @@ backward's delta pass, ``torch.bmm`` against ``gmm_dw`` in turns), or
 only a hash of the fp32 grouped matmul family's outputs at both
 SIMT_GMM_SHAPES (``gmm_digest``: the forward in a fac2 plan, dX, dW), or
 only that family's back-to-back times at qwen3-moe's width in 8-row
-tiles in fp32, bf16 and fp16 with ``torch.bmm`` beside them and the
-routes taken (``gmm_times``), for
+tiles in fp32, bf16 and fp16 and at f 764 in bf16 and fp16 with
+``torch.bmm`` beside them and the routes taken (``gmm_times``), for
 the package under ``SRC`` (default: this
 checkout's ``src``), so that another tree's kernels can be held against
 this one bit for bit, and timed against it in turns (parent, change,
@@ -427,8 +430,9 @@ MOE_GMM_PER_LAYER, MOE_DX_PER_LAYER, MOE_DW_PER_LAYER = 6, 3, 3
 # ln(vocab) plus about half the logits' variance (qwen3-4b's 16 layers read
 # 0.48 above ln 151936, these 2 MoE layers 0.64 above)
 MOE_TRAIN_LOSS0_BAND = 1.0
-# the general kernels (gmm_simt.cu, flash_simt.cu, flash_simt_bwd.cu): every
-# dtype and shape the reference's kernel entries take, in plain fp32 FMA.
+# the general kernels (gmm_simt.cu: the fp32 gmm family; flash_simt.cu,
+# flash_simt_bwd.cu: every flash call the wgmma kernels do not take), in
+# plain fp32 FMA; gmm_any.cu's bf16 / fp16 rows are held here too.
 # Their bound counts fp32 operations at the card's rate outside the tensor
 # cores (bf16 and fp16 ones at the tensor cores' bf16 rate).  Tolerances
 # against the fp32 plain versions (TF32 off): SIMT_GMM_TOL + SIMT_GMM_TOL
@@ -437,15 +441,21 @@ MOE_TRAIN_LOSS0_BAND = 1.0
 # a bf16 output within ATOL + RTOL |plain| as the wgmma kernels
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 rate outside the tensor cores
 SIMT_GMM_TOL, SIMT_FLASH_TOL = 1e-5, 1e-4
+# the grouped matmul family's tolerance by output dtype (fp16: two fp16
+# rounding steps, as tests/test_torch_cuda_kernels.py's SIMT_TOL)
+GMM_TOL = {"float32": SIMT_GMM_TOL, "bfloat16": ATOL, "float16": 2.0 ** -10}
 # the grouped matmul family at the reference MoE demo's fp32 call (4
 # experts x 16 rows in 8-row tiles, d 64, f 32) and at qwen3-moe-30b-a3b's
 # width in 8-row tiles (128 experts x 64 rows, d 2048, f 768): (E, rows, d,
 # f, block_rows)
 SIMT_GMM_SHAPES = {"demo": (4, 16, 64, 32, 8),
                    "qwen3_moe": (128, 64, 2048, 768, 8)}
-# bf16 whose rows TMA cannot describe (f not a multiple of 8): the 2-byte
-# path of gmm_simt.cu, 16 experts at qwen3-moe's depth
-SIMT_GMM_OFF8 = {"f764": (16, 64, 2048, 764, 8)}
+# bf16 and fp16 whose rows TMA cannot describe (f not a multiple of 8; a
+# base 2 bytes off 16): gmm_any.cu's thread loader (route "wgmma_ld"), 16
+# experts at qwen3-moe's depth; (E, rows, d, f, block_rows, offset of x and
+# dY in elements)
+SIMT_GMM_OFF8 = {"f764": (16, 64, 2048, 764, 8, 0),
+                 "f768_off2": (16, 64, 2048, 768, 8, 1)}
 # the fp32 flash forward, dense and causal at each head dim's model shape
 # (granite-moe-1b-a400m 16 / 8 heads, stablelm-3b 32 / 32, qwen3-4b 32 / 8,
 # recurrentgemma-2b 10 / 1 with its window of 2048): (b, s, h, kvh, hd,
@@ -464,9 +474,12 @@ FP32_MODEL_LAYERS = 2
 # kernel computed it (one 8-row tile a step, on an H100): the SGEMM keeps
 # every bit
 PARENT_GMM_DIGEST = "136d16b43e67d0d8"
-# bf16 / fp16 off gmm.cu's blocks (gmm_any.cu), launched on the off-block
-# path: grouped_matmul at block_rows 8, the backward at 64 rows an expert
-ANY_KERNELS = ("gmm_any", "gmm_dx_any")
+# bf16 / fp16 off gmm.cu's blocks (gmm_any.cu), launches of the off-block
+# path: grouped_matmul at block_rows 8 in bf16 and fp16 (TMA) and at f 764
+# in bf16 (thread loader), the backward at 64 rows an expert in bf16 (dW on
+# gmm.cu's gmm_dw), fp16 (TMA) and at f 764 (thread loader)
+OFF_BLOCK_LAUNCHES = {"gmm_any": 3, "gmm_dx_any": 3, "gmm_dw_any": 2,
+                      "gmm_dw": 1}
 SIMT_KERNELS = ("gmm_simt", "gmm_dx_simt", "gmm_dw_simt", "flash_dense_simt",
                 "flash_sched_simt", "flash_simt_bwd_delta",
                 "flash_simt_bwd_dkdv", "flash_simt_bwd_dq")
@@ -2735,13 +2748,8 @@ def measured(name, kernel, run, plain, library, flops, nbytes, dtype, tol,
                 max_abs_err=err, tolerance=f"{tol} + {tol}*|plain|",
                 ms=cuda_ms(run, reps), ms_b2b=cuda_ms_b2b(run, reps),
                 plain_ms=cuda_ms(plain, 2), library_ms=cuda_ms(library, reps),
-                bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                library_ms_b2b=cuda_ms_b2b(library, reps), bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                 bytes=nbytes)
-
-
-def gmm_kernel_of(route_fn, kerns, dtype, *shape):
-    """The kernel object a gmm-family call of this dtype and shape takes."""
-    return kerns[route_fn(dtype, dtype, *shape)]
 
 
 def planned_gmm(x, w, bm, live, n_sm):
@@ -2756,48 +2764,59 @@ def planned_gmm(x, w, bm, live, n_sm):
                                         sched_p=n_sm, plan=plan)
 
 
+def offset_randn(gen, dev, shape, dtype, offset, scale=1.0):
+    """A contiguous tensor of ``shape`` from ``gen``, ``offset`` elements
+    into its storage (``offset`` 1 of a 2-byte type: a base 2 bytes off
+    16)."""
+    import torch
+    n = math.prod(shape)
+    return (torch.randn(n + offset, generator=gen, device=dev)
+            * scale).to(dtype)[offset:].view(*shape)
+
+
 def simt_gmm_rows(dev, n_sm):
     """The grouped matmul family at SIMT_GMM_SHAPES in fp32, bf16 and fp16,
-    and in bf16 at SIMT_GMM_OFF8: the forward on ``grouped_matmul``'s fac2
-    plan (sched_p = SM count; timed with the plan made beforehand, and its
-    output equal to ``grouped_matmul``'s own call), dX and dW through their
-    launchers; the kernel each call's route takes (``gmm_simt`` for fp32
-    and rows TMA cannot describe, ``gmm_any`` for the other 2-byte calls
-    off gmm.cu's blocks), against the plain versions, with ``torch.bmm``
-    on the same tensors; the outputs bit-identical across schedules and
-    ``sched_p``."""
+    and in bf16 and fp16 at SIMT_GMM_OFF8 (f 764, and a misaligned base in
+    bf16): the forward on ``grouped_matmul``'s fac2 plan (sched_p = SM
+    count; timed with the plan made beforehand, and its output equal to
+    ``grouped_matmul``'s own call), dX and dW through their launchers; the
+    kernel and route each call takes (``gmm_simt`` for fp32, ``gmm_any`` /
+    ``gmm_dx_any`` / ``gmm_dw_any`` for the 2-byte calls off gmm.cu's
+    blocks, on TMA or on the thread loader), against the plain versions,
+    with ``torch.bmm`` on the same tensors; the outputs bit-identical across
+    schedules and ``sched_p`` (1, 8 and the SM count), a misaligned call's
+    also equal to an aligned copy's."""
     import numpy as np
     import torch
     from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
     from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
     gen = torch.Generator(device=dev).manual_seed(24)
-    fwd_k = {"wgmma": gm.GMM, "wgmma_any": gm.GMM_ANY, "simt": gm.GMM_SIMT}
-    dx_k = {"wgmma": gm.GMM_DX, "wgmma_any": gm.GMM_DX_ANY,
-            "simt": gm.GMM_DX_SIMT}
-    dw_k = {"wgmma": gm.GMM_DW, "simt": gm.GMM_DW_SIMT}
-    cases = [(name, shape, dt)
+    cases = [(name, shape + (0,), dt)
              for dt in (torch.float32, torch.bfloat16, torch.float16)
              for name, shape in SIMT_GMM_SHAPES.items()]
-    cases += [(name, shape, torch.bfloat16)
-              for name, shape in SIMT_GMM_OFF8.items()]
+    cases += [(name, shape, dt)
+              for name, shape in SIMT_GMM_OFF8.items()
+              for dt in (torch.bfloat16, torch.float16)
+              if dt == torch.bfloat16 or not shape[-1]]
     rows = {}
-    for name, (e, c, d, f, bm), dtype in cases:
-        tol = SIMT_GMM_TOL if dtype == torch.float32 else ATOL
+    for name, (e, c, d, f, bm, off), dtype in cases:
+        tol = GMM_TOL[str(dtype).replace("torch.", "")]
         esz = torch.finfo(dtype).bits // 8
-
-        def rnd(*shape, scale=1.0):
-            return (torch.randn(*shape, generator=gen, device=dev)
-                    * scale).to(dtype)
-
-        x, w = rnd(e, c, d), rnd(e, d, f, scale=d ** -0.5)
-        dy = rnd(e, c, f)
+        x = offset_randn(gen, dev, (e, c, d), dtype, off)
+        w = offset_randn(gen, dev, (e, d, f), dtype, 0, d ** -0.5)
+        dy = offset_randn(gen, dev, (e, c, f), dtype, off)
         live = np.random.default_rng(e).integers(c // 2, c + 1, size=e)
         t = e * (c // bm)
         te = torch.arange(t, device=dev) // (c // bm)
+        routes = (gm.gmm_route(dtype, dtype, bm, d, f, gm._aligned(x, w)),
+                  gm.gmm_dx_route(dtype, dtype, c, d, f, gm._aligned(dy, w)),
+                  gm.gmm_dw_route(dtype, dtype, c, d, f,
+                                  gm._aligned(x, dy)))
+        if dtype != torch.float32:
+            assert "simt" not in routes, (name, dtype, routes)
         run = planned_gmm(x, w, bm, live, n_sm)
         fwd = measured(
-            f"gmm {name} {dtype}",
-            gmm_kernel_of(gm.gmm_route, fwd_k, dtype, bm, d, f), run,
+            f"gmm {name} {dtype}", gm.GMM_BY_ROUTE[routes[0]], run,
             lambda: gm.grouped_matmul_tiles_plain(
                 x.reshape(t, bm, d), w, te).reshape(e, c, f),
             lambda: torch.bmm(x, w), 2 * e * c * d * f,
@@ -2810,27 +2829,42 @@ def simt_gmm_rows(dev, n_sm):
             assert torch.equal(grouped_matmul(x, w, block_rows=bm, **kw),
                                out), (name, dtype, kw)
         dx = measured(
-            f"gmm_dx {name} {dtype}",
-            gmm_kernel_of(gm.gmm_dx_route, dx_k, dtype, c, d, f),
+            f"gmm_dx {name} {dtype}", gm.GMM_DX_BY_ROUTE[routes[1]],
             lambda: gm.gmm_dx_cuda(dy, w, sched_p=n_sm),
             lambda: gm.grouped_matmul_bwd_plain(x, w, dy,
                                                 need_dw=False)[0],
             lambda: torch.bmm(dy, w.transpose(1, 2)), 2 * e * c * d * f,
             esz * (e * c * f + e * d * f + e * c * d), dtype, tol)
-        assert torch.equal(gm.gmm_dx_cuda(dy, w, sched_p=8),
-                           gm.gmm_dx_cuda(dy, w, sched_p=n_sm)), (name, dtype)
         dw = measured(
-            f"gmm_dw {name} {dtype}",
-            gmm_kernel_of(gm.gmm_dw_route, dw_k, dtype, c, d, f),
+            f"gmm_dw {name} {dtype}", gm.GMM_DW_BY_ROUTE[routes[2]],
             lambda: gm.gmm_dw_cuda(x, dy, sched_p=n_sm),
             lambda: gm.grouped_matmul_bwd_plain(x, w, dy,
                                                 need_dx=False)[1],
             lambda: torch.bmm(x.transpose(1, 2), dy), 2 * e * c * d * f,
             esz * (e * c * d + e * c * f + e * d * f), dtype, tol)
+        outs = (gm.gmm_dx_cuda(dy, w, sched_p=n_sm),
+                gm.gmm_dw_cuda(x, dy, sched_p=n_sm))
+        for p in (1, 8):
+            assert torch.equal(gm.gmm_dx_cuda(dy, w, sched_p=p),
+                               outs[0]), (name, dtype, p)
+            assert torch.equal(gm.gmm_dw_cuda(x, dy, sched_p=p),
+                               outs[1]), (name, dtype, p)
+        if off:
+            xa, dya = x.clone(), dy.clone()
+            assert torch.equal(grouped_matmul(
+                xa, w, block_rows=bm, schedule="fac2", expert_rows=live,
+                sched_p=n_sm), out), name
+            assert torch.equal(gm.gmm_dx_cuda(dya, w, sched_p=n_sm),
+                               outs[0]), name
+            assert torch.equal(gm.gmm_dw_cuda(xa, dya, sched_p=n_sm),
+                               outs[1]), name
+            del xa, dya
+        for row, route in zip((fwd, dx, dw), routes):
+            row["route"] = route
         key = f"{name}_{str(dtype).replace('torch.', '')}"
-        rows[key] = dict(shape=[e, c, d, f, bm], gmm=fwd, gmm_dx=dx,
-                         gmm_dw=dw)
-        del x, w, dy, out
+        rows[key] = dict(shape=[e, c, d, f, bm], offset=off, gmm=fwd,
+                         gmm_dx=dx, gmm_dw=dw)
+        del x, w, dy, out, outs
     return rows
 
 
@@ -2838,46 +2872,58 @@ def off_block_path(dev, n_sm):
     """The 2-byte calls off gmm.cu's blocks that a user makes, counts from
     0 just before and read just after: ``grouped_matmul`` in bf16 and in
     fp16 with block_rows 8 at qwen3-moe-30b-a3b's width (SIMT_GMM_SHAPES)
-    in a fac2 plan, and ``grouped_matmul_bwd`` in bf16 at its 64 rows an
-    expert (dX off gmm_dx's 128-row tiles).  Then, outside the counted
-    run, the outputs against the plain versions."""
+    in a fac2 plan, ``grouped_matmul_bwd`` in bf16 and fp16 at its 64 rows
+    an expert (dX off gmm_dx's 128-row tiles; fp16 dW off gmm_dw's
+    dtype), and both in bf16 at f 764 (SIMT_GMM_OFF8: rows TMA cannot
+    describe).  Then, outside the counted run, the outputs against the
+    plain versions."""
     import numpy as np
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
     from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
-    e, c, d, f, bm = SIMT_GMM_SHAPES["qwen3_moe"]
     gen = torch.Generator(device=dev).manual_seed(28)
-    x = torch.randn(e, c, d, generator=gen, device=dev)
-    w = torch.randn(e, d, f, generator=gen, device=dev) * d ** -0.5
-    dy = torch.randn(e, c, f, generator=gen, device=dev)
-    live = np.random.default_rng(e).integers(c // 2, c + 1, size=e)
-    ins = {dt: (x.to(dt), w.to(dt), dy.to(dt))
-           for dt in (torch.bfloat16, torch.float16)}
+    calls = []
+    for (e, c, d, f, bm), dts in (
+            (SIMT_GMM_SHAPES["qwen3_moe"], (torch.bfloat16, torch.float16)),
+            (SIMT_GMM_OFF8["f764"][:5], (torch.bfloat16,))):
+        x = torch.randn(e, c, d, generator=gen, device=dev)
+        w = torch.randn(e, d, f, generator=gen, device=dev) * d ** -0.5
+        dy = torch.randn(e, c, f, generator=gen, device=dev)
+        live = np.random.default_rng(e).integers(c // 2, c + 1, size=e)
+        calls += [((e, c, d, f, bm), dt, live, x.to(dt), w.to(dt), dy.to(dt))
+                  for dt in dts]
+        del x, w, dy
     torch.cuda.synchronize()
     _build.reset_launches()
-    outs = {dt: grouped_matmul(xx, ww, block_rows=bm, schedule="fac2",
-                               expert_rows=live, sched_p=n_sm)
-            for dt, (xx, ww, _) in ins.items()}
-    xb, wb, dyb = ins[torch.bfloat16]
-    dx, dw = gm.grouped_matmul_bwd(xb, wb, dyb, sched_p=n_sm)
+    outs = [(grouped_matmul(x, w, block_rows=shape[-1], schedule="fac2",
+                            expert_rows=live, sched_p=n_sm),
+             *gm.grouped_matmul_bwd(x, w, dy, sched_p=n_sm))
+            for shape, dt, live, x, w, dy in calls]
     torch.cuda.synchronize()
     launches = {n: kern.launches for n, kern in _build.KERNELS.items()
                 if kern.launches}
-    assert launches == {"gmm_any": 2, "gmm_dx_any": 1, "gmm_dw": 1}, launches
-    t = e * (c // bm)
-    te = torch.arange(t, device=dev) // (c // bm)
-    err = {}
-    for dt, (xx, ww, _) in ins.items():
-        want = gm.grouped_matmul_tiles_plain(xx.reshape(t, bm, d), ww, te)
-        err[f"gmm_{dt}"] = check_close("off-block gmm", outs[dt],
-                                       want.reshape(e, c, f))
-    want_dx, want_dw = gm.grouped_matmul_bwd_plain(xb, wb, dyb)
-    err["gmm_dx"] = check_close("off-block gmm_dx", dx, want_dx)
-    err["gmm_dw"] = check_close("off-block gmm_dw", dw, want_dw)
-    del ins, outs, dx, dw
-    return dict(launches=launches, max_abs_err=err,
-                shape=[e, c, d, f, bm])
+    assert launches == OFF_BLOCK_LAUNCHES, launches
+    err, routes = {}, {}
+    for ((e, c, d, f, bm), dt, _, x, w, dy), (y, dx, dw) in zip(calls, outs):
+        key = f"f{f}_{str(dt).replace('torch.', '')}"
+        routes[key] = [gm.gmm_route(dt, dt, bm, d, f),
+                       gm.gmm_dx_route(dt, dt, c, d, f),
+                       gm.gmm_dw_route(dt, dt, c, d, f)]
+        t = e * (c // bm)
+        te = torch.arange(t, device=dev) // (c // bm)
+        want = gm.grouped_matmul_tiles_plain(x.reshape(t, bm, d), w, te)
+        want_dx, want_dw = gm.grouped_matmul_bwd_plain(x, w, dy)
+        err[key] = {
+            n: check_tol(f"off-block {n} {key}", got, ref,
+                         GMM_TOL[str(dt).replace("torch.", "")])
+            for n, got, ref in (("gmm", y, want.reshape(e, c, f)),
+                                ("gmm_dx", dx, want_dx),
+                                ("gmm_dw", dw, want_dw))}
+    del calls, outs
+    return dict(launches=launches, routes=routes, max_abs_err=err,
+                shapes={"qwen3_moe": list(SIMT_GMM_SHAPES["qwen3_moe"]),
+                        "f764": list(SIMT_GMM_OFF8["f764"][:5])})
 
 
 def gmm_digest(dev):
@@ -2909,38 +2955,45 @@ def gmm_digest(dev):
 
 def gmm_times(dev):
     """Back-to-back times of the grouped matmul family at qwen3-moe's
-    width in 8-row tiles (SIMT_GMM_SHAPES) in fp32, bf16 and fp16 (the
-    forward on ``grouped_matmul``'s fac2 plan, made beforehand; dX and dW
-    through their launchers; one CTA per SM), with ``torch.bmm`` on the
-    same tensors and the route each call takes."""
+    width in 8-row tiles (SIMT_GMM_SHAPES) in fp32, bf16 and fp16 and at f
+    764 (SIMT_GMM_OFF8) in bf16 and fp16 (the forward on
+    ``grouped_matmul``'s fac2 plan, made beforehand; dX and dW through
+    their launchers; one CTA per SM), with ``torch.bmm`` on the same
+    tensors and the route each call takes."""
     import numpy as np
     import torch
     from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    e, c, d, f, bm = SIMT_GMM_SHAPES["qwen3_moe"]
     gen = torch.Generator(device=dev).manual_seed(29)
-    live = np.random.default_rng(e).integers(c // 2, c + 1, size=e)
     out = {}
-    for dt in (torch.float32, torch.bfloat16, torch.float16):
-        x = torch.randn(e, c, d, generator=gen, device=dev).to(dt)
-        w = (torch.randn(e, d, f, generator=gen, device=dev)
-             * d ** -0.5).to(dt)
-        dy = torch.randn(e, c, f, generator=gen, device=dev).to(dt)
-        out[str(dt).replace("torch.", "")] = dict(
-            routes=[gm.gmm_route(dt, dt, bm, d, f),
-                    gm.gmm_dx_route(dt, dt, c, d, f),
-                    gm.gmm_dw_route(dt, dt, c, d, f)],
-            gmm=cuda_ms_b2b(planned_gmm(x, w, bm, live, n_sm), REPS),
-            gmm_dx=cuda_ms_b2b(lambda: gm.gmm_dx_cuda(dy, w, sched_p=n_sm),
-                               REPS),
-            gmm_dw=cuda_ms_b2b(lambda: gm.gmm_dw_cuda(x, dy, sched_p=n_sm),
-                               REPS),
-            bmm=cuda_ms_b2b(lambda: torch.bmm(x, w), REPS),
-            bmm_dx=cuda_ms_b2b(lambda: torch.bmm(dy, w.transpose(1, 2)),
-                               REPS),
-            bmm_dw=cuda_ms_b2b(lambda: torch.bmm(x.transpose(1, 2), dy),
-                               REPS))
-        del x, w, dy
+    for name, (e, c, d, f, bm), dts in (
+            ("qwen3_moe", SIMT_GMM_SHAPES["qwen3_moe"],
+             (torch.float32, torch.bfloat16, torch.float16)),
+            ("f764", SIMT_GMM_OFF8["f764"][:5],
+             (torch.bfloat16, torch.float16))):
+        live = np.random.default_rng(e).integers(c // 2, c + 1, size=e)
+        for dt in dts:
+            x = torch.randn(e, c, d, generator=gen, device=dev).to(dt)
+            w = (torch.randn(e, d, f, generator=gen, device=dev)
+                 * d ** -0.5).to(dt)
+            dy = torch.randn(e, c, f, generator=gen, device=dev).to(dt)
+            key = str(dt).replace("torch.", "")
+            out[key if name == "qwen3_moe" else f"{name}_{key}"] = dict(
+                shape=[e, c, d, f, bm],
+                routes=[gm.gmm_route(dt, dt, bm, d, f),
+                        gm.gmm_dx_route(dt, dt, c, d, f),
+                        gm.gmm_dw_route(dt, dt, c, d, f)],
+                gmm=cuda_ms_b2b(planned_gmm(x, w, bm, live, n_sm), REPS),
+                gmm_dx=cuda_ms_b2b(
+                    lambda: gm.gmm_dx_cuda(dy, w, sched_p=n_sm), REPS),
+                gmm_dw=cuda_ms_b2b(
+                    lambda: gm.gmm_dw_cuda(x, dy, sched_p=n_sm), REPS),
+                bmm=cuda_ms_b2b(lambda: torch.bmm(x, w), REPS),
+                bmm_dx=cuda_ms_b2b(lambda: torch.bmm(dy, w.transpose(1, 2)),
+                                   REPS),
+                bmm_dw=cuda_ms_b2b(lambda: torch.bmm(x.transpose(1, 2), dy),
+                                   REPS))
+            del x, w, dy
     return out
 
 
@@ -3640,11 +3693,13 @@ def main(argv) -> int:
                 "launches_by_path": launches_by_path,
                 **{k: row[k] for k in (
                     "max_abs_err", "tolerance", "ms", "ms_b2b", "plain_ms",
-                    "library_ms", "bound_ms", "bound_by", "dtype")},
+                    "library_ms", "library_ms_b2b", "bound_ms", "bound_by",
+                    "dtype")},
                 **extra}
 
     gmm_simt_row = simt_gmm["qwen3_moe_float32"]
     gmm_any_row = simt_gmm["qwen3_moe_bfloat16"]
+    gmm_dw_any_row = simt_gmm["qwen3_moe_float16"]
 
     def by_shape(kernel, op):
         return {k: r[op] for k, r in simt_gmm.items()
@@ -3783,6 +3838,12 @@ def main(argv) -> int:
             {"off_block": any_launches["gmm_dx_any"]},
             replaces_note=moe_note, shape=gmm_any_row["shape"],
             by_shape=by_shape("gmm_dx_any", "gmm_dx")),
+        simt_entry(
+            "gmm_dw_any", simt_src + "gmm_any.cu",
+            "src/repro/models/moe.py:143", gmm_dw_any_row["gmm_dw"],
+            {"off_block": any_launches["gmm_dw_any"]},
+            replaces_note=moe_note, shape=gmm_dw_any_row["shape"],
+            by_shape=by_shape("gmm_dw_any", "gmm_dw")),
         simt_entry(
             "flash_dense_simt", simt_src + "flash_simt.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:51",

@@ -1,25 +1,22 @@
-// The grouped expert-tile matmul and its two backward products at every
-// dtype and shape gmm.cu and gmm_any.cu cannot take, for Hopper (sm_90a),
-// on the CUDA cores.
+// The grouped expert-tile matmul and its two backward products in fp32, for
+// Hopper (sm_90a), on the CUDA cores.
 //
 // Replaces: _gmm_kernel in src/repro/kernels/grouped_matmul/grouped_matmul.py
-// where neither tensor-core kernel takes the call.  The reference's kernel
-// is one dot_general over whatever block it is given, fp32 accumulation, the
-// output in the input dtype.  gmm.cu takes bf16 at whole 128 / 128 / 32
-// blocks and gmm_any.cu bf16 and fp16 whose rows TMA can describe (d and f
-// multiples of 8).  What is left runs here: every fp32 call (the MoE demo's
-// block_rows 8, d 64, f 32; an fp32 MoE model), and bf16 / fp16 with d or
-// f off 8 or a base off 16 bytes.  The backward's dX = dY W^T and dW[e] =
-// X[e]^T dY[e] (no Pallas kernel: the reference differentiates its
-// einsums) get the same general form.
+// for every fp32 call.  The reference's kernel is one dot_general over
+// whatever block it is given, fp32 accumulation, the output in the input
+// dtype.  gmm.cu takes bf16 at whole 128 / 128 / 32 blocks and gmm_any.cu
+// every other bf16 and fp16 call; fp32 (the MoE demo's block_rows 8, d 64,
+// f 32; an fp32 MoE model) runs here.  The backward's dX = dY W^T and
+// dW[e] = X[e]^T dY[e] (no Pallas kernel: the reference differentiates its
+// einsums) get the same form.
 //
 // What bounds it on an H100: operations on the CUDA cores.  The products
 // are plain fp32 FMA, SIMT, never TF32 (the reference's fp32 dot_general
 // is fp32), so the ceiling is the card's 67 TFLOP/s of fp32 FMA, not the
 // tensor cores'.  Every output element is the fp32 fmaf sum of its products
-// in ascending k order, cast once to the output dtype, so fp32 outputs are
-// bit for bit the plain version's (cuBLAS's fp32 GEMM, TF32 off, sums in
-// the same order) for every schedule.
+// in ascending k order, so the outputs are bit for bit the plain version's
+// (cuBLAS's fp32 GEMM, TF32 off, sums in the same order) for every
+// schedule.
 //
 // The three products C[m][n] = sum_k A(m, k) B(k, n), each a pair of views:
 //   forward  A = x[tile] (bm, d) row-major, B = w[e] (d, f), C = out[tile];
@@ -29,7 +26,7 @@
 // the forward's w, dW's dY); its shared-memory stage keeps that layout, so
 // a copy moves a run of global memory as it lies.
 //
-// fp32 (gmm_f32_kernel), an SGEMM:
+// The SGEMM (gmm_f32_kernel):
 //   * A unit is at most 128 rows x 256 columns of C.  Its rows pick the
 //     register tile: 8 rows -> 2 x 4 outputs a thread (8 x 256 in one
 //     pass; not in dW), 16 -> 4 x 4, 32 -> 4 x 8, 64 -> 8 x 8 (64 x 256),
@@ -59,15 +56,6 @@
 //   * No split-k, no atomics: every output is computed by the same
 //     instruction sequence whatever CTA runs it, so outputs are
 //     bit-identical for every schedule and every p.
-//
-// bf16 / fp16 off TMA's rows (gmm_simt_kernel): one BM x BN block a unit,
-// 256 threads each owning a TM x TN block, a BKD = 16 deep slice staged in
-// shared memory as fp32 (loaded element by element, converted, the next
-// slice fetched into registers while this one's products run), zero-filled
-// past M, N and K.  Two unit shapes: 64 x 64 (4 x 4 a thread), and 16 x
-// 128 (2 x 4) where M <= 16.  The forward walks the plan one tile a step,
-// all of the tile's units in turn; dX and dW deal (expert, n block, m
-// block) units round-robin.
 
 #include "simt_common.cuh"
 
@@ -76,7 +64,6 @@ namespace {
 using namespace simt;
 
 constexpr int NT = 256;
-constexpr int BKD = 16;   // depth of a stage
 
 enum Mode { FWD = 0, DX = 1, DW = 2 };
 
@@ -92,159 +79,6 @@ struct GmmParams {
   int R, d, f;              // the raw dims (fwd: R = bm)
   int max_run;              // fwd fp32: tiles a unit may stack
 };
-
-// the operands of batch index `bi` (a tile slot, or an expert) of mode MODE:
-// element (m, k) of A at A + m * a_sm + k * a_sk, (k, n) of B likewise, C
-// row-major with row stride N
-template <int MODE, typename T>
-struct Views {
-  const T *A, *B;
-  T* C;
-  long long a_sm, a_sk, b_sk, b_sn;
-  __device__ Views(const GmmParams& P, int bi, int e) {
-    const T* a = static_cast<const T*>(P.a);
-    const T* b = static_cast<const T*>(P.b);
-    T* c = static_cast<T*>(P.c);
-    const long long R = P.R, d = P.d, f = P.f;
-    if constexpr (MODE == FWD) {            // x (T, bm, d) @ w (E, d, f)
-      A = a + bi * R * d; a_sm = d; a_sk = 1;
-      B = b + e * d * f; b_sk = f; b_sn = 1;
-      C = c + bi * R * f;
-    } else if constexpr (MODE == DX) {      // dy (E, R, f) @ w[e]^T
-      A = a + e * R * f; a_sm = f; a_sk = 1;
-      B = b + e * d * f; b_sk = 1; b_sn = f;
-      C = c + e * R * d;
-    } else {                                // x (E, R, d)^T @ dy (E, R, f)
-      A = a + e * R * d; a_sm = 1; a_sk = d;
-      B = b + e * R * f; b_sk = f; b_sn = 1;
-      C = c + e * d * f;
-    }
-  }
-};
-
-// one BKD x X slice of an operand, element (k, x) at G + k * s_k + x * s_x,
-// zero past K and X: fetched into registers (the unit-stride index runs
-// fastest across threads, so the reads coalesce), then put into S[k][x]
-// (row stride LD).  Fetching the next slice before the products of this
-// one keeps its loads in flight while they run.
-template <int X, int LD, typename T>
-struct Slice {
-  static constexpr int N = BKD * X / NT;   // elements a thread
-  static_assert(N * NT == BKD * X, "a slice divides over the threads");
-  float v[N];
-
-  __device__ __forceinline__ static void at(int i, bool k_fast, int& k,
-                                            int& x) {
-    if (k_fast) {
-      k = i % BKD;
-      x = i / BKD;
-    } else {
-      x = i % X;
-      k = i / X;
-    }
-  }
-  __device__ __forceinline__ void fetch(const T* G, long long s_k,
-                                        long long s_x, int k0, int x0, int K,
-                                        int Xn) {
-    const bool k_fast = s_k == 1;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      int k, x;
-      at(threadIdx.x + j * NT, k_fast, k, x);
-      const int gk = k0 + k, gx = x0 + x;
-      v[j] = (gk < K && gx < Xn) ? Cvt<T>::in(G[gk * s_k + gx * s_x]) : 0.f;
-    }
-  }
-  __device__ __forceinline__ void put(float* S, long long s_k) const {
-    const bool k_fast = s_k == 1;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      int k, x;
-      at(threadIdx.x + j * NT, k_fast, k, x);
-      S[k * LD + x] = v[j];
-    }
-  }
-};
-
-// C[m0 : m0 + BM, n0 : n0 + BN] of one batch index
-template <typename T, int MODE, int BM, int BN, int TM, int TN>
-__device__ __forceinline__ void unit(const Views<MODE, T>& V, int M, int N,
-                                     int K, int m0, int n0, float* As,
-                                     float* Bs) {
-  constexpr int LDA = BM + 4, LDB = BN + 4;
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  Slice<BM, LDA, T> sa;
-  Slice<BN, LDB, T> sb;
-  sa.fetch(V.A, V.a_sk, V.a_sm, 0, m0, K, M);
-  sb.fetch(V.B, V.b_sk, V.b_sn, 0, n0, K, N);
-  for (int k0 = 0; k0 < K; k0 += BKD) {
-    __syncthreads();   // the previous slice (or unit) is read
-    sa.put(As, V.a_sk);
-    sb.put(Bs, V.b_sk);
-    __syncthreads();
-    if (k0 + BKD < K) {
-      sa.fetch(V.A, V.a_sk, V.a_sm, k0 + BKD, m0, K, M);
-      sb.fetch(V.B, V.b_sk, V.b_sn, k0 + BKD, n0, K, N);
-    }
-#pragma unroll
-    for (int k = 0; k < BKD; ++k) {
-      float a[TM], b[TN];
-      lds<TM>(a, As + k * LDA + ty * TM);
-      lds<TN>(b, Bs + k * LDB + tx * TN);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n < N) V.C[static_cast<long long>(m) * N + n] = Cvt<T>::out(acc[i][j]);
-    }
-  }
-}
-
-template <typename T, int MODE, int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(NT)
-gmm_simt_kernel(GmmParams P) {
-  static_assert((BM / TM) * (BN / TN) == NT, "256 threads a unit");
-  __shared__ __align__(16) float As[BKD * (BM + 4)];
-  __shared__ __align__(16) float Bs[BKD * (BN + 4)];
-  const int mb = (P.M + BM - 1) / BM, nb = (P.N + BN - 1) / BN;
-  const int p = gridDim.x, w = blockIdx.x;
-  if constexpr (MODE == FWD) {
-    // the unit sequence of CTA w: its live steps, then its dead ones
-    const int live0 = P.bounds[w], nlive = P.bounds[w + 1] - live0;
-    const int ndead =
-        (P.T - P.n_span > w) ? (P.T - P.n_span - w + p - 1) / p : 0;
-    for (int it = 0; it < nlive + ndead; ++it) {
-      const int step = it < nlive ? live0 + it : P.n_span + w + (it - nlive) * p;
-      const int tile = P.order[step];
-      const Views<MODE, T> V(P, tile, P.tile_expert[tile]);
-      for (int u = 0; u < mb * nb; ++u)
-        unit<T, MODE, BM, BN, TM, TN>(V, P.M, P.N, P.K, (u % mb) * BM,
-                                      (u / mb) * BN, As, Bs);
-    }
-  } else {
-    const int units = P.E * nb * mb;
-    for (int u = w; u < units; u += p) {
-      const int e = u / (nb * mb), r = u % (nb * mb);
-      const Views<MODE, T> V(P, 0, e);
-      unit<T, MODE, BM, BN, TM, TN>(V, P.M, P.N, P.K, (r % mb) * BM,
-                                    (r / mb) * BN, As, Bs);
-    }
-  }
-}
 
 // ------------------------------------------------------------------ fp32 ---
 
@@ -665,25 +499,10 @@ inline int units(const GmmParams& P) {
 
 }  // namespace f32
 
-template <typename T, int MODE>
-int launch_t(const GmmParams& P, int grid, cudaStream_t st) {
-  if (P.M <= 16)
-    gmm_simt_kernel<T, MODE, 16, 128, 2, 4><<<grid, NT, 0, st>>>(P);
-  else
-    gmm_simt_kernel<T, MODE, 64, 64, 4, 4><<<grid, NT, 0, st>>>(P);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int MODE>
-int launch(const GmmParams& P, int grid, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+int launch(const GmmParams& P, int grid, void* stream) {
   if (grid <= 0) return 0;
-  switch (dtype) {
-    case F32: return f32::launch<MODE>(P, grid, st);
-    case BF16: return launch_t<__nv_bfloat16, MODE>(P, grid, st);
-    case F16: return launch_t<__half, MODE>(P, grid, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return f32::launch<MODE>(P, grid, static_cast<cudaStream_t>(stream));
 }
 
 GmmParams params(const void* a, const void* b, void* c, int E, int R, int d,
@@ -704,7 +523,7 @@ extern "C" int gmm_simt_launch(const void* x, const void* w, void* out,
                                int bm, int d, int f, int E, int dtype,
                                void* stream) {
   if (p <= 0 || T < 0 || E <= 0 || bm <= 0 || d < 0 || f <= 0 ||
-      n_span < 0 || n_span > T)
+      n_span < 0 || n_span > T || dtype != F32)
     return static_cast<int>(cudaErrorInvalidValue);
   GmmParams P = params(x, w, out, E, bm, d, f);
   P.order = static_cast<const int*>(order);
@@ -713,20 +532,19 @@ extern "C" int gmm_simt_launch(const void* x, const void* w, void* out,
   P.n_span = n_span; P.T = T;
   P.M = bm; P.N = f; P.K = d;
   P.max_run = bm <= f32::UM ? f32::UM / bm : 1;
-  return launch<FWD>(P, T > 0 ? p : 0, dtype, stream);
+  return launch<FWD>(P, T > 0 ? p : 0, stream);
 }
 
 // dX (E, R, d) = dy (E, R, f) w[e]^T with w (E, d, f) read in place
 extern "C" int gmm_simt_dx_launch(const void* dy, const void* w, void* dx,
                                   int E, int R, int d, int f, int p, int dtype,
                                   void* stream) {
-  if (p <= 0 || E <= 0 || R < 0 || d <= 0 || f < 0)
+  if (p <= 0 || E <= 0 || R < 0 || d <= 0 || f < 0 || dtype != F32)
     return static_cast<int>(cudaErrorInvalidValue);
   GmmParams P = params(dy, w, dx, E, R, d, f);
   P.M = R; P.N = d; P.K = f;
-  const int units = dtype == F32 ? f32::units(P)
-                                 : E * ((R + 63) / 64) * ((d + 63) / 64);
-  return launch<DX>(P, p < units ? p : units, dtype, stream);
+  const int units = f32::units(P);
+  return launch<DX>(P, p < units ? p : units, stream);
 }
 
 // dW (E, d, f) = x (E, R, d)^T dy (E, R, f) per expert, rows summed in
@@ -734,13 +552,12 @@ extern "C" int gmm_simt_dx_launch(const void* dy, const void* w, void* dx,
 extern "C" int gmm_simt_dw_launch(const void* x, const void* dy, void* dw,
                                   int E, int R, int d, int f, int p, int dtype,
                                   void* stream) {
-  if (p <= 0 || E <= 0 || R < 0 || d <= 0 || f <= 0)
+  if (p <= 0 || E <= 0 || R < 0 || d <= 0 || f <= 0 || dtype != F32)
     return static_cast<int>(cudaErrorInvalidValue);
   GmmParams P = params(x, dy, dw, E, R, d, f);
   P.M = d; P.N = f; P.K = R;
-  const int units = dtype == F32 ? f32::units(P)
-                                 : E * ((d + 63) / 64) * ((f + 63) / 64);
-  return launch<DW>(P, p < units ? p : units, dtype, stream);
+  const int units = f32::units(P);
+  return launch<DW>(P, p < units ? p : units, stream);
 }
 
 extern "C" const char* gmm_simt_error_string(int code) {

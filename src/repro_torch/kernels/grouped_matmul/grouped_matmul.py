@@ -12,17 +12,17 @@ On a CUDA tensor the list drives ``csrc/gmm.cu``: a persistent kernel with
 ``p`` CTAs, CTA ``w`` walking its plan share in order and then its
 round-robin part of the dead tiles, fed by TMA and computed with wgmma;
 see the note at the top of that file.  That kernel takes bf16 with rows,
-columns and depth in whole blocks.  bf16 and fp16 at any other shape whose
-rows TMA can describe (``d`` and ``f`` multiples of 8, 16-byte aligned
-data) run ``csrc/gmm_any.cu`` (``gmm_any``): the same walk, TMA and wgmma,
-a unit stacking the run of consecutive steps whose tiles share an expert,
-so that the expert's weights are read once per run.  Everything else (fp32,
-and 2-byte rows TMA cannot describe) runs ``csrc/gmm_simt.cu``
-(``gmm_simt``) on the CUDA cores, fp32 as a register-blocked SGEMM over the
-same runs.  ``gmm_route`` picks the kernel from the dtype and the shape
-alone.  On a CPU tensor ``grouped_matmul_tiles_plain`` computes the same
-function.  Tiles are independent, so the output is bit-identical for every
-order.
+columns and depth in whole blocks.  bf16 and fp16 at any other shape run
+``csrc/gmm_any.cu`` (``gmm_any``): the same walk and wgmma, a unit stacking
+the run of consecutive steps whose tiles share an expert, so that the
+expert's weights are read once per run, its stages filled by TMA where TMA
+can describe the rows (``d`` and ``f`` multiples of 8, 16-byte aligned
+data) and by the producer warpgroup's own copies otherwise.  fp32 runs
+``csrc/gmm_simt.cu`` (``gmm_simt``), a register-blocked SGEMM on the CUDA
+cores over the same runs.  ``gmm_route`` picks the kernel and the loader
+from the dtype and the shape alone.  On a CPU tensor
+``grouped_matmul_tiles_plain`` computes the same function.  Tiles are
+independent, so the output is bit-identical for every order.
 
 The backward of the expert-row product Y[e] = X[e] W[e] (no Pallas kernel:
 the reference differentiates its einsums by autodiff), for training the
@@ -33,10 +33,10 @@ expert-major raster: the 128-row tiles that share one (expert, 256-column)
 weight panel run at once on neighbouring CTAs, which read the panel from
 device memory once and from L2 after that, the weights read K-major in
 place.  ``gmm_dw`` runs one CTA per (expert, dW tile) at a time, the rows
-summed in ascending order.  ``gmm_dx_any`` (``csrc/gmm_any.cu``) takes dX
-in bf16 and fp16 off ``gmm_dx``'s blocks where TMA can describe the rows,
-and ``gmm_dx_simt`` and ``gmm_dw_simt`` (``csrc/gmm_simt.cu``) the rest,
-as for the forward.  On a CPU tensor ``grouped_matmul_bwd_plain``
+summed in ascending order.  ``gmm_dx_any`` and ``gmm_dw_any``
+(``csrc/gmm_any.cu``) take bf16 and fp16 off those blocks, with either
+loader, and ``gmm_dx_simt`` and ``gmm_dw_simt`` (``csrc/gmm_simt.cu``)
+fp32, as for the forward.  On a CPU tensor ``grouped_matmul_bwd_plain``
 computes both.
 """
 
@@ -64,15 +64,18 @@ GMM_DX = Kernel("gmm_dx", source="gmm", symbol="gmm_dx_launch",
                 argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 5 + [_c.c_void_p])
 GMM_DW = Kernel("gmm_dw", source="gmm", symbol="gmm_dw_launch",
                 argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 5 + [_c.c_void_p])
-#: bf16 and fp16 off gmm.cu's blocks (``csrc/gmm_any.cu``): TMA and wgmma
-#: wherever d and f are multiples of 8 and the data 16-byte aligned
+#: bf16 and fp16 off gmm.cu's blocks (``csrc/gmm_any.cu``): wgmma, the
+#: stages filled by TMA (route ``"wgmma_any"``) or by the producer
+#: warpgroup's copies (``"wgmma_ld"``), chosen by the last argument
 GMM_ANY = Kernel("gmm_any", source="gmm_any", symbol="gmm_any_launch",
-                 argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 8 + [_c.c_void_p])
+                 argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 9 + [_c.c_void_p])
 GMM_DX_ANY = Kernel("gmm_dx_any", source="gmm_any", symbol="gmm_any_dx_launch",
-                    argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 6
+                    argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 7
                     + [_c.c_void_p])
-#: the general kernels (``csrc/gmm_simt.cu``): any dtype of ``SIMT_DTYPES``,
-#: any shape, plain fp32 FMA on the CUDA cores
+GMM_DW_ANY = Kernel("gmm_dw_any", source="gmm_any", symbol="gmm_any_dw_launch",
+                    argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 7
+                    + [_c.c_void_p])
+#: fp32 (``csrc/gmm_simt.cu``): any shape, plain fp32 FMA on the CUDA cores
 GMM_SIMT = Kernel("gmm_simt", source="gmm_simt", symbol="gmm_simt_launch",
                   argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 8 + [_c.c_void_p])
 GMM_DX_SIMT = Kernel("gmm_dx_simt", source="gmm_simt",
@@ -84,24 +87,26 @@ GMM_DW_SIMT = Kernel("gmm_dw_simt", source="gmm_simt",
                      argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 6
                      + [_c.c_void_p])
 
-#: what gmm_any takes: 2-byte rows TMA can describe (16-byte row strides)
+#: what TMA can describe: 2-byte rows of a multiple of 8 elements (16-byte
+#: row strides)
 TMA_ROW_ELEMS = 8
 
 
 def _route(name: str, dtypes, blocks: bool, tma: bool) -> str:
-    """``"wgmma"`` for bfloat16 that fits the wgmma kernel's blocks
-    (``blocks``, alignment included), ``"wgmma_any"`` for bfloat16 or
-    float16 whose rows TMA can describe (``tma``), else ``"simt"``; raises
-    TypeError for a dtype no kernel takes."""
+    """``"wgmma"`` for bfloat16 that fits gmm.cu's blocks (``blocks``,
+    alignment included), else for bfloat16 and float16 ``"wgmma_any"``
+    where TMA can describe the rows (``tma``) and ``"wgmma_ld"`` where it
+    cannot; ``"simt"`` for float32.  Raises TypeError for a dtype no kernel
+    takes."""
     dtypes = set(dtypes)
     if len(dtypes) != 1 or not dtypes <= set(SIMT_DTYPES):
         raise TypeError(f"{name} takes float32, bfloat16 or float16 operands "
                         f"of one dtype, got {sorted(map(str, dtypes))}")
+    if dtypes == {torch.float32}:
+        return "simt"
     if dtypes == {torch.bfloat16} and blocks:
         return "wgmma"
-    if dtypes <= {torch.bfloat16, torch.float16} and tma:
-        return "wgmma_any"
-    return "simt"
+    return "wgmma_any" if tma else "wgmma_ld"
 
 
 def _tma_rows(aligned: bool, *widths: int) -> bool:
@@ -112,9 +117,10 @@ def gmm_route(x_dtype, w_dtype, bm: int, d: int, f: int,
               aligned: bool = True) -> str:
     """The kernel ``gmm_cuda`` launches for x tiles (T, bm, d) and weights
     (E, d, f) of these dtypes: ``"wgmma"`` (``gmm``) for bfloat16 with bm
-    and f multiples of 128 and d of 32, ``"wgmma_any"`` (``gmm_any``) for
-    every other bfloat16 or float16 call with d and f multiples of 8,
-    ``"simt"`` (``gmm_simt``) for float32 and the rest.  ``aligned``: both
+    and f multiples of 128 and d of 32, ``"wgmma_any"`` (``gmm_any``, TMA)
+    for every other bfloat16 or float16 call with d and f multiples of 8,
+    ``"wgmma_ld"`` (``gmm_any``, the thread loader) for the other 2-byte
+    calls, ``"simt"`` (``gmm_simt``) for float32.  ``aligned``: both
     operands' data 16-byte aligned."""
     tma = bm > 0 and _tma_rows(aligned, d, f)
     return _route("gmm", (x_dtype, w_dtype), tma
@@ -126,8 +132,7 @@ def gmm_route(x_dtype, w_dtype, bm: int, d: int, f: int,
 def gmm_dx_route(dy_dtype, w_dtype, r: int, d: int, f: int,
                  aligned: bool = True) -> str:
     """As :func:`gmm_route` for dX = dY W^T (``gmm_dx`` needs R and d
-    multiples of 128, f of 32; ``gmm_dx_any`` R > 0, d and f multiples of
-    8)."""
+    multiples of 128, f of 32; TMA R > 0, d and f multiples of 8)."""
     tma = r > 0 and _tma_rows(aligned, d, f)
     return _route("gmm_dx", (dy_dtype, w_dtype), tma
                   and r % KERNEL_BLOCK_ROWS == 0
@@ -138,11 +143,32 @@ def gmm_dx_route(dy_dtype, w_dtype, r: int, d: int, f: int,
 def gmm_dw_route(x_dtype, dy_dtype, r: int, d: int, f: int,
                  aligned: bool = True) -> str:
     """As :func:`gmm_route` for dW = X^T dY (``gmm_dw`` needs d and f
-    multiples of 128, R > 0); dW has no ``"wgmma_any"`` kernel, so every
-    other call is ``"simt"``."""
-    return _route("gmm_dw", (x_dtype, dy_dtype), aligned and r > 0
+    multiples of 128, R > 0; TMA R > 0, d and f multiples of 8)."""
+    tma = r > 0 and _tma_rows(aligned, d, f)
+    return _route("gmm_dw", (x_dtype, dy_dtype), tma
                   and d % KERNEL_BLOCK_ROWS == 0
-                  and f % KERNEL_BLOCK_COLS == 0, False)
+                  and f % KERNEL_BLOCK_COLS == 0, tma)
+
+
+#: the kernel of each product by route
+GMM_BY_ROUTE = {"wgmma": GMM, "wgmma_any": GMM_ANY, "wgmma_ld": GMM_ANY,
+                "simt": GMM_SIMT}
+GMM_DX_BY_ROUTE = {"wgmma": GMM_DX, "wgmma_any": GMM_DX_ANY,
+                   "wgmma_ld": GMM_DX_ANY, "simt": GMM_DX_SIMT}
+GMM_DW_BY_ROUTE = {"wgmma": GMM_DW, "wgmma_any": GMM_DW_ANY,
+                   "wgmma_ld": GMM_DW_ANY, "simt": GMM_DW_SIMT}
+
+
+def _launch(kernels: dict, route: str, args, dtype, stream) -> None:
+    """Launch the route's kernel: gmm.cu's takes no dtype, gmm_any.cu's the
+    dtype and the loader, gmm_simt.cu's the dtype."""
+    if route == "wgmma":
+        kernels[route].launch(*args, stream)
+    elif route == "simt":
+        kernels[route].launch(*args, SIMT_DTYPES[dtype], stream)
+    else:
+        kernels[route].launch(*args, SIMT_DTYPES[dtype],
+                              int(route == "wgmma_ld"), stream)
 
 
 def _aligned(*tensors) -> bool:
@@ -196,12 +222,8 @@ def gmm_cuda(x_tiles, weights, tile_expert, order, bounds, n_span: int):
     args = (x_tiles.data_ptr(), weights.data_ptr(), out.data_ptr(), ptr,
             te.data_ptr(), ptr + 4 * t, len(bounds) - 1, n_span, t, bm, d, f,
             e)
-    stream = torch.cuda.current_stream(x_tiles.device).cuda_stream
-    if route == "wgmma":
-        GMM.launch(*args, stream)
-    else:
-        kernel = GMM_ANY if route == "wgmma_any" else GMM_SIMT
-        kernel.launch(*args, SIMT_DTYPES[x_tiles.dtype], stream)
+    _launch(GMM_BY_ROUTE, route, args, x_tiles.dtype,
+            torch.cuda.current_stream(x_tiles.device).cuda_stream)
     return out
 
 
@@ -231,17 +253,14 @@ def gmm_dx_cuda(dy, weights, *, sched_p: int):
     dx = torch.empty((e, r, d), dtype=dy.dtype, device=dy.device)
     args = (dy.data_ptr(), weights.data_ptr(), dx.data_ptr(), e, r, d, f,
             sched_p)
-    stream = torch.cuda.current_stream(dy.device).cuda_stream
-    if route == "wgmma":
-        GMM_DX.launch(*args, stream)
-    else:
-        kernel = GMM_DX_ANY if route == "wgmma_any" else GMM_DX_SIMT
-        kernel.launch(*args, SIMT_DTYPES[dy.dtype], stream)
+    _launch(GMM_DX_BY_ROUTE, route, args, dy.dtype,
+            torch.cuda.current_stream(dy.device).cuda_stream)
     return dx
 
 
 def gmm_dw_cuda(xe, dy, *, sched_p: int):
-    """Launch ``gmm_dw`` (or ``gmm_dw_simt``, :func:`gmm_dw_route`): dW[e] =
+    """Launch ``gmm_dw`` (or ``gmm_dw_any`` / ``gmm_dw_simt``,
+    :func:`gmm_dw_route`): dW[e] =
     xe[e]^T dy[e] for xe (E, R, d) and dy (E, R, f), fp32 sums over the R
     rows in ascending order, on ``sched_p`` persistent CTAs.  Returns a new
     (E, d, f) tensor of xe's dtype."""
@@ -254,11 +273,8 @@ def gmm_dw_cuda(xe, dy, *, sched_p: int):
     route = gmm_dw_route(xe.dtype, dy.dtype, r, d, f, _aligned(xe, dy))
     dw = torch.empty((e, d, f), dtype=xe.dtype, device=xe.device)
     args = (xe.data_ptr(), dy.data_ptr(), dw.data_ptr(), e, r, d, f, sched_p)
-    stream = torch.cuda.current_stream(xe.device).cuda_stream
-    if route == "wgmma":
-        GMM_DW.launch(*args, stream)
-    else:
-        GMM_DW_SIMT.launch(*args, SIMT_DTYPES[xe.dtype], stream)
+    _launch(GMM_DW_BY_ROUTE, route, args, xe.dtype,
+            torch.cuda.current_stream(xe.device).cuda_stream)
     return dw
 
 
@@ -281,8 +297,8 @@ def grouped_matmul_bwd(xe, weights, dy, *, need_dx: bool = True,
                        need_dw: bool = True, sched_p: int = 8):
     """(dx, dw) of xe (E, R, d) @ weights (E, d, f) for dy (E, R, f), None
     where not asked for, in the operands' one dtype.  On the
-    card dx is ``gmm_dx`` and dw ``gmm_dw`` (or their general kernels),
-    each on ``sched_p`` persistent CTAs; on the CPU the plain version."""
+    card dx is ``gmm_dx`` and dw ``gmm_dw`` (or, off their blocks and
+    dtype, ``gmm_dx_any`` / ``gmm_dw_any`` or the fp32 kernels), each on ``sched_p`` persistent CTAs; on the CPU the plain version."""
     dev = check_device(xe, weights, dy)
     if dev.type == "cpu":
         return grouped_matmul_bwd_plain(xe, weights, dy, need_dx=need_dx,

@@ -171,8 +171,8 @@ def _expert_matmul(xe, w):
     """xe (E, R, d) expert rows @ w (E, d, f) -> (E, R, f), R a multiple of
     the kernel's row tile.  On a CUDA tensor ``gmm`` runs with one CTA per
     SM over the identity order, forward and backward (bf16 at its blocks;
-    the general kernels for fp32 and for a d or f off them); a CPU tensor
-    takes the plain versions."""
+    ``gmm_any.cu``'s kernels for bf16 and fp16 off them, ``gmm_simt.cu``'s
+    for fp32); a CPU tensor takes the plain versions."""
     sched_p = _sm_count(xe.device.index) if xe.is_cuda else 8
     return _ExpertMatmul.apply(xe, w, sched_p)
 

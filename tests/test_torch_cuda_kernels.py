@@ -281,13 +281,23 @@ def test_gmm_matches_plain_and_is_schedule_free(dev, shape):
     _check_gmm(dev, shape)
 
 
-def _check_gmm(dev, shape, dtype=torch.bfloat16):
+def _check_gmm(dev, shape, dtype=torch.bfloat16, route=None, offset=0):
+    """One forward call against the plain version, then bit-identical for
+    every technique at sched_p 1, 3, 8 and the SM count; ``route``: the
+    route the call must take; ``offset``: x a contiguous view ``offset``
+    elements into its storage (a base off 16 bytes), whose output must
+    also equal an aligned copy's bit for bit."""
     e, c, d, f, bm = shape
-    x = _randn(dev, e, c, d, seed=1, dtype=dtype)
-    w = _randn(dev, e, d, f, seed=2, scale=d ** -0.5, dtype=dtype)
+    if offset:
+        x = _randn(dev, e * c * d + offset, seed=1,
+                   dtype=dtype)[offset:].view(e, c, d)
+    else:
+        x = _randn(dev, e, c, d, seed=1, dtype=dtype)
+    w = _randn(dev, e, d, f, seed=2, scale=max(d, 1) ** -0.5, dtype=dtype)
     rows = np.random.default_rng(e).integers(0, c + 1, size=e)
-    kernel = {"wgmma": gm.GMM, "wgmma_any": gm.GMM_ANY,
-              "simt": gm.GMM_SIMT}[gm.gmm_route(dtype, dtype, bm, d, f)]
+    got_route = gm.gmm_route(dtype, dtype, bm, d, f, gm._aligned(x, w))
+    assert route is None or got_route == route, (shape, dtype, got_route)
+    kernel = gm.GMM_BY_ROUTE[got_route]
     before = kernel.launches
     out = grouped_matmul(x, w, block_rows=bm, schedule="fac2",
                          expert_rows=rows, sched_p=3)
@@ -305,6 +315,8 @@ def _check_gmm(dev, shape, dtype=torch.bfloat16):
     assert torch.equal(grouped_matmul(x, w, block_rows=bm, sched_p=1), out)
     perm = np.random.default_rng(0).permutation(t)
     assert torch.equal(grouped_matmul(x, w, tile_order=perm, block_rows=bm), out)
+    if offset:
+        assert torch.equal(grouped_matmul(x.clone(), w, block_rows=bm), out)
 
 
 def _moe_case(dev, **kw):
@@ -381,10 +393,10 @@ def test_gmm_tails_and_one_cta_ring(dev, monkeypatch):
     # off gmm.cu's blocks: the reference MoE demo's fp32 call (bm 8, d 64,
     # f 32), bf16 at that shape, the qwen3-moe width in 8-row tiles, and
     # ragged widths in fp32 and fp16.  bf16 / fp16 with d and f multiples
-    # of 8 take gmm_any (runs of 8-row tiles stacked up to 128 rows; bm 64;
-    # d and f tails inside a 64-wide box; a 264-column f whose last block
-    # is an n64; bm 5, one tile a unit; bm 200, two row blocks); f 36
-    # keeps bf16 on gmm_simt.  fp32: runs of 24-row tiles, bm 200, and
+    # of 8 take gmm_any on TMA (runs of 8-row tiles stacked up to 128 rows;
+    # bm 64; d and f tails inside a 64-wide box; a 264-column f whose last
+    # block is an n64; bm 5, one tile a unit; bm 200, two row blocks); f 36
+    # takes its thread loader.  fp32: runs of 24-row tiles, bm 200, and
     # d 30 / f 34, whose rows take 4-byte copies
     for shape, dt in (((4, 16, 64, 32, 8), torch.float32),
                       ((4, 16, 64, 32, 8), torch.bfloat16),
@@ -402,6 +414,23 @@ def test_gmm_tails_and_one_cta_ring(dev, monkeypatch):
                       ((2, 16, 30, 34, 8), torch.float32),
                       ((2, 32, 64, 36, 8), torch.bfloat16)):
         _check_gmm(dev, shape, dt)
+    # the thread loader (route "wgmma_ld"): f 764 (8-byte copies of w) in
+    # bf16 and fp16, d 2044 (8-byte copies of both), f 36 in fp16, an odd
+    # f (2-byte loads through registers, 2-byte stores), bm 5 and 24
+    # stacked into runs, d 0 (zeros), and bases 2 and 8 bytes off 16
+    # (register path, 8-byte copies), each equal to an aligned copy's
+    # output on TMA
+    for shape, dt, offset in (((4, 64, 2048, 764, 8), torch.bfloat16, 0),
+                              ((4, 64, 2048, 764, 8), torch.float16, 0),
+                              ((3, 64, 2044, 768, 8), torch.float16, 0),
+                              ((2, 32, 64, 36, 8), torch.float16, 0),
+                              ((3, 40, 72, 33, 8), torch.bfloat16, 0),
+                              ((3, 40, 100, 129, 5), torch.float16, 0),
+                              ((3, 96, 30, 70, 24), torch.bfloat16, 0),
+                              ((2, 16, 0, 40, 8), torch.bfloat16, 0),
+                              ((3, 64, 2048, 768, 8), torch.bfloat16, 1),
+                              ((2, 128, 72, 136, 64), torch.float16, 4)):
+        _check_gmm(dev, shape, dt, route="wgmma_ld", offset=offset)
     e, c, d, f, bm = 4, 512, 256, 512, 128
     x = _randn(dev, e, c, d, seed=3)
     w = _randn(dev, e, d, f, seed=4, scale=d ** -0.5)

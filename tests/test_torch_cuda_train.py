@@ -27,9 +27,10 @@ runs give the same bits.
 The general kernels (``flash_simt_bwd.cu``, ``gmm_dx_simt`` /
 ``gmm_dw_simt``) in fp32, plain fp32 FMA against the fp32 plain versions
 with TF32 off: flash gradients within 1e-4 + 1e-4 |plain| elementwise, dX
-and dW within 1e-5 + 1e-5 |plain| (sums in another order).  bf16 dX off
-``gmm_dx``'s blocks (``gmm_dx_any``, wgmma) within the bf16 gate above,
-fp16 within 2^-10 + 2^-10 |plain|.
+and dW within 1e-5 + 1e-5 |plain| (sums in another order).  bf16 dX and dW
+off ``gmm_dx``'s and ``gmm_dw``'s blocks (``gmm_dx_any`` / ``gmm_dw_any``,
+wgmma, either loader) within the bf16 gate above, fp16 within 2^-10 +
+2^-10 |plain|.
 """
 
 import math
@@ -248,39 +249,68 @@ def test_moe_bwd_kernels_match_plain(dev):
         assert torch.equal(leaves[0].grad, dx)
         assert torch.equal(leaves[1].grad, dw)
     # off those blocks: the reference MoE demo's fp32 shape, the qwen3-moe
-    # width, rows, widths and depths off every block, fp16; dX in bf16 /
-    # fp16 with d and f multiples of 8 on ``gmm_dx_any`` (R 64, 100, 40 and
-    # 200 rows, one CTA), f 70 keeping bf16 dX on ``gmm_dx_simt``; dW off
-    # gmm_dw's blocks on ``gmm_dw_simt``; the fp32 ones also under
-    # autograd through ``_expert_matmul``
-    for (e, r, d, f, p), dt in (((4, 16, 64, 32, 8), torch.float32),
-                                ((2, 256, 2048, 768, 132), torch.float32),
-                                ((3, 256, 200, 72, 5), torch.float32),
-                                ((2, 100, 200, 72, 3), torch.bfloat16),
-                                ((2, 40, 24, 56, 7), torch.float16),
-                                ((3, 64, 2048, 768, 132), torch.bfloat16),
-                                ((2, 200, 264, 136, 1), torch.float16),
-                                ((2, 48, 40, 70, 3), torch.bfloat16),
-                                ((2, 60, 30, 34, 1), torch.float32)):
-        xe = _randn(dev, e, r, d, seed=53, dtype=dt)
+    # width, rows, widths and depths off every block, fp16.  bf16 / fp16 dX
+    # and dW on ``gmm_dx_any`` / ``gmm_dw_any``: TMA where d and f are
+    # multiples of 8 and the bases aligned (R 64, 100, 40 and 200 rows, one
+    # CTA; fp16 dW at the qwen3-moe width), else the thread loader (f 764,
+    # d 2044, f 70 and 36, an odd f, R 0, bases 2 and 8 bytes off 16); fp32
+    # on ``gmm_dx_simt`` / ``gmm_dw_simt``.  Each on the route it must take,
+    # bit-identical at sched_p 1, 3 and the SM count; a misaligned call
+    # equal to an aligned copy's; one fp32 and one 2-byte call per loader
+    # also under autograd through ``_expert_matmul``
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ld, tma = "wgmma_ld", "wgmma_any"
+    for (e, r, d, f, p), dt, routes, offset in (
+            ((4, 16, 64, 32, 8), torch.float32, ("simt",) * 2, 0),
+            ((2, 256, 2048, 768, 132), torch.float32, ("simt",) * 2, 0),
+            ((3, 256, 200, 72, 5), torch.float32, ("simt",) * 2, 0),
+            ((2, 100, 200, 72, 3), torch.bfloat16, (tma, tma), 0),
+            ((2, 40, 24, 56, 7), torch.float16, (tma, tma), 0),
+            ((3, 64, 2048, 768, 132), torch.bfloat16, (tma, "wgmma"), 0),
+            ((128, 64, 2048, 768, 132), torch.float16, (tma, tma), 0),
+            ((2, 200, 264, 136, 1), torch.float16, (tma, tma), 0),
+            ((2, 128, 200, 72, 4), torch.bfloat16, (tma, tma), 0),
+            ((2, 48, 40, 70, 3), torch.bfloat16, (ld, ld), 0),
+            ((16, 64, 2048, 764, 132), torch.bfloat16, (ld, ld), 0),
+            ((16, 64, 2048, 764, 132), torch.float16, (ld, ld), 0),
+            ((3, 64, 2044, 768, 5), torch.float16, (ld, ld), 0),
+            ((2, 40, 72, 36, 1), torch.float16, (ld, ld), 0),
+            ((2, 128, 72, 33, 3), torch.bfloat16, (ld, ld), 0),
+            ((2, 0, 72, 40, 3), torch.bfloat16, (ld, ld), 0),
+            ((3, 64, 2048, 768, 132), torch.float16, (ld, ld), 1),
+            ((2, 72, 136, 64, 3), torch.float16, (ld, ld), 4),
+            ((2, 60, 30, 34, 1), torch.float32, ("simt",) * 2, 0)):
+        if offset:   # xe and dy: contiguous views off 16 bytes
+            xe = _randn(dev, e * r * d + offset, seed=53,
+                        dtype=dt)[offset:].view(e, r, d)
+            dy = _randn(dev, e * r * f + offset, seed=55,
+                        dtype=dt)[offset:].view(e, r, f)
+        else:
+            xe = _randn(dev, e, r, d, seed=53, dtype=dt)
+            dy = _randn(dev, e, r, f, seed=55, dtype=dt)
         w = _randn(dev, e, d, f, seed=54, scale=d ** -0.5, dtype=dt)
-        dy = _randn(dev, e, r, f, seed=55, dtype=dt)
-        kx = {"wgmma_any": gm.GMM_DX_ANY, "simt": gm.GMM_DX_SIMT}[
-            gm.gmm_dx_route(dt, dt, r, d, f)]
-        kw = {"wgmma": gm.GMM_DW, "simt": gm.GMM_DW_SIMT}[
-            gm.gmm_dw_route(dt, dt, r, d, f)]
+        got = (gm.gmm_dx_route(dt, dt, r, d, f, gm._aligned(dy, w)),
+               gm.gmm_dw_route(dt, dt, r, d, f, gm._aligned(xe, dy)))
+        assert got == routes, ((e, r, d, f), dt, got)
+        kx, kw = gm.GMM_DX_BY_ROUTE[got[0]], gm.GMM_DW_BY_ROUTE[got[1]]
         before = (kx.launches, kw.launches)
         dx, dw = gm.grouped_matmul_bwd(xe, w, dy, sched_p=p)
         assert (kx.launches, kw.launches) == (before[0] + 1, before[1] + 1)
         assert dx.dtype == dw.dtype == dt
-        again = gm.grouped_matmul_bwd(xe, w, dy, sched_p=p)
-        assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+        for p2 in (1, 3, n_sm):
+            again = gm.grouped_matmul_bwd(xe, w, dy, sched_p=p2)
+            assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+        if offset:
+            aligned = gm.grouped_matmul_bwd(xe.clone(), w, dy.clone(),
+                                            sched_p=p)
+            assert torch.equal(dx, aligned[0]) and torch.equal(dw, aligned[1])
         want_dx, want_dw = gm.grouped_matmul_bwd_plain(xe, w, dy)
         tol = {torch.float32: FP32_GMM_TOL, torch.bfloat16: MOE_TOL,
                torch.float16: 2.0 ** -10}[dt]
         _assert_close(dx, want_dx, tol)
         _assert_close(dw, want_dw, tol)
-        if dt == torch.float32 and r % 128 == 0:
+        if (e, r, d, f) in ((2, 256, 2048, 768), (3, 256, 200, 72),
+                            (2, 128, 200, 72), (2, 128, 72, 33)):
             leaves = [x.clone().requires_grad_(True) for x in (xe, w)]
             tmoe._expert_matmul(*leaves).backward(dy)
             assert torch.equal(leaves[0].grad, dx)

@@ -3,13 +3,15 @@ dtype and the shape alone: the routing functions of the grouped matmul
 and of the flash kernels (``gmm_route`` / ``gmm_dx_route`` /
 ``gmm_dw_route``, ``flash_route`` and ``_check_kernel_inputs``).
 
-bf16 at the wgmma kernels' blocks goes to them ("wgmma"); bf16 and fp16
-at any other shape whose rows TMA can describe (d and f multiples of 8,
-16-byte aligned data) go to ``gmm_any`` / ``gmm_dx_any`` ("wgmma_any"; dW
-has no such kernel); fp32 and the rest go to the general kernels
-("simt"); what none takes raises, on the CPU as on the card.  The kernels
-themselves are held to their plain versions on the card
-(``tests/test_torch_cuda_kernels.py``, ``tests/test_torch_cuda_train.py``).
+bf16 at the wgmma kernels' blocks goes to them ("wgmma"); every other
+bf16 and fp16 call of the grouped matmul family goes to ``gmm_any`` /
+``gmm_dx_any`` / ``gmm_dw_any``, fed by TMA where TMA can describe the
+rows (d and f multiples of 8, 16-byte aligned data: "wgmma_any") and by
+the producer warpgroup's copies otherwise ("wgmma_ld"); fp32 goes to the
+general kernels ("simt"); what none takes raises, on the CPU as on the
+card.  The kernels themselves are held to their plain versions on the
+card (``tests/test_torch_cuda_kernels.py``,
+``tests/test_torch_cuda_train.py``).
 """
 
 import pytest
@@ -25,7 +27,7 @@ def test_gmm_routes_by_dtype_and_shape():
     # the aligned bf16 shapes of gmm.cu's blocks: bm, f % 128, d % 32
     assert gm.gmm_route(BF16, BF16, 128, 2048, 768) == "wgmma"
     assert gm.gmm_route(BF16, BF16, 256, 160, 384) == "wgmma"
-    assert gm.gmm_route(BF16, BF16, 128, 96, 128, aligned=False) == "simt"
+    assert gm.gmm_route(BF16, BF16, 128, 96, 128, aligned=False) == "wgmma_ld"
     # the reference MoE demo's call and the qwen3-moe width in 8-row tiles:
     # 2-byte rows TMA can describe go to gmm_any, fp32 to gmm_simt
     for dt in (BF16, F16):
@@ -41,13 +43,15 @@ def test_gmm_routes_by_dtype_and_shape():
     # fp16 at gmm.cu's blocks: gmm.cu is bf16 only
     assert gm.gmm_route(F16, F16, 128, 2048, 768) == "wgmma_any"
     assert gm.gmm_route(F32, F32, 128, 2048, 768) == "simt"
-    # the edges of TMA's rows: d or f off 8, a misaligned base
+    # the edges of TMA's rows: d or f off 8, d 0, a misaligned base; the
+    # thread loader takes them
     for shape in ((128, 100, 128), (8, 2048, 764), (8, 2044, 768),
                   (8, 2048, 4), (64, 0, 128)):
-        assert gm.gmm_route(BF16, BF16, *shape) == "simt"
-        assert gm.gmm_route(F16, F16, *shape) == "simt"
-    assert gm.gmm_route(BF16, BF16, 8, 2048, 768, aligned=False) == "simt"
-    assert gm.gmm_route(F16, F16, 8, 64, 32, aligned=False) == "simt"
+        assert gm.gmm_route(BF16, BF16, *shape) == "wgmma_ld"
+        assert gm.gmm_route(F16, F16, *shape) == "wgmma_ld"
+        assert gm.gmm_route(F32, F32, *shape) == "simt"
+    assert gm.gmm_route(BF16, BF16, 8, 2048, 768, aligned=False) == "wgmma_ld"
+    assert gm.gmm_route(F16, F16, 8, 64, 32, aligned=False) == "wgmma_ld"
     for pair in ((F32, BF16), (torch.float64, torch.float64),
                  (torch.int32, torch.int32)):
         with pytest.raises(TypeError, match="gmm takes"):
@@ -59,29 +63,64 @@ def test_gmm_backward_routes_by_dtype_and_shape():
     assert gm.gmm_dx_route(BF16, BF16, 640, 2048, 768) == "wgmma"
     assert gm.gmm_dw_route(BF16, BF16, 640, 2048, 768) == "wgmma"
     assert gm.gmm_dx_route(BF16, BF16, 128, 128, 224) == "wgmma"
-    assert gm.gmm_dw_route(BF16, BF16, 128, 128, 224) == "simt"
+    assert gm.gmm_dw_route(BF16, BF16, 128, 128, 224) == "wgmma_any"
+    # rows TMA cannot describe, or R 0: the thread loader
     for r, d, f in ((640, 2048, 100), (0, 128, 128), (64, 2044, 768)):
-        assert gm.gmm_dx_route(BF16, BF16, r, d, f) == "simt"
-        assert gm.gmm_dw_route(BF16, BF16, r, d, f) == "simt"
-    # off gmm_dx's blocks with rows TMA can describe: gmm_dx_any; dW has
-    # no such kernel
+        assert gm.gmm_dx_route(BF16, BF16, r, d, f) == "wgmma_ld"
+        assert gm.gmm_dw_route(BF16, BF16, r, d, f) == "wgmma_ld"
+    # off gmm_dx's and gmm_dw's blocks with rows TMA can describe:
+    # gmm_dx_any and gmm_dw_any on TMA
     for r, d, f in ((8, 64, 32), (64, 2048, 768), (100, 200, 72)):
         for dt in (BF16, F16):
             assert gm.gmm_dx_route(dt, dt, r, d, f) == "wgmma_any"
-            assert gm.gmm_dx_route(dt, dt, r, d, f, aligned=False) == "simt"
+            assert gm.gmm_dx_route(dt, dt, r, d, f, aligned=False) == \
+                "wgmma_ld"
         assert gm.gmm_dx_route(F32, F32, r, d, f) == "simt"
-    assert gm.gmm_dw_route(BF16, BF16, 8, 64, 32) == "simt"
+    assert gm.gmm_dw_route(BF16, BF16, 8, 64, 32) == "wgmma_any"
     # rows that are no multiple of 128: dX's m tiles, dW's zero-filled depth
     assert gm.gmm_dx_route(BF16, BF16, 100, 256, 256) == "wgmma_any"
     assert gm.gmm_dw_route(BF16, BF16, 100, 256, 256) == "wgmma"
     assert gm.gmm_dx_route(F16, F16, 640, 2048, 768) == "wgmma_any"
     assert gm.gmm_dx_route(F32, F32, 640, 2048, 768) == "simt"
-    for dt in (F32, F16):
-        assert gm.gmm_dw_route(dt, dt, 640, 2048, 768) == "simt"
+    assert gm.gmm_dw_route(F16, F16, 640, 2048, 768) == "wgmma_any"
+    assert gm.gmm_dw_route(F32, F32, 640, 2048, 768) == "simt"
     with pytest.raises(TypeError, match="gmm_dx takes"):
         gm.gmm_dx_route(F32, BF16, 128, 128, 128)
     with pytest.raises(TypeError, match="gmm_dw takes"):
         gm.gmm_dw_route(torch.float64, torch.float64, 128, 128, 128)
+
+
+def test_every_2byte_gmm_call_takes_a_wgmma_route():
+    """Every bf16 and fp16 call of the three products, at widths 1-300 on
+    either side, rows 1, 8 and 300 (and 0 for dX and dW) and either
+    alignment, gets a wgmma
+    route, TMA's exactly where it can describe the rows; every fp32 call
+    gets "simt"; an empty side (d, f or R 0) takes the thread loader."""
+    routes = (gm.gmm_route, gm.gmm_dx_route, gm.gmm_dw_route)
+    n = 0
+    for dt in (BF16, F16, F32):
+        for aligned in (True, False):
+            for w in range(0, 301):
+                for o in (1, 8, 36, 764, 768):
+                    for d, f in ((w, o), (o, w)):
+                        tma = aligned and d % 8 == 0 and f % 8 == 0 \
+                            and d > 0 and f > 0
+                        for rows in (0, 1, 8, 300):
+                            for route_fn in routes:
+                                if rows == 0 and route_fn is gm.gmm_route:
+                                    continue
+                                got = route_fn(dt, dt, rows, d, f, aligned)
+                                n += 1
+                                if dt == F32:
+                                    assert got == "simt"
+                                elif rows > 0 and tma:
+                                    assert got in ("wgmma", "wgmma_any")
+                                    assert got == "wgmma_any" or dt == BF16
+                                else:
+                                    assert got == "wgmma_ld", (
+                                        route_fn.__name__, dt, rows, d, f,
+                                        aligned)
+    assert n == 3 * 2 * 301 * 5 * 2 * 11
 
 
 def test_flash_routes_by_dtype_head_dim_and_strides():
