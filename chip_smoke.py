@@ -218,19 +218,31 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                expert, and in bf16 at f 764: ``gmm_any`` 3, ``gmm_dx_any``
                3, ``gmm_dw_any`` 2 and ``gmm_dw`` 1 launches);
                the fp32 flash forward dense and causal at head dims 64,
-               80, 128 and 256 (the models' heads; hd 256 with window
-               2048) and ragged at the main path's lanes in a fac2 plan;
-               the fp32 backward at qwen3-4b's training shape.  Each: its
-               time (single calls and back to back), the plain version's,
-               ``torch.bmm`` / SDPA in fp32 on the same tensors, and the
-               bound (fp32 operations at 67 TFLOP/s).  Then launch counts
-               set to 0 and the fp32 model path: ``flash_attention`` with
-               a schedule at the main path's lanes, one loss and gradient
-               of qwen3-4b and of the ragged qwen3-moe-30b-a3b at full
-               width, 2 layers, compute_dtype "float32", on 2 x 4096
-               tokens; the counts read right after (every general kernel
-               launched), then the gradients against the plain attention's
-               and the plain grouped matmul's
+               80 and 128 on the tensor cores (``flash_f32.cu``, route
+               "tf32x3": three TF32 products each) with the general
+               kernel's error and times on the same tensors beside it, and
+               at 256 (window 2048) on the general kernel; ragged at the
+               main path's lanes in a fac2 plan (the general kernel); the
+               fp32 backward at qwen3-4b's training shape
+               (``flash_f32_bwd.cu``, the general backward beside it) and
+               at recurrentgemma-2b's (hd 256, window 2048; general).
+               Each: its route, its time (single calls and back to back),
+               the plain version's, ``torch.bmm`` / SDPA in fp32 on the
+               same tensors, and the bound (fp32 operations at 67 TFLOP/s;
+               the tensor-core rows also at 3 x operations / 494.7 TFLOP/s,
+               ``bound_ms_tf32x3``); the profiler's names of the kernels
+               SDPA launches in fp32, forward and backward; and
+               ``flash32_digest`` (below).  Then launch counts set to 0
+               and the fp32 model path: ``flash_attention`` with a
+               schedule at the main path's lanes, dense attention at
+               recurrentgemma-2b's local-attention shape in fp32 forward
+               and backward, one loss and gradient of qwen3-4b and of the
+               ragged qwen3-moe-30b-a3b at full width, 2 layers,
+               compute_dtype "float32", on 2 x 4096 tokens; the counts
+               read right after (``FP32_PATH_LAUNCHES`` for the flash
+               kernels, every other general kernel launched), then the
+               gradients against the plain attention's and the plain
+               grouped matmul's
   examples     the seven twins of ``examples/`` (``torch_*.py``), each in
                its own process at its default arguments, launch counts from
                0 at its start and read at its end: exit code, wall seconds
@@ -259,6 +271,9 @@ CUDA device is present or ``src/repro_torch`` is missing beside it.
     python3 chip_smoke.py --yardsticks [SRC]
     python3 chip_smoke.py --gmm-digest [SRC]
     python3 chip_smoke.py --gmm-times [SRC]
+    python3 chip_smoke.py --flash32-digest [SRC]
+    python3 chip_smoke.py --flash32-times [SRC]
+    python3 chip_smoke.py --sdpa32-kernels [SRC]
 
 print only that digest (``dense_digest``; ``hd80_digest``: ``flash_dense``'s
 output and lse and ``flash_dense_bwd``'s dQ, dK, dV at stablelm-3b's
@@ -278,7 +293,14 @@ only a hash of the fp32 grouped matmul family's outputs at both
 SIMT_GMM_SHAPES (``gmm_digest``: the forward in a fac2 plan, dX, dW), or
 only that family's back-to-back times at qwen3-moe's width in 8-row
 tiles in fp32, bf16 and fp16 and at f 764 in bf16 and fp16 with
-``torch.bmm`` beside them and the routes taken (``gmm_times``), for
+``torch.bmm`` beside them and the routes taken (``gmm_times``), or only
+a hash of the fp32 dense flash forward's output and lse and its
+backward's dQ, dK, dV at FLASH32_DIGEST_SHAPES (``flash32_digest``), or
+only the fp32 dense flash forward's back-to-back times at
+SIMT_DENSE_SHAPES' head dims 64, 80 and 128 and the backward's at
+SIMT_BWD_SHAPE, with SDPA's beside them and the route taken
+(``flash32_times``), or only the profiler's names of the kernels SDPA
+launches in fp32 at the hd-128 rows' shapes (``sdpa32_kernels``), for
 the package under ``SRC`` (default: this
 checkout's ``src``), so that another tree's kernels can be held against
 this one bit for bit, and timed against it in turns (parent, change,
@@ -440,6 +462,7 @@ MOE_TRAIN_LOSS0_BAND = 1.0
 # attention (sums of up to thousands of fp32 products in another order);
 # a bf16 output within ATOL + RTOL |plain| as the wgmma kernels
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 rate outside the tensor cores
+PEAK_TF32_FLOPS = 494.7e12   # H100 SXM dense TF32 tensor-core rate
 SIMT_GMM_TOL, SIMT_FLASH_TOL = 1e-5, 1e-4
 # the grouped matmul family's tolerance by output dtype (fp16: two fp16
 # rounding steps, as tests/test_torch_cuda_kernels.py's SIMT_TOL)
@@ -480,9 +503,26 @@ PARENT_GMM_DIGEST = "136d16b43e67d0d8"
 # gmm.cu's gmm_dw), fp16 (TMA) and at f 764 (thread loader)
 OFF_BLOCK_LAUNCHES = {"gmm_any": 3, "gmm_dx_any": 3, "gmm_dw_any": 2,
                       "gmm_dw": 1}
-SIMT_KERNELS = ("gmm_simt", "gmm_dx_simt", "gmm_dw_simt", "flash_dense_simt",
-                "flash_sched_simt", "flash_simt_bwd_delta",
-                "flash_simt_bwd_dkdv", "flash_simt_bwd_dq")
+# the fp32 flash kernels on the tensor cores (route "tf32x3": flash_f32.cu,
+# flash_f32_bwd.cu; each product three TF32 products) at SIMT_DENSE_SHAPES'
+# head dims 64, 80 and 128 and at SIMT_BWD_SHAPE, held to the fp32 plain
+# versions at SIMT_FLASH_TOL with the general kernels on the same tensors
+TF32X3_HEAD_DIMS = ("64", "80", "128")
+# the fp32 model path's flash launches: qwen3-4b's and qwen3-moe's 2 layers
+# each run the dense forward twice (remat "full") and the backward once,
+# on the tensor cores; the scheduled call and the hd-256 attention (its
+# forward, and its backward with the delta pass of every fp32 backward) on
+# the general kernels; the fp32 grouped matmul family must launch too
+FP32_PATH_LAUNCHES = {"flash_dense_f32": 8, "flash_f32_bwd_dkdv": 4,
+                      "flash_f32_bwd_dq": 4, "flash_sched_simt": 1,
+                      "flash_dense_simt": 1, "flash_simt_bwd_delta": 5,
+                      "flash_simt_bwd_dkdv": 1, "flash_simt_bwd_dq": 1}
+FP32_PATH_GMM = ("gmm_simt", "gmm_dx_simt", "gmm_dw_simt")
+# flash32_digest(): (b, s, h, kvh, hd, window, causal) of the fp32 dense
+# kernels' outputs hashed for later trees to hold bit for bit
+FLASH32_DIGEST_SHAPES = ((1, 1000, 8, 2, 128, 0, True),
+                         (2, 700, 4, 4, 80, 100, True),
+                         (1, 600, 4, 1, 64, 0, False))
 # the examples phase: the seven twins of examples/, each in its own process
 # at its default arguments (their printed lines are held against the
 # originals' on the CPU by tests/test_torch_examples_*.py)
@@ -2997,12 +3037,78 @@ def gmm_times(dev):
     return out
 
 
+def tf32x3_bound(flops):
+    """ms of ``flops`` fp32-accurate operations as three TF32 products each
+    at the tensor cores' TF32 rate."""
+    return 1e3 * 3 * flops / PEAK_TF32_FLOPS
+
+
+def flash32_digest(dev):
+    """A hash of the fp32 dense flash kernels' outputs at
+    FLASH32_DIGEST_SHAPES: the forward's output and lse, then the
+    backward's dQ, dK and dV, on inputs of a seed of their own."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(27)
+    h_ = hashlib.sha256()
+    for b, s, h, kvh, hd, window, causal in FLASH32_DIGEST_SHAPES:
+        q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                       for n in (h, kvh, kvh, h))
+        o, lse = fa._flash_dense_cuda(q, k, v, causal=causal, window=window,
+                                      with_lse=True)
+        for out in (o, lse, *fa._flash_dense_bwd_cuda(
+                q, k, v, o, do, lse, causal=causal, window=window)):
+            h_.update(out.contiguous().view(torch.uint8).cpu().numpy()
+                      .tobytes())
+    return h_.hexdigest()[:16]
+
+
+def flash32_times(dev):
+    """Back-to-back times of the fp32 dense flash forward at
+    SIMT_DENSE_SHAPES' head dims 64, 80 and 128 and of its backward at
+    SIMT_BWD_SHAPE, through the private launchers (``_flash_dense_cuda``,
+    ``_flash_dense_bwd_cuda``; older trees have them too), with SDPA's
+    (forward; backward) on the same tensors and the route the tree's
+    ``flash_route`` gives fp32 at that head dim."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+    for key in TF32X3_HEAD_DIMS:
+        b, s, h, kvh, hd, window = SIMT_DENSE_SHAPES[key]
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                   for n in (h, kvh, kvh))
+        out[key] = dict(
+            shape=[b, s, h, kvh, hd], route=fa.flash_route(torch.float32, hd),
+            ms_b2b=cuda_ms_b2b(lambda: fa._flash_dense_cuda(
+                q, k, v, causal=True, window=window), REPS),
+            sdpa_ms_b2b=cuda_ms_b2b(sdpa_fn(q, k, v, window), REPS))
+        del q, k, v
+    b, s, h, kvh, hd = SIMT_BWD_SHAPE
+    q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                   for n in (h, kvh, kvh, h))
+    o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=0,
+                                  with_lse=True)
+    out["bwd"] = dict(
+        shape=[b, s, h, kvh, hd], route=fa.flash_route(torch.float32, hd),
+        ms_b2b=cuda_ms_b2b(lambda: fa._flash_dense_bwd_cuda(
+            q, k, v, o, do, lse, causal=True, window=0), 5),
+        sdpa_ms_b2b=cuda_ms_b2b(sdpa_grad_fns(q, k, v, do, 0)[0], 5))
+    return out
+
+
 def simt_flash_rows(dev, n_sm):
-    """fp32 flash attention on the general kernels: dense causal at
-    SIMT_DENSE_SHAPES (with recurrentgemma-2b's window at head dim 256),
-    ragged in a fac2 plan at the main path's lanes (sched_p = SM count),
-    and the backward at SIMT_BWD_SHAPE, each against its plain version,
-    with SDPA in fp32 (TF32 off) on the same tensors as the yardstick."""
+    """fp32 flash attention: dense causal at SIMT_DENSE_SHAPES, on the
+    tensor cores at head dims 64, 80 and 128 (route "tf32x3", with the
+    general kernel's run on the same tensors beside each) and on the
+    general kernel at head dim 256 (recurrentgemma-2b's window); ragged in
+    a fac2 plan at the main path's lanes (sched_p = SM count; the general
+    kernel); the backward at SIMT_BWD_SHAPE (tensor cores, the general
+    backward beside it) and at recurrentgemma-2b's shape (general).  Each
+    against its plain version, with SDPA in fp32 (TF32 off) on the same
+    tensors as the yardstick; ``flash32_digest``."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -3012,20 +3118,35 @@ def simt_flash_rows(dev, n_sm):
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
+    def dense_bytes(b, s, h, kvh, hd):
+        return 4 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+
+    def bwd_bytes(b, s, h, kvh, hd):
+        return 4 * (4 * b * s * h * hd + 4 * b * s * kvh * hd) + 4 * b * h * s
+
     rows = {"dense": {}}
     for key, (b, s, h, kvh, hd, window) in SIMT_DENSE_SHAPES.items():
         q, k, v = rnd(b, s, h, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd)
-        pairs = live_pairs(s, window)
-        rows["dense"][key] = dict(shape=[b, s, h, kvh, hd], window=window,
-                                  **measured(
+        flops = 4 * hd * b * h * live_pairs(s, window)
+        route = fa._check_kernel_inputs("flash_dense", q, k, v)
+        args = (lambda: fa.flash_attention_dense_plain(
+            *fa.broadcast_flatten(q, k, v), causal=True,
+            window=window).reshape(b, h, s, hd).permute(0, 2, 1, 3),
+            sdpa_fn(q, k, v, window), flops, dense_bytes(b, s, h, kvh, hd),
+            torch.float32, SIMT_FLASH_TOL)
+        simt = measured(
             f"flash_dense_simt hd {hd}", fa.FLASH_DENSE_SIMT,
-            lambda: flash_attention(q, k, v, causal=True, window=window),
-            lambda: fa.flash_attention_dense_plain(
-                *fa.broadcast_flatten(q, k, v), causal=True,
-                window=window).reshape(b, h, s, hd).permute(0, 2, 1, 3),
-            sdpa_fn(q, k, v, window), 4 * hd * b * h * pairs,
-            4 * (2 * b * s * h * hd + 2 * b * s * kvh * hd), torch.float32,
-            SIMT_FLASH_TOL, reps=5))
+            lambda: fa._flash_dense_simt_cuda(q, k, v, causal=True,
+                                              window=window), *args, reps=5)
+        row = simt
+        if route == "tf32x3":
+            row = dict(measured(
+                f"flash_dense_f32 hd {hd}", fa.FLASH_DENSE_F32,
+                lambda: flash_attention(q, k, v, causal=True, window=window),
+                *args, reps=5), bound_ms_tf32x3=tf32x3_bound(flops),
+                simt=simt)
+        rows["dense"][key] = dict(shape=[b, s, h, kvh, hd], window=window,
+                                  route=route, **row)
         del q, k, v
     # ragged: the main path's lanes and kv_lens (seed 0), fac2
     kv_lens = np.random.default_rng(0).integers(64, S + 1, size=B)
@@ -3054,41 +3175,81 @@ def simt_flash_rows(dev, n_sm):
             q, k, v, causal=True, schedule=tech, kv_lens=kv_lens,
             sched_p=p), out), tech
     del q, k, v, out
-    # the backward at qwen3-4b's training shape
-    b, s, h, kvh, hd = SIMT_BWD_SHAPE
-    q, k, v, do = rnd(b, s, h, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd), \
-        rnd(b, s, h, hd)
-    o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=0,
-                                  with_lse=True)
+    # the backward at qwen3-4b's training shape (tensor cores, the general
+    # kernels beside) and at recurrentgemma-2b's (general kernels)
+    for name, (b, s, h, kvh, hd), window in (
+            ("bwd", SIMT_BWD_SHAPE, 0),
+            ("bwd_256", SIMT_DENSE_SHAPES["256"][:5],
+             SIMT_DENSE_SHAPES["256"][5])):
+        q, k, v, do = rnd(b, s, h, hd), rnd(b, s, kvh, hd), \
+            rnd(b, s, kvh, hd), rnd(b, s, h, hd)
+        o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=window,
+                                      with_lse=True)
+        route = fa._check_kernel_inputs("flash_dense", q, k, v)
 
-    def backward():
-        return fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
-                                        window=0)
+        def backward():
+            return fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
+                                            window=window)
 
-    first = backward()
-    assert all(torch.equal(x, y) for x, y in zip(first, backward()))
-    del first
-    sdpa_bwd = sdpa_grad_fns(q, k, v, do, 0)[0]
-    pairs = live_pairs(s)
-    rows["bwd"] = dict(shape=[b, s, h, kvh, hd], **measured(
-        "flash_simt_bwd", fa.FLASH_SIMT_BWD_DKDV, backward,
-        lambda: tuple(fa.flash_attention_dense_bwd_plain(q, k, v, do)),
-        sdpa_bwd, 10 * hd * b * h * pairs,
-        4 * (4 * b * s * h * hd + 4 * b * s * kvh * hd) + 4 * b * h * s,
-        torch.float32, SIMT_FLASH_TOL, reps=5))
-    del q, k, v, do, o, lse, sdpa_bwd
-    torch.cuda.empty_cache()
+        def simt_backward():
+            return fa._flash_simt_bwd_cuda(
+                q, k, v, o, do, lse, causal=True, window=window,
+                stream=torch.cuda.current_stream(dev).cuda_stream)
+
+        first = backward()
+        assert all(torch.equal(x, y) for x, y in zip(first, backward()))
+        del first
+        sdpa_bwd = sdpa_grad_fns(q, k, v, do, window)[0]
+        flops = 10 * hd * b * h * live_pairs(s, window)
+        args = (lambda: tuple(fa.flash_attention_dense_bwd_plain(
+            q, k, v, do, window=window)), sdpa_bwd, flops,
+            bwd_bytes(b, s, h, kvh, hd), torch.float32, SIMT_FLASH_TOL)
+        simt = measured(f"flash_simt_bwd hd {hd}", fa.FLASH_SIMT_BWD_DKDV,
+                        simt_backward, *args, reps=5)
+        row = simt
+        if route == "tf32x3":
+            row = dict(measured("flash_f32_bwd", fa.FLASH_F32_BWD_DKDV,
+                                backward, *args, reps=5),
+                       bound_ms_tf32x3=tf32x3_bound(flops), simt=simt)
+        rows[name] = dict(shape=[b, s, h, kvh, hd], window=window,
+                          route=route, **row)
+        del q, k, v, do, o, lse, sdpa_bwd
+    rows["flash32_digest"] = flash32_digest(dev)
     return rows
+
+
+def sdpa32_kernels(dev):
+    """The names of the kernels SDPA launches in fp32 (TF32 off) at the
+    hd-128 rows' shapes, forward and backward: the profiler's top three by
+    device time."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, (b, s, h, kvh, hd) in (
+            ("forward", SIMT_DENSE_SHAPES["128"][:5]),
+            ("backward", SIMT_BWD_SHAPE)):
+        q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                       for n in (h, kvh, kvh, h))
+        fn = (sdpa_fn(q, k, v, 0) if name == "forward"
+              else sdpa_grad_fns(q, k, v, do, 0)[0])
+        fn()
+        out[name] = [t["kernel"] for t in device_profile(fn, top=3)["top"]]
+    return out
 
 
 def fp32_model_path(dev, n_sm):
     """The path of a float32 model above flash_threshold, counts from 0
     before it and read after: ``flash_attention`` with a schedule at the
-    main path's lanes in fp32, then one loss and gradient of qwen3-4b and
-    of qwen3-moe-30b-a3b (ragged dispatch) at full width, FP32_MODEL_LAYERS
+    main path's lanes in fp32, dense attention at recurrentgemma-2b's
+    local-attention shape (hd 256, window 2048; the general kernels)
+    forward and backward, then one loss and gradient of qwen3-4b and of
+    qwen3-moe-30b-a3b (ragged dispatch) at full width, FP32_MODEL_LAYERS
     layers, compute_dtype "float32", on TRAIN_BATCH x TRAIN_S tokens.
-    Then, outside the counted run, the gradients against the plain
-    attention's and the plain grouped matmul's."""
+    The peak allocated memory of that run, weights included.  Then,
+    outside the counted run, the gradients against the plain attention's
+    and the plain grouped matmul's."""
     import dataclasses
 
     import numpy as np
@@ -3105,6 +3266,10 @@ def fp32_model_path(dev, n_sm):
     kv_lens = np.random.default_rng(0).integers(64, S + 1, size=B)
     q, k, v = (torch.randn(B, S, n, HD, generator=gen, device=dev)
                for n in (H, KVH, KVH))
+    b, s, h, kvh, hd, window = SIMT_DENSE_SHAPES["256"]
+    local = [torch.randn(b, s, n, hd, generator=gen, device=dev)
+             for n in (h, kvh, kvh)]
+    local_do = torch.randn(b, s, h, hd, generator=gen, device=dev)
     dense_cfg = dataclasses.replace(get_arch(ARCH), compute_dtype="float32",
                                     num_layers=FP32_MODEL_LAYERS)
     moe_cfg = dataclasses.replace(moe_train_cfg()[0], compute_dtype="float32",
@@ -3118,6 +3283,7 @@ def fp32_model_path(dev, n_sm):
         models.append((cfg, params, batch))
     torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
     t0 = time.perf_counter()
     attn = flash_attention(q, k, v, causal=True, schedule="fac2",
@@ -3125,15 +3291,26 @@ def fp32_model_path(dev, n_sm):
     results = [tsteps._grads(params, batch["tokens"], batch["labels"], None,
                              cfg) for cfg, params, batch in models]
     torch.cuda.synchronize()
+    # the seconds of the calls earlier trees timed; the hd-256 attention
+    # is counted but not timed
     seconds = time.perf_counter() - t0
+    leaves = [x.requires_grad_(True) for x in local]
+    local_out = flash_attention(*leaves, causal=True, window=window)
+    local_out.backward(local_do)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
     launches = {n: kern.launches for n, kern in _build.KERNELS.items()
                 if kern.launches}
-    for n in SIMT_KERNELS:
+    got = {n: launches.get(n, 0) for n in FP32_PATH_LAUNCHES}
+    assert got == FP32_PATH_LAUNCHES, (got, launches)
+    for n in FP32_PATH_GMM:
         assert launches.get(n, 0) > 0, (n, launches)
     assert bool(torch.isfinite(attn).all()) and attn.dtype == torch.float32
-    del attn, q, k, v
+    assert all(bool(torch.isfinite(x.grad).all()) for x in leaves)
+    del attn, q, k, v, local, leaves, local_out, local_do
 
-    out = dict(seconds=seconds, launches=launches, models={})
+    out = dict(seconds=seconds, launches=launches,
+               peak_allocated_gb=peak / 1e9, models={})
     for (cfg, params, batch), (loss_k, _, grads_k) in zip(models, results):
         assert math.isfinite(float(loss_k)), cfg.name
         if cfg.family == "moe":
@@ -3314,7 +3491,8 @@ def main(argv) -> int:
         return 2
     # --dense-digest / --hd80-digest / --sched-digest / --dense-times /
     # --bwd-times / --moe-bwd-times / --yardsticks / --serve-times /
-    # --gmm-digest / --gmm-times [SRC]:
+    # --gmm-digest / --gmm-times / --flash32-digest / --flash32-times /
+    # --sdpa32-kernels [SRC]:
     # print only that function's result
     # for the package under SRC (default: this checkout's src), to hold two
     # trees' builds against each other
@@ -3322,7 +3500,10 @@ def main(argv) -> int:
              "--sched-digest": sched_digest, "--dense-times": dense_times,
              "--bwd-times": bwd_times, "--moe-bwd-times": moe_bwd_times,
              "--yardsticks": yardsticks, "--serve-times": serve_times,
-             "--gmm-digest": gmm_digest, "--gmm-times": gmm_times}
+             "--gmm-digest": gmm_digest, "--gmm-times": gmm_times,
+             "--flash32-digest": flash32_digest,
+             "--flash32-times": flash32_times,
+             "--sdpa32-kernels": sdpa32_kernels}
     mode = modes.get(argv[0]) if argv else None
     src = ROOT / "src"
     if mode is not None and len(argv) > 1:
@@ -3697,6 +3878,17 @@ def main(argv) -> int:
                     "dtype")},
                 **extra}
 
+    # the tensor-core kernels' bound_ms is the work as they do it, three
+    # TF32 products each (bound_ms_fp32_fma: at the CUDA cores' fp32 rate)
+    def tf32x3_summary(row):
+        """A tensor-core row's numbers beside the general kernel's on the
+        same tensors."""
+        keys = ("max_abs_err", "ms_b2b", "plain_ms", "library_ms_b2b",
+                "bound_ms")
+        return dict(shape=row["shape"], bound_ms_tf32x3=row["bound_ms_tf32x3"],
+                    **{k: row[k] for k in keys},
+                    simt={k: row["simt"][k] for k in keys})
+
     gmm_simt_row = simt_gmm["qwen3_moe_float32"]
     gmm_any_row = simt_gmm["qwen3_moe_bfloat16"]
     gmm_dw_any_row = simt_gmm["qwen3_moe_float16"]
@@ -3845,12 +4037,37 @@ def main(argv) -> int:
             replaces_note=moe_note, shape=gmm_dw_any_row["shape"],
             by_shape=by_shape("gmm_dw_any", "gmm_dw")),
         simt_entry(
-            "flash_dense_simt", simt_src + "flash_simt.cu",
+            "flash_dense_f32", simt_src + "flash_f32.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:51",
             simt_flash["dense"]["128"],
+            {"fp32_model": fp32_launches["flash_dense_f32"]},
+            shape=simt_flash["dense"]["128"]["shape"], flash_route="tf32x3",
+            bound_ms=simt_flash["dense"]["128"]["bound_ms_tf32x3"],
+            bound_ms_fp32_fma=simt_flash["dense"]["128"]["bound_ms"],
+            by_head_dim={k: tf32x3_summary(simt_flash["dense"][k])
+                         for k in TF32X3_HEAD_DIMS},
+            flash32_digest=simt_flash["flash32_digest"]),
+        simt_entry(
+            "flash_f32_bwd", simt_src + "flash_f32_bwd.cu",
+            "src/repro/models/attention.py:191", simt_flash["bwd"],
+            {"fp32_model": fp32_launches["flash_f32_bwd_dkdv"]},
+            replaces_note="no Pallas kernel: the reference differentiates "
+                          "_attend_flash by autodiff",
+            launches_by_kernel={n: fp32_launches[n] for n in (
+                "flash_f32_bwd_dkdv", "flash_f32_bwd_dq")},
+            shape=simt_flash["bwd"]["shape"], flash_route="tf32x3",
+            bound_ms=simt_flash["bwd"]["bound_ms_tf32x3"],
+            bound_ms_fp32_fma=simt_flash["bwd"]["bound_ms"],
+            general_kernel=tf32x3_summary(simt_flash["bwd"])["simt"]),
+        simt_entry(
+            "flash_dense_simt", simt_src + "flash_simt.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:51",
+            simt_flash["dense"]["256"],
             {"fp32_model": fp32_launches["flash_dense_simt"]},
-            shape=simt_flash["dense"]["128"]["shape"],
-            by_head_dim=simt_flash["dense"]),
+            shape=simt_flash["dense"]["256"]["shape"],
+            window=simt_flash["dense"]["256"]["window"],
+            by_head_dim={k: r.get("simt", r)
+                         for k, r in simt_flash["dense"].items()}),
         simt_entry(
             "flash_sched_simt", simt_src + "flash_simt.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:168",
@@ -3859,14 +4076,16 @@ def main(argv) -> int:
             shape=simt_flash["sched"]["shape"]),
         simt_entry(
             "flash_simt_bwd", simt_src + "flash_simt_bwd.cu",
-            "src/repro/models/attention.py:191", simt_flash["bwd"],
+            "src/repro/models/attention.py:191", simt_flash["bwd_256"],
             {"fp32_model": fp32_launches["flash_simt_bwd_dkdv"]},
             replaces_note="no Pallas kernel: the reference differentiates "
                           "_attend_flash by autodiff",
             launches_by_kernel={n: fp32_launches[n] for n in (
                 "flash_simt_bwd_delta", "flash_simt_bwd_dkdv",
                 "flash_simt_bwd_dq")},
-            shape=simt_flash["bwd"]["shape"]),
+            shape=simt_flash["bwd_256"]["shape"],
+            window=simt_flash["bwd_256"]["window"],
+            at_training_shape=simt_flash["bwd"]["simt"]),
     ]
     for kern in kernels:
         assert all(math.isfinite(kern[x]) for x in

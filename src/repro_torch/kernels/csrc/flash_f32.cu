@@ -1,0 +1,437 @@
+// Dense causal / sliding-window flash-attention forward in fp32 on Hopper's
+// tensor cores (sm_90a): TMA, wgmma .tf32 and a three-term TF32 split.
+//
+// Replaces: _flash_kernel in src/repro/kernels/flash_attention/
+// flash_attention.py (entry flash_attention_bhsd) for fp32 calls at a head
+// dim that is a multiple of 8 up to 128 with strides and alignment TMA can
+// describe (the configs' 64, 80 and 128).  fp32 at head dim 256 or at
+// shapes TMA cannot describe, fp16, and the schedule-aware entry stay on
+// flash_simt.cu.
+//
+// What bounds it on an H100: operations on the tensor cores.  Each product
+// is three TF32 products (tf32_common.cuh: hi hi + hi lo + lo hi, about
+// 2^-20 relative error, against the gate of 1e-4 + 1e-4 |plain|), so the
+// ceiling is 495 / 3 = 165 TFLOP/s of fp32-accurate products, against the
+// 67 TFLOP/s of plain fp32 FMA on the CUDA cores.  At qwen3-4b's prefill
+// (1 x 4096, 32 / 8 heads, hd 128, causal) that is 0.83 ms of work.
+//
+// Design (flash_dense.cu's shape, with fp32 tiles):
+//   * One CTA per (lane, 128-row q tile), bottom tiles first; warpgroup 0's
+//     thread 0 (the producer, 24 registers) loads Q once and then a ring of
+//     NST = 2 stages of NKV kv columns with TMA; warpgroups 1 and 2 (240
+//     registers) own q rows 0-63 and 64-127 and take turns to issue
+//     S = Q K^T (named barriers 1 and 2) as flash_dense does.
+//   * Before the launch, split_kernel writes K's hi and lo in K's layout
+//     and V's hi and lo transposed, (b, kvh, hd, s_pad), each 8-group of kv
+//     positions permuted (tf32_common.cuh): wgmma .tf32 has no transpose
+//     flag, and O += P V reduces over kv.  The copies move 3x K's bytes and
+//     4x V's once per call (0.04 ms of a 1.1 ms call at the prefill shape,
+//     profiled on an H100) and are read from L2 by the CTAs of a KV head.
+//   * Q: the raw tile from TMA; each consumer keeps the hi of its 64 rows
+//     in registers (HDW / 2 a thread) and writes their lo over the tile
+//     (tf32_common.cuh, split_resident).  S = Q_hi K_lo (RS) + Q_lo K_hi
+//     (SS) + Q_hi K_hi (RS), HDW / 8 k steps each, one commit group: a k
+//     step reads 5 KB of shared memory a warpgroup at NKV 32, where Q_hi in
+//     shared memory and Q_lo in registers read 7 KB, more than the 128
+//     bytes a clock shared memory gives the 48 clocks of its products.
+//   * Online softmax in registers, in the log2 domain with ex2.approx, the
+//     mask arithmetic only where a tile crosses the diagonal, the window
+//     or s (flash_dense's rules: NEG_INF -1e30, corr = exp2(m - m_new),
+//     dead rows 0).  P stays fp32: its hi and lo come straight from the
+//     accumulator registers in the permuted order, and
+//     O += P_lo V_hi + P_hi V_lo + P_hi V_hi with RS wgmmas (n = HDW).
+//     P goes through the A fragment in registers (not shared memory)
+//     because the permuted V^T copy makes the accumulator's registers the
+//     fragment as they stand, and RS reads half the shared-memory bytes
+//     of SS.
+//   * Shared memory: Q (128 x HDP fp32, HDP = HDW rounded up to 32) and per
+//     stage K hi, K lo (NKV x HDP) and V^T hi, V^T lo (HDW x NKV):
+//       HDW 128, NKV 32: 64 KB + 2 x 64 KB = 192 KB
+//       HDW  80, NKV 32: 48 KB + 2 x 44 KB = 136 KB
+//       HDW  64, NKV 64: 32 KB + 2 x 64 KB = 160 KB
+//     Registers of a consumer thread: o and Q_hi HDW / 2 each, S and P_lo
+//     NKV / 2 each (160 at HDW 128).
+//   * Head dims: HDW is 64 (hd <= 64), 80 (hd <= 80) or 128; TMA fills the
+//     columns past hd with zeros, the products run at HDW and only the
+//     columns below hd are written.  With `lse` given it also writes each
+//     row's log-sum-exp (m + log2 l) ln 2, +inf for a dead row, for
+//     flash_f32_bwd.cu.
+//   * Every element of the output is the same sequence of wgmmas over the
+//     same tiles whatever the launch, so the output is deterministic.
+
+#include "tf32_common.cuh"
+
+namespace {
+
+using namespace tf32;
+
+constexpr float NEG_INF = -1e30f;
+constexpr int BQ = 128;                 // q rows of a CTA
+constexpr int NTHREADS = 384;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int NST = 2;                  // K / V stages
+constexpr int TURN = 1;                 // named barriers 1, 2: the S turns
+constexpr int QSPLIT = 3;               // named barriers 3, 4: Q split
+
+template <int HDW, int NKV>
+struct Layout {
+  static constexpr int HDP = (HDW + 31) / 32 * 32;
+  static constexpr int QBOX = BQ * 128;              // 128 rows x 32 fp32
+  static constexpr int QBYTES = HDP / 32 * QBOX;
+  static constexpr int KBOX = NKV * 128;
+  static constexpr int KBYTES = HDP / 32 * KBOX;     // K hi (or K lo)
+  static constexpr int VBOX = HDW * 128;             // HDW rows x 32 kv
+  static constexpr int VBYTES = NKV / 32 * VBOX;     // V^T hi (or lo)
+  static constexpr int STAGE = 2 * KBYTES + 2 * VBYTES;
+  static constexpr int Q = 0;
+  static constexpr int KV = QBYTES;
+  static constexpr int BAR = KV + NST * STAGE;
+  static constexpr int BYTES = BAR + (1 + 3 * NST) * 8 + 1024;  // + align
+};
+
+struct F32Params {
+  float* o;
+  float* lse;         // (b, h, s) log-sum-exp of each row, or null
+  long long o_sb, o_sh, o_ss;
+  int lanes, nq, s, H, group, hd, causal, window;
+  float scale_log2;   // softmax scale * log2(e)
+};
+
+// S = Q K^T for consumer c's 64 rows on its turn: Q_hi (registers) K_lo,
+// Q_lo (shared memory) K_hi, Q_hi K_hi, HDW / 8 k steps each; then hand
+// the turn over and wait for the result
+template <int HDW, int NKV>
+__device__ __forceinline__ void issue_s(float* sacc,
+                                        const uint32_t (&qhi)[HDW / 8][4],
+                                        uint64_t dqlo, uint64_t dkhi,
+                                        uint64_t dklo, int c) {
+  using L = Layout<HDW, NKV>;
+  named_bar_sync(TURN + c, 256);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HDW / 8; ++kk) {
+    const int ko = (kk / 4) * (L::KBOX / 16) + (kk % 4) * 2;
+    Tf32<NKV>::rs(sacc, qhi[kk], dklo + ko, kk);
+    Tf32<NKV>::ss(sacc, dqlo + (kk / 4) * (L::QBOX / 16) + (kk % 4) * 2,
+                  dkhi + ko, 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < HDW / 8; ++kk)
+    Tf32<NKV>::rs(sacc, qhi[kk],
+                  dkhi + (kk / 4) * (L::KBOX / 16) + (kk % 4) * 2, 1);
+  wgmma_commit();
+  named_bar_arrive(TURN + 1 - c, 256);
+  wgmma_wait<0>();
+  fence_regs<NKV / 2>(sacc);
+}
+
+// scores of this thread (m64n{NKV} accumulator layout) -> P = exp2(S scale
+// log2(e) - m) as hi / lo A fragments of the NKV / 8 permuted 8-groups;
+// updates m, l (log2 domain) and rescales o.  MASK: columns >= s, above
+// the diagonal or outside the window get NEG_INF first.
+template <int HDW, bool MASK, int NKV>
+__device__ __forceinline__ void softmax(float* sacc, float (&m)[2],
+                                        float (&l)[2], float* o,
+                                        uint32_t (&phi)[NKV / 8][4],
+                                        uint32_t (&plo)[NKV / 8][4], int col0,
+                                        int r_lo, int lane,
+                                        const F32Params& P) {
+  float mx[2];
+  if constexpr (MASK) {
+    mx[0] = m[0];
+    mx[1] = m[1];
+#pragma unroll
+    for (int v = 0; v < NKV / 2; ++v) {
+      const int row = r_lo + 8 * ((v >> 1) & 1);
+      const int col = col0 + 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
+      bool ok = col < P.s;
+      if (P.causal) ok = ok && col <= row;
+      if (P.window > 0) ok = ok && (row - col) < P.window;
+      const float x = ok ? sacc[v] * P.scale_log2 : NEG_INF;
+      sacc[v] = x;
+      mx[(v >> 1) & 1] = fmaxf(mx[(v >> 1) & 1], x);
+    }
+  } else {
+    float raw[2] = {sacc[0], sacc[2]};
+#pragma unroll
+    for (int v = 0; v < NKV / 2; ++v)
+      raw[(v >> 1) & 1] = fmaxf(raw[(v >> 1) & 1], sacc[v]);
+    // scale > 0, so the scaled maximum is the maximum of the scaled scores
+    mx[0] = fmaxf(m[0], raw[0] * P.scale_log2);
+    mx[1] = fmaxf(m[1], raw[1] * P.scale_log2);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+  }
+  const float corr[2] = {fast_exp2(m[0] - mx[0]), fast_exp2(m[1] - mx[1])};
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int v = 0; v < NKV / 2; ++v) {
+    const float mj = mx[(v >> 1) & 1];
+    const float p = MASK ? fast_exp2(sacc[v] - mj)
+                         : fast_exp2(fmaf(sacc[v], P.scale_log2, -mj));
+    sacc[v] = p;
+    rs[(v >> 1) & 1] += p;
+  }
+#pragma unroll
+  for (int kk = 0; kk < NKV / 8; ++kk) split_frag(sacc + 4 * kk, phi[kk], plo[kk]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 1);
+    rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 2);
+    l[j] = l[j] * corr[j] + rs[j];
+    m[j] = mx[j];
+  }
+#pragma unroll
+  for (int v = 0; v < HDW / 2; ++v) o[v] *= corr[(v >> 1) & 1];
+}
+
+// O += P_lo V_hi + P_hi V_lo + P_hi V_hi over the stage's NKV kv positions
+// (V^T tiles: HDW rows, 32 positions a box), then wait
+template <int HDW, int NKV>
+__device__ __forceinline__ void issue_pv(float* o, uint32_t (&phi)[NKV / 8][4],
+                                         uint32_t (&plo)[NKV / 8][4],
+                                         uint64_t dvhi, uint64_t dvlo) {
+  using L = Layout<HDW, NKV>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NKV / 8; ++kk) {
+    const int off = (kk / 4) * (L::VBOX / 16) + (kk % 4) * 2;
+    Tf32<HDW>::rs(o, plo[kk], dvhi + off, 1);
+    Tf32<HDW>::rs(o, phi[kk], dvlo + off, 1);
+    Tf32<HDW>::rs(o, phi[kk], dvhi + off, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<HDW / 2>(o);
+  fence_regs<NKV / 2>(&phi[0][0]);
+  fence_regs<NKV / 2>(&plo[0][0]);
+}
+
+template <int HDW, int NKV>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap khimap,
+                 const __grid_constant__ CUtensorMap klomap,
+                 const __grid_constant__ CUtensorMap vhimap,
+                 const __grid_constant__ CUtensorMap vlomap,
+                 const F32Params P) {
+  using L = Layout<HDW, NKV>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + NST;
+  uint64_t* empty = v_full + NST;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // bottom (longest) q tiles first
+  const int qt = P.nq - 1 - static_cast<int>(blockIdx.x) / P.lanes;
+  const int lane_id = static_cast<int>(blockIdx.x) % P.lanes;
+  const int b = lane_id / P.H;
+  const int hh = lane_id % P.H;
+  const int row0 = qt * BQ;
+  const int c_lo = P.window > 0 ? max(0, row0 - P.window + 1) / NKV * NKV : 0;
+  const int c_hi = P.causal ? min(row0 + BQ, P.s) : P.s;
+  const int ntiles = (c_hi - c_lo + NKV - 1) / NKV;
+
+  if (wg == 0) {
+    // ---- producer ----
+    reg_dealloc<24>();
+    if (tid == 0) {
+      const int kvh = hh / P.group;
+      mbar_expect_tx(q_full, L::QBYTES);
+      for (int j = 0; j < L::HDP / 32; ++j)
+        tma_load_4d(smem + L::Q + j * L::QBOX, &qmap, q_full, 32 * j, row0,
+                    hh, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % NST;
+        const int col0 = c_lo + i * NKV;
+        unsigned char* st = smem + L::KV + s * L::STAGE;
+        mbar_wait(&empty[s], ((i / NST) & 1) ^ 1);
+        mbar_expect_tx(&k_full[s], 2 * L::KBYTES);
+        for (int j = 0; j < L::HDP / 32; ++j) {
+          tma_load_4d(st + j * L::KBOX, &khimap, &k_full[s], 32 * j, col0,
+                      kvh, b);
+          tma_load_4d(st + L::KBYTES + j * L::KBOX, &klomap, &k_full[s],
+                      32 * j, col0, kvh, b);
+        }
+        mbar_expect_tx(&v_full[s], 2 * L::VBYTES);
+        for (int j = 0; j < NKV / 32; ++j) {
+          tma_load_4d(st + 2 * L::KBYTES + j * L::VBOX, &vhimap, &v_full[s],
+                      col0 + 32 * j, 0, kvh, b);
+          tma_load_4d(st + 2 * L::KBYTES + L::VBYTES + j * L::VBOX, &vlomap,
+                      &v_full[s], col0 + 32 * j, 0, kvh, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: q rows r0 .. r0 + 63 ----
+    reg_alloc<240>();
+    const int c = wg - 1;
+    const int tq = tid % 128;
+    const int lane = tid % 32;
+    const int r0 = row0 + 64 * c;
+    const int r_lo = r0 + 16 * (tq / 32) + lane / 4;   // and r_lo + 8
+
+    float o[HDW / 2];
+#pragma unroll
+    for (int v = 0; v < HDW / 2; ++v) o[v] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};
+    float l[2] = {0.f, 0.f};
+
+    mbar_wait(q_full, 0);
+    uint32_t qhi[HDW / 8][4];
+    split_resident<HDW>(smem + L::Q, L::QBOX, 64 * c, qhi, tq, QSPLIT + c);
+    const uint64_t dq = smem_desc(smem + L::Q + c * 64 * 128, 16, 1024);
+    if (c == 1) named_bar_arrive(TURN, 256);
+
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % NST;
+      const uint32_t ph = (i / NST) & 1;
+      const int col0 = c_lo + i * NKV;
+      const bool mask = col0 + NKV > P.s || (P.causal && col0 + NKV - 1 > r0) ||
+                        (P.window > 0 && r0 + 63 - col0 >= P.window);
+      unsigned char* st = smem + L::KV + s * L::STAGE;
+
+      float sacc[NKV / 2];
+      mbar_wait(&k_full[s], ph);
+      issue_s<HDW, NKV>(sacc, qhi, dq, smem_desc(st, 16, 1024),
+                        smem_desc(st + L::KBYTES, 16, 1024), c);
+
+      uint32_t phi[NKV / 8][4], plo[NKV / 8][4];
+      if (mask)
+        softmax<HDW, true, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane, P);
+      else
+        softmax<HDW, false, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane, P);
+
+      mbar_wait(&v_full[s], ph);
+      issue_pv<HDW, NKV>(o, phi, plo,
+                         smem_desc(st + 2 * L::KBYTES, 16, 1024),
+                         smem_desc(st + 2 * L::KBYTES + L::VBYTES, 16, 1024));
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // consumer 1's last hand-over is taken here, so every turn is matched
+    if (c == 0) named_bar_sync(TURN, 256);
+
+    // out = o / l for the rows below s and the columns below hd; rows that
+    // never saw a live column (m <= NEG_INF / 2) are written as 0
+    float* ob = P.o + b * P.o_sb + hh * P.o_sh;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = r_lo + 8 * j;
+      if (row >= P.s) continue;
+      const bool alive = m[j] > NEG_INF * 0.5f;
+      const float lc = fmaxf(l[j], 1e-30f);
+#pragma unroll
+      for (int nt = 0; nt < HDW / 8; ++nt) {
+        if (nt * 8 >= P.hd) break;
+        const int col = nt * 8 + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(ob + row * P.o_ss + col) =
+            alive ? make_float2(o[4 * nt + 2 * j] / lc,
+                                o[4 * nt + 2 * j + 1] / lc)
+                  : make_float2(0.f, 0.f);
+      }
+      if (P.lse != nullptr && (lane & 3) == 0)
+        P.lse[static_cast<long long>(lane_id) * P.s + row] =
+            alive ? (m[j] + log2f(lc)) * 0.6931471805599453f
+                  : __int_as_float(0x7f800000);
+    }
+  }
+}
+
+template <int HDW, int NKV>
+int launch_hd(const float* q, const float* khi, const float* klo,
+              const float* vthi, const float* vtlo, int batch, int kvh,
+              int s_pad, const long long* qs, const F32Params& P,
+              cudaStream_t st) {
+  CUtensorMap qm, khm, klm, vhm, vlm;
+  const long long kr = static_cast<long long>(kvh) * P.hd;   // row stride
+  int rc = encode_rows(&qm, q, batch, P.s, P.H, P.hd, qs[0], qs[1], qs[2], BQ);
+  if (rc == 0)
+    rc = encode_rows(&khm, khi, batch, P.s, kvh, P.hd, P.s * kr, P.hd, kr, NKV);
+  if (rc == 0)
+    rc = encode_rows(&klm, klo, batch, P.s, kvh, P.hd, P.s * kr, P.hd, kr, NKV);
+  if (rc == 0) rc = encode_cols(&vhm, vthi, batch, kvh, P.hd, s_pad, 32, HDW);
+  if (rc == 0) rc = encode_cols(&vlm, vtlo, batch, kvh, P.hd, s_pad, 32, HDW);
+  if (rc != 0) return rc;
+  constexpr int bytes = Layout<HDW, NKV>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_kernel<HDW, NKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long grid = static_cast<long long>(P.lanes) * P.nq;
+  flash_f32_kernel<HDW, NKV><<<static_cast<unsigned>(grid), NTHREADS, bytes,
+                               st>>>(qm, khm, klm, vhm, vlm, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q (b, s, h, hd), k / v (b, s, kvh, hd) by element strides (batch, head,
+// row) -> o (b, s, h, hd), and with `lse` each row's log-sum-exp (b, h, s).
+// khi / klo: scratch of k's size, (b, s, kvh, hd); vthi / vtlo: scratch of
+// (b, kvh, hd, s_pad) floats, s_pad a multiple of 32 at least s (the
+// caller's, so that it sizes the scratch it passes).
+extern "C" int flash_f32_launch(
+    const void* q, const void* k, const void* v, void* o, void* lse, void* khi,
+    void* klo, void* vthi, void* vtlo, int s_pad, int batch, int s, int H,
+    int group, int hd, int causal, int window, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+    long long o_sh, long long o_ss, float scale, void* stream) {
+  if (batch <= 0 || s <= 0 || H <= 0 || group <= 0 || H % group != 0 ||
+      hd <= 0 || hd > 128 || hd % 8 != 0 || s_pad < s || s_pad % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kvh = H / group;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  SplitParams sk{static_cast<const float*>(k), k_sb, k_sh, k_ss,
+                 static_cast<float*>(khi), static_cast<float*>(klo), nullptr,
+                 nullptr, s, kvh, hd, s_pad};
+  int rc = split_launch(sk, batch, st);
+  if (rc != 0) return rc;
+  SplitParams sv{static_cast<const float*>(v), v_sb, v_sh, v_ss, nullptr,
+                 nullptr, static_cast<float*>(vthi), static_cast<float*>(vtlo),
+                 s, kvh, hd, s_pad};
+  rc = split_launch(sv, batch, st);
+  if (rc != 0) return rc;
+  F32Params P;
+  P.o = static_cast<float*>(o);
+  P.lse = static_cast<float*>(lse);
+  P.o_sb = o_sb; P.o_sh = o_sh; P.o_ss = o_ss;
+  P.lanes = batch * H;
+  P.nq = (s + BQ - 1) / BQ;
+  P.s = s; P.H = H; P.group = group; P.hd = hd;
+  P.causal = causal; P.window = window;
+  P.scale_log2 = scale * LOG2E;
+  const long long qs[3] = {q_sb, q_sh, q_ss};
+  const float* qf = static_cast<const float*>(q);
+  const float *kh = static_cast<const float*>(khi),
+              *kl = static_cast<const float*>(klo),
+              *vh = static_cast<const float*>(vthi),
+              *vl = static_cast<const float*>(vtlo);
+  if (hd <= 64)
+    return launch_hd<64, 64>(qf, kh, kl, vh, vl, batch, kvh, s_pad, qs, P, st);
+  if (hd <= 80)
+    return launch_hd<80, 32>(qf, kh, kl, vh, vl, batch, kvh, s_pad, qs, P, st);
+  return launch_hd<128, 32>(qf, kh, kl, vh, vl, batch, kvh, s_pad, qs, P, st);
+}
+
+extern "C" const char* flash_f32_error_string(int code) {
+  return error_string(code);
+}

@@ -1,7 +1,9 @@
 // The dense flash-attention backward at every float dtype, for Hopper
-// (sm_90a): the general kernels beside flash_dense_bwd.cu, for the calls
-// flash_simt.cu's dense entry computes forward (fp32 training above
-// flash_threshold, fp16, bf16 at odd head dims or strides).
+// (sm_90a): the general kernels beside flash_dense_bwd.cu and
+// flash_f32_bwd.cu, for the calls flash_simt.cu's dense entry computes
+// forward (fp32 at head dim 256 or at strides TMA cannot describe, fp16,
+// bf16 at odd head dims or strides).  Its delta pass also serves
+// flash_f32_bwd.cu.
 //
 // Replaces no Pallas kernel: the reference differentiates _attend_flash
 // (src/repro/models/attention.py:191), the pure-JAX twin of _flash_kernel,

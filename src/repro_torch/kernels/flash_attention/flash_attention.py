@@ -43,12 +43,18 @@ filling the columns past the real head dim with zeros, except 80, whose
 products run at its exact width on tiles of 128.
 
 Those kernels take bf16.  The reference casts q, k and v to fp32 inside
-its kernels and so takes any float dtype: fp32 and fp16, and bf16 at a
-head dim or stride the TMA boxes cannot describe, run the general kernels
-instead, ``csrc/flash_simt.cu`` (dense and schedule-aware entries, the
-same plan walk) and ``csrc/flash_simt_bwd.cu`` (the backward), in plain
-fp32 FMA.  ``_check_kernel_inputs`` picks the kernel from the dtype, the
-head dim and the strides alone; nothing falls back on a failure.
+its kernels and so takes any float dtype.  A dense fp32 call at a head dim
+that is a multiple of 8 up to 128, with strides and alignment TMA can
+describe, runs ``csrc/flash_f32.cu`` and ``csrc/flash_f32_bwd.cu`` (route
+``"tf32x3"``: TMA + wgmma .tf32 with every product split into three TF32
+products, fp32-accurate).  The rest (fp16, fp32 at head dim 256 or at
+strides TMA cannot describe, bf16 at a head dim or stride the TMA boxes
+cannot describe, and every fp32 call of the schedule-aware entry) runs the
+general kernels, ``csrc/flash_simt.cu`` (dense and schedule-aware
+entries, the same plan walk) and ``csrc/flash_simt_bwd.cu`` (the
+backward), in plain fp32 FMA.  ``_check_kernel_inputs`` picks the kernel
+from the dtype, the head dim and the strides alone; nothing falls back on
+a failure.
 """
 
 from __future__ import annotations
@@ -70,6 +76,8 @@ from .ref import attention_ref
 #: fills the columns past the real head dim with zeros; 80 runs its
 #: products at their exact width)
 PADDED_HEAD_DIMS = (64, 128, 256)
+#: the largest head dim of the fp32 tensor-core kernels (route "tf32x3")
+TF32X3_MAX_HEAD_DIM = 128
 
 _c = ctypes
 FLASH_SCHED = Kernel(
@@ -118,6 +126,29 @@ FLASH_SIMT_BWD_DQ = Kernel(
     "flash_simt_bwd_dq", source="flash_simt_bwd",
     symbol="flash_simt_bwd_dq_launch",
     argtypes=[_c.c_void_p] * 7 + [_c.c_int] * 8 + [_c.c_float, _c.c_void_p])
+#: fp32 on the tensor cores, three TF32 products each (``csrc/flash_f32.cu``,
+#: ``csrc/flash_f32_bwd.cu``); the backward's delta pass stays
+#: ``flash_simt_bwd_delta``
+FLASH_DENSE_F32 = Kernel(
+    "flash_dense_f32", source="flash_f32", symbol="flash_f32_launch",
+    argtypes=[_c.c_void_p] * 9 + [_c.c_int] * 8 + [_c.c_longlong] * 12
+    + [_c.c_float, _c.c_void_p])
+FLASH_F32_BWD_DKDV = Kernel(
+    "flash_f32_bwd_dkdv", source="flash_f32_bwd",
+    symbol="flash_f32_bwd_dkdv_launch",
+    argtypes=[_c.c_void_p] * 9 + [_c.c_int] * 8 + [_c.c_float, _c.c_void_p])
+FLASH_F32_BWD_DQ = Kernel(
+    "flash_f32_bwd_dq", source="flash_f32_bwd",
+    symbol="flash_f32_bwd_dq_launch",
+    argtypes=[_c.c_void_p] * 8 + [_c.c_int] * 8 + [_c.c_float, _c.c_void_p])
+#: the transposed copies of the fp32 kernels hold s rounded up to this, a
+#: multiple of their 32-column tiles (the launchers refuse another s_pad)
+F32_COPY_PAD = 32
+#: the schedule-aware kernel of each route (:func:`flash_route`): that
+#: entry has no fp32 tensor-core kernel, so its "tf32x3" calls run the
+#: general kernel
+FLASH_SCHED_BY_ROUTE = {"wgmma": FLASH_SCHED, "tf32x3": FLASH_SCHED_SIMT,
+                        "simt": FLASH_SCHED_SIMT}
 
 
 def broadcast_flatten(q, k, v):
@@ -255,28 +286,36 @@ def flash_attention_sched_plain(q, k, v, *,
 
 
 def flash_route(dtype, hd: int, tma_ok: bool = True) -> str:
-    """The kernel family a flash call of this dtype and head dim runs on
-    the card: ``"wgmma"`` (``flash_dense`` / ``flash_sched`` and
+    """The kernel family a dense flash call of this dtype and head dim runs
+    on the card: ``"wgmma"`` (``flash_dense`` / ``flash_sched`` and
     ``flash_dense_bwd``) for bfloat16 with a head dim that is a multiple of
-    8 and ``tma_ok`` (strides and alignment TMA can describe), ``"simt"``
-    (the general kernels) for every other float32 / bfloat16 / float16
-    call with a head dim up to 256.  Raises for another dtype or head dim,
-    which no kernel takes."""
+    8 and ``tma_ok`` (strides and alignment TMA can describe),
+    ``"tf32x3"`` (``flash_dense_f32`` and ``flash_f32_bwd``) for float32
+    likewise up to head dim 128, ``"simt"`` (the general kernels) for
+    every other float32 / bfloat16 / float16 call with a head dim up to
+    256.  The schedule-aware entry runs ``"tf32x3"`` calls on the general
+    kernel too.  Raises for another dtype or head dim, which no kernel
+    takes."""
     if dtype not in SIMT_DTYPES:
         raise TypeError(f"the flash kernels take float32, bfloat16 or "
                         f"float16, got {dtype}")
     if not 0 < hd <= PADDED_HEAD_DIMS[-1]:
         raise ValueError(f"the flash kernels take a head_dim up to "
                          f"{PADDED_HEAD_DIMS[-1]}, got {hd}")
-    return ("wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 and tma_ok
-            else "simt")
+    if hd % 8 or not tma_ok:
+        return "simt"
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32 and hd <= TF32X3_MAX_HEAD_DIM:
+        return "tf32x3"
+    return "simt"
 
 
 def _check_kernel_inputs(name: str, q, k, v) -> str:
     """Check q (b, s, h, hd), k/v (b, s, kvh, hd) and return the kernel
     family that takes them (:func:`flash_route`): a GQA layout and one
-    dtype; the wgmma kernels also need a contiguous last dim, strides that
-    are multiples of 8 and 16-byte aligned data."""
+    dtype; the TMA kernels also need a contiguous last dim, strides that
+    are multiples of 16 bytes and 16-byte aligned data."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     if k.shape != (b, s, kvh, hd) or v.shape != k.shape or h % kvh:
@@ -285,8 +324,9 @@ def _check_kernel_inputs(name: str, q, k, v) -> str:
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes q, k and v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    tma_ok = all(t.stride(3) == 1 and not any(st % 8 for st in t.stride()[:3])
-                 and t.data_ptr() % 16 == 0 for t in (q, k, v))
+    tma_ok = all(t.stride(3) == 1 and t.data_ptr() % 16 == 0
+                 and not any(st * t.element_size() % 16
+                             for st in t.stride()[:3]) for t in (q, k, v))
     return flash_route(q.dtype, hd, tma_ok)
 
 
@@ -305,11 +345,12 @@ def _upload_table(desc, bounds, device) -> torch.Tensor:
 
 def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
                       causal: bool, window: int):
-    """Launch ``flash_sched`` (or ``flash_sched_simt``) on q (b, s, h, hd),
-    k/v (b, s, kvh, hd) in place of their strides; returns a new
-    (b, s, h, hd) tensor."""
-    route = _check_kernel_inputs("flash_sched", q, k, v)
-    if route == "simt":
+    """Launch the schedule-aware kernel of the inputs' route
+    (``FLASH_SCHED_BY_ROUTE``) on q (b, s, h, hd), k/v (b, s, kvh, hd) in
+    place of their strides; returns a new (b, s, h, hd) tensor."""
+    kernel = FLASH_SCHED_BY_ROUTE[_check_kernel_inputs("flash_sched", q, k,
+                                                       v)]
+    if kernel is FLASH_SCHED_SIMT:
         q, k, v = _unit_stride(q, k, v)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
@@ -326,22 +367,56 @@ def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
             torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             d_ptr, d_ptr + 6 * g * 4)
-    if route == "wgmma":
-        FLASH_SCHED.launch(*ptrs, *shape, *tail)
+    if kernel is FLASH_SCHED:
+        kernel.launch(*ptrs, *shape, *tail)
     else:
-        FLASH_SCHED_SIMT.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
+        kernel.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
     return out
 
 
 def _flash_dense_cuda(q, k, v, *, causal: bool, window: int,
                       with_lse: bool = False):
-    """Launch ``flash_dense`` on q (b, s, h, hd), k/v (b, s, kvh, hd) in
-    place of their strides; returns a new (b, s, h, hd) tensor, and with
-    ``with_lse`` also each row's log-sum-exp (b, h, s) fp32 (the output is
-    the same bits either way)."""
+    """Launch the dense kernel of the inputs' route on q (b, s, h, hd),
+    k/v (b, s, kvh, hd) in place of their strides; returns a new
+    (b, s, h, hd) tensor, and with ``with_lse`` also each row's
+    log-sum-exp (b, h, s) fp32 (the output is the same bits either way)."""
     route = _check_kernel_inputs("flash_dense", q, k, v)
     if route == "simt":
-        q, k, v = _unit_stride(q, k, v)
+        return _flash_dense_simt_cuda(q, k, v, causal=causal, window=window,
+                                      with_lse=with_lse)
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    out, lse, ptrs, shape, tail = _dense_args(q, k, v, causal, window,
+                                              with_lse)
+    if route == "wgmma":
+        FLASH_DENSE.launch(*ptrs, *shape, *tail)
+    else:
+        # scratch of the split copies: K hi / lo (b, s, kvh, hd), V^T hi /
+        # lo (b, kvh, hd, s_pad)
+        s_pad = -(-s // F32_COPY_PAD) * F32_COPY_PAD
+        kc = torch.empty((2, b, s, kvh, hd), dtype=q.dtype, device=q.device)
+        vt = torch.empty((2, b, kvh, hd, s_pad), dtype=q.dtype,
+                         device=q.device)
+        FLASH_DENSE_F32.launch(*ptrs, kc[0].data_ptr(), kc[1].data_ptr(),
+                               vt[0].data_ptr(), vt[1].data_ptr(), s_pad,
+                               *shape, *tail)
+    return (out, lse) if with_lse else out
+
+
+def _flash_dense_simt_cuda(q, k, v, *, causal: bool, window: int,
+                           with_lse: bool = False):
+    """The general dense kernel on q (b, s, h, hd), k/v (b, s, kvh, hd) of
+    any dtype of ``SIMT_DTYPES``, as :func:`_flash_dense_cuda` returns."""
+    q, k, v = _unit_stride(q, k, v)
+    out, lse, ptrs, shape, tail = _dense_args(q, k, v, causal, window,
+                                              with_lse)
+    FLASH_DENSE_SIMT.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
+    return (out, lse) if with_lse else out
+
+
+def _dense_args(q, k, v, causal, window, with_lse):
+    """The dense kernels' output, lse (or None) and their launch
+    arguments: pointers, shape and the strides, scale and stream."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
@@ -352,19 +427,15 @@ def _flash_dense_cuda(q, k, v, *, causal: bool, window: int,
     shape = (b, s, h, h // kvh, hd, int(causal), int(window))
     tail = (*_strides(q, k, v, out), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
-    if route == "wgmma":
-        FLASH_DENSE.launch(*ptrs, *shape, *tail)
-    else:
-        FLASH_DENSE_SIMT.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
-    return (out, lse) if with_lse else out
+    return out, lse, ptrs, shape, tail
 
 
 def _flash_dense_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int):
     """Launch the three backward kernels on the forward's q (b, s, h, hd),
     k/v (b, s, kvh, hd), output o, its gradient do and lse (b, h, s); returns
-    (dq, dk, dv) in the inputs' shapes and dtype.  The general kernels
-    (``flash_simt_bwd``) take what ``flash_dense_bwd`` does not, by the
-    forward's route."""
+    (dq, dk, dv) in the inputs' shapes and dtype.  By the forward's route:
+    ``flash_dense_bwd`` ("wgmma"), ``flash_f32_bwd`` ("tf32x3") or the
+    general kernels (``flash_simt_bwd``)."""
     route = _check_kernel_inputs("flash_dense", q, k, v)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
@@ -374,6 +445,9 @@ def _flash_dense_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int):
     if route == "simt":
         return _flash_simt_bwd_cuda(q, k, v, o, do, lse, causal=causal,
                                     window=window, stream=stream)
+    if route == "tf32x3":
+        return _flash_f32_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                   window=window, stream=stream)
     s_pad = -(-s // BWD_ROW_PAD) * BWD_ROW_PAD
     # lse log2(e) and D, (b, h, s_pad): +inf and 0 past s
     lse2, delta = torch.empty((2, b, h, s_pad), dtype=torch.float32,
@@ -399,9 +473,7 @@ def _flash_simt_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int,
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     code = SIMT_DTYPES[q.dtype]
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    FLASH_SIMT_BWD_DELTA.launch(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                                b, s, h, hd, code, stream)
+    delta = _simt_delta(o, do, stream)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
@@ -412,6 +484,43 @@ def _flash_simt_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int,
     return dq, dk, dv
 
 
+def _simt_delta(o, do, stream):
+    """D = rowsum(dO o O), (b, h, s) fp32, of contiguous o and do
+    (b, s, h, hd) by the general delta pass."""
+    b, s, h, hd = o.shape
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=o.device)
+    FLASH_SIMT_BWD_DELTA.launch(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                                b, s, h, hd, SIMT_DTYPES[o.dtype], stream)
+    return delta
+
+
+def _flash_f32_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int,
+                        stream):
+    """The fp32 backward on the tensor cores on contiguous q (b, s, h, hd),
+    k/v (b, s, kvh, hd), o, do and the forward's lse (b, h, s): D (the
+    general delta pass), then dK and dV, then dQ.  Each pass first writes
+    the split copies of its stage operands into one scratch buffer, which
+    the dq pass reuses after the dkdv pass on the same stream."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    delta = _simt_delta(o, do, stream)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    s_pad = -(-s // F32_COPY_PAD) * F32_COPY_PAD
+    # dkdv: Q and dO hi / lo in both layouts; dq needs less (K and V).
+    # 1.07 GB at qwen3-4b's training shape (2 x 4096, 32 heads, hd 128)
+    ws = torch.empty(4 * b * h * hd * (s + s_pad), dtype=torch.float32,
+                     device=q.device)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    shape = (b, s, h, h // kvh, hd, int(causal), int(window),
+             1.0 / math.sqrt(hd), stream)
+    FLASH_F32_BWD_DKDV.launch(*ins, dk.data_ptr(), dv.data_ptr(),
+                              ws.data_ptr(), s_pad, *shape)
+    FLASH_F32_BWD_DQ.launch(*ins, dq.data_ptr(), ws.data_ptr(), s_pad,
+                            *shape)
+    return dq, dk, dv
+
+
 def _unit_stride(*tensors):
     """The tensors with their last dim contiguous, as the general kernels
     read them (a copy only where it is not)."""
@@ -419,9 +528,10 @@ def _unit_stride(*tensors):
 
 
 class _FlashDense(torch.autograd.Function):
-    """``flash_dense`` under autograd: the forward launches the kernel and,
-    when a gradient is wanted, keeps q, k, v, the output and the rows'
-    log-sum-exp; the backward launches ``csrc/flash_dense_bwd.cu``."""
+    """The dense kernel under autograd: the forward launches the kernel of
+    the inputs' route and, when a gradient is wanted, keeps q, k, v, the
+    output and the rows' log-sum-exp; the backward launches that route's
+    backward kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):

@@ -1,4 +1,6 @@
-"""Plain PyTorch oracle for the flash-attention kernels (fp32 math)."""
+"""Plain PyTorch oracle for the flash-attention kernels (fp32 math), and
+an emulation of the fp32 tensor-core kernels' three-term TF32 split for
+the tests."""
 
 from __future__ import annotations
 
@@ -39,3 +41,40 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     probs = torch.where(alive, probs, 0.0)
     out = torch.einsum("bst,btd->bsd", probs, v.float())
     return out.to(q.dtype)
+
+
+def tf32_hi(x):
+    """fp32 ``x`` with its low 13 mantissa bits cleared: the 19 bits that
+    the tensor cores' TF32 path reads of an fp32 word."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def matmul_tf32x3(a, b, *, terms: int = 3):
+    """``a @ b`` in fp32 as ``csrc/flash_f32.cu`` computes it: hi = tf32_hi
+    of each operand, lo = the rest (read as TF32 too), and
+    hi_a hi_b + hi_a lo_b + lo_a hi_b; ``terms=1`` keeps hi_a hi_b alone
+    (a single TF32 product, which the kernels never use)."""
+    ah, bh = tf32_hi(a), tf32_hi(b)
+    out = ah @ bh
+    if terms == 3:
+        out = out + (ah @ tf32_hi(b - bh) + tf32_hi(a - ah) @ bh)
+    return out
+
+
+def attention_tf32x3(q, k, v, *, causal: bool = True, window: int = 0,
+                     terms: int = 3):
+    """:func:`attention_ref` with both products through
+    :func:`matmul_tf32x3`: q, k, v (bh, s, hd) fp32 -> (bh, s, hd).  Used
+    by the tests only, to hold the split's arithmetic to the reference on
+    the CPU."""
+    bh, s, hd = q.shape
+    scores = matmul_tf32x3(q.float(), k.float().transpose(1, 2),
+                           terms=terms) / math.sqrt(hd)
+    i = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window > 0:
+        mask &= (i[:, None] - i[None, :]) < window
+    probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    return matmul_tf32x3(probs, v.float(), terms=terms)

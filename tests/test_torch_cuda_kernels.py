@@ -12,7 +12,9 @@ the kernels sum in another order than the fp32 plain versions before the
 final rounding), also for ``gmm_any``'s.  The general kernels' fp32 outputs (``gmm_simt``,
 ``flash_*_simt``; plain fp32 FMA, TF32 off on both sides) are held to
 1e-5 + 1e-5 |plain| for the grouped matmul and 1e-4 + 1e-4 |plain| for
-flash attention (sums of up to thousands of products in another order);
+flash attention (sums of up to thousands of products in another order),
+and so is ``flash_dense_f32`` (three TF32 products each, about 2^-20
+relative error a product);
 fp16 outputs to 2^-10 + 2^-10 |plain| (two fp16 rounding steps).  Across
 schedules and ``sched_p`` the outputs must be bit-identical.
 """
@@ -195,10 +197,17 @@ def test_flash_dense_tile_edges(dev):
                  (1, 300, 2, 2, 256, 63, True),    # window 63 < a kv tile
                  (1, 200, 2, 2, 256, 0, False)):   # hd 256, non-causal
         _check_flash_dense(dev, case)
-    # fp32 on the general kernel: every padded width, its 64-row q tiles'
-    # edges, a window of 2048, non-causal, and an odd head dim
+    # fp32 on the tensor cores (route "tf32x3", head dims 64, 80 and 128,
+    # and 8, 72, 96 and 120 computed at the widths 64, 80 and 128): s off
+    # the 128-row q tiles and the 32- / 64-column kv tiles (s 1 too), MQA
+    # and GQA, windows narrower than a kv tile, non-causal; then on the
+    # general kernel (head dim 256 with a window of 2048, an odd head dim)
     for case in ((1, 300, 4, 2, 64, 0, True), (2, 129, 4, 1, 80, 40, True),
                  (1, 300, 4, 2, 128, 1, True), (1, 65, 2, 2, 128, 0, False),
+                 (1, 2100, 8, 2, 128, 0, True), (2, 333, 4, 1, 64, 31, True),
+                 (2, 300, 8, 2, 72, 20, True), (1, 300, 4, 1, 96, 0, False),
+                 (1, 1000, 4, 4, 80, 0, False), (2, 1, 4, 2, 128, 0, True),
+                 (1, 37, 2, 1, 8, 0, True), (1, 300, 2, 1, 120, 20, True),
                  (1, 2100, 4, 1, 256, 2048, True),
                  (2, 200, 4, 4, 100, 63, True)):
         _check_flash_dense(dev, case, torch.float32)
@@ -208,8 +217,8 @@ def _check_flash_dense(dev, case, dtype=torch.bfloat16):
     b, s, h, kvh, hd, window, causal = case
     q, k, v = (_randn(dev, b, s, n, hd, seed=i, dtype=dtype)
                for i, n in enumerate((h, kvh, kvh)))
-    kernel = (fa.FLASH_DENSE if fa.flash_route(dtype, hd) == "wgmma"
-              else fa.FLASH_DENSE_SIMT)
+    kernel = {"wgmma": fa.FLASH_DENSE, "tf32x3": fa.FLASH_DENSE_F32,
+              "simt": fa.FLASH_DENSE_SIMT}[fa.flash_route(dtype, hd)]
     before = kernel.launches
     out = flash_attention(q, k, v, causal=causal, window=window)
     assert kernel.launches == before + 1
@@ -243,6 +252,25 @@ def test_flash_dense_reads_strided_heads(dev):
         _assert_close(out, want.reshape(b, h, s, hd).permute(0, 2, 1, 3))
         assert torch.equal(flash_attention(q.contiguous(), k.contiguous(),
                                            v.contiguous(), causal=True), out)
+    # fp32: heads 16-byte multiples apart are read in place on the tensor
+    # cores (the same bits as a contiguous copy); rows 130 floats apart are
+    # not TMA's, and take the general kernel
+    for hd, width, kernel in ((128, 128, fa.FLASH_DENSE_F32),
+                              (80, 80, fa.FLASH_DENSE_F32),
+                              (128, 130, fa.FLASH_DENSE_SIMT)):
+        buf = _randn(dev, b, s, 3, h, width, seed=6, dtype=torch.float32)
+        q, k, v = (buf[:, :, i, :n, :hd] for i, n in enumerate((h, kvh, kvh)))
+        before = kernel.launches
+        out = flash_attention(q, k, v, causal=True, window=50)
+        assert kernel.launches == before + 1
+        want = fa.flash_attention_dense_plain(*fa.broadcast_flatten(q, k, v),
+                                              causal=True, window=50)
+        _assert_close(out, want.reshape(b, h, s, hd).permute(0, 2, 1, 3),
+                      SIMT_TOL[torch.float32][1])
+        if kernel is fa.FLASH_DENSE_F32:
+            assert torch.equal(flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                window=50), out)
 
 
 def test_flash_dense_bhsd_entry_and_errors(dev):
@@ -250,8 +278,9 @@ def test_flash_dense_bhsd_entry_and_errors(dev):
     out = fa.flash_attention_bhsd(q, q, q, window=100)
     _assert_close(out, fa.flash_attention_dense_plain(q, q, q, window=100))
     x = q[:, :, None]
-    # fp32 and a bf16 head dim of 84 run the general kernel
-    before = fa.FLASH_DENSE_SIMT.launches
+    # fp32 runs the tensor-core kernel, a bf16 head dim of 84 the general
+    # kernel
+    before = fa.FLASH_DENSE_SIMT.launches, fa.FLASH_DENSE_F32.launches
     _assert_close(flash_attention(*(x.float(),) * 3, window=100),
                   fa.flash_attention_dense_plain(*(q.float(),) * 3,
                                                  window=100)[:, :, None],
@@ -259,7 +288,8 @@ def test_flash_dense_bhsd_entry_and_errors(dev):
     y = _randn(dev, 2, 200, 84)
     _assert_close(fa.flash_attention_bhsd(y, y, y),
                   fa.flash_attention_dense_plain(y, y, y))
-    assert fa.FLASH_DENSE_SIMT.launches == before + 2
+    assert (fa.FLASH_DENSE_SIMT.launches, fa.FLASH_DENSE_F32.launches) == (
+        before[0] + 1, before[1] + 1)
     # any head dim that is a multiple of 8 up to 256 (72: padded to 128)
     y = _randn(dev, 2, 200, 72)
     _assert_close(fa.flash_attention_bhsd(y, y, y),
@@ -497,7 +527,7 @@ def test_build_is_cached_and_counted(dev):
     libs = _build.build_all()
     assert set(libs) == {"flash_dense", "flash_dense_bwd", "flash_sched",
                          "gmm", "gmm_any", "gmm_simt", "flash_simt",
-                         "flash_simt_bwd"}
+                         "flash_simt_bwd", "flash_f32", "flash_f32_bwd"}
     assert all(p.is_file() for p in libs.values())
     _build.reset_launches()
     assert all(k.launches == 0 for k in _build.KERNELS.values())

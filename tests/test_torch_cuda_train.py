@@ -27,7 +27,9 @@ runs give the same bits.
 The general kernels (``flash_simt_bwd.cu``, ``gmm_dx_simt`` /
 ``gmm_dw_simt``) in fp32, plain fp32 FMA against the fp32 plain versions
 with TF32 off: flash gradients within 1e-4 + 1e-4 |plain| elementwise, dX
-and dW within 1e-5 + 1e-5 |plain| (sums in another order).  bf16 dX and dW
+and dW within 1e-5 + 1e-5 |plain| (sums in another order).  The fp32
+flash backward on the tensor cores (``flash_f32_bwd.cu``, three TF32
+products each) is held to the same 1e-4 + 1e-4 |plain|.  bf16 dX and dW
 off ``gmm_dx``'s and ``gmm_dw``'s blocks (``gmm_dx_any`` / ``gmm_dw_any``,
 wgmma, either loader) within the bf16 gate above, fp16 within 2^-10 +
 2^-10 |plain|.
@@ -128,9 +130,17 @@ def test_flash_dense_bwd_matches_plain(dev, hd, windowed):
 
 
 def test_flash_dense_bwd_is_deterministic(dev):
-    """Two runs of the backward give the same bits (no atomics)."""
-    for hd, window in ((128, 0), (64, 100)):
-        q, k, v, do = _inputs(dev, 2, 1000, 8, 2, hd, seed=3)
+    """Two runs of the backward give the same bits (no atomics): bf16, and
+    fp32 on the tensor cores (route "tf32x3") at head dims 64, 80 and 128
+    with windows."""
+    for hd, window, dtype in ((128, 0, torch.bfloat16),
+                              (64, 100, torch.bfloat16),
+                              (64, 100, torch.float32),
+                              (80, 50, torch.float32),
+                              (128, 300, torch.float32)):
+        q, k, v, do = _inputs(dev, 2, 1000, 8, 2, hd, seed=3, dtype=dtype)
+        assert fa._check_kernel_inputs("flash_dense", q, k, v) == (
+            "wgmma" if dtype == torch.bfloat16 else "tf32x3")
         first = _bwd(q, k, v, do, True, window)
         second = _bwd(q, k, v, do, True, window)
         for a, b in zip(first, second):
@@ -178,12 +188,18 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
                    zip(got, _bwd(q, k, v, do, True, window)))
         want = fa.flash_attention_dense_bwd_plain(q, k, v, do, window=window)
         _check_grads(got[2:], want, (b, s, h, kvh, hd, window))
-    # fp32 (the general kernels, forward and backward): every padded width,
-    # GQA / MQA, windows, non-causal, an odd head dim; under autograd one
-    # launch of each pass, two runs bit-identical
+    # fp32, forward and backward: on the tensor cores (route "tf32x3") at
+    # head dims 64, 80 and 128 and the padded 16 and 72, with windows, GQA
+    # / MQA, non-causal, s off the 16-row stages, and a long MQA sum (dK,
+    # dV over 4 heads x 2100 rows); on the general kernels at head dim 256
+    # and an odd head dim; under autograd one launch of each pass, two runs
+    # bit-identical
     for i, (b, s, h, kvh, hd, window, causal) in enumerate((
             (2, 300, 4, 2, 64, 0, True), (1, 200, 4, 1, 80, 70, True),
             (1, 129, 4, 2, 128, 0, True), (2, 100, 2, 2, 128, 0, False),
+            (1, 1000, 8, 2, 128, 200, True), (2, 333, 4, 1, 64, 40, True),
+            (1, 300, 4, 4, 72, 0, True), (2, 17, 4, 2, 16, 0, True),
+            (1, 2100, 4, 1, 128, 0, True),
             (1, 700, 5, 1, 256, 2048, True), (1, 150, 2, 1, 100, 30, True))):
         q, k, v, do = _inputs(dev, b, s, h, kvh, hd, seed=60 + i,
                               dtype=torch.float32)
@@ -193,9 +209,12 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
                                             window=window)
         out.backward(do)
         torch.cuda.synchronize()
-        launches = {n: _build.KERNELS[n].launches for n in (
-            "flash_dense_simt", "flash_simt_bwd_delta",
-            "flash_simt_bwd_dkdv", "flash_simt_bwd_dq")}
+        names = (("flash_dense_f32", "flash_simt_bwd_delta",
+                  "flash_f32_bwd_dkdv", "flash_f32_bwd_dq")
+                 if fa.flash_route(torch.float32, hd) == "tf32x3" else
+                 ("flash_dense_simt", "flash_simt_bwd_delta",
+                  "flash_simt_bwd_dkdv", "flash_simt_bwd_dq"))
+        launches = {n: _build.KERNELS[n].launches for n in names}
         assert launches == dict.fromkeys(launches, 1), launches
         got = _bwd(q, k, v, do, causal, window)
         assert all(torch.equal(a, g) for a, g in

@@ -3,11 +3,13 @@ dtype and the shape alone: the routing functions of the grouped matmul
 and of the flash kernels (``gmm_route`` / ``gmm_dx_route`` /
 ``gmm_dw_route``, ``flash_route`` and ``_check_kernel_inputs``).
 
-bf16 at the wgmma kernels' blocks goes to them ("wgmma"); every other
-bf16 and fp16 call of the grouped matmul family goes to ``gmm_any`` /
-``gmm_dx_any`` / ``gmm_dw_any``, fed by TMA where TMA can describe the
-rows (d and f multiples of 8, 16-byte aligned data: "wgmma_any") and by
-the producer warpgroup's copies otherwise ("wgmma_ld"); fp32 goes to the
+bf16 at the wgmma kernels' blocks goes to them ("wgmma"), and a dense
+fp32 flash call up to head dim 128 with strides TMA can describe to the
+fp32 tensor-core kernels ("tf32x3"); every other bf16 and fp16 call of
+the grouped matmul family goes to ``gmm_any`` / ``gmm_dx_any`` /
+``gmm_dw_any``, fed by TMA where TMA can describe the rows (d and f
+multiples of 8, 16-byte aligned data: "wgmma_any") and by the producer
+warpgroup's copies otherwise ("wgmma_ld"); the rest of fp32 goes to the
 general kernels ("simt"); what none takes raises, on the CPU as on the
 card.  The kernels themselves are held to their plain versions on the
 card (``tests/test_torch_cuda_kernels.py``,
@@ -126,12 +128,21 @@ def test_every_2byte_gmm_call_takes_a_wgmma_route():
 def test_flash_routes_by_dtype_head_dim_and_strides():
     for hd in range(8, 257, 8):
         assert fa.flash_route(BF16, hd) == "wgmma"
-        assert fa.flash_route(F32, hd) == "simt"
+        # fp32 on the tensor cores up to 128 (three TF32 products each)
+        assert fa.flash_route(F32, hd) == ("tf32x3" if hd <= 128 else "simt")
         assert fa.flash_route(F16, hd) == "simt"
+    for hd in (64, 80, 96, 128):
+        assert fa.flash_route(F32, hd) == "tf32x3"
+    for hd in (1, 20, 100, 250, 256):
+        assert fa.flash_route(F32, hd) == "simt"
     for hd in (1, 20, 100, 250):
         assert fa.flash_route(BF16, hd) == "simt"
-        assert fa.flash_route(F32, hd) == "simt"
     assert fa.flash_route(BF16, 128, tma_ok=False) == "simt"
+    assert fa.flash_route(F32, 128, tma_ok=False) == "simt"
+    # the schedule-aware entry has no fp32 tensor-core kernel
+    assert fa.FLASH_SCHED_BY_ROUTE["tf32x3"] is fa.FLASH_SCHED_SIMT
+    assert fa.FLASH_SCHED_BY_ROUTE["simt"] is fa.FLASH_SCHED_SIMT
+    assert fa.FLASH_SCHED_BY_ROUTE["wgmma"] is fa.FLASH_SCHED
     for hd in (0, 264, 512):
         with pytest.raises(ValueError, match="head_dim"):
             fa.flash_route(F32, hd)
@@ -144,11 +155,25 @@ def test_flash_kernel_check_reads_layout_and_strides():
     q = torch.zeros(1, 16, 4, 128, dtype=BF16)
     kv = torch.zeros(1, 16, 2, 128, dtype=BF16)
     assert fa._check_kernel_inputs("flash_dense", q, kv, kv) == "wgmma"
-    assert fa._check_kernel_inputs("flash_dense", q.float(), kv.float(),
-                                   kv.float()) == "simt"
+    q32, kv32 = q.float(), kv.float()
+    assert fa._check_kernel_inputs("flash_dense", q32, kv32,
+                                   kv32) == "tf32x3"
+    # the schedule-aware entry takes fp32 on the general kernel
+    assert fa.FLASH_SCHED_BY_ROUTE[fa._check_kernel_inputs(
+        "flash_sched", q32, kv32, kv32)] is fa.FLASH_SCHED_SIMT
     # a head dim the TMA boxes cannot step (strides not multiples of 8)
     odd = torch.zeros(1, 16, 4, 132, dtype=BF16)[..., :128]
     assert fa._check_kernel_inputs("flash_dense", odd, kv, kv) == "simt"
+    # fp32 rows 528 bytes apart are whole 16-byte steps; 520 are not
+    assert fa._check_kernel_inputs("flash_dense", odd.float(), kv32,
+                                   kv32) == "tf32x3"
+    odd32 = torch.zeros(1, 16, 4, 130)[..., :128]
+    assert fa._check_kernel_inputs("flash_dense", odd32, kv32, kv32) == "simt"
+    # fp32 past head dim 128, and fp16, on the general kernels
+    wide = torch.zeros(1, 16, 2, 256)
+    assert fa._check_kernel_inputs("flash_dense", wide, wide, wide) == "simt"
+    assert fa._check_kernel_inputs("flash_dense", q.half(), kv.half(),
+                                   kv.half()) == "simt"
     with pytest.raises(TypeError, match="one dtype"):
         fa._check_kernel_inputs("flash_dense", q, kv.float(), kv)
     with pytest.raises(ValueError, match="GQA layout"):

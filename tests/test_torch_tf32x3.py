@@ -1,0 +1,117 @@
+"""The arithmetic of the fp32 flash kernels on the tensor cores
+(``csrc/flash_f32.cu``, ``csrc/flash_f32_bwd.cu``, route ``"tf32x3"``),
+emulated on the CPU and held to the JAX reference.
+
+Each product is three TF32 products: hi = x with its low 13 mantissa bits
+cleared, lo = x - hi (read as TF32 too), and hi_a hi_b + hi_a lo_b +
+lo_a hi_b.  ``ref.attention_tf32x3`` runs the attention with both products
+split so; it must agree with the reference's ``flash_attention_bhsd`` (its
+Pallas kernel in interpret mode, as the reference's own tests run it) and
+with the port's fp32 plain version within the kernels' gate, 1e-4 +
+1e-4 |plain|.  A single TF32 product (hi_a hi_b alone) misses that gate,
+which is why the kernels never use one.  The kernels themselves are held
+to the plain version on the card (``tests/test_torch_cuda_kernels.py``,
+``tests/test_torch_cuda_train.py``).
+
+Fewer than 12 items: a new test module with more moves the reference's
+order-dependent ``tests/test_launch.py`` in pytest-xdist's queue
+(ROADMAP.md, "Faults found").
+"""
+
+import jax
+import jax.experimental
+
+# jax 0.9 dropped jax.experimental.enable_x64, which repro.core's
+# graph_sim imports; alias it before the first repro import
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = jax.enable_x64
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as ref_fa
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     attention_tf32x3,
+                                                     matmul_tf32x3, tf32_hi)
+
+#: the fp32 flash kernels' gate against the plain version
+TOL = 1e-4
+#: (b, s, h, kvh, window, causal): GQA causal, MQA with a window narrower
+#: than a kv tile, non-causal MHA with a ragged tail
+CASES = ((1, 300, 4, 2, 0, True), (2, 257, 2, 1, 40, True),
+         (1, 200, 2, 2, 0, False))
+
+
+def _inputs(seed, b, s, h, kvh, hd):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 for shape in ((b, s, h, hd), (b, s, kvh, hd),
+                               (b, s, kvh, hd)))
+
+
+def _reference(q, k, v, causal, window):
+    """The reference's Pallas kernel in interpret mode on the lanes."""
+    out = ref_fa.flash_attention_bhsd(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)), causal=causal,
+        window=window, block_q=128, block_k=128, interpret=True)
+    return torch.from_numpy(np.array(out))
+
+
+def _gate(got, want):
+    """max |got - want| / (TOL + TOL |want|): the gate holds below 1."""
+    return float(((got - want).abs() / (TOL + TOL * want.abs())).max())
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_split_attention_matches_reference_and_plain(hd):
+    """At the configs' head dims, causal, windowed, GQA / MQA and
+    non-causal: the three-term attention within the gate of the reference
+    kernel and of the port's plain version (measured at about 2% of it),
+    and the route that takes such a call on the card."""
+    for i, (b, s, h, kvh, window, causal) in enumerate(CASES):
+        q, k, v = _inputs(10 * hd + i, b, s, h, kvh, hd)
+        assert fa._check_kernel_inputs("flash_dense", q, k, v) == "tf32x3"
+        lanes = fa.broadcast_flatten(q, k, v)
+        got = attention_tf32x3(*lanes, causal=causal, window=window)
+        plain = attention_ref(*lanes, causal=causal, window=window)
+        ref = _reference(*lanes, causal, window)
+        assert _gate(got, plain) < 0.1, (hd, i, _gate(got, plain))
+        assert _gate(got, ref) < 0.1, (hd, i, _gate(got, ref))
+        # the plain version itself sits within the reference's 2e-5
+        assert float((plain - ref).abs().max()) <= 2e-5
+
+
+def test_one_term_product_misses_the_gate():
+    """hi_a hi_b alone, a single TF32 product, misses 1e-4 + 1e-4 |plain|
+    by a wide margin at every head dim (by about 8x to 19x here)."""
+    for hd in (64, 80, 128):
+        b, s, h, kvh, window, causal = CASES[0]
+        q, k, v = _inputs(hd, b, s, h, kvh, hd)
+        lanes = fa.broadcast_flatten(q, k, v)
+        plain = attention_ref(*lanes, causal=causal, window=window)
+        one = attention_tf32x3(*lanes, causal=causal, window=window, terms=1)
+        three = attention_tf32x3(*lanes, causal=causal, window=window)
+        assert _gate(one, plain) > 4.0, (hd, _gate(one, plain))
+        assert _gate(three, plain) < 0.1
+
+
+def test_split_is_exact_and_drops_13_bits():
+    """hi keeps 19 bits (its low 13 are 0), hi + lo is x exactly, and the
+    three-term product of random fp32 matrices is within 2^-18 of the fp64
+    product's scale where the single term is not."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(64, 96)).astype(np.float32) * 37)
+    hi = tf32_hi(x)
+    assert not bool((hi.view(torch.int32) & 8191).any())
+    assert torch.equal(hi + (x - hi), x)
+    assert float((x - hi).abs().max() / x.abs().max()) < 2.0 ** -10
+    y = torch.from_numpy(rng.normal(size=(96, 80)).astype(np.float32))
+    exact = x.double() @ y.double()
+    scale = float((x.double().abs() @ y.double().abs()).max())
+    err3 = float((matmul_tf32x3(x, y).double() - exact).abs().max()) / scale
+    err1 = float((matmul_tf32x3(x, y, terms=1).double() - exact).abs().max()) \
+        / scale
+    assert err3 < 2.0 ** -18 < err1, (err3, err1)
