@@ -222,17 +222,24 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                "tf32x3": three TF32 products each) with the general
                kernel's error and times on the same tensors beside it, and
                at 256 (window 2048) on the general kernel; ragged at the
-               main path's lanes in a fac2 plan (the general kernel); the
-               fp32 backward at qwen3-4b's training shape
-               (``flash_f32_bwd.cu``, the general backward beside it) and
-               at recurrentgemma-2b's (hd 256, window 2048; general).
+               main path's lanes in a fac2 plan (``flash_sched_f32``, the
+               general kernel beside it; bit-identical under static / 8
+               and gss / 1); the fp32 backward at qwen3-4b's training
+               shape and at recurrentgemma-2b's (hd 256, window 2048; on
+               cluster pairs) on the tensor cores (``flash_f32_bwd.cu``,
+               the general backward beside each); fp16 flash on the
+               general kernels (the fp16 path, counts from 0:
+               ``FP16_PATH_LAUNCHES``; then dense at qwen3-4b's prefill,
+               scheduled at the main path's lanes and the backward at
+               qwen3-4b's training shape, against SDPA in fp16).
                Each: its route, its time (single calls and back to back),
                the plain version's, ``torch.bmm`` / SDPA in fp32 on the
                same tensors, and the bound (fp32 operations at 67 TFLOP/s;
                the tensor-core rows also at 3 x operations / 494.7 TFLOP/s,
-               ``bound_ms_tf32x3``); the profiler's names of the kernels
-               SDPA launches in fp32, forward and backward; and
-               ``flash32_digest`` (below).  Then launch counts set to 0
+               ``bound_ms_tf32x3``; the fp16 rows at 989 TFLOP/s with the
+               67 TFLOP/s one beside, ``bound_ms_fp32_fma``); and
+               ``flash32_digests`` (below; ``flash32_digest`` held to
+               ``PARENT_FLASH32_DIGEST``).  Then launch counts set to 0
                and the fp32 model path: ``flash_attention`` with a
                schedule at the main path's lanes, dense attention at
                recurrentgemma-2b's local-attention shape in fp32 forward
@@ -295,11 +302,14 @@ only that family's back-to-back times at qwen3-moe's width in 8-row
 tiles in fp32, bf16 and fp16 and at f 764 in bf16 and fp16 with
 ``torch.bmm`` beside them and the routes taken (``gmm_times``), or only
 a hash of the fp32 dense flash forward's output and lse and its
-backward's dQ, dK, dV at FLASH32_DIGEST_SHAPES (``flash32_digest``), or
-only the fp32 dense flash forward's back-to-back times at
-SIMT_DENSE_SHAPES' head dims 64, 80 and 128 and the backward's at
-SIMT_BWD_SHAPE, with SDPA's beside them and the route taken
-(``flash32_times``), or only the profiler's names of the kernels SDPA
+backward's dQ, dK, dV at FLASH32_DIGEST_SHAPES (``flash32_digest``) and,
+under names of their own, of the hd-256 windowed backward and the ragged
+schedule-aware fp32 forward (``flash32_digests``), or only the fp32
+dense flash forward's back-to-back times at SIMT_DENSE_SHAPES' head dims
+64, 80 and 128, the backward's at SIMT_BWD_SHAPE and at
+recurrentgemma-2b's hd-256 window and the schedule-aware call's at the
+main path's lanes, with SDPA's beside them and the kernels each call
+launched (``flash32_times``), or only the profiler's names of the kernels SDPA
 launches in fp32 at the hd-128 rows' shapes (``sdpa32_kernels``), for
 the package under ``SRC`` (default: this
 checkout's ``src``), so that another tree's kernels can be held against
@@ -505,24 +515,45 @@ OFF_BLOCK_LAUNCHES = {"gmm_any": 3, "gmm_dx_any": 3, "gmm_dw_any": 2,
                       "gmm_dw": 1}
 # the fp32 flash kernels on the tensor cores (route "tf32x3": flash_f32.cu,
 # flash_f32_bwd.cu; each product three TF32 products) at SIMT_DENSE_SHAPES'
-# head dims 64, 80 and 128 and at SIMT_BWD_SHAPE, held to the fp32 plain
-# versions at SIMT_FLASH_TOL with the general kernels on the same tensors
+# head dims 64, 80 and 128, at the main path's lanes (flash_sched_f32), at
+# SIMT_BWD_SHAPE and at recurrentgemma-2b's hd-256 backward
+# (flash_f32_bwd256_*), held to the fp32 plain versions at SIMT_FLASH_TOL
+# with the general kernels on the same tensors
 TF32X3_HEAD_DIMS = ("64", "80", "128")
 # the fp32 model path's flash launches: qwen3-4b's and qwen3-moe's 2 layers
 # each run the dense forward twice (remat "full") and the backward once,
-# on the tensor cores; the scheduled call and the hd-256 attention (its
-# forward, and its backward with the delta pass of every fp32 backward) on
-# the general kernels; the fp32 grouped matmul family must launch too
+# on the tensor cores, and so do the scheduled call and the hd-256
+# attention's backward (cluster pairs); that attention's forward on the
+# general kernel, whose delta pass serves every fp32 backward; the fp32
+# grouped matmul family must launch too
 FP32_PATH_LAUNCHES = {"flash_dense_f32": 8, "flash_f32_bwd_dkdv": 4,
-                      "flash_f32_bwd_dq": 4, "flash_sched_simt": 1,
+                      "flash_f32_bwd_dq": 4, "flash_sched_f32": 1,
                       "flash_dense_simt": 1, "flash_simt_bwd_delta": 5,
-                      "flash_simt_bwd_dkdv": 1, "flash_simt_bwd_dq": 1}
+                      "flash_f32_bwd256_dkdv": 1, "flash_f32_bwd256_dq": 1}
 FP32_PATH_GMM = ("gmm_simt", "gmm_dx_simt", "gmm_dw_simt")
 # flash32_digest(): (b, s, h, kvh, hd, window, causal) of the fp32 dense
 # kernels' outputs hashed for later trees to hold bit for bit
 FLASH32_DIGEST_SHAPES = ((1, 1000, 8, 2, 128, 0, True),
                          (2, 700, 4, 4, 80, 100, True),
                          (1, 600, 4, 1, 64, 0, False))
+# flash32_digest() as PR 27's kernels computed it (on an H100); later trees
+# hold it bit for bit
+PARENT_FLASH32_DIGEST = "ef94b919e827c1f1"
+# flash32_digests()' two more, each under a name of its own: the hd-256
+# windowed backward (b, s, h, kvh, hd, window; causal) and the ragged
+# schedule-aware forward (b, s, h, kvh, hd, sched_p; kv_lens from numpy
+# seed 28, one lane of length 0, causal, fac2)
+FLASH32_BWD256_DIGEST_SHAPE = (1, 1100, 10, 1, 256, 300)
+FLASH32_SCHED_DIGEST_SHAPE = (3, 1000, 8, 2, 128, 7)
+# fp16 flash on the general kernels (flash_simt.cu, flash_simt_bwd.cu;
+# fp32 FMA, fp16 in and out), counted as the fp16 path and timed against
+# SDPA in fp16: dense at qwen3-4b's prefill, the schedule-aware entry at
+# the main path's lanes, the backward at SIMT_BWD_SHAPE; the fp16 gate
+# 2^-10 + 2^-10 |plain| (two fp16 rounding steps)
+FP16_FLASH_TOL = 2.0 ** -10
+FP16_PATH_LAUNCHES = {"flash_dense_simt": 1, "flash_sched_simt": 1,
+                      "flash_simt_bwd_delta": 1, "flash_simt_bwd_dkdv": 1,
+                      "flash_simt_bwd_dq": 1}
 # the examples phase: the seven twins of examples/, each in its own process
 # at its default arguments (their printed lines are held against the
 # originals' on the CPU by tests/test_torch_examples_*.py)
@@ -3065,37 +3096,121 @@ def flash32_digest(dev):
     return h_.hexdigest()[:16]
 
 
-def flash32_times(dev):
-    """Back-to-back times of the fp32 dense flash forward at
-    SIMT_DENSE_SHAPES' head dims 64, 80 and 128 and of its backward at
-    SIMT_BWD_SHAPE, through the private launchers (``_flash_dense_cuda``,
-    ``_flash_dense_bwd_cuda``; older trees have them too), with SDPA's
-    (forward; backward) on the same tensors and the route the tree's
-    ``flash_route`` gives fp32 at that head dim."""
+def flash32_digests(dev):
+    """``flash32_digest`` and, under names of their own, hashes of the
+    hd-256 windowed backward's dQ, dK and dV at
+    FLASH32_BWD256_DIGEST_SHAPE (fp32, through ``_flash_dense_bwd_cuda``)
+    and of the ragged schedule-aware forward at FLASH32_SCHED_DIGEST_SHAPE
+    (fp32, ``flash_attention`` with a schedule), on inputs of seeds of
+    their own."""
+    import hashlib
+
+    import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    def digest(outs):
+        h_ = hashlib.sha256()
+        for out in outs:
+            h_.update(out.contiguous().view(torch.uint8).cpu().numpy()
+                      .tobytes())
+        return h_.hexdigest()[:16]
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    b, s, h, kvh, hd, window = FLASH32_BWD256_DIGEST_SHAPE
+    q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                   for n in (h, kvh, kvh, h))
+    o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=window,
+                                  with_lse=True)
+    bwd = digest(fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
+                                          window=window))
+    b, s, h, kvh, hd, p = FLASH32_SCHED_DIGEST_SHAPE
+    kv_lens = np.random.default_rng(28).integers(1, s + 1, size=b)
+    kv_lens[0] = 0
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+               for n in (h, kvh, kvh))
+    sched = digest([flash_attention(q, k, v, causal=True, schedule="fac2",
+                                    kv_lens=kv_lens, sched_p=p)])
+    return {"flash32_digest": flash32_digest(dev),
+            "flash32_bwd256_digest": bwd, "flash32_sched_digest": sched}
+
+
+def flash32_times(dev):
+    """Back-to-back times of the fp32 flash forward at SIMT_DENSE_SHAPES'
+    head dims 64, 80 and 128, of its backward at SIMT_BWD_SHAPE and at
+    recurrentgemma-2b's hd-256 window (``bwd_256``), and of the
+    schedule-aware entry at the main path's lanes (fac2, sched_p = the SM
+    count, the plan made beforehand), through the private launchers
+    (``_flash_dense_cuda``, ``_flash_dense_bwd_cuda``, ``_flash_sched_cuda``;
+    older trees have them too), with SDPA's (forward; backward; the
+    boolean mask of the lanes) on the same tensors and the kernels each
+    call launched."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(31)
+
+    def ran(fn):
+        """The names of the kernels one call of ``fn`` launches."""
+        before = {n: k.launches for n, k in _build.KERNELS.items()}
+        fn()
+        torch.cuda.synchronize()
+        return sorted(n for n, k in _build.KERNELS.items()
+                      if k.launches != before[n])
+
     out = {}
     for key in TF32X3_HEAD_DIMS:
         b, s, h, kvh, hd, window = SIMT_DENSE_SHAPES[key]
         q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev)
                    for n in (h, kvh, kvh))
-        out[key] = dict(
-            shape=[b, s, h, kvh, hd], route=fa.flash_route(torch.float32, hd),
-            ms_b2b=cuda_ms_b2b(lambda: fa._flash_dense_cuda(
-                q, k, v, causal=True, window=window), REPS),
-            sdpa_ms_b2b=cuda_ms_b2b(sdpa_fn(q, k, v, window), REPS))
+
+        def fwd():
+            return fa._flash_dense_cuda(q, k, v, causal=True, window=window)
+
+        out[key] = dict(shape=[b, s, h, kvh, hd], kernels=ran(fwd),
+                        ms_b2b=cuda_ms_b2b(fwd, REPS),
+                        sdpa_ms_b2b=cuda_ms_b2b(sdpa_fn(q, k, v, window),
+                                                REPS))
         del q, k, v
-    b, s, h, kvh, hd = SIMT_BWD_SHAPE
-    q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
-                   for n in (h, kvh, kvh, h))
-    o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=0,
-                                  with_lse=True)
-    out["bwd"] = dict(
-        shape=[b, s, h, kvh, hd], route=fa.flash_route(torch.float32, hd),
-        ms_b2b=cuda_ms_b2b(lambda: fa._flash_dense_bwd_cuda(
-            q, k, v, o, do, lse, causal=True, window=0), 5),
-        sdpa_ms_b2b=cuda_ms_b2b(sdpa_grad_fns(q, k, v, do, 0)[0], 5))
+    for name, (b, s, h, kvh, hd), window in (
+            ("bwd", SIMT_BWD_SHAPE, 0),
+            ("bwd_256", SIMT_DENSE_SHAPES["256"][:5],
+             SIMT_DENSE_SHAPES["256"][5])):
+        q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                       for n in (h, kvh, kvh, h))
+        o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=window,
+                                      with_lse=True)
+
+        def bwd():
+            return fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
+                                            window=window)
+
+        out[name] = dict(shape=[b, s, h, kvh, hd], window=window,
+                         kernels=ran(bwd), ms_b2b=cuda_ms_b2b(bwd, 5),
+                         sdpa_ms_b2b=cuda_ms_b2b(
+                             sdpa_grad_fns(q, k, v, do, window)[0], 5))
+        del q, k, v, do, o, lse
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    kv_lens = np.random.default_rng(0).integers(64, S + 1, size=B)
+    kv_lens[0] = S
+    q, k, v = (torch.randn(B, S, n, HD, generator=gen, device=dev)
+               for n in (H, KVH, KVH))
+    desc, plan = fa._plan_kv_descriptors(
+        B * H, S, 512, 512, causal=True, window=0,
+        kv_lens=np.repeat(kv_lens, H), schedule="fac2", p=n_sm)
+    bounds = fa.descriptor_bounds(desc, plan)
+
+    def sched():
+        return fa._flash_sched_cuda(q, k, v, desc, bounds, block_q=512,
+                                    block_k=512, causal=True, window=0)
+
+    out["sched"] = dict(
+        shape=[B, S, H, KVH, HD], kernels=ran(sched),
+        ms_b2b=cuda_ms_b2b(sched, 5),
+        sdpa_ms_b2b=cuda_ms_b2b(
+            sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev)), 3))
     return out
 
 
@@ -3104,11 +3219,13 @@ def simt_flash_rows(dev, n_sm):
     tensor cores at head dims 64, 80 and 128 (route "tf32x3", with the
     general kernel's run on the same tensors beside each) and on the
     general kernel at head dim 256 (recurrentgemma-2b's window); ragged in
-    a fac2 plan at the main path's lanes (sched_p = SM count; the general
-    kernel); the backward at SIMT_BWD_SHAPE (tensor cores, the general
-    backward beside it) and at recurrentgemma-2b's shape (general).  Each
-    against its plain version, with SDPA in fp32 (TF32 off) on the same
-    tensors as the yardstick; ``flash32_digest``."""
+    a fac2 plan at the main path's lanes (sched_p = SM count, the plan made
+    beforehand; ``flash_sched_f32``, the general kernel beside it, and bits
+    equal under static / 8 and gss / 1); the backward at SIMT_BWD_SHAPE and
+    at recurrentgemma-2b's shape (tensor cores, the hd-256 one on cluster
+    pairs; the general backward beside each).  Each against its plain
+    version, with SDPA in fp32 (TF32 off) on the same tensors as the
+    yardstick; ``flash32_digests``."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -3155,21 +3272,32 @@ def simt_flash_rows(dev, n_sm):
     pairs = sum(H * int(np.minimum(np.arange(1, S + 1), lim).sum())
                 for lim in kv_lens)
 
-    def sched():
-        return flash_attention(q, k, v, causal=True, schedule="fac2",
-                               kv_lens=kv_lens, sched_p=n_sm)
+    desc, plan = fa._plan_kv_descriptors(
+        B * H, S, 512, 512, causal=True, window=0,
+        kv_lens=np.repeat(kv_lens, H), schedule="fac2", p=n_sm)
+    bounds = fa.descriptor_bounds(desc, plan)
 
-    rows["sched"] = dict(shape=[B, S, H, KVH, HD], kv_lens=kv_lens.tolist(),
-                         **measured(
-        "flash_sched_simt", fa.FLASH_SCHED_SIMT, sched,
-        lambda: fa.flash_attention_sched_plain(
-            *fa.broadcast_flatten(q, k, v), kv_lens=np.repeat(kv_lens, H),
-            causal=True).reshape(B, H, S, HD).permute(0, 2, 1, 3),
-        sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev)), 4 * HD * pairs,
+    def sched(launcher=fa._flash_sched_cuda):
+        return lambda: launcher(q, k, v, desc, bounds, block_q=512,
+                                block_k=512, causal=True, window=0)
+
+    flops = 4 * HD * pairs
+    args = (lambda: fa.flash_attention_sched_plain(
+        *fa.broadcast_flatten(q, k, v), kv_lens=np.repeat(kv_lens, H),
+        causal=True).reshape(B, H, S, HD).permute(0, 2, 1, 3),
+        sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev)), flops,
         4 * (2 * B * S * H * HD
              + 2 * KVH * HD * int(np.minimum(kv_lens, S).sum())),
-        torch.float32, SIMT_FLASH_TOL, reps=5))
-    out = sched()
+        torch.float32, SIMT_FLASH_TOL)
+    simt = measured("flash_sched_simt", fa.FLASH_SCHED_SIMT,
+                    sched(fa._flash_sched_simt_cuda), *args, reps=5)
+    rows["sched"] = dict(
+        shape=[B, S, H, KVH, HD], kv_lens=kv_lens.tolist(),
+        **measured("flash_sched_f32", fa.FLASH_SCHED_F32, sched(), *args,
+                   reps=5), bound_ms_tf32x3=tf32x3_bound(flops), simt=simt)
+    out = flash_attention(q, k, v, causal=True, schedule="fac2",
+                          kv_lens=kv_lens, sched_p=n_sm)
+    assert torch.equal(out, sched()())
     for tech, p in (("static", 8), ("gss", 1)):
         assert torch.equal(flash_attention(
             q, k, v, causal=True, schedule=tech, kv_lens=kv_lens,
@@ -3185,7 +3313,8 @@ def simt_flash_rows(dev, n_sm):
             rnd(b, s, kvh, hd), rnd(b, s, h, hd)
         o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=window,
                                       with_lse=True)
-        route = fa._check_kernel_inputs("flash_dense", q, k, v)
+        route = fa.flash_bwd_route(torch.float32, hd)
+        kernel = fa.FLASH_F32_BWD_BY_ROUTE[route][0]
 
         def backward():
             return fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
@@ -3206,15 +3335,109 @@ def simt_flash_rows(dev, n_sm):
             bwd_bytes(b, s, h, kvh, hd), torch.float32, SIMT_FLASH_TOL)
         simt = measured(f"flash_simt_bwd hd {hd}", fa.FLASH_SIMT_BWD_DKDV,
                         simt_backward, *args, reps=5)
-        row = simt
-        if route == "tf32x3":
-            row = dict(measured("flash_f32_bwd", fa.FLASH_F32_BWD_DKDV,
-                                backward, *args, reps=5),
-                       bound_ms_tf32x3=tf32x3_bound(flops), simt=simt)
         rows[name] = dict(shape=[b, s, h, kvh, hd], window=window,
-                          route=route, **row)
+                          route=route, **measured(
+                              f"{kernel.name} hd {hd}", kernel, backward,
+                              *args, reps=5),
+                          bound_ms_tf32x3=tf32x3_bound(flops), simt=simt)
         del q, k, v, do, o, lse, sdpa_bwd
-    rows["flash32_digest"] = flash32_digest(dev)
+    rows.update(flash32_digests(dev))
+    assert rows["flash32_digest"] == PARENT_FLASH32_DIGEST, rows
+    return rows
+
+
+def fp16_flash_rows(dev, n_sm):
+    """fp16 flash attention, which runs the general kernels: the fp16 path
+    with the counts from 0 before it and read after (``flash_attention``
+    with a schedule at the main path's lanes, fac2, sched_p = SM count;
+    dense attention at SIMT_BWD_SHAPE forward and backward under
+    autograd; FP16_PATH_LAUNCHES), then each kernel against its plain
+    version at FP16_FLASH_TOL and timed against SDPA in fp16 on the same
+    tensors: dense at qwen3-4b's prefill (SIMT_DENSE_SHAPES["128"]), the
+    scheduled call (plan made beforehand) and the backward.  Beside each
+    bound (operations at the tensor cores' fp16 rate), the bound at the
+    CUDA cores' fp32 FMA rate the kernels compute at."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).half()
+
+    kv_lens = np.random.default_rng(0).integers(64, S + 1, size=B)
+    kv_lens[0] = S
+    q, k, v = rnd(B, S, H, HD), rnd(B, S, KVH, HD), rnd(B, S, KVH, HD)
+    b, s, h, kvh, hd = SIMT_BWD_SHAPE
+    tq, tk, tv, tdo = (rnd(b, s, n, hd) for n in (h, kvh, kvh, h))
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    attn = flash_attention(q, k, v, causal=True, schedule="fac2",
+                           kv_lens=kv_lens, sched_p=n_sm)
+    dense = flash_attention(*leaves, causal=True)
+    dense.backward(tdo)
+    torch.cuda.synchronize()
+    launches = {n: kern.launches for n, kern in _build.KERNELS.items()
+                if kern.launches}
+    assert launches == FP16_PATH_LAUNCHES, launches
+    for x in (attn, dense, *(x.grad for x in leaves)):
+        assert x.dtype == torch.float16 and bool(torch.isfinite(x).all())
+    del attn, dense, leaves
+    rows = {"launches": launches}
+
+    def with_fma(row, flops):
+        return dict(row, bound_ms_fp32_fma=1e3 * flops / PEAK_FP32_FLOPS)
+
+    # dense forward, qwen3-4b's prefill
+    b, s, h, kvh, hd, window = SIMT_DENSE_SHAPES["128"]
+    xq, xk, xv = rnd(b, s, h, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd)
+    flops = 4 * hd * b * h * live_pairs(s, window)
+    rows["dense"] = dict(shape=[b, s, h, kvh, hd], **with_fma(measured(
+        "flash_dense_simt fp16", fa.FLASH_DENSE_SIMT,
+        lambda: fa._flash_dense_cuda(xq, xk, xv, causal=True, window=0),
+        lambda: plain_attention(xq, xk, xv).half(),
+        sdpa_fn(xq, xk, xv, 0), flops,
+        2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd), torch.float16,
+        FP16_FLASH_TOL, reps=5), flops))
+    del xq, xk, xv
+    # the scheduled call at the main path's lanes
+    desc, plan = fa._plan_kv_descriptors(
+        B * H, S, 512, 512, causal=True, window=0,
+        kv_lens=np.repeat(kv_lens, H), schedule="fac2", p=n_sm)
+    bounds = fa.descriptor_bounds(desc, plan)
+    pairs = sum(H * int(np.minimum(np.arange(1, S + 1), lim).sum())
+                for lim in kv_lens)
+    flops = 4 * HD * pairs
+    rows["sched"] = dict(shape=[B, S, H, KVH, HD], **with_fma(measured(
+        "flash_sched_simt fp16", fa.FLASH_SCHED_SIMT,
+        lambda: fa._flash_sched_cuda(q, k, v, desc, bounds, block_q=512,
+                                     block_k=512, causal=True, window=0),
+        lambda: fa.flash_attention_sched_plain(
+            *fa.broadcast_flatten(q, k, v), kv_lens=np.repeat(kv_lens, H),
+            causal=True).reshape(B, H, S, HD).permute(0, 2, 1, 3),
+        sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev)), flops,
+        2 * (2 * B * S * H * HD
+             + 2 * KVH * HD * int(np.minimum(kv_lens, S).sum())),
+        torch.float16, FP16_FLASH_TOL, reps=5), flops))
+    del q, k, v
+    # the backward at qwen3-4b's training shape
+    b, s, h, kvh, hd = SIMT_BWD_SHAPE
+    o, lse = fa._flash_dense_cuda(tq, tk, tv, causal=True, window=0,
+                                  with_lse=True)
+    flops = 10 * hd * b * h * live_pairs(s, 0)
+    rows["bwd"] = dict(shape=[b, s, h, kvh, hd], **with_fma(measured(
+        "flash_simt_bwd fp16", fa.FLASH_SIMT_BWD_DKDV,
+        lambda: fa._flash_dense_bwd_cuda(tq, tk, tv, o, tdo, lse,
+                                         causal=True, window=0),
+        lambda: tuple(x.half() for x in fa.flash_attention_dense_bwd_plain(
+            tq, tk, tv, tdo)),
+        sdpa_grad_fns(tq, tk, tv, tdo, 0)[0], flops,
+        2 * (4 * b * s * h * hd + 4 * b * s * kvh * hd) + 4 * b * h * s,
+        torch.float16, FP16_FLASH_TOL, reps=3), flops))
+    del tq, tk, tv, tdo, o, lse
     return rows
 
 
@@ -3243,8 +3466,9 @@ def fp32_model_path(dev, n_sm):
     """The path of a float32 model above flash_threshold, counts from 0
     before it and read after: ``flash_attention`` with a schedule at the
     main path's lanes in fp32, dense attention at recurrentgemma-2b's
-    local-attention shape (hd 256, window 2048; the general kernels)
-    forward and backward, then one loss and gradient of qwen3-4b and of
+    local-attention shape (hd 256, window 2048; the general forward, the
+    backward on the tensor cores' cluster pairs) forward and backward,
+    then one loss and gradient of qwen3-4b and of
     qwen3-moe-30b-a3b (ragged dispatch) at full width, FP32_MODEL_LAYERS
     layers, compute_dtype "float32", on TRAIN_BATCH x TRAIN_S tokens.
     The peak allocated memory of that run, weights included.  Then,
@@ -3342,8 +3566,9 @@ def fp32_model_path(dev, n_sm):
 
 def phase_kernels_any_dtype(dev, n_sm):
     """The general kernels against their plain versions at every dtype and
-    shape of this slice, the off-block path (counted), then the fp32 model
-    path (counted).  Returns the rows and the paths' launch counts."""
+    shape of this slice, the off-block path (counted), fp32 flash, fp16
+    flash (counted), then the fp32 model path (counted).  Returns the rows
+    and the paths' launch counts."""
     import torch
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3352,12 +3577,14 @@ def phase_kernels_any_dtype(dev, n_sm):
     assert digest == PARENT_GMM_DIGEST, (digest, PARENT_GMM_DIGEST)
     off_block = off_block_path(dev, n_sm)
     flash_rows = simt_flash_rows(dev, n_sm)
+    fp16_rows = fp16_flash_rows(dev, n_sm)
     model = fp32_model_path(dev, n_sm)
     emit("kernels_any_dtype", seconds=time.perf_counter() - t0,
          gmm=gmm_rows, gmm_digest=digest,
          gmm_digest_parent=PARENT_GMM_DIGEST, off_block_path=off_block,
-         flash=flash_rows, model_path=model)
-    return gmm_rows, flash_rows, model["launches"], off_block["launches"]
+         flash=flash_rows, flash_fp16=fp16_rows, model_path=model)
+    return (gmm_rows, flash_rows, fp16_rows, model["launches"],
+            off_block["launches"])
 
 
 EXAMPLE_RUNNER = """
@@ -3501,7 +3728,7 @@ def main(argv) -> int:
              "--bwd-times": bwd_times, "--moe-bwd-times": moe_bwd_times,
              "--yardsticks": yardsticks, "--serve-times": serve_times,
              "--gmm-digest": gmm_digest, "--gmm-times": gmm_times,
-             "--flash32-digest": flash32_digest,
+             "--flash32-digest": flash32_digests,
              "--flash32-times": flash32_times,
              "--sdpa32-kernels": sdpa32_kernels}
     mode = modes.get(argv[0]) if argv else None
@@ -3861,8 +4088,9 @@ def main(argv) -> int:
     moe_train_launches, moe_bwd = phase_moe_train(dev, n_sm)
 
     # ---- this slice: every dtype and shape, and the examples ------------
-    simt_gmm, simt_flash, fp32_launches, any_launches = (
+    simt_gmm, simt_flash, fp16_flash, fp32_launches, any_launches = (
         phase_kernels_any_dtype(dev, n_sm))
+    fp16_launches = fp16_flash["launches"]
     torch.cuda.empty_cache()
     examples = phase_examples(dev)
     demo_launches = examples["torch_moe_balance_demo"]["launches"]
@@ -4060,32 +4288,63 @@ def main(argv) -> int:
             bound_ms_fp32_fma=simt_flash["bwd"]["bound_ms"],
             general_kernel=tf32x3_summary(simt_flash["bwd"])["simt"]),
         simt_entry(
-            "flash_dense_simt", simt_src + "flash_simt.cu",
-            "src/repro/kernels/flash_attention/flash_attention.py:51",
-            simt_flash["dense"]["256"],
-            {"fp32_model": fp32_launches["flash_dense_simt"]},
-            shape=simt_flash["dense"]["256"]["shape"],
-            window=simt_flash["dense"]["256"]["window"],
-            by_head_dim={k: r.get("simt", r)
-                         for k, r in simt_flash["dense"].items()}),
-        simt_entry(
-            "flash_sched_simt", simt_src + "flash_simt.cu",
+            "flash_sched_f32", simt_src + "flash_f32.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:168",
             simt_flash["sched"],
-            {"fp32_model": fp32_launches["flash_sched_simt"]},
-            shape=simt_flash["sched"]["shape"]),
+            {"fp32_model": fp32_launches["flash_sched_f32"]},
+            shape=simt_flash["sched"]["shape"], flash_route="tf32x3",
+            bound_ms=simt_flash["sched"]["bound_ms_tf32x3"],
+            bound_ms_fp32_fma=simt_flash["sched"]["bound_ms"],
+            general_kernel=tf32x3_summary(simt_flash["sched"])["simt"],
+            flash32_sched_digest=simt_flash["flash32_sched_digest"]),
         simt_entry(
-            "flash_simt_bwd", simt_src + "flash_simt_bwd.cu",
+            "flash_f32_bwd256", simt_src + "flash_f32_bwd.cu",
             "src/repro/models/attention.py:191", simt_flash["bwd_256"],
-            {"fp32_model": fp32_launches["flash_simt_bwd_dkdv"]},
+            {"fp32_model": fp32_launches["flash_f32_bwd256_dkdv"]},
             replaces_note="no Pallas kernel: the reference differentiates "
                           "_attend_flash by autodiff",
             launches_by_kernel={n: fp32_launches[n] for n in (
-                "flash_simt_bwd_delta", "flash_simt_bwd_dkdv",
-                "flash_simt_bwd_dq")},
+                "flash_f32_bwd256_dkdv", "flash_f32_bwd256_dq")},
             shape=simt_flash["bwd_256"]["shape"],
             window=simt_flash["bwd_256"]["window"],
-            at_training_shape=simt_flash["bwd"]["simt"]),
+            flash_route="tf32x3_256",
+            bound_ms=simt_flash["bwd_256"]["bound_ms_tf32x3"],
+            bound_ms_fp32_fma=simt_flash["bwd_256"]["bound_ms"],
+            general_kernel=tf32x3_summary(simt_flash["bwd_256"])["simt"],
+            flash32_bwd256_digest=simt_flash["flash32_bwd256_digest"]),
+        simt_entry(
+            "flash_dense_simt", simt_src + "flash_simt.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:51",
+            simt_flash["dense"]["256"],
+            {"fp32_model": fp32_launches["flash_dense_simt"],
+             "fp16": fp16_launches["flash_dense_simt"]},
+            shape=simt_flash["dense"]["256"]["shape"],
+            window=simt_flash["dense"]["256"]["window"],
+            by_head_dim={k: r.get("simt", r)
+                         for k, r in simt_flash["dense"].items()},
+            fp16=fp16_flash["dense"]),
+        simt_entry(
+            "flash_sched_simt", simt_src + "flash_simt.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:168",
+            fp16_flash["sched"],
+            {"fp16": fp16_launches["flash_sched_simt"]},
+            shape=fp16_flash["sched"]["shape"],
+            bound_ms_fp32_fma=fp16_flash["sched"]["bound_ms_fp32_fma"],
+            fp32=tf32x3_summary(simt_flash["sched"])["simt"]),
+        simt_entry(
+            "flash_simt_bwd", simt_src + "flash_simt_bwd.cu",
+            "src/repro/models/attention.py:191", fp16_flash["bwd"],
+            {"fp16": fp16_launches["flash_simt_bwd_dkdv"]},
+            replaces_note="no Pallas kernel: the reference differentiates "
+                          "_attend_flash by autodiff",
+            launches_by_kernel={n: fp16_launches[n] for n in (
+                "flash_simt_bwd_dkdv", "flash_simt_bwd_dq")} | {
+                "flash_simt_bwd_delta": fp16_launches["flash_simt_bwd_delta"]
+                + fp32_launches["flash_simt_bwd_delta"]},
+            shape=fp16_flash["bwd"]["shape"],
+            bound_ms_fp32_fma=fp16_flash["bwd"]["bound_ms_fp32_fma"],
+            fp32_hd256=tf32x3_summary(simt_flash["bwd_256"])["simt"],
+            fp32_training_shape=simt_flash["bwd"]["simt"]),
     ]
     for kern in kernels:
         assert all(math.isfinite(kern[x]) for x in

@@ -1,12 +1,14 @@
-// Dense causal / sliding-window flash-attention forward in fp32 on Hopper's
-// tensor cores (sm_90a): TMA, wgmma .tf32 and a three-term TF32 split.
+// Flash-attention forward in fp32 on Hopper's tensor cores (sm_90a): TMA,
+// wgmma .tf32 and a three-term TF32 split, with two entry points, dense
+// (causal / sliding-window) and schedule-aware.
 //
-// Replaces: _flash_kernel in src/repro/kernels/flash_attention/
-// flash_attention.py (entry flash_attention_bhsd) for fp32 calls at a head
-// dim that is a multiple of 8 up to 128 with strides and alignment TMA can
-// describe (the configs' 64, 80 and 128).  fp32 at head dim 256 or at
-// shapes TMA cannot describe, fp16, and the schedule-aware entry stay on
-// flash_simt.cu.
+// Replaces: _flash_kernel (dense, entry flash_attention_bhsd) and
+// _flash_sched_kernel (ragged KV in DLS plan order, entry
+// flash_attention_sched_bhsd) in src/repro/kernels/flash_attention/
+// flash_attention.py for fp32 calls at a head dim that is a multiple of 8
+// up to 128 with strides and alignment TMA can describe (the configs' 64,
+// 80 and 128).  fp32 at head dim 256 or at shapes TMA cannot describe, and
+// fp16, stay on flash_simt.cu.
 //
 // What bounds it on an H100: operations on the tensor cores.  Each product
 // is three TF32 products (tf32_common.cuh: hi hi + hi lo + lo hi, about
@@ -58,8 +60,28 @@
 //     flash_f32_bwd.cu.
 //   * Every element of the output is the same sequence of wgmmas over the
 //     same tiles whatever the launch, so the output is deterministic.
+//
+// Schedule-aware entry (flash_sched_f32): flash_sched.cu's persistent walk
+// (sched_walk.cuh) on these tiles.  The split copies of K and V are made
+// once per call, before the walk; then the grid has p CTAs, one per plan
+// worker, and CTA w walks the descriptors [bounds[w], bounds[w+1]), its
+// share of the plan, in 128-row q tiles (units), the producer and the
+// consumers through the same Walk.  A unit's kv tiles start at an
+// NKV-aligned column (the permuted V^T copy's 8-groups are aligned), the
+// columns below its group's first and past its group's end (its last kv
+// block, s, the lane's `lim`) masked; tiles dead for every row of the unit
+// are never loaded.  Q is single-buffered: each unit's Q tile is split
+// resident as above, and the consumers hand it back (q_empty) after the
+// unit's last S, so the producer loads the next unit's Q while they run
+// the last P V; the ring's phases carry on across units.  Only the unit's
+// rows are written (below its q block's end and s), a row with no live
+// column as 0.  A unit's result depends on the unit alone, so the output
+// is bit-identical for every schedule and every p.
+
+#include <type_traits>
 
 #include "tf32_common.cuh"
+#include "sched_walk.cuh"
 
 namespace {
 
@@ -86,7 +108,8 @@ struct Layout {
   static constexpr int Q = 0;
   static constexpr int KV = QBYTES;
   static constexpr int BAR = KV + NST * STAGE;
-  static constexpr int BYTES = BAR + (1 + 3 * NST) * 8 + 1024;  // + align
+  // q_full, q_empty (schedule-aware), then k_full, v_full, empty a stage
+  static constexpr int BYTES = BAR + (2 + 3 * NST) * 8 + 1024;  // + align
 };
 
 struct F32Params {
@@ -95,6 +118,22 @@ struct F32Params {
   long long o_sb, o_sh, o_ss;
   int lanes, nq, s, H, group, hd, causal, window;
   float scale_log2;   // softmax scale * log2(e)
+};
+
+struct SchedF32Params {
+  float* o;
+  long long o_sb, o_sh, o_ss;
+  const int* desc;     // 6 x G int32: bi, qi, kj, first, last, lim
+  const int* bounds;   // p + 1 int32: CTA w owns descriptors [b[w], b[w+1])
+  int G, s, H, group, hd, block_q, block_k, causal, window;
+  float scale_log2;
+};
+
+// what softmax<> masks: columns below lo or at or past end, above the
+// diagonal, outside the window
+struct MaskParams {
+  int lo, end, causal, window;
+  float scale_log2;
 };
 
 // S = Q K^T for consumer c's 64 rows on its turn: Q_hi (registers) K_lo,
@@ -127,15 +166,15 @@ __device__ __forceinline__ void issue_s(float* sacc,
 
 // scores of this thread (m64n{NKV} accumulator layout) -> P = exp2(S scale
 // log2(e) - m) as hi / lo A fragments of the NKV / 8 permuted 8-groups;
-// updates m, l (log2 domain) and rescales o.  MASK: columns >= s, above
-// the diagonal or outside the window get NEG_INF first.
+// updates m, l (log2 domain) and rescales o.  MASK: the columns MaskParams
+// names get NEG_INF first.
 template <int HDW, bool MASK, int NKV>
 __device__ __forceinline__ void softmax(float* sacc, float (&m)[2],
                                         float (&l)[2], float* o,
                                         uint32_t (&phi)[NKV / 8][4],
                                         uint32_t (&plo)[NKV / 8][4], int col0,
                                         int r_lo, int lane,
-                                        const F32Params& P) {
+                                        const MaskParams& P) {
   float mx[2];
   if constexpr (MASK) {
     mx[0] = m[0];
@@ -144,7 +183,7 @@ __device__ __forceinline__ void softmax(float* sacc, float (&m)[2],
     for (int v = 0; v < NKV / 2; ++v) {
       const int row = r_lo + 8 * ((v >> 1) & 1);
       const int col = col0 + 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
-      bool ok = col < P.s;
+      bool ok = col >= P.lo && col < P.end;
       if (P.causal) ok = ok && col <= row;
       if (P.window > 0) ok = ok && (row - col) < P.window;
       const float x = ok ? sacc[v] * P.scale_log2 : NEG_INF;
@@ -208,6 +247,37 @@ __device__ __forceinline__ void issue_pv(float* o, uint32_t (&phi)[NKV / 8][4],
   fence_regs<HDW / 2>(o);
   fence_regs<NKV / 2>(&phi[0][0]);
   fence_regs<NKV / 2>(&plo[0][0]);
+}
+
+// out = o / l for this thread's rows r_lo and r_lo + 8 below `rend` and
+// the columns below hd; rows that never saw a live column (m <= NEG_INF /
+// 2) are written as 0.  With `lse` (the lane's row) each row's
+// log-sum-exp (m + log2 l) ln 2 too, +inf for a dead row.
+template <int HDW>
+__device__ __forceinline__ void store_rows(float* ob, long long o_ss,
+                                           const float* o, const float (&m)[2],
+                                           const float (&l)[2], int r_lo,
+                                           int rend, int lane, int hd,
+                                           float* lse) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = r_lo + 8 * j;
+    if (row >= rend) continue;
+    const bool alive = m[j] > NEG_INF * 0.5f;
+    const float lc = fmaxf(l[j], 1e-30f);
+#pragma unroll
+    for (int nt = 0; nt < HDW / 8; ++nt) {
+      if (nt * 8 >= hd) break;
+      const int col = nt * 8 + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(ob + row * o_ss + col) =
+          alive ? make_float2(o[4 * nt + 2 * j] / lc,
+                              o[4 * nt + 2 * j + 1] / lc)
+                : make_float2(0.f, 0.f);
+    }
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[row] = alive ? (m[j] + log2f(lc)) * 0.6931471805599453f
+                       : __int_as_float(0x7f800000);
+  }
 }
 
 template <int HDW, int NKV>
@@ -294,6 +364,7 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     float m[2] = {NEG_INF, NEG_INF};
     float l[2] = {0.f, 0.f};
 
+    const MaskParams mp{0, P.s, P.causal, P.window, P.scale_log2};
     mbar_wait(q_full, 0);
     uint32_t qhi[HDW / 8][4];
     split_resident<HDW>(smem + L::Q, L::QBOX, 64 * c, qhi, tq, QSPLIT + c);
@@ -315,9 +386,10 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
 
       uint32_t phi[NKV / 8][4], plo[NKV / 8][4];
       if (mask)
-        softmax<HDW, true, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane, P);
+        softmax<HDW, true, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane, mp);
       else
-        softmax<HDW, false, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane, P);
+        softmax<HDW, false, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane,
+                                 mp);
 
       mbar_wait(&v_full[s], ph);
       issue_pv<HDW, NKV>(o, phi, plo,
@@ -329,56 +401,243 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     // consumer 1's last hand-over is taken here, so every turn is matched
     if (c == 0) named_bar_sync(TURN, 256);
 
-    // out = o / l for the rows below s and the columns below hd; rows that
-    // never saw a live column (m <= NEG_INF / 2) are written as 0
-    float* ob = P.o + b * P.o_sb + hh * P.o_sh;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int row = r_lo + 8 * j;
-      if (row >= P.s) continue;
-      const bool alive = m[j] > NEG_INF * 0.5f;
-      const float lc = fmaxf(l[j], 1e-30f);
-#pragma unroll
-      for (int nt = 0; nt < HDW / 8; ++nt) {
-        if (nt * 8 >= P.hd) break;
-        const int col = nt * 8 + 2 * (lane & 3);
-        *reinterpret_cast<float2*>(ob + row * P.o_ss + col) =
-            alive ? make_float2(o[4 * nt + 2 * j] / lc,
-                                o[4 * nt + 2 * j + 1] / lc)
-                  : make_float2(0.f, 0.f);
-      }
-      if (P.lse != nullptr && (lane & 3) == 0)
-        P.lse[static_cast<long long>(lane_id) * P.s + row] =
-            alive ? (m[j] + log2f(lc)) * 0.6931471805599453f
-                  : __int_as_float(0x7f800000);
-    }
+    store_rows<HDW>(P.o + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m, l, r_lo,
+                    P.s, lane, P.hd,
+                    P.lse == nullptr
+                        ? nullptr
+                        : P.lse + static_cast<long long>(lane_id) * P.s);
   }
 }
 
+// The schedule-aware kernel: the walk over the plan's descriptors
+// (sched_walk.cuh) on flash_f32_kernel's tiles, persistent over p CTAs
 template <int HDW, int NKV>
-int launch_hd(const float* q, const float* khi, const float* klo,
-              const float* vthi, const float* vtlo, int batch, int kvh,
-              int s_pad, const long long* qs, const F32Params& P,
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_sched_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap khimap,
+                       const __grid_constant__ CUtensorMap klomap,
+                       const __grid_constant__ CUtensorMap vhimap,
+                       const __grid_constant__ CUtensorMap vlomap,
+                       const SchedF32Params P) {
+  using L = Layout<HDW, NKV>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_full + 2;
+  uint64_t* v_full = k_full + NST;
+  uint64_t* empty = v_full + NST;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMER_WARPS);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  sched_walk::Walk<BQ> w(P, blockIdx.x);
+  int it = 0;   // kv tiles so far: stage it % NST, phase it / NST
+  int qn = 0;   // Q tiles so far: phase qn
+  if (wg == 0) {
+    // ---- producer ----
+    reg_dealloc<24>();
+    if (tid == 0) {
+      while (w.next<NKV, true>(P)) {
+        if (w.ntiles == 0) continue;
+        const int b = w.lane_id / P.H;
+        const int hh = w.lane_id % P.H;
+        const int kvh = hh / P.group;
+        mbar_wait(q_empty, (qn & 1) ^ 1);
+        mbar_expect_tx(q_full, L::QBYTES);
+        for (int j = 0; j < L::HDP / 32; ++j)
+          tma_load_4d(smem + L::Q + j * L::QBOX, &qmap, q_full, 32 * j,
+                      w.row0, hh, b);
+        ++qn;
+        for (int i = 0; i < w.ntiles; ++i, ++it) {
+          const int s = it % NST;
+          const int col0 = w.tile0 + i * NKV;
+          unsigned char* st = smem + L::KV + s * L::STAGE;
+          mbar_wait(&empty[s], ((it / NST) & 1) ^ 1);
+          mbar_expect_tx(&k_full[s], 2 * L::KBYTES);
+          for (int j = 0; j < L::HDP / 32; ++j) {
+            tma_load_4d(st + j * L::KBOX, &khimap, &k_full[s], 32 * j, col0,
+                        kvh, b);
+            tma_load_4d(st + L::KBYTES + j * L::KBOX, &klomap, &k_full[s],
+                        32 * j, col0, kvh, b);
+          }
+          mbar_expect_tx(&v_full[s], 2 * L::VBYTES);
+          for (int j = 0; j < NKV / 32; ++j) {
+            tma_load_4d(st + 2 * L::KBYTES + j * L::VBOX, &vhimap, &v_full[s],
+                        col0 + 32 * j, 0, kvh, b);
+            tma_load_4d(st + 2 * L::KBYTES + L::VBYTES + j * L::VBOX,
+                        &vlomap, &v_full[s], col0 + 32 * j, 0, kvh, b);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: rows 64 c .. 64 c + 63 of each unit ----
+    reg_alloc<240>();
+    const int c = wg - 1;
+    const int tq = tid % 128;
+    const int lane = tid % 32;
+    const uint64_t dq = smem_desc(smem + L::Q + c * 64 * 128, 16, 1024);
+    // the consumers take turns to issue S = Q K^T across every unit;
+    // consumer 0 goes first
+    if (c == 1) named_bar_arrive(TURN, 256);
+
+    while (w.next<NKV, true>(P)) {
+      const int r0 = w.row0 + 64 * c;
+      const int r_lo = r0 + 16 * (tq / 32) + lane / 4;   // and r_lo + 8
+      const MaskParams mp{w.c_lo, w.c_end, P.causal, P.window, P.scale_log2};
+      float o[HDW / 2];
+#pragma unroll
+      for (int v = 0; v < HDW / 2; ++v) o[v] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF};
+      float l[2] = {0.f, 0.f};
+
+      uint32_t qhi[HDW / 8][4];
+      if (w.ntiles > 0) {
+        mbar_wait(q_full, qn & 1);
+        ++qn;
+        split_resident<HDW>(smem + L::Q, L::QBOX, 64 * c, qhi, tq,
+                            QSPLIT + c);
+      }
+      for (int i = 0; i < w.ntiles; ++i, ++it) {
+        const int s = it % NST;
+        const uint32_t ph = (it / NST) & 1;
+        const int col0 = w.tile0 + i * NKV;
+        const bool mask = col0 < w.c_lo || col0 + NKV > w.c_end ||
+                          (P.causal && col0 + NKV - 1 > r0) ||
+                          (P.window > 0 && r0 + 63 - col0 >= P.window);
+        unsigned char* st = smem + L::KV + s * L::STAGE;
+
+        // S = Q K^T; after the unit's last one, Q goes back to the producer
+        float sacc[NKV / 2];
+        mbar_wait(&k_full[s], ph);
+        issue_s<HDW, NKV>(sacc, qhi, dq, smem_desc(st, 16, 1024),
+                          smem_desc(st + L::KBYTES, 16, 1024), c);
+        if (i == w.ntiles - 1 && lane == 0) mbar_arrive(q_empty);
+
+        uint32_t phi[NKV / 8][4], plo[NKV / 8][4];
+        if (mask)
+          softmax<HDW, true, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane,
+                                  mp);
+        else
+          softmax<HDW, false, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane,
+                                   mp);
+
+        mbar_wait(&v_full[s], ph);
+        issue_pv<HDW, NKV>(o, phi, plo,
+                           smem_desc(st + 2 * L::KBYTES, 16, 1024),
+                           smem_desc(st + 2 * L::KBYTES + L::VBYTES, 16, 1024));
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+
+      // the unit's rows only; dead rows (no live column) are written as 0
+      const int b = w.lane_id / P.H;
+      const int hh = w.lane_id % P.H;
+      store_rows<HDW>(P.o + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m, l, r_lo,
+                      w.rend, lane, P.hd, nullptr);
+    }
+
+    // consumer 1's last hand-over is taken here, so every turn is matched
+    if (c == 0) named_bar_sync(TURN, 256);
+  }
+}
+
+// a call's operands after the split copies: q in place, K hi / lo
+// (b, s, kvh, hd), V^T hi / lo (b, kvh, hd, s_pad)
+struct Operands {
+  const float *q, *khi, *klo, *vthi, *vtlo;
+  long long qs[3];   // q's (batch, head, row) strides
+  int batch, s, H, kvh, hd, s_pad;
+};
+
+// validates the shape, writes K's and V's split copies into the scratch
+// (tf32_common.cuh, split_kernel) and fills `ops`
+int split_operands(Operands& ops, const void* q, const void* k,
+                   const void* v, void* khi, void* klo, void* vthi,
+                   void* vtlo, int s_pad, int batch, int s, int H, int group,
+                   int hd, const long long* str, cudaStream_t st) {
+  if (batch <= 0 || s <= 0 || H <= 0 || group <= 0 || H % group != 0 ||
+      hd <= 0 || hd > 128 || hd % 8 != 0 || s_pad < s || s_pad % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kvh = H / group;
+  SplitParams sk{static_cast<const float*>(k), str[3], str[4], str[5],
+                 static_cast<float*>(khi), static_cast<float*>(klo), nullptr,
+                 nullptr, s, kvh, hd, s_pad};
+  int rc = split_launch(sk, batch, st);
+  if (rc != 0) return rc;
+  SplitParams sv{static_cast<const float*>(v), str[6], str[7], str[8], nullptr,
+                 nullptr, static_cast<float*>(vthi), static_cast<float*>(vtlo),
+                 s, kvh, hd, s_pad};
+  rc = split_launch(sv, batch, st);
+  if (rc != 0) return rc;
+  ops = Operands{static_cast<const float*>(q), static_cast<const float*>(khi),
+                 static_cast<const float*>(klo),
+                 static_cast<const float*>(vthi),
+                 static_cast<const float*>(vtlo), {str[0], str[1], str[2]},
+                 batch, s, H, kvh, hd, s_pad};
+  return 0;
+}
+
+// the five tensor maps at width HDW: Q in 128-row boxes, K hi / lo in
+// NKV-row boxes, V^T hi / lo in boxes of 32 positions x HDW rows
+template <int HDW, int NKV>
+int encode_maps(CUtensorMap (&m)[5], const Operands& c) {
+  const long long kr = static_cast<long long>(c.kvh) * c.hd;   // row stride
+  int rc = encode_rows(&m[0], c.q, c.batch, c.s, c.H, c.hd, c.qs[0], c.qs[1],
+                       c.qs[2], BQ);
+  if (rc == 0)
+    rc = encode_rows(&m[1], c.khi, c.batch, c.s, c.kvh, c.hd, c.s * kr, c.hd,
+                     kr, NKV);
+  if (rc == 0)
+    rc = encode_rows(&m[2], c.klo, c.batch, c.s, c.kvh, c.hd, c.s * kr, c.hd,
+                     kr, NKV);
+  if (rc == 0)
+    rc = encode_cols(&m[3], c.vthi, c.batch, c.kvh, c.hd, c.s_pad, 32, HDW);
+  if (rc == 0)
+    rc = encode_cols(&m[4], c.vtlo, c.batch, c.kvh, c.hd, c.s_pad, 32, HDW);
+  return rc;
+}
+
+// `grid` CTAs of the dense (P: F32Params) or the schedule-aware (P:
+// SchedF32Params) kernel at width HDW
+template <int HDW, int NKV, typename Params>
+int launch_hd(const Operands& c, const Params& P, unsigned grid,
               cudaStream_t st) {
-  CUtensorMap qm, khm, klm, vhm, vlm;
-  const long long kr = static_cast<long long>(kvh) * P.hd;   // row stride
-  int rc = encode_rows(&qm, q, batch, P.s, P.H, P.hd, qs[0], qs[1], qs[2], BQ);
-  if (rc == 0)
-    rc = encode_rows(&khm, khi, batch, P.s, kvh, P.hd, P.s * kr, P.hd, kr, NKV);
-  if (rc == 0)
-    rc = encode_rows(&klm, klo, batch, P.s, kvh, P.hd, P.s * kr, P.hd, kr, NKV);
-  if (rc == 0) rc = encode_cols(&vhm, vthi, batch, kvh, P.hd, s_pad, 32, HDW);
-  if (rc == 0) rc = encode_cols(&vlm, vtlo, batch, kvh, P.hd, s_pad, 32, HDW);
+  CUtensorMap m[5];
+  const int rc = encode_maps<HDW, NKV>(m, c);
   if (rc != 0) return rc;
   constexpr int bytes = Layout<HDW, NKV>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<HDW, NKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  void (*kern)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+               CUtensorMap, Params);
+  if constexpr (std::is_same<Params, SchedF32Params>::value)
+    kern = flash_sched_f32_kernel<HDW, NKV>;
+  else
+    kern = flash_f32_kernel<HDW, NKV>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long grid = static_cast<long long>(P.lanes) * P.nq;
-  flash_f32_kernel<HDW, NKV><<<static_cast<unsigned>(grid), NTHREADS, bytes,
-                               st>>>(qm, khm, klm, vhm, vlm, P);
+  kern<<<grid, NTHREADS, bytes, st>>>(m[0], m[1], m[2], m[3], m[4], P);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the width of a head dim: 64 (NKV 64), 80 or 128 (NKV 32)
+template <typename Params>
+int launch_width(const Operands& c, const Params& P, unsigned grid,
+                 cudaStream_t st) {
+  if (c.hd <= 64) return launch_hd<64, 64>(c, P, grid, st);
+  if (c.hd <= 80) return launch_hd<80, 32>(c, P, grid, st);
+  return launch_hd<128, 32>(c, P, grid, st);
 }
 
 }  // namespace
@@ -395,20 +654,12 @@ extern "C" int flash_f32_launch(
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, float scale, void* stream) {
-  if (batch <= 0 || s <= 0 || H <= 0 || group <= 0 || H % group != 0 ||
-      hd <= 0 || hd > 128 || hd % 8 != 0 || s_pad < s || s_pad % 32 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int kvh = H / group;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  SplitParams sk{static_cast<const float*>(k), k_sb, k_sh, k_ss,
-                 static_cast<float*>(khi), static_cast<float*>(klo), nullptr,
-                 nullptr, s, kvh, hd, s_pad};
-  int rc = split_launch(sk, batch, st);
-  if (rc != 0) return rc;
-  SplitParams sv{static_cast<const float*>(v), v_sb, v_sh, v_ss, nullptr,
-                 nullptr, static_cast<float*>(vthi), static_cast<float*>(vtlo),
-                 s, kvh, hd, s_pad};
-  rc = split_launch(sv, batch, st);
+  const long long str[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                            v_sb, v_sh, v_ss};
+  Operands ops;
+  const int rc = split_operands(ops, q, k, v, khi, klo, vthi, vtlo, s_pad,
+                                batch, s, H, group, hd, str, st);
   if (rc != 0) return rc;
   F32Params P;
   P.o = static_cast<float*>(o);
@@ -419,17 +670,40 @@ extern "C" int flash_f32_launch(
   P.s = s; P.H = H; P.group = group; P.hd = hd;
   P.causal = causal; P.window = window;
   P.scale_log2 = scale * LOG2E;
-  const long long qs[3] = {q_sb, q_sh, q_ss};
-  const float* qf = static_cast<const float*>(q);
-  const float *kh = static_cast<const float*>(khi),
-              *kl = static_cast<const float*>(klo),
-              *vh = static_cast<const float*>(vthi),
-              *vl = static_cast<const float*>(vtlo);
-  if (hd <= 64)
-    return launch_hd<64, 64>(qf, kh, kl, vh, vl, batch, kvh, s_pad, qs, P, st);
-  if (hd <= 80)
-    return launch_hd<80, 32>(qf, kh, kl, vh, vl, batch, kvh, s_pad, qs, P, st);
-  return launch_hd<128, 32>(qf, kh, kl, vh, vl, batch, kvh, s_pad, qs, P, st);
+  return launch_width(ops, P, static_cast<unsigned>(P.lanes * P.nq), st);
+}
+
+// the schedule-aware form on `p` CTAs: the descriptors (6 x G int32) in
+// plan order and each CTA's span of them (p + 1 int32); the scratch as
+// flash_f32_launch's
+extern "C" int flash_sched_f32_launch(
+    const void* q, const void* k, const void* v, void* o, const void* desc,
+    const void* bounds, void* khi, void* klo, void* vthi, void* vtlo,
+    int s_pad, int G, int p, int batch, int s, int H, int group, int hd,
+    int block_q, int block_k, int causal, int window, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss, float scale,
+    void* stream) {
+  if (p <= 0 || G < 0 || block_q <= 0 || block_k <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long str[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                            v_sb, v_sh, v_ss};
+  Operands ops;
+  const int rc = split_operands(ops, q, k, v, khi, klo, vthi, vtlo, s_pad,
+                                batch, s, H, group, hd, str, st);
+  if (rc != 0) return rc;
+  SchedF32Params P;
+  P.o = static_cast<float*>(o);
+  P.o_sb = o_sb; P.o_sh = o_sh; P.o_ss = o_ss;
+  P.desc = static_cast<const int*>(desc);
+  P.bounds = static_cast<const int*>(bounds);
+  P.G = G; P.s = s; P.H = H; P.group = group; P.hd = hd;
+  P.block_q = block_q; P.block_k = block_k;
+  P.causal = causal; P.window = window;
+  P.scale_log2 = scale * LOG2E;
+  return launch_width(ops, P, static_cast<unsigned>(p), st);
 }
 
 extern "C" const char* flash_f32_error_string(int code) {

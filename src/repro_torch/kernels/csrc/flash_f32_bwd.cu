@@ -1,6 +1,8 @@
 // The dense flash-attention backward in fp32 on Hopper's tensor cores
 // (sm_90a): TMA, wgmma .tf32 and a three-term TF32 split, for the calls
-// flash_f32.cu computes forward.
+// flash_f32.cu computes forward (head dims up to 128) and for fp32 at head
+// dims 136-256 (cluster pairs, below), whose forward is flash_simt.cu's.
+// Both forwards write lse as the natural log-sum-exp of the scaled scores.
 //
 // Replaces no Pallas kernel: the reference differentiates _attend_flash
 // (src/repro/models/attention.py:191), the pure-JAX twin of _flash_kernel,
@@ -52,6 +54,31 @@
 //   dkdv HDW 128: 64 KB + 2 x 64 KB + 8 KB = 200 KB
 //   dq   HDW 128: 64 KB + 3 x 48 KB + 8 KB = 216 KB
 // Head dims as flash_f32.cu: HDW 64, 80 or 128, zeros past hd.
+//
+// Head dims 136-256 (kernels flash_f32_bwd256_dkdv / _dq, entry points of
+// their own): at a padded width of 256 that design does not fit.  A
+// consumer would hold its resident operand's hi (HDW / 2 = 128 registers),
+// its accumulator (128) and the stage's fresh accumulator (128), 384
+// against setmaxnreg's 240, and the two resident tiles would take 128 KB
+// of shared memory and a stage 128 KB.  So a cluster of two CTAs takes
+// each tile: CTA r owns columns 128 r .. 128 r + 127 of the head dim, its
+// resident tiles, its stages' row-major and transposed tiles and its
+// output columns, and runs the HDW 128 kernel on that half (CL = 2).  S^T
+// and dP^T (S and dP in dq) reduce over the whole head dim: each CTA's
+// m64n16 product covers its half, the two trade halves through
+// distributed shared memory every stage (st.shared::cluster into the
+// peer's buffer and an mbarrier arrive at cluster scope; two buffers a
+// warpgroup, handed back by an arrive once read), and each adds the two
+// in the same order of operands, p0 + p1 = p1 + p0, so both CTAs hold
+// the same bits.  Every product is computed once, as at HDW 128, and the
+// pair reads each stage's rows once between them.  A consumer thread's
+// registers are those of HDW 128 (hi 64, accumulator 64, fresh
+// accumulator 64, S and P 24) plus 8 of the exchange; shared memory:
+//   dkdv: 64 KB + 2 x 64 KB + 8 KB + 16 KB exchange = 216 KB
+//   dq:   64 KB + 2 x 48 KB + 8 KB + 16 KB exchange = 184 KB (2 stages)
+// The scratch is dkdv's as above at hd 256: 4 b h hd (s + s_pad) floats,
+// 335 MB at recurrentgemma-2b's local attention (1 x 4096, 10 / 1 heads,
+// hd 256, window 2048).
 
 #include "tf32_common.cuh"
 
@@ -66,6 +93,10 @@ constexpr int NS = 16;                  // rows of a stage
 constexpr int PFULL = 1, PEMPTY = 3, RSPLIT = 5;   // named barriers
 constexpr int PBUF = NS / 2 * 128 * 4;  // one P buffer: 8 floats a thread
 
+// dq's ring: 3 stages, 2 in a cluster pair (its exchange buffers take the
+// third's room)
+__host__ __device__ constexpr int dq_stages(int cl) { return cl == 2 ? 2 : 3; }
+
 template <int HDW>
 struct Tiles {
   static constexpr int HDP = (HDW + 31) / 32 * 32;
@@ -77,17 +108,20 @@ struct Tiles {
 };
 
 // stage layout of a pass with NT transposed tiles: four row-major tiles,
-// then NT transposed ones; the resident tiles first, the P buffers and the
+// then NT transposed ones; the resident tiles first, the P buffers, in a
+// cluster pair (CL 2) the exchange buffers (two a warpgroup), and the
 // barriers last
-template <int HDW, int NT, int NST>
+template <int HDW, int NT, int NST, int CL>
 struct Layout {
   using T = Tiles<HDW>;
   static constexpr int STAGE = 4 * T::SBYTES + NT * T::TBYTES;
   static constexpr int RES = 0;
   static constexpr int ST = 2 * T::RBYTES;
   static constexpr int PB = ST + NST * STAGE;
-  static constexpr int BAR = PB + 2 * PBUF;
-  static constexpr int BYTES = BAR + (1 + 2 * NST) * 8 + 1024;
+  static constexpr int XB = PB + 2 * PBUF;
+  static constexpr int BAR = XB + (CL == 2 ? 4 * PBUF : 0);
+  static constexpr int BYTES =
+      BAR + (1 + 2 * NST + (CL == 2 ? 8 : 0)) * 8 + 1024;
 };
 
 struct BwdParams {
@@ -202,10 +236,59 @@ __device__ __forceinline__ void get_p(const float* pbuf, float* p, int j,
   if (j + 2 < total) named_bar_arrive(PEMPTY + (j & 1), 256);
 }
 
+// In a cluster pair: x (this thread's 8 values of its warpgroup's m64n16
+// product over this CTA's half of the head dim) += the peer CTA's.  Stage
+// j's half goes into the peer's buffer j % 2 of this warpgroup once the
+// peer has handed that buffer back (xempty, the arrive of its stage
+// j - 2), announced on the peer's xfull; then the peer's half is read from
+// this CTA's own buffer, which is handed back unless no later stage uses
+// it (so that no arrive reaches a CTA that may have finished).  xbuf: the
+// warpgroup's two buffers of 8 floats a thread as two float4 halves.
+__device__ __forceinline__ void exchange(float* x, float* xbuf,
+                                         uint64_t* xfull, uint64_t* xempty,
+                                         int j, int total, int tq,
+                                         uint32_t peer) {
+  const int k = j & 1;
+  float4* buf = reinterpret_cast<float4*>(xbuf) + k * 256;
+  if (j >= 2) mbar_wait_cluster(&xempty[k], ((j >> 1) - 1) & 1);
+  const uint32_t dst = peer_addr(buf + tq, peer);
+  st_peer(dst, x[0], x[1], x[2], x[3]);
+  st_peer(dst + 128 * 16, x[4], x[5], x[6], x[7]);
+  mbar_arrive_peer(peer_addr(&xfull[k], peer));
+  mbar_wait_cluster(&xfull[k], (j >> 1) & 1);
+  const float4 a = buf[tq], b = buf[128 + tq];
+  x[0] += a.x; x[1] += a.y; x[2] += a.z; x[3] += a.w;
+  x[4] += b.x; x[5] += b.y; x[6] += b.z; x[7] += b.w;
+  if (j + 2 < total) mbar_arrive_peer(peer_addr(&xempty[k], peer));
+}
+
+// the pass's barriers: the resident tiles, the ring's full and empty and,
+// in a cluster pair, each warpgroup's two exchange buffers' full and empty
+// (one arrive from each thread of the peer's warpgroup); then every
+// thread of the pair waits, so that no arrive finds a barrier not yet
+// initialised
+template <int NST, int CL>
+__device__ __forceinline__ void init_barriers(uint64_t* bars, int tid) {
+  if (tid == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&bars[1 + s], 1);
+      mbar_init(&bars[1 + NST + s], CONSUMER_WARPS);
+    }
+    if constexpr (CL == 2)
+      for (int i = 0; i < 8; ++i) mbar_init(&bars[1 + 2 * NST + i], 128);
+    fence_mbar_init();
+  }
+  if constexpr (CL == 2)
+    cluster_sync();
+  else
+    __syncthreads();
+}
+
 // ----------------------------------------------------------------- dkdv ---
 // stage tiles: Q hi, Q lo, dO hi, dO lo (16 q rows x HDP), then Q^T hi,
 // Q^T lo, dO^T hi, dO^T lo (HDW x 16 permuted q positions)
-template <int HDW>
+template <int HDW, int CL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 dkdv_f32_kernel(const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
@@ -220,30 +303,29 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap kmap,
                 const BwdParams P) {
   constexpr int NST = 2;
   using T = Tiles<HDW>;
-  using L = Layout<HDW, 4, NST>;
+  using L = Layout<HDW, 4, NST, CL>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* res_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
   uint64_t* full = res_full + 1;
   uint64_t* empty = full + NST;
+  uint64_t* xfull = empty + NST;      // CL 2: [warpgroup][buffer]
+  uint64_t* xempty = xfull + 4;
   float* pbuf = reinterpret_cast<float*>(smem + L::PB);
+  float* xbuf = reinterpret_cast<float*>(smem + L::XB);
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
-  if (tid == 0) {
-    mbar_init(res_full, 1);
-    for (int s = 0; s < NST; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
+  init_barriers<NST, CL>(res_full, tid);
+  // the head dim's columns hd0 .. hd0 + HDW - 1 of this CTA
+  const uint32_t rank = CL == 2 ? cluster_rank() : 0;
+  const int hd0 = HDW * static_cast<int>(rank);
 
   // kv tiles ascending (the longest first under the causal mask)
   const int kvh_n = P.H / P.group;
-  const int t = static_cast<int>(blockIdx.x) / P.lanes;
-  const int bk = static_cast<int>(blockIdx.x) % P.lanes;   // b * KVH + hk
+  const int unit = static_cast<int>(blockIdx.x) / CL;
+  const int t = unit / P.lanes;
+  const int bk = unit % P.lanes;   // b * KVH + hk
   const int b = bk / kvh_n, hk = bk % kvh_n;
   const int c0 = t * BR, c1 = min(c0 + BR, P.s);
   // the q rows that see a column of the tile
@@ -257,10 +339,10 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap kmap,
     if (tid == 0) {
       mbar_expect_tx(res_full, 2 * T::RBYTES);
       for (int j = 0; j < T::HDP / 32; ++j) {
-        tma_load_4d(smem + L::RES + j * T::RBOX, &kmap, res_full, 32 * j, c0,
-                    hk, b);
+        tma_load_4d(smem + L::RES + j * T::RBOX, &kmap, res_full,
+                    hd0 + 32 * j, c0, hk, b);
         tma_load_4d(smem + L::RES + T::RBYTES + j * T::RBOX, &vmap, res_full,
-                    32 * j, c0, hk, b);
+                    hd0 + 32 * j, c0, hk, b);
       }
       for (int i = 0; i < total; ++i) {
         const int s = i % NST;
@@ -273,11 +355,11 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap kmap,
         for (int a = 0; a < 4; ++a)
           for (int j = 0; j < T::HDP / 32; ++j)
             tma_load_4d(st + a * T::SBYTES + j * T::SBOX, rows[a], &full[s],
-                        32 * j, rq0, h, b);
+                        hd0 + 32 * j, rq0, h, b);
         const CUtensorMap* cols[4] = {&qthimap, &qtlomap, &othimap, &otlomap};
         for (int a = 0; a < 4; ++a)
           tma_load_4d(st + 4 * T::SBYTES + a * T::TBYTES, cols[a], &full[s],
-                      rq0, 0, h, b);
+                      rq0, hd0, h, b);
       }
     }
   } else {
@@ -320,6 +402,9 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap kmap,
       float sacc[8];
       issue_s16<HDW>(sacc, ahi, da, smem_desc(st + brow, 16, 1024),
                      smem_desc(st + brow + T::SBYTES, 16, 1024));
+      if constexpr (CL == 2)
+        exchange(sacc, xbuf + c * (PBUF / 2), xfull + 2 * c, xempty + 2 * c,
+                 i, total, tq, rank ^ 1);
       float x[8];
       if (c == 0) {
 #pragma unroll
@@ -345,16 +430,16 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap kmap,
     }
     const int kvh_rs = kvh_n * P.hd;
     float* out = (c == 0 ? P.out0 : P.out1) +
-                 static_cast<long long>(b) * P.s * kvh_rs + hk * P.hd;
+                 static_cast<long long>(b) * P.s * kvh_rs + hk * P.hd + hd0;
     store_acc<HDW>(out, kvh_rs, acc, c == 0 ? 1.f : P.scale, kv_lo, P.s,
-                   P.hd, lane);
+                   P.hd - hd0, lane);
   }
 }
 
 // ------------------------------------------------------------------- dq ---
 // stage tiles: K hi, K lo, V hi, V lo (16 kv rows x HDP), then K^T hi,
 // K^T lo (HDW x 16 permuted kv positions)
-template <int HDW>
+template <int HDW, int CL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap omap,
@@ -365,31 +450,29 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap kthimap,
               const __grid_constant__ CUtensorMap ktlomap,
               const BwdParams P) {
-  constexpr int NST = 3;
+  constexpr int NST = dq_stages(CL);
   using T = Tiles<HDW>;
-  using L = Layout<HDW, 2, NST>;
+  using L = Layout<HDW, 2, NST, CL>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* res_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
   uint64_t* full = res_full + 1;
   uint64_t* empty = full + NST;
+  uint64_t* xfull = empty + NST;      // CL 2: [warpgroup][buffer]
+  uint64_t* xempty = xfull + 4;
   float* pbuf = reinterpret_cast<float*>(smem + L::PB);
+  float* xbuf = reinterpret_cast<float*>(smem + L::XB);
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
-  if (tid == 0) {
-    mbar_init(res_full, 1);
-    for (int s = 0; s < NST; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
+  init_barriers<NST, CL>(res_full, tid);
+  const uint32_t rank = CL == 2 ? cluster_rank() : 0;
+  const int hd0 = HDW * static_cast<int>(rank);
 
   // bottom (longest) q tiles first
-  const int qt = P.ntile - 1 - static_cast<int>(blockIdx.x) / P.lanes;
-  const int lane_id = static_cast<int>(blockIdx.x) % P.lanes;
+  const int unit = static_cast<int>(blockIdx.x) / CL;
+  const int qt = P.ntile - 1 - unit / P.lanes;
+  const int lane_id = unit % P.lanes;
   const int b = lane_id / P.H, h = lane_id % P.H, hk = h / P.group;
   const int r0 = qt * BR;
   const int c_lo = P.window > 0 ? max(0, r0 - P.window + 1) / NS * NS : 0;
@@ -401,10 +484,10 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     if (tid == 0) {
       mbar_expect_tx(res_full, 2 * T::RBYTES);
       for (int j = 0; j < T::HDP / 32; ++j) {
-        tma_load_4d(smem + L::RES + j * T::RBOX, &qmap, res_full, 32 * j, r0,
-                    h, b);
+        tma_load_4d(smem + L::RES + j * T::RBOX, &qmap, res_full,
+                    hd0 + 32 * j, r0, h, b);
         tma_load_4d(smem + L::RES + T::RBYTES + j * T::RBOX, &omap, res_full,
-                    32 * j, r0, h, b);
+                    hd0 + 32 * j, r0, h, b);
       }
       for (int i = 0; i < total; ++i) {
         const int s = i % NST;
@@ -416,10 +499,10 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int a = 0; a < 4; ++a)
           for (int j = 0; j < T::HDP / 32; ++j)
             tma_load_4d(st + a * T::SBYTES + j * T::SBOX, rows[a], &full[s],
-                        32 * j, col0, hk, b);
-        tma_load_4d(st + 4 * T::SBYTES, &kthimap, &full[s], col0, 0, hk, b);
+                        hd0 + 32 * j, col0, hk, b);
+        tma_load_4d(st + 4 * T::SBYTES, &kthimap, &full[s], col0, hd0, hk, b);
         tma_load_4d(st + 4 * T::SBYTES + T::TBYTES, &ktlomap, &full[s], col0,
-                    0, hk, b);
+                    hd0, hk, b);
       }
     }
   } else {
@@ -455,6 +538,8 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
         issue_s16<HDW>(sacc, ahi, da, smem_desc(st, 16, 1024),
                        smem_desc(st + T::SBYTES, 16, 1024));
         if (lane == 0) mbar_arrive(&empty[s]);
+        if constexpr (CL == 2)
+          exchange(sacc, xbuf, xfull, xempty, i, total, tq, rank ^ 1);
         float p[8];
 #pragma unroll
         for (int v = 0; v < 8; ++v) {
@@ -477,6 +562,9 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
         float dp[8];
         issue_s16<HDW>(dp, ahi, da, smem_desc(st + 2 * T::SBYTES, 16, 1024),
                        smem_desc(st + 3 * T::SBYTES, 16, 1024));
+        if constexpr (CL == 2)
+          exchange(dp, xbuf + PBUF / 2, xfull + 2, xempty + 2, i, total, tq,
+                   rank ^ 1);
         float p[8];
         get_p(pbuf, p, i, total, tq);
 #pragma unroll
@@ -486,8 +574,9 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
         if (lane == 0) mbar_arrive(&empty[s]);
       }
       const long long q_rs = static_cast<long long>(P.H) * P.hd;
-      float* out = P.out0 + static_cast<long long>(b) * P.s * q_rs + h * P.hd;
-      store_acc<HDW>(out, q_rs, acc, P.scale, r_row, P.s, P.hd, lane);
+      float* out =
+          P.out0 + static_cast<long long>(b) * P.s * q_rs + h * P.hd + hd0;
+      store_acc<HDW>(out, q_rs, acc, P.scale, r_row, P.s, P.hd - hd0, lane);
     }
   }
 }
@@ -498,6 +587,33 @@ int set_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
+// `grid` CTAs of `kernel` in clusters of CL along x (CL 1: a plain launch)
+template <int CL, typename... Params, typename... Args>
+int launch_grid(void (*kernel)(Params...), unsigned grid, int bytes,
+                cudaStream_t st, Args&&... args) {
+  int rc = set_smem(kernel, bytes);
+  if (rc != 0) return rc;
+  if constexpr (CL == 1) {
+    kernel<<<grid, NTHREADS, bytes, st>>>(args...);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(NTHREADS);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // a contiguous (b, s, heads, hd) tensor as 64-row (resident) or 16-row
 // (stage) boxes
 inline int encode_bshd(CUtensorMap* map, const void* base, int batch, int s,
@@ -506,7 +622,7 @@ inline int encode_bshd(CUtensorMap* map, const void* base, int batch, int s,
   return encode_rows(map, base, batch, s, heads, hd, s * rs, hd, rs, rows);
 }
 
-template <int HDW>
+template <int HDW, int CL>
 int launch_dkdv(const float* const* in, float* ws, BwdParams P, int batch,
                 int s_pad, cudaStream_t st) {
   // in: q, k, v, dout; ws: Q hi, Q lo, dO hi, dO lo, Q^T hi, Q^T lo,
@@ -525,18 +641,15 @@ int launch_dkdv(const float* const* in, float* ws, BwdParams P, int batch,
   for (int i = 0; i < 4 && rc == 0; ++i)
     rc = encode_cols(&m[6 + i], w[4 + i], batch, P.H, P.hd, s_pad, NS, HDW);
   if (rc != 0) return rc;
-  constexpr int bytes = Layout<HDW, 4, 2>::BYTES;
-  rc = set_smem(dkdv_f32_kernel<HDW>, bytes);
-  if (rc != 0) return rc;
   P.lanes = batch * kvh;
   P.ntile = (P.s + BR - 1) / BR;
-  const unsigned grid = static_cast<unsigned>(P.lanes * P.ntile);
-  dkdv_f32_kernel<HDW><<<grid, NTHREADS, bytes, st>>>(
-      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8], m[9], P);
-  return static_cast<int>(cudaGetLastError());
+  return launch_grid<CL>(dkdv_f32_kernel<HDW, CL>,
+                         static_cast<unsigned>(CL * P.lanes * P.ntile),
+                         Layout<HDW, 4, 2, CL>::BYTES, st, m[0], m[1], m[2],
+                         m[3], m[4], m[5], m[6], m[7], m[8], m[9], P);
 }
 
-template <int HDW>
+template <int HDW, int CL>
 int launch_dq(const float* const* in, float* ws, BwdParams P, int batch,
               int s_pad, cudaStream_t st) {
   // in: q, k, v, dout; ws: K hi, K lo, V hi, V lo, K^T hi, K^T lo
@@ -554,25 +667,24 @@ int launch_dq(const float* const* in, float* ws, BwdParams P, int batch,
   for (int i = 0; i < 2 && rc == 0; ++i)
     rc = encode_cols(&m[6 + i], w[4 + i], batch, kvh, P.hd, s_pad, NS, HDW);
   if (rc != 0) return rc;
-  constexpr int bytes = Layout<HDW, 2, 3>::BYTES;
-  rc = set_smem(dq_f32_kernel<HDW>, bytes);
-  if (rc != 0) return rc;
   P.lanes = batch * P.H;
   P.ntile = (P.s + BR - 1) / BR;
-  const unsigned grid = static_cast<unsigned>(P.lanes * P.ntile);
-  dq_f32_kernel<HDW><<<grid, NTHREADS, bytes, st>>>(
-      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], P);
-  return static_cast<int>(cudaGetLastError());
+  return launch_grid<CL>(dq_f32_kernel<HDW, CL>,
+                         static_cast<unsigned>(CL * P.lanes * P.ntile),
+                         Layout<HDW, 2, dq_stages(CL), CL>::BYTES, st, m[0],
+                         m[1], m[2], m[3], m[4], m[5], m[6], m[7], P);
 }
 
-// split the pass's stage operands into ws, then run the pass
-int launch(int pass, const void* q, const void* k, const void* v,
+// split the pass's stage operands into ws, then run the pass: head dims up
+// to 128, or (wide) 136-256 on cluster pairs
+int launch(int pass, bool wide, const void* q, const void* k, const void* v,
            const void* dout, const void* lse, const void* delta, void* out0,
            void* out1, void* ws, int s_pad, int batch, int s, int H,
            int group, int hd, int causal, int window, float scale,
            void* stream) {
   if (batch <= 0 || s <= 0 || H <= 0 || group <= 0 || H % group != 0 ||
-      hd <= 0 || hd > 128 || hd % 8 != 0 || s_pad < s || s_pad % 32 != 0)
+      hd <= (wide ? 128 : 0) || hd > (wide ? 256 : 128) || hd % 8 != 0 ||
+      s_pad < s || s_pad % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int kvh = H / group;
@@ -607,13 +719,15 @@ int launch(int pass, const void* q, const void* k, const void* v,
   P.scale = scale;
   P.scale_log2 = scale * LOG2E;
   if (pass == 0) {
-    if (hd <= 64) return launch_dkdv<64>(in, w, P, batch, s_pad, st);
-    if (hd <= 80) return launch_dkdv<80>(in, w, P, batch, s_pad, st);
-    return launch_dkdv<128>(in, w, P, batch, s_pad, st);
+    if (wide) return launch_dkdv<128, 2>(in, w, P, batch, s_pad, st);
+    if (hd <= 64) return launch_dkdv<64, 1>(in, w, P, batch, s_pad, st);
+    if (hd <= 80) return launch_dkdv<80, 1>(in, w, P, batch, s_pad, st);
+    return launch_dkdv<128, 1>(in, w, P, batch, s_pad, st);
   }
-  if (hd <= 64) return launch_dq<64>(in, w, P, batch, s_pad, st);
-  if (hd <= 80) return launch_dq<80>(in, w, P, batch, s_pad, st);
-  return launch_dq<128>(in, w, P, batch, s_pad, st);
+  if (wide) return launch_dq<128, 2>(in, w, P, batch, s_pad, st);
+  if (hd <= 64) return launch_dq<64, 1>(in, w, P, batch, s_pad, st);
+  if (hd <= 80) return launch_dq<80, 1>(in, w, P, batch, s_pad, st);
+  return launch_dq<128, 1>(in, w, P, batch, s_pad, st);
 }
 
 }  // namespace
@@ -627,8 +741,8 @@ extern "C" int flash_f32_bwd_dkdv_launch(
     const void* lse, const void* delta, void* dk, void* dv, void* ws,
     int s_pad, int batch, int s, int H, int group, int hd, int causal,
     int window, float scale, void* stream) {
-  return launch(0, q, k, v, dout, lse, delta, dv, dk, ws, s_pad, batch, s, H,
-                group, hd, causal, window, scale, stream);
+  return launch(0, false, q, k, v, dout, lse, delta, dv, dk, ws, s_pad,
+                batch, s, H, group, hd, causal, window, scale, stream);
 }
 
 // dQ (b, s, h, hd), as dkdv; ws: scratch of 4 (b s kvh hd) + 2 (b kvh hd
@@ -638,8 +752,28 @@ extern "C" int flash_f32_bwd_dq_launch(
     const void* lse, const void* delta, void* dq, void* ws, int s_pad,
     int batch, int s, int H, int group, int hd, int causal, int window,
     float scale, void* stream) {
-  return launch(1, q, k, v, dout, lse, delta, dq, nullptr, ws, s_pad, batch,
+  return launch(1, false, q, k, v, dout, lse, delta, dq, nullptr, ws, s_pad,
+                batch, s, H, group, hd, causal, window, scale, stream);
+}
+
+// the same two passes at head dims 136-256 (multiples of 8), on cluster
+// pairs; the same arguments and scratch
+extern "C" int flash_f32_bwd256_dkdv_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, void* ws,
+    int s_pad, int batch, int s, int H, int group, int hd, int causal,
+    int window, float scale, void* stream) {
+  return launch(0, true, q, k, v, dout, lse, delta, dv, dk, ws, s_pad, batch,
                 s, H, group, hd, causal, window, scale, stream);
+}
+
+extern "C" int flash_f32_bwd256_dq_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, void* ws, int s_pad,
+    int batch, int s, int H, int group, int hd, int causal, int window,
+    float scale, void* stream) {
+  return launch(1, true, q, k, v, dout, lse, delta, dq, nullptr, ws, s_pad,
+                batch, s, H, group, hd, causal, window, scale, stream);
 }
 
 extern "C" const char* flash_f32_bwd_error_string(int code) {

@@ -41,7 +41,7 @@
 //     and v are mapped as 4-D (b, s, heads, hd) tensors from their strides,
 //     so the model layout and GQA's KV head hh / (H / KVH) are read in
 //     place.  The producer and the consumers walk the same unit and tile
-//     sequence through one inline iterator (Walk).
+//     sequence through one inline iterator (Walk, sched_walk.cuh).
 //   * Q + 3 K/V stages fill 224 KB at head dim 128, so Q is single-buffered:
 //     the consumers release it on their own mbarrier (q_empty) as soon as
 //     the unit's last S = Q K^T has completed, and the producer loads the
@@ -65,6 +65,7 @@
 //     to another group (possibly another CTA): it is computed, not written.
 
 #include "flash_hopper.cuh"
+#include "sched_walk.cuh"
 
 namespace {
 
@@ -86,46 +87,7 @@ struct MaskParams {
   float scale_log2;
 };
 
-// The unit sequence of one CTA, identical in the producer and the
-// consumers.  next<NKV>() moves to the next unit (reading a new group's
-// descriptors when the group is done), its live kv tiles counted in
-// NKV-column tiles, and returns false at the end of the CTA's share.
-struct Walk {
-  int gend, gstop;                 // the next group starts at gend
-  int lane_id, qb1, c_lo, c_end;   // the group: lane, row end, columns
-  int row0, rend, tile0, ntiles;   // the unit: rows, live kv tiles
-
-  __device__ __forceinline__ Walk(const SchedParams& P, int w)
-      : gend(P.bounds[w]), gstop(P.bounds[w + 1]), qb1(0), row0(0) {}
-
-  template <int NKV>
-  __device__ __forceinline__ bool next(const SchedParams& P) {
-    row0 += BQ;
-    if (row0 >= qb1) {
-      if (gend >= gstop) return false;
-      const int g = gend;
-      const int* kj = P.desc + 2 * P.G;
-      const int* last = P.desc + 4 * P.G;
-      int e = g;
-      while (e < gstop - 1 && last[e] == 0) ++e;
-      gend = e + 1;
-      lane_id = P.desc[g];
-      row0 = P.desc[P.G + g] * P.block_q;
-      qb1 = min(row0 + P.block_q, P.s);
-      c_lo = kj[g] * P.block_k;
-      c_end = min(min((kj[e] + 1) * P.block_k, P.s), P.desc[5 * P.G + g]);
-    }
-    rend = min(row0 + BQ, qb1);
-    // live columns of some row of the unit: [lo, hi)
-    int lo = c_lo, hi = c_end;
-    if (P.window > 0) lo = max(lo, row0 - P.window + 1);
-    if (P.causal) hi = min(hi, rend);
-    const int i0 = (lo - c_lo) / NKV;
-    tile0 = c_lo + i0 * NKV;
-    ntiles = hi > lo ? (hi - 1 - c_lo) / NKV - i0 + 1 : 0;
-    return true;
-  }
-};
+using Walk = sched_walk::Walk<BQ>;
 
 // HD: the padded head dim; NKV, NST: the K / V tile's columns and stages;
 // HDW: the width the products run at

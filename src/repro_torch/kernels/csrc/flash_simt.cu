@@ -7,14 +7,13 @@
 // the tensor-core kernels cannot take the call.  The reference casts q, k
 // and v to fp32 inside both kernels and so takes any float dtype;
 // flash_dense.cu and flash_sched.cu take bf16 with a head dim that is a
-// multiple of 8 and 16-byte aligned rows, and flash_f32.cu takes dense fp32
-// calls so at head dims up to 128.  Everything else runs here: the dense
-// entry for fp32 at head dim 256 (recurrentgemma-2b's local attention in
-// fp32) or at strides TMA cannot describe, fp16, and bf16 at a head dim or
-// stride the TMA boxes cannot describe; the schedule-aware entry for every
-// fp32 and fp16 call (a model with compute_dtype "float32" calling
-// flash_attention with a schedule) and those bf16 ones.  Head dims up to
-// 256.
+// multiple of 8 and 16-byte aligned rows, and flash_f32.cu takes fp32
+// calls so at head dims up to 128, dense and schedule-aware.  Everything
+// else runs here, at both entries: fp32 at head dims 136-256
+// (recurrentgemma-2b's local attention in fp32, whose backward runs on
+// flash_f32_bwd.cu's cluster pairs) or at a head dim or strides TMA cannot
+// describe, fp16, and bf16 at a head dim or stride the TMA boxes cannot
+// describe.  Head dims up to 256.
 //
 // What bounds it on an H100: operations on the CUDA cores.  S = Q K^T and
 // O += P V are plain fp32 FMA, SIMT, never TF32, as the reference's fp32

@@ -1,9 +1,10 @@
 // The dense flash-attention backward at every float dtype, for Hopper
 // (sm_90a): the general kernels beside flash_dense_bwd.cu and
-// flash_f32_bwd.cu, for the calls flash_simt.cu's dense entry computes
-// forward (fp32 at head dim 256 or at strides TMA cannot describe, fp16,
-// bf16 at odd head dims or strides).  Its delta pass also serves
-// flash_f32_bwd.cu.
+// flash_f32_bwd.cu, for the calls neither takes: fp16, fp32 and bf16 at a
+// head dim or strides TMA cannot describe.  (fp32 at head dims 136-256,
+// whose forward runs on flash_simt.cu, has its backward on
+// flash_f32_bwd.cu's cluster pairs.)  Its delta pass serves every fp32
+// backward of flash_f32_bwd.cu too.
 //
 // Replaces no Pallas kernel: the reference differentiates _attend_flash
 // (src/repro/models/attention.py:191), the pure-JAX twin of _flash_kernel,

@@ -1,8 +1,9 @@
 // Building blocks of the fp32 flash-attention kernels on the tensor cores
 // (flash_f32.cu, flash_f32_bwd.cu): a three-term TF32 split of fp32
 // operands for wgmma, the wgmma.m64nNk8 .tf32 instructions they issue,
-// fp32 tensor maps, and the pass that writes the split copies of an
-// operand in device memory.
+// fp32 tensor maps, the pass that writes the split copies of an operand in
+// device memory, and what a cluster pair of CTAs needs to trade partial
+// products (the backward at head dims 136-256).
 //
 // The split.  wgmma .tf32 reads 19 bits of each fp32 word (sign, exponent,
 // 10 mantissa bits).  Write hi = x with its low 13 bits cleared and
@@ -101,6 +102,68 @@ __device__ __forceinline__ void split_resident(unsigned char* tile, int box,
   }
   fence_proxy_async();
   named_bar_sync(bar, 128);
+}
+
+// ------------------------------------------------- clusters of two CTAs ---
+// (flash_f32_bwd.cu at head dims 136-256: each CTA of a pair computes half
+// of the head dim's reduction and the two trade their partial products
+// through distributed shared memory)
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster; after it the peer's barriers
+// are initialised
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of `p` (this CTA's shared memory) in CTA `rank`'s
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, float a, float b,
+                                        float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+// one arrival on a barrier of the peer CTA, releasing this thread's
+// earlier writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          addr)
+      : "memory");
+}
+
+// mbar_wait that acquires the peer CTA's released writes
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
 }
 
 // The four accumulator registers of 8-column group kk, (v0, v1, v2, v3) =
@@ -308,33 +371,39 @@ struct SplitParams {
 // Writes hi and lo in the source's layout and, transposed, in the permuted
 // layout (position j of each 8-group of rows holds row 2 j or
 // 2 (j - 4) + 1).  Rows past s are written as zeros in the transposed
-// copies, so a tile reaching past s multiplies zeros.
+// copies, so a tile reaching past s multiplies zeros.  Head dims past 128
+// go through the tile 128 columns at a time.
 __global__ void __launch_bounds__(256) split_kernel(const SplitParams P) {
   __shared__ float tile[32][129];
   const int y = blockIdx.y;
   const int b = y / P.heads, h = y % P.heads;
   const int c0 = blockIdx.x * 32;
   const float* src = P.src + b * P.sb + h * P.sh;
-  for (int i = threadIdx.x; i < 32 * P.hd; i += 256) {
-    const int r = i / P.hd, d = i % P.hd;
-    const int c = c0 + r;
-    const float x = c < P.s ? src[c * P.ss + d] : 0.f;
-    tile[r][d] = x;
-    if (c < P.s && P.hi != nullptr) {
-      const long long o =
-          ((static_cast<long long>(b) * P.s + c) * P.heads + h) * P.hd + d;
-      P.hi[o] = tf32_hi(x);
-      P.lo[o] = x - tf32_hi(x);
+  for (int d0 = 0; d0 < P.hd; d0 += 128) {
+    const int w = min(128, P.hd - d0);
+    if (d0 > 0) __syncthreads();   // the previous columns are written out
+    for (int i = threadIdx.x; i < 32 * w; i += 256) {
+      const int r = i / w, d = d0 + i % w;
+      const int c = c0 + r;
+      const float x = c < P.s ? src[c * P.ss + d] : 0.f;
+      tile[r][d - d0] = x;
+      if (c < P.s && P.hi != nullptr) {
+        const long long o =
+            ((static_cast<long long>(b) * P.s + c) * P.heads + h) * P.hd + d;
+        P.hi[o] = tf32_hi(x);
+        P.lo[o] = x - tf32_hi(x);
+      }
     }
-  }
-  if (P.thi == nullptr) return;
-  __syncthreads();
-  for (int i = threadIdx.x; i < 32 * P.hd; i += 256) {
-    const int d = i / 32, j = i % 32, p = j % 8;
-    const float x = tile[(j & ~7) + (p < 4 ? 2 * p : 2 * p - 7)][d];
-    const long long o = (static_cast<long long>(y) * P.hd + d) * P.s_pad + c0 + j;
-    P.thi[o] = tf32_hi(x);
-    P.tlo[o] = x - tf32_hi(x);
+    if (P.thi == nullptr) continue;
+    __syncthreads();
+    for (int i = threadIdx.x; i < 32 * w; i += 256) {
+      const int d = i / 32, j = i % 32, p = j % 8;
+      const float x = tile[(j & ~7) + (p < 4 ? 2 * p : 2 * p - 7)][d];
+      const long long o =
+          (static_cast<long long>(y) * P.hd + d0 + d) * P.s_pad + c0 + j;
+      P.thi[o] = tf32_hi(x);
+      P.tlo[o] = x - tf32_hi(x);
+    }
   }
 }
 

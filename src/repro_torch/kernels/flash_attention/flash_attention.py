@@ -43,18 +43,22 @@ filling the columns past the real head dim with zeros, except 80, whose
 products run at its exact width on tiles of 128.
 
 Those kernels take bf16.  The reference casts q, k and v to fp32 inside
-its kernels and so takes any float dtype.  A dense fp32 call at a head dim
-that is a multiple of 8 up to 128, with strides and alignment TMA can
-describe, runs ``csrc/flash_f32.cu`` and ``csrc/flash_f32_bwd.cu`` (route
-``"tf32x3"``: TMA + wgmma .tf32 with every product split into three TF32
-products, fp32-accurate).  The rest (fp16, fp32 at head dim 256 or at
-strides TMA cannot describe, bf16 at a head dim or stride the TMA boxes
-cannot describe, and every fp32 call of the schedule-aware entry) runs the
-general kernels, ``csrc/flash_simt.cu`` (dense and schedule-aware
-entries, the same plan walk) and ``csrc/flash_simt_bwd.cu`` (the
-backward), in plain fp32 FMA.  ``_check_kernel_inputs`` picks the kernel
-from the dtype, the head dim and the strides alone; nothing falls back on
-a failure.
+its kernels and so takes any float dtype.  An fp32 call of either entry at
+a head dim that is a multiple of 8 up to 128, with strides and alignment
+TMA can describe, runs ``csrc/flash_f32.cu`` (route ``"tf32x3"``: TMA +
+wgmma .tf32 with every product split into three TF32 products,
+fp32-accurate; kernels ``flash_dense_f32`` and ``flash_sched_f32``), and
+its backward ``csrc/flash_f32_bwd.cu``; so does the backward of a dense
+fp32 call at head dims 136-256 (``flash_f32_bwd256_*``, cluster pairs),
+whose forward stays on the general kernel (:func:`flash_bwd_route`).  The
+rest runs the general kernels in plain fp32 FMA, ``csrc/flash_simt.cu``
+(dense and schedule-aware entries, the same plan walk) and
+``csrc/flash_simt_bwd.cu`` (the backward; its delta pass serves every
+fp32 backward): fp16, fp32 at head dims 136-256 (both forwards) or at
+strides TMA cannot describe, and bf16 at a head dim or stride the TMA
+boxes cannot describe.  ``_check_kernel_inputs`` picks the kernel from the
+dtype, the head dim and the strides alone; nothing falls back on a
+failure.
 """
 
 from __future__ import annotations
@@ -133,22 +137,39 @@ FLASH_DENSE_F32 = Kernel(
     "flash_dense_f32", source="flash_f32", symbol="flash_f32_launch",
     argtypes=[_c.c_void_p] * 9 + [_c.c_int] * 8 + [_c.c_longlong] * 12
     + [_c.c_float, _c.c_void_p])
+FLASH_SCHED_F32 = Kernel(
+    "flash_sched_f32", source="flash_f32", symbol="flash_sched_f32_launch",
+    argtypes=[_c.c_void_p] * 10 + [_c.c_int] * 12 + [_c.c_longlong] * 12
+    + [_c.c_float, _c.c_void_p])
+_F32_BWD_DKDV_ARGS = ([_c.c_void_p] * 9 + [_c.c_int] * 8
+                      + [_c.c_float, _c.c_void_p])
+_F32_BWD_DQ_ARGS = ([_c.c_void_p] * 8 + [_c.c_int] * 8
+                    + [_c.c_float, _c.c_void_p])
 FLASH_F32_BWD_DKDV = Kernel(
     "flash_f32_bwd_dkdv", source="flash_f32_bwd",
-    symbol="flash_f32_bwd_dkdv_launch",
-    argtypes=[_c.c_void_p] * 9 + [_c.c_int] * 8 + [_c.c_float, _c.c_void_p])
+    symbol="flash_f32_bwd_dkdv_launch", argtypes=_F32_BWD_DKDV_ARGS)
 FLASH_F32_BWD_DQ = Kernel(
     "flash_f32_bwd_dq", source="flash_f32_bwd",
-    symbol="flash_f32_bwd_dq_launch",
-    argtypes=[_c.c_void_p] * 8 + [_c.c_int] * 8 + [_c.c_float, _c.c_void_p])
+    symbol="flash_f32_bwd_dq_launch", argtypes=_F32_BWD_DQ_ARGS)
+#: the same passes at head dims 136-256, each tile on a cluster pair of
+#: CTAs that split the head dim
+FLASH_F32_BWD256_DKDV = Kernel(
+    "flash_f32_bwd256_dkdv", source="flash_f32_bwd",
+    symbol="flash_f32_bwd256_dkdv_launch", argtypes=_F32_BWD_DKDV_ARGS)
+FLASH_F32_BWD256_DQ = Kernel(
+    "flash_f32_bwd256_dq", source="flash_f32_bwd",
+    symbol="flash_f32_bwd256_dq_launch", argtypes=_F32_BWD_DQ_ARGS)
 #: the transposed copies of the fp32 kernels hold s rounded up to this, a
 #: multiple of their 32-column tiles (the launchers refuse another s_pad)
 F32_COPY_PAD = 32
-#: the schedule-aware kernel of each route (:func:`flash_route`): that
-#: entry has no fp32 tensor-core kernel, so its "tf32x3" calls run the
-#: general kernel
-FLASH_SCHED_BY_ROUTE = {"wgmma": FLASH_SCHED, "tf32x3": FLASH_SCHED_SIMT,
+#: the schedule-aware kernel of each route (:func:`flash_route`)
+FLASH_SCHED_BY_ROUTE = {"wgmma": FLASH_SCHED, "tf32x3": FLASH_SCHED_F32,
                         "simt": FLASH_SCHED_SIMT}
+#: the (dkdv, dq) kernels of the backward's tensor-core fp32 routes
+#: (:func:`flash_bwd_route`): head dims up to 128, and 136-256
+FLASH_F32_BWD_BY_ROUTE = {
+    "tf32x3": (FLASH_F32_BWD_DKDV, FLASH_F32_BWD_DQ),
+    "tf32x3_256": (FLASH_F32_BWD256_DKDV, FLASH_F32_BWD256_DQ)}
 
 
 def broadcast_flatten(q, k, v):
@@ -286,16 +307,14 @@ def flash_attention_sched_plain(q, k, v, *,
 
 
 def flash_route(dtype, hd: int, tma_ok: bool = True) -> str:
-    """The kernel family a dense flash call of this dtype and head dim runs
-    on the card: ``"wgmma"`` (``flash_dense`` / ``flash_sched`` and
-    ``flash_dense_bwd``) for bfloat16 with a head dim that is a multiple of
-    8 and ``tma_ok`` (strides and alignment TMA can describe),
-    ``"tf32x3"`` (``flash_dense_f32`` and ``flash_f32_bwd``) for float32
-    likewise up to head dim 128, ``"simt"`` (the general kernels) for
-    every other float32 / bfloat16 / float16 call with a head dim up to
-    256.  The schedule-aware entry runs ``"tf32x3"`` calls on the general
-    kernel too.  Raises for another dtype or head dim, which no kernel
-    takes."""
+    """The kernel family a flash forward of this dtype and head dim runs on
+    the card: ``"wgmma"`` (``flash_dense`` / ``flash_sched``) for bfloat16
+    with a head dim that is a multiple of 8 and ``tma_ok`` (strides and
+    alignment TMA can describe), ``"tf32x3"`` (``flash_dense_f32`` /
+    ``flash_sched_f32``) for float32 likewise up to head dim 128,
+    ``"simt"`` (the general kernels) for every other float32 / bfloat16 /
+    float16 call with a head dim up to 256.  Raises for another dtype or
+    head dim, which no kernel takes."""
     if dtype not in SIMT_DTYPES:
         raise TypeError(f"the flash kernels take float32, bfloat16 or "
                         f"float16, got {dtype}")
@@ -311,6 +330,31 @@ def flash_route(dtype, hd: int, tma_ok: bool = True) -> str:
     return "simt"
 
 
+def flash_bwd_route(dtype, hd: int, tma_ok: bool = True) -> str:
+    """The kernel family of the backward of a dense call ("wgmma", "simt"
+    or a key of :data:`FLASH_F32_BWD_BY_ROUTE`): the forward's
+    :func:`flash_route`, but
+    float32 at a head dim of 136-256 that is a multiple of 8 with
+    ``tma_ok`` goes to the tensor cores (``"tf32x3_256"``) while its
+    forward stays on the general kernel.  That backward reads the general
+    forward's lse: both fp32 forwards write the natural log-sum-exp of the
+    scaled, masked scores, +inf for a row with no live column
+    (``flash_simt.cu``'s m + log l, ``flash_f32.cu``'s (m + log2 l) ln 2)."""
+    route = flash_route(dtype, hd, tma_ok)
+    if route == "simt" and dtype == torch.float32 and hd % 8 == 0 and tma_ok:
+        return "tf32x3_256"     # past TF32X3_MAX_HEAD_DIM
+    return route
+
+
+def _tma_ok(*tensors) -> bool:
+    """Whether TMA can describe each (b, s, heads, hd) tensor: a contiguous
+    last dim, strides that are multiples of 16 bytes, 16-byte aligned
+    data."""
+    return all(t.stride(3) == 1 and t.data_ptr() % 16 == 0
+               and not any(st * t.element_size() % 16
+                           for st in t.stride()[:3]) for t in tensors)
+
+
 def _check_kernel_inputs(name: str, q, k, v) -> str:
     """Check q (b, s, h, hd), k/v (b, s, kvh, hd) and return the kernel
     family that takes them (:func:`flash_route`): a GQA layout and one
@@ -324,10 +368,7 @@ def _check_kernel_inputs(name: str, q, k, v) -> str:
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes q, k and v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    tma_ok = all(t.stride(3) == 1 and t.data_ptr() % 16 == 0
-                 and not any(st * t.element_size() % 16
-                             for st in t.stride()[:3]) for t in (q, k, v))
-    return flash_route(q.dtype, hd, tma_ok)
+    return flash_route(q.dtype, hd, _tma_ok(q, k, v))
 
 
 def _strides(*tensors) -> list[int]:
@@ -351,27 +392,69 @@ def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
     kernel = FLASH_SCHED_BY_ROUTE[_check_kernel_inputs("flash_sched", q, k,
                                                        v)]
     if kernel is FLASH_SCHED_SIMT:
-        q, k, v = _unit_stride(q, k, v)
+        return _flash_sched_simt_cuda(q, k, v, desc, bounds, block_q=block_q,
+                                      block_k=block_k, causal=causal,
+                                      window=window)
+    out, table, ptrs, shape, tail = _sched_args(
+        q, k, v, desc, bounds, block_q, block_k, causal, window)
+    if kernel is FLASH_SCHED_F32:
+        b, s, _, hd = q.shape
+        kc, vt, s_pad = _f32_copies(b, s, k.shape[2], hd, q.device)
+        kernel.launch(*ptrs, *_ptrs(*kc, *vt), s_pad, *shape, *tail)
+    else:
+        kernel.launch(*ptrs, *shape, *tail)
+    return out
+
+
+def _flash_sched_simt_cuda(q, k, v, desc, bounds, *, block_q: int,
+                           block_k: int, causal: bool, window: int):
+    """The general schedule-aware kernel on q (b, s, h, hd), k/v
+    (b, s, kvh, hd) of any dtype of ``SIMT_DTYPES``, as
+    :func:`_flash_sched_cuda` returns."""
+    q, k, v = _unit_stride(q, k, v)
+    out, table, ptrs, shape, tail = _sched_args(
+        q, k, v, desc, bounds, block_q, block_k, causal, window)
+    FLASH_SCHED_SIMT.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
+    return out
+
+
+def _sched_args(q, k, v, desc, bounds, block_q, block_k, causal, window):
+    """The schedule-aware kernels' output, the descriptor table on the card
+    and their launch arguments: pointers, shape and the strides, scale and
+    stream.  The caller keeps the table bound until the launch is queued:
+    the caching allocator then reuses it only for work queued after the
+    kernel on the same stream."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     g = int(desc[0].shape[0])
     p = int(bounds.shape[0]) - 1
-    # freed when this returns: the caching allocator reuses it only for work
-    # queued after the kernel on the same stream
     table = _upload_table(desc, bounds, q.device)
     d_ptr = table.data_ptr()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            d_ptr, d_ptr + 6 * g * 4)
     shape = (g, p, b, s, h, h // kvh, hd, block_q, block_k, int(causal),
              int(window))
     tail = (*_strides(q, k, v, out), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            d_ptr, d_ptr + 6 * g * 4)
-    if kernel is FLASH_SCHED:
-        kernel.launch(*ptrs, *shape, *tail)
-    else:
-        kernel.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
-    return out
+    return out, table, ptrs, shape, tail
+
+
+def _f32_copies(b: int, s: int, kvh: int, hd: int, device):
+    """Scratch of the fp32 forwards' split copies, K hi / lo
+    (2, b, s, kvh, hd) and V^T hi / lo (2, b, kvh, hd, s_pad), and s_pad.
+    The caller keeps both bound until the launch that writes them is
+    queued, as the descriptor table (:func:`_sched_args`)."""
+    s_pad = -(-s // F32_COPY_PAD) * F32_COPY_PAD
+    kc = torch.empty((2, b, s, kvh, hd), dtype=torch.float32, device=device)
+    vt = torch.empty((2, b, kvh, hd, s_pad), dtype=torch.float32,
+                     device=device)
+    return kc, vt, s_pad
+
+
+def _ptrs(*tensors) -> tuple[int, ...]:
+    """The tensors' data pointers, in order."""
+    return tuple(t.data_ptr() for t in tensors)
 
 
 def _flash_dense_cuda(q, k, v, *, causal: bool, window: int,
@@ -391,15 +474,9 @@ def _flash_dense_cuda(q, k, v, *, causal: bool, window: int,
     if route == "wgmma":
         FLASH_DENSE.launch(*ptrs, *shape, *tail)
     else:
-        # scratch of the split copies: K hi / lo (b, s, kvh, hd), V^T hi /
-        # lo (b, kvh, hd, s_pad)
-        s_pad = -(-s // F32_COPY_PAD) * F32_COPY_PAD
-        kc = torch.empty((2, b, s, kvh, hd), dtype=q.dtype, device=q.device)
-        vt = torch.empty((2, b, kvh, hd, s_pad), dtype=q.dtype,
-                         device=q.device)
-        FLASH_DENSE_F32.launch(*ptrs, kc[0].data_ptr(), kc[1].data_ptr(),
-                               vt[0].data_ptr(), vt[1].data_ptr(), s_pad,
-                               *shape, *tail)
+        kc, vt, s_pad = _f32_copies(b, s, kvh, hd, q.device)
+        FLASH_DENSE_F32.launch(*ptrs, *_ptrs(*kc, *vt), s_pad, *shape,
+                               *tail)
     return (out, lse) if with_lse else out
 
 
@@ -433,21 +510,24 @@ def _dense_args(q, k, v, causal, window, with_lse):
 def _flash_dense_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int):
     """Launch the three backward kernels on the forward's q (b, s, h, hd),
     k/v (b, s, kvh, hd), output o, its gradient do and lse (b, h, s); returns
-    (dq, dk, dv) in the inputs' shapes and dtype.  By the forward's route:
-    ``flash_dense_bwd`` ("wgmma"), ``flash_f32_bwd`` ("tf32x3") or the
-    general kernels (``flash_simt_bwd``)."""
-    route = _check_kernel_inputs("flash_dense", q, k, v)
+    (dq, dk, dv) in the inputs' shapes and dtype.  By
+    :func:`flash_bwd_route`: ``flash_dense_bwd`` ("wgmma"),
+    ``flash_f32_bwd`` ("tf32x3", "tf32x3_256") or the general kernels
+    (``flash_simt_bwd``)."""
+    _check_kernel_inputs("flash_dense", q, k, v)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
+    route = flash_bwd_route(q.dtype, hd, _tma_ok(q, k, v))
     q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do.to(q.dtype)))
     lse = lse.contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if route == "simt":
         return _flash_simt_bwd_cuda(q, k, v, o, do, lse, causal=causal,
                                     window=window, stream=stream)
-    if route == "tf32x3":
+    if route != "wgmma":
         return _flash_f32_bwd_cuda(q, k, v, o, do, lse, causal=causal,
-                                   window=window, stream=stream)
+                                   window=window, stream=stream,
+                                   kernels=FLASH_F32_BWD_BY_ROUTE[route])
     s_pad = -(-s // BWD_ROW_PAD) * BWD_ROW_PAD
     # lse log2(e) and D, (b, h, s_pad): +inf and 0 past s
     lse2, delta = torch.empty((2, b, h, s_pad), dtype=torch.float32,
@@ -495,29 +575,32 @@ def _simt_delta(o, do, stream):
 
 
 def _flash_f32_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int,
-                        stream):
+                        stream, kernels):
     """The fp32 backward on the tensor cores on contiguous q (b, s, h, hd),
-    k/v (b, s, kvh, hd), o, do and the forward's lse (b, h, s): D (the
+    k/v (b, s, kvh, hd), o, do and the forward's lse (b, h, s) with
+    ``kernels`` (dkdv, dq) of :data:`FLASH_F32_BWD_BY_ROUTE`: D (the
     general delta pass), then dK and dV, then dQ.  Each pass first writes
     the split copies of its stage operands into one scratch buffer, which
     the dq pass reuses after the dkdv pass on the same stream."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
+    dkdv_kernel, dq_kernel = kernels
     delta = _simt_delta(o, do, stream)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     s_pad = -(-s // F32_COPY_PAD) * F32_COPY_PAD
     # dkdv: Q and dO hi / lo in both layouts; dq needs less (K and V).
-    # 1.07 GB at qwen3-4b's training shape (2 x 4096, 32 heads, hd 128)
+    # 1.07 GB at qwen3-4b's training shape (2 x 4096, 32 heads, hd 128),
+    # 335 MB at recurrentgemma-2b's local attention (1 x 4096, 10 heads,
+    # hd 256)
     ws = torch.empty(4 * b * h * hd * (s + s_pad), dtype=torch.float32,
                      device=q.device)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
     shape = (b, s, h, h // kvh, hd, int(causal), int(window),
              1.0 / math.sqrt(hd), stream)
-    FLASH_F32_BWD_DKDV.launch(*ins, dk.data_ptr(), dv.data_ptr(),
-                              ws.data_ptr(), s_pad, *shape)
-    FLASH_F32_BWD_DQ.launch(*ins, dq.data_ptr(), ws.data_ptr(), s_pad,
-                            *shape)
+    dkdv_kernel.launch(*ins, dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
+                       s_pad, *shape)
+    dq_kernel.launch(*ins, dq.data_ptr(), ws.data_ptr(), s_pad, *shape)
     return dq, dk, dv
 
 

@@ -61,20 +61,68 @@ def matmul_tf32x3(a, b, *, terms: int = 3):
     return out
 
 
-def attention_tf32x3(q, k, v, *, causal: bool = True, window: int = 0,
-                     terms: int = 3):
-    """:func:`attention_ref` with both products through
-    :func:`matmul_tf32x3`: q, k, v (bh, s, hd) fp32 -> (bh, s, hd).  Used
-    by the tests only, to hold the split's arithmetic to the reference on
-    the CPU."""
-    bh, s, hd = q.shape
-    scores = matmul_tf32x3(q.float(), k.float().transpose(1, 2),
-                           terms=terms) / math.sqrt(hd)
-    i = torch.arange(s, device=q.device)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+def _mask(s: int, device, *, causal: bool, window: int, kv_lens=None):
+    """(lanes or 1, s, s) bool: the live (row, column) pairs."""
+    i = torch.arange(s, device=device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
     if causal:
         mask &= i[None, :] <= i[:, None]
     if window > 0:
         mask &= (i[:, None] - i[None, :]) < window
+    mask = mask[None]
+    if kv_lens is not None:
+        lens = torch.as_tensor(np.asarray(kv_lens, np.int64), device=device)
+        mask = mask & (i[None, None, :] < lens[:, None, None])
+    return mask
+
+
+def matmul_halves(a, b, *, terms: int = 3, width: int = 128):
+    """``a @ b`` reduced over a dim wider than ``width`` as
+    ``csrc/flash_f32_bwd.cu``'s cluster pairs do at head dims 136-256: the
+    three-term product of each ``width``-column half, then their sum."""
+    if a.shape[-1] <= width:
+        return matmul_tf32x3(a, b, terms=terms)
+    return (matmul_tf32x3(a[..., :width], b[..., :width, :], terms=terms)
+            + matmul_tf32x3(a[..., width:], b[..., width:, :], terms=terms))
+
+
+def attention_tf32x3(q, k, v, *, causal: bool = True, window: int = 0,
+                     kv_lens: Optional[Sequence[int]] = None,
+                     terms: int = 3):
+    """:func:`attention_ref` with both products through
+    :func:`matmul_tf32x3`: q, k, v (bh, s, hd) fp32 -> (bh, s, hd), rows
+    with no live column 0.  Used by the tests only, to hold the split's
+    arithmetic to the reference on the CPU."""
+    bh, s, hd = q.shape
+    scores = matmul_tf32x3(q.float(), k.float().transpose(1, 2),
+                           terms=terms) / math.sqrt(hd)
+    mask = _mask(s, q.device, causal=causal, window=window, kv_lens=kv_lens)
     probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    probs = torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
     return matmul_tf32x3(probs, v.float(), terms=terms)
+
+
+def attention_bwd_tf32x3(q, k, v, do, *, causal: bool = True,
+                         window: int = 0, terms: int = 3):
+    """(dq, dk, dv) of the dense function at q, k, v, do (bh, s, hd) fp32,
+    as ``csrc/flash_f32_bwd.cu`` computes them: the forward's log-sum-exp
+    lse, P = exp(S - lse), D = rowsum(dO o O) in fp32, and the five
+    products through :func:`matmul_halves` (S = Q K^T, dP = dO V^T over
+    the head dim in halves past 128 columns; dV = P^T dO, dQ = dS K,
+    dK = dS^T Q), dS = P o (dP - D).  Used by the tests only."""
+    bh, s, hd = q.shape
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(hd)
+    mask = _mask(s, q.device, causal=causal, window=window)
+    scores = torch.where(mask, matmul_halves(q, k.transpose(1, 2),
+                                             terms=terms) * scale, NEG_INF)
+    lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(scores - lse), 0.0)
+    out = matmul_tf32x3(p, v, terms=terms)
+    delta = (do * out).sum(dim=-1, keepdim=True)
+    dp = matmul_halves(do, v.transpose(1, 2), terms=terms)
+    ds = p * (dp - delta)
+    dv = matmul_tf32x3(p.transpose(1, 2), do, terms=terms)
+    dq = matmul_tf32x3(ds, k, terms=terms) * scale
+    dk = matmul_tf32x3(ds.transpose(1, 2), q, terms=terms) * scale
+    return dq, dk, dv

@@ -13,8 +13,8 @@ final rounding), also for ``gmm_any``'s.  The general kernels' fp32 outputs (``g
 ``flash_*_simt``; plain fp32 FMA, TF32 off on both sides) are held to
 1e-5 + 1e-5 |plain| for the grouped matmul and 1e-4 + 1e-4 |plain| for
 flash attention (sums of up to thousands of products in another order),
-and so is ``flash_dense_f32`` (three TF32 products each, about 2^-20
-relative error a product);
+and so are ``flash_dense_f32`` and ``flash_sched_f32`` (three TF32
+products each, about 2^-20 relative error a product);
 fp16 outputs to 2^-10 + 2^-10 |plain| (two fp16 rounding steps).  Across
 schedules and ``sched_p`` the outputs must be bit-identical.
 """
@@ -71,7 +71,9 @@ def _assert_close(got, want, tol=TOL):
     ((1, 96, 2, 2, 128, 512, 0, False, None, False),
      (3, 300, 4, 2, 128, 128, 0, True, [0, 300, 77], False),   # kv_len 0
      (2, 300, 2, 2, 64, 64, 40, False, [0, 129], False),
-     (3, 200, 4, 2, 32, 64, 0, True, [0, 200, 77], False)),    # hd 32
+     (3, 200, 4, 2, 32, 64, 0, True, [0, 200, 77], False),     # hd 32
+     # kv blocks of 100 columns: fp32's tiles start at aligned columns
+     (2, 333, 4, 2, 128, 100, 60, True, None, False)),
     ((2, 1024, 8, 2, 128, 512, 0, True, None, False),
      (2, 300, 4, 2, 128, 128, 0, True, None, True),     # strided heads
      (2, 300, 4, 2, 64, 64, 32, True, None, True),
@@ -83,6 +85,9 @@ def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
     techniques at sched_p 1 (one CTA wraps the stage ring across every
     unit), 8 and the SM count; head dims 64 and 128, and 32 (padded to
     64), 80 (its exact width) and 256 (64-column kv tiles in 2 stages).
+    The first and the last case of each group also in fp32: on the
+    tensor cores (``flash_sched_f32``) up to head dim 128, on the general
+    kernel at 256.
 
     The edge cases share the four items instead of being items of their
     own only while the reference's order-dependent
@@ -91,10 +96,9 @@ def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
     queue, and that reference test then fails.
     """
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    # the first case of each group also in fp32, on the general kernel
     runs = [(c, dt) for i, c in enumerate(case)
-            for dt in ((torch.bfloat16, torch.float32) if i == 0
-                       else (torch.bfloat16,))]
+            for dt in ((torch.bfloat16, torch.float32)
+                       if i in (0, len(case) - 1) else (torch.bfloat16,))]
     for (b, s, h, kvh, hd, blk, window, causal, lens, strided), dt in runs:
         if strided:
             # q, k and v as views of one (b, s, 3, h, hd) buffer
@@ -107,7 +111,11 @@ def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
                 if lens is None else np.asarray(lens))
         kw = dict(causal=causal, window=window, block_q=blk, block_k=blk,
                   kv_lens=lens)
-        kernel = fa.FLASH_SCHED if dt == torch.bfloat16 else fa.FLASH_SCHED_SIMT
+        kernel = fa.FLASH_SCHED_BY_ROUTE[fa._check_kernel_inputs(
+            "flash_sched", q, k, v)]
+        assert kernel is {torch.bfloat16: fa.FLASH_SCHED,
+                          torch.float32: fa.FLASH_SCHED_F32 if hd <= 128
+                          else fa.FLASH_SCHED_SIMT}[dt]
         before = kernel.launches
         out = flash_attention(q, k, v, schedule="static", sched_p=5, **kw)
         assert kernel.launches == before + 1
@@ -124,9 +132,10 @@ def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
 
 
 def test_flash_bhsd_entry_and_errors(dev):
-    """The bhsd entry; fp32, fp16 and a bf16 head dim of 20 on the general
-    kernel (hd 80 and 256 in fp32 with ragged lens and a window); what no
-    kernel takes raises, with no route to the plain version."""
+    """The bhsd entry; fp32 at hd 64 and 80 on the tensor cores
+    (``flash_sched_f32``), fp32 at hd 256, fp16 and a bf16 head dim of 20
+    on the general kernel, with ragged lens and a window; what no kernel
+    takes raises, with no route to the plain version."""
     q = _randn(dev, 4, 256, 64)
     out = fa.flash_attention_sched_bhsd(q, q, q, schedule="gss", block_q=128,
                                         block_k=128)
@@ -142,11 +151,14 @@ def test_flash_bhsd_entry_and_errors(dev):
                    (torch.float32, 256)):
         y = _randn(dev, 3, 300, hd, seed=hd, dtype=dt)
         lens = [300, 77, 1]
-        simt = fa.FLASH_SCHED_SIMT.launches
+        kernel = fa.FLASH_SCHED_BY_ROUTE[fa.flash_route(dt, hd)]
+        assert (kernel is fa.FLASH_SCHED_F32) == (
+            dt == torch.float32 and hd <= 128)
+        launches = kernel.launches
         got = fa.flash_attention_sched_bhsd(y, y, y, schedule="fac2",
                                             kv_lens=lens, window=50,
                                             block_q=128, block_k=64)
-        assert fa.FLASH_SCHED_SIMT.launches == simt + 1
+        assert kernel.launches == launches + 1
         assert got.dtype == dt
         _assert_close(got, fa.flash_attention_sched_plain(
             y, y, y, kv_lens=lens, window=50), SIMT_TOL[dt][1])

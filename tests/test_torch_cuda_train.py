@@ -131,16 +131,19 @@ def test_flash_dense_bwd_matches_plain(dev, hd, windowed):
 
 def test_flash_dense_bwd_is_deterministic(dev):
     """Two runs of the backward give the same bits (no atomics): bf16, and
-    fp32 on the tensor cores (route "tf32x3") at head dims 64, 80 and 128
-    with windows."""
+    fp32 on the tensor cores at head dims 64, 80 and 128 (route "tf32x3")
+    and 200 and 256 (cluster pairs, "tf32x3_256") with windows."""
     for hd, window, dtype in ((128, 0, torch.bfloat16),
                               (64, 100, torch.bfloat16),
                               (64, 100, torch.float32),
                               (80, 50, torch.float32),
-                              (128, 300, torch.float32)):
+                              (128, 300, torch.float32),
+                              (200, 70, torch.float32),
+                              (256, 2048, torch.float32)):
         q, k, v, do = _inputs(dev, 2, 1000, 8, 2, hd, seed=3, dtype=dtype)
-        assert fa._check_kernel_inputs("flash_dense", q, k, v) == (
-            "wgmma" if dtype == torch.bfloat16 else "tf32x3")
+        assert fa.flash_bwd_route(dtype, hd) == (
+            "wgmma" if dtype == torch.bfloat16 else
+            "tf32x3" if hd <= 128 else "tf32x3_256")
         first = _bwd(q, k, v, do, True, window)
         second = _bwd(q, k, v, do, True, window)
         for a, b in zip(first, second):
@@ -191,16 +194,21 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
     # fp32, forward and backward: on the tensor cores (route "tf32x3") at
     # head dims 64, 80 and 128 and the padded 16 and 72, with windows, GQA
     # / MQA, non-causal, s off the 16-row stages, and a long MQA sum (dK,
-    # dV over 4 heads x 2100 rows); on the general kernels at head dim 256
-    # and an odd head dim; under autograd one launch of each pass, two runs
-    # bit-identical
+    # dV over 4 heads x 2100 rows); at head dims 136-256 the forward on the
+    # general kernel and the backward on the tensor cores' cluster pairs
+    # ("tf32x3_256": 256, 200 and 136, non-causal, and recurrentgemma-2b's
+    # MQA 10 / 1 at window 2048, dK and dV summing 10 heads x ~2048 rows);
+    # an odd head dim on the general kernels; under autograd one launch of
+    # each pass, two runs bit-identical
     for i, (b, s, h, kvh, hd, window, causal) in enumerate((
             (2, 300, 4, 2, 64, 0, True), (1, 200, 4, 1, 80, 70, True),
             (1, 129, 4, 2, 128, 0, True), (2, 100, 2, 2, 128, 0, False),
             (1, 1000, 8, 2, 128, 200, True), (2, 333, 4, 1, 64, 40, True),
             (1, 300, 4, 4, 72, 0, True), (2, 17, 4, 2, 16, 0, True),
             (1, 2100, 4, 1, 128, 0, True),
-            (1, 700, 5, 1, 256, 2048, True), (1, 150, 2, 1, 100, 30, True))):
+            (1, 700, 5, 1, 256, 2048, True), (2, 300, 4, 2, 200, 50, True),
+            (1, 150, 2, 2, 136, 0, False), (1, 3000, 10, 1, 256, 2048, True),
+            (1, 150, 2, 1, 100, 30, True))):
         q, k, v, do = _inputs(dev, b, s, h, kvh, hd, seed=60 + i,
                               dtype=torch.float32)
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
@@ -209,11 +217,12 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
                                             window=window)
         out.backward(do)
         torch.cuda.synchronize()
-        names = (("flash_dense_f32", "flash_simt_bwd_delta",
-                  "flash_f32_bwd_dkdv", "flash_f32_bwd_dq")
-                 if fa.flash_route(torch.float32, hd) == "tf32x3" else
+        names = (("flash_dense_simt", "flash_simt_bwd_delta",
+                  "flash_simt_bwd_dkdv", "flash_simt_bwd_dq") if hd % 8 else
+                 ("flash_dense_f32", "flash_simt_bwd_delta",
+                  "flash_f32_bwd_dkdv", "flash_f32_bwd_dq") if hd <= 128 else
                  ("flash_dense_simt", "flash_simt_bwd_delta",
-                  "flash_simt_bwd_dkdv", "flash_simt_bwd_dq"))
+                  "flash_f32_bwd256_dkdv", "flash_f32_bwd256_dq"))
         launches = {n: _build.KERNELS[n].launches for n in names}
         assert launches == dict.fromkeys(launches, 1), launches
         got = _bwd(q, k, v, do, causal, window)

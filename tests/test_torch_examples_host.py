@@ -20,13 +20,15 @@ def test_cluster_demo_prints_the_reference_lines():
 @pytest.mark.parametrize("lb_schedule", [None, "gss,64"])
 def test_quickstart_prints_the_reference_lines(monkeypatch, lb_schedule):
     """Both the default runtime schedule and the ``LB_SCHEDULE`` override
-    (the repo's OMP_SCHEDULE)."""
+    (the repo's OMP_SCHEDULE).  Each in its own interpreter: both print
+    their package's registry, which a test run earlier in this process may
+    have added to (``test_lint.py`` registers ``lint_polluter_test``)."""
     if lb_schedule is None:
         monkeypatch.delenv("LB_SCHEDULE", raising=False)
     else:
         monkeypatch.setenv("LB_SCHEDULE", lb_schedule)
-    want = run_main(load("quickstart"))
-    got = run_main(load("torch_quickstart"), ["--device", "cpu"])
+    want = run_file("quickstart")
+    got = run_file("torch_quickstart", ["--device", "cpu"])
     assert got == want
     assert any(f"schedule(runtime) -> {lb_schedule or 'fac2,64'}:" in line
                for line in got)

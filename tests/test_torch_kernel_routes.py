@@ -139,10 +139,23 @@ def test_flash_routes_by_dtype_head_dim_and_strides():
         assert fa.flash_route(BF16, hd) == "simt"
     assert fa.flash_route(BF16, 128, tma_ok=False) == "simt"
     assert fa.flash_route(F32, 128, tma_ok=False) == "simt"
-    # the schedule-aware entry has no fp32 tensor-core kernel
-    assert fa.FLASH_SCHED_BY_ROUTE["tf32x3"] is fa.FLASH_SCHED_SIMT
+    # the schedule-aware entry's fp32 tensor-core kernel
+    assert fa.FLASH_SCHED_BY_ROUTE["tf32x3"] is fa.FLASH_SCHED_F32
     assert fa.FLASH_SCHED_BY_ROUTE["simt"] is fa.FLASH_SCHED_SIMT
     assert fa.FLASH_SCHED_BY_ROUTE["wgmma"] is fa.FLASH_SCHED
+    # the backward: the forward's route, but fp32 at head dims 136-256 on
+    # the tensor cores (cluster pairs) while its forward is general
+    for hd in range(8, 257, 8):
+        assert fa.flash_bwd_route(BF16, hd) == "wgmma"
+        assert fa.flash_bwd_route(F16, hd) == "simt"
+        assert fa.flash_bwd_route(F32, hd) == (
+            "tf32x3" if hd <= 128 else "tf32x3_256")
+        assert fa.flash_bwd_route(F32, hd, tma_ok=False) == "simt"
+    for hd in (1, 20, 100, 250):
+        assert fa.flash_bwd_route(F32, hd) == "simt"
+    assert fa.FLASH_F32_BWD_BY_ROUTE == {
+        "tf32x3": (fa.FLASH_F32_BWD_DKDV, fa.FLASH_F32_BWD_DQ),
+        "tf32x3_256": (fa.FLASH_F32_BWD256_DKDV, fa.FLASH_F32_BWD256_DQ)}
     for hd in (0, 264, 512):
         with pytest.raises(ValueError, match="head_dim"):
             fa.flash_route(F32, hd)
@@ -158,9 +171,9 @@ def test_flash_kernel_check_reads_layout_and_strides():
     q32, kv32 = q.float(), kv.float()
     assert fa._check_kernel_inputs("flash_dense", q32, kv32,
                                    kv32) == "tf32x3"
-    # the schedule-aware entry takes fp32 on the general kernel
+    # the schedule-aware entry takes fp32 on the tensor cores
     assert fa.FLASH_SCHED_BY_ROUTE[fa._check_kernel_inputs(
-        "flash_sched", q32, kv32, kv32)] is fa.FLASH_SCHED_SIMT
+        "flash_sched", q32, kv32, kv32)] is fa.FLASH_SCHED_F32
     # a head dim the TMA boxes cannot step (strides not multiples of 8)
     odd = torch.zeros(1, 16, 4, 132, dtype=BF16)[..., :128]
     assert fa._check_kernel_inputs("flash_dense", odd, kv, kv) == "simt"
@@ -172,6 +185,13 @@ def test_flash_kernel_check_reads_layout_and_strides():
     # fp32 past head dim 128, and fp16, on the general kernels
     wide = torch.zeros(1, 16, 2, 256)
     assert fa._check_kernel_inputs("flash_dense", wide, wide, wide) == "simt"
+    # ... whose backward runs on the tensor cores where TMA can describe
+    # the strides (rows 1032 bytes apart: it cannot)
+    assert fa.flash_bwd_route(torch.float32, 256, fa._tma_ok(
+        wide, wide, wide)) == "tf32x3_256"
+    odd256 = torch.zeros(1, 16, 2, 258)[..., :256]
+    assert fa.flash_bwd_route(torch.float32, 256, fa._tma_ok(
+        odd256, wide, wide)) == "simt"
     assert fa._check_kernel_inputs("flash_dense", q.half(), kv.half(),
                                    kv.half()) == "simt"
     with pytest.raises(TypeError, match="one dtype"):
