@@ -227,17 +227,24 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                and gss / 1); the fp32 backward at qwen3-4b's training
                shape and at recurrentgemma-2b's (hd 256, window 2048; on
                cluster pairs) on the tensor cores (``flash_f32_bwd.cu``,
-               the general backward beside each); fp16 flash on the
-               general kernels (the fp16 path, counts from 0:
-               ``FP16_PATH_LAUNCHES``; then dense at qwen3-4b's prefill,
-               scheduled at the main path's lanes and the backward at
-               qwen3-4b's training shape, against SDPA in fp16).
+               the general backward beside each); fp16 flash (the fp16
+               path, counts from 0: ``FP16_PATH_LAUNCHES``, dense forward
+               and backward on the fp16 instantiations of ``flash_dense``
+               and ``flash_dense_bwd``, the schedule-aware call on
+               ``flash_sched_simt``; then dense at qwen3-4b's prefill and
+               the backward at qwen3-4b's training shape, each with the
+               general kernel on the same tensors beside it, and the
+               scheduled call at the main path's lanes, against SDPA in
+               fp16, each with the share of the fp16 gate it uses;
+               ``flash16_digest`` twice, equal).
                Each: its route, its time (single calls and back to back),
                the plain version's, ``torch.bmm`` / SDPA in fp32 on the
                same tensors, and the bound (fp32 operations at 67 TFLOP/s;
                the tensor-core rows also at 3 x operations / 494.7 TFLOP/s,
-               ``bound_ms_tf32x3``; the fp16 rows at 989 TFLOP/s with the
-               67 TFLOP/s one beside, ``bound_ms_fp32_fma``); and
+               ``bound_ms_tf32x3``; the fp16 rows at 989 TFLOP/s, the
+               tensor-core ones also at the reference's precision,
+               ``bound_ms_fp32_pv``, the general kernels' also at 67
+               TFLOP/s, ``bound_ms_fp32_fma``); and
                ``flash32_digests`` (below; ``flash32_digest`` held to
                ``PARENT_FLASH32_DIGEST``).  Then launch counts set to 0
                and the fp32 model path: ``flash_attention`` with a
@@ -281,6 +288,8 @@ CUDA device is present or ``src/repro_torch`` is missing beside it.
     python3 chip_smoke.py --flash32-digest [SRC]
     python3 chip_smoke.py --flash32-times [SRC]
     python3 chip_smoke.py --sdpa32-kernels [SRC]
+    python3 chip_smoke.py --bwd-digest [SRC]
+    python3 chip_smoke.py --flash16-times [SRC]
 
 print only that digest (``dense_digest``; ``hd80_digest``: ``flash_dense``'s
 output and lse and ``flash_dense_bwd``'s dQ, dK, dV at stablelm-3b's
@@ -310,7 +319,13 @@ dense flash forward's back-to-back times at SIMT_DENSE_SHAPES' head dims
 recurrentgemma-2b's hd-256 window and the schedule-aware call's at the
 main path's lanes, with SDPA's beside them and the kernels each call
 launched (``flash32_times``), or only the profiler's names of the kernels SDPA
-launches in fp32 at the hd-128 rows' shapes (``sdpa32_kernels``), for
+launches in fp32 at the hd-128 rows' shapes (``sdpa32_kernels``), or only
+hashes of ``flash_dense_bwd``'s bf16 gradients (with the forward's output
+and lse) at hd 128 and at a windowed hd-256 MQA (``bwd_digest``), or only
+the fp16 dense forward's back-to-back time at qwen3-4b's prefill, its
+backward's at SIMT_BWD_SHAPE and the schedule-aware call's at the main
+path's lanes, with SDPA's in fp16 beside them and the kernels each call
+launched (``flash16_times``), for
 the package under ``SRC`` (default: this
 checkout's ``src``), so that another tree's kernels can be held against
 this one bit for bit, and timed against it in turns (parent, change,
@@ -524,11 +539,12 @@ TF32X3_HEAD_DIMS = ("64", "80", "128")
 # each run the dense forward twice (remat "full") and the backward once,
 # on the tensor cores, and so do the scheduled call and the hd-256
 # attention's backward (cluster pairs); that attention's forward on the
-# general kernel, whose delta pass serves every fp32 backward; the fp32
-# grouped matmul family must launch too
+# general kernel, whose delta pass serves every fp32 backward (and no
+# general dkdv or dq pass); the fp32 grouped matmul family must launch too
 FP32_PATH_LAUNCHES = {"flash_dense_f32": 8, "flash_f32_bwd_dkdv": 4,
                       "flash_f32_bwd_dq": 4, "flash_sched_f32": 1,
                       "flash_dense_simt": 1, "flash_simt_bwd_delta": 5,
+                      "flash_simt_bwd_dkdv": 0, "flash_simt_bwd_dq": 0,
                       "flash_f32_bwd256_dkdv": 1, "flash_f32_bwd256_dq": 1}
 FP32_PATH_GMM = ("gmm_simt", "gmm_dx_simt", "gmm_dw_simt")
 # flash32_digest(): (b, s, h, kvh, hd, window, causal) of the fp32 dense
@@ -545,15 +561,25 @@ PARENT_FLASH32_DIGEST = "ef94b919e827c1f1"
 # seed 28, one lane of length 0, causal, fac2)
 FLASH32_BWD256_DIGEST_SHAPE = (1, 1100, 10, 1, 256, 300)
 FLASH32_SCHED_DIGEST_SHAPE = (3, 1000, 8, 2, 128, 7)
-# fp16 flash on the general kernels (flash_simt.cu, flash_simt_bwd.cu;
-# fp32 FMA, fp16 in and out), counted as the fp16 path and timed against
-# SDPA in fp16: dense at qwen3-4b's prefill, the schedule-aware entry at
-# the main path's lanes, the backward at SIMT_BWD_SHAPE; the fp16 gate
-# 2^-10 + 2^-10 |plain| (two fp16 rounding steps)
+# bwd_digest(): the bf16 backward, (b, s, h, kvh, hd, window), causal
+BWD_DIGEST_SHAPES = ((2, 1100, 32, 8, 128, 0), (1, 1300, 10, 1, 256, 300))
+# flash16_digest(): the fp16 dense forward and backward on the tensor
+# cores, (b, s, h, kvh, hd, window, causal)
+FLASH16_DIGEST_SHAPES = ((1, 1000, 8, 2, 128, 0, True),
+                         (2, 700, 4, 4, 80, 100, True),
+                         (1, 600, 4, 1, 64, 0, False),
+                         (1, 1100, 10, 1, 256, 300, True))
+# fp16 flash, counted as the fp16 path and timed against SDPA in fp16:
+# dense at qwen3-4b's prefill and the backward at SIMT_BWD_SHAPE on the
+# fp16 instantiations of flash_dense.cu and flash_dense_bwd.cu (the
+# general kernels, flash_simt.cu and flash_simt_bwd.cu, beside them on the
+# same tensors), the schedule-aware entry at the main path's lanes on the
+# general kernel; the fp16 gate 2^-10 + 2^-10 |plain| (two fp16 rounding
+# steps) against the fp32 plain versions
 FP16_FLASH_TOL = 2.0 ** -10
-FP16_PATH_LAUNCHES = {"flash_dense_simt": 1, "flash_sched_simt": 1,
-                      "flash_simt_bwd_delta": 1, "flash_simt_bwd_dkdv": 1,
-                      "flash_simt_bwd_dq": 1}
+FP16_PATH_LAUNCHES = {"flash_dense": 1, "flash_sched_simt": 1,
+                      "flash_dense_bwd_delta": 1, "flash_dense_bwd_dkdv": 1,
+                      "flash_dense_bwd_dq": 1}
 # the examples phase: the seven twins of examples/, each in its own process
 # at its default arguments (their printed lines are held against the
 # originals' on the CPU by tests/test_torch_examples_*.py)
@@ -1012,14 +1038,73 @@ def hd80_digest(dev):
     q, k, v, do = (torch.randn(TRAIN_BATCH, TRAIN_S, n, hd, generator=gen,
                                device=dev).to(torch.bfloat16)
                    for n in (h, kvh, kvh, h))
-    out, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=0,
-                                    with_lse=True)
+    out, lse, kw = dense_fwd_res(fa, q, k, v, True, 0)
     grads = fa._flash_dense_bwd_cuda(q, k, v, out, do, lse, causal=True,
-                                     window=0)
+                                     window=0, **kw)
     digest = hashlib.sha256()
     for x in (out, lse, *grads):
         digest.update(x.contiguous().view(torch.uint8).cpu().numpy()
                       .tobytes())
+    return digest.hexdigest()[:16]
+
+
+def bwd_digest(dev):
+    """sha256 (16 hex digits) of ``flash_dense_bwd``'s bf16 dQ, dK and dV,
+    with the forward's output and lse, at each of BWD_DIGEST_SHAPES (causal;
+    ragged s; qwen3-4b's 32 / 8 heads at hd 128, a windowed MQA at hd 256),
+    on inputs from a generator of their own (seed 129), so that two builds
+    can be held bit for bit against each other: ``{"bwd128_digest": ...,
+    "bwd256_digest": ...}``."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(129)
+    out = {}
+    for b, s, h, kvh, hd, window in BWD_DIGEST_SHAPES:
+        q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                       .to(torch.bfloat16) for n in (h, kvh, kvh, h))
+        o, lse, kw = dense_fwd_res(fa, q, k, v, True, window)
+        digest = hashlib.sha256()
+        for x in (o, lse, *fa._flash_dense_bwd_cuda(
+                q, k, v, o, do, lse, causal=True, window=window, **kw)):
+            digest.update(x.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
+        out[f"bwd{hd}_digest"] = digest.hexdigest()[:16]
+    return out
+
+
+def dense_fwd_res(fa, q, k, v, causal, window):
+    """The dense forward of ``fa`` (this tree's module or an older one's)
+    with its residuals, as a backward needs them: (out, lse, the
+    backward's extra keywords).  Where the forward also returns the
+    output's rounding residual o_lo (fp16), the keywords pass it on; older
+    trees return (out, lse)."""
+    out, lse, *rest = fa._flash_dense_cuda(q, k, v, causal=causal,
+                                           window=window, with_lse=True)
+    return out, lse, ({"o_lo": rest[0]} if rest and rest[0] is not None
+                      else {})
+
+
+def flash16_digest(dev):
+    """sha256 (16 hex digits) of the fp16 dense flash kernels' forward
+    output and lse and their backward's dQ, dK and dV at
+    FLASH16_DIGEST_SHAPES (hd 64, 80, 128 and 256, ragged s, a window), on
+    inputs of a seed of their own (29): two runs must give the same hex."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(29)
+    digest = hashlib.sha256()
+    for b, s, h, kvh, hd, window, causal in FLASH16_DIGEST_SHAPES:
+        q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                       .half() for n in (h, kvh, kvh, h))
+        o, lse, kw = dense_fwd_res(fa, q, k, v, causal, window)
+        for x in (o, lse, *fa._flash_dense_bwd_cuda(
+                q, k, v, o, do, lse, causal=causal, window=window, **kw)):
+            digest.update(x.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
     return digest.hexdigest()[:16]
 
 
@@ -1068,14 +1153,13 @@ def bwd_times(dev):
         q, k, v, do = (torch.randn(TRAIN_BATCH, TRAIN_S, n, hd, generator=gen,
                                    device=dev).to(torch.bfloat16)
                        for n in (h, kvh, kvh, h))
-        o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=cfg.window,
-                                      with_lse=True)
+        o, lse, kw = dense_fwd_res(fa, q, k, v, True, cfg.window)
         out[str(hd)] = {"arch": arch, "ms_b2b": cuda_ms_b2b(
             lambda: fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
-                                             window=cfg.window), REPS)}
+                                             window=cfg.window, **kw), REPS)}
         out[str(hd)]["sdpa_bwd_ms_b2b"] = cuda_ms_b2b(
             sdpa_grad_fns(q, k, v, do, cfg.window)[0], REPS)
-        del q, k, v, do, o, lse
+        del q, k, v, do, o, lse, kw
     return out
 
 
@@ -2224,18 +2308,16 @@ def bwd_shape(dev, seed, b, s, h, kvh, hd, window=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
                    .to(torch.bfloat16) for n in (h, kvh, kvh, h))
-    out, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=window,
-                                    with_lse=True)
+    out, lse, kw = dense_fwd_res(fa, q, k, v, True, window)
 
     def backward():
         return fa._flash_dense_bwd_cuda(q, k, v, out, do, lse, causal=True,
-                                        window=window)
+                                        window=window, **kw)
 
     def fwd_bwd():
-        o, l_ = fa._flash_dense_cuda(q, k, v, causal=True, window=window,
-                                     with_lse=True)
+        o, l_, kw_ = dense_fwd_res(fa, q, k, v, True, window)
         return fa._flash_dense_bwd_cuda(q, k, v, o, do, l_, causal=True,
-                                        window=window)
+                                        window=window, **kw_)
 
     got, again = backward(), backward()
     identical = all(torch.equal(x, y) for x, y in zip(got, again))
@@ -2788,6 +2870,14 @@ def check_tol(name, got, want, tol):
     return err
 
 
+def gate_share(got, want, tol):
+    """max |got - want| / (tol + tol |want|): the share of the gate the
+    output uses (below 1 where ``check_tol`` passes)."""
+    want = want.float()
+    return float(((got.float() - want).abs() / (tol + tol * want.abs()))
+                 .max())
+
+
 def simt_bound(flops, nbytes, dtype):
     """(bound_ms, bound_by) of a general kernel's call: operations over the
     rate of its type (fp32 outside the tensor cores, bf16 / fp16 in them)
@@ -2811,12 +2901,15 @@ def measured(name, kernel, run, plain, library, flops, nbytes, dtype, tol,
     torch.cuda.synchronize()
     assert kernel.launches == before + 1, (name, kernel.name)
     want = plain()
-    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    pairs = (list(zip(got, want)) if isinstance(got, tuple)
+             else [(got, want)])
     err = max(check_tol(name, g, w, tol) for g, w in pairs)
-    del got, want
+    share = max(gate_share(g, w, tol) for g, w in pairs)
+    del got, want, pairs
     bound_ms, bound_by = simt_bound(flops, nbytes, dtype)
     return dict(kernel=kernel.name, dtype=str(dtype).replace("torch.", ""),
-                max_abs_err=err, tolerance=f"{tol} + {tol}*|plain|",
+                max_abs_err=err, gate_share=share,
+                tolerance=f"{tol} + {tol}*|plain|",
                 ms=cuda_ms(run, reps), ms_b2b=cuda_ms_b2b(run, reps),
                 plain_ms=cuda_ms(plain, 2), library_ms=cuda_ms(library, reps),
                 library_ms_b2b=cuda_ms_b2b(library, reps), bound_ms=bound_ms, bound_by=bound_by, flops=flops,
@@ -3087,10 +3180,9 @@ def flash32_digest(dev):
     for b, s, h, kvh, hd, window, causal in FLASH32_DIGEST_SHAPES:
         q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
                        for n in (h, kvh, kvh, h))
-        o, lse = fa._flash_dense_cuda(q, k, v, causal=causal, window=window,
-                                      with_lse=True)
+        o, lse, kw = dense_fwd_res(fa, q, k, v, causal, window)
         for out in (o, lse, *fa._flash_dense_bwd_cuda(
-                q, k, v, o, do, lse, causal=causal, window=window)):
+                q, k, v, o, do, lse, causal=causal, window=window, **kw)):
             h_.update(out.contiguous().view(torch.uint8).cpu().numpy()
                       .tobytes())
     return h_.hexdigest()[:16]
@@ -3121,10 +3213,9 @@ def flash32_digests(dev):
     b, s, h, kvh, hd, window = FLASH32_BWD256_DIGEST_SHAPE
     q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
                    for n in (h, kvh, kvh, h))
-    o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=window,
-                                  with_lse=True)
+    o, lse, kw = dense_fwd_res(fa, q, k, v, True, window)
     bwd = digest(fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
-                                          window=window))
+                                          window=window, **kw))
     b, s, h, kvh, hd, p = FLASH32_SCHED_DIGEST_SHAPE
     kv_lens = np.random.default_rng(28).integers(1, s + 1, size=b)
     kv_lens[0] = 0
@@ -3180,18 +3271,17 @@ def flash32_times(dev):
              SIMT_DENSE_SHAPES["256"][5])):
         q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
                        for n in (h, kvh, kvh, h))
-        o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=window,
-                                      with_lse=True)
+        o, lse, kw = dense_fwd_res(fa, q, k, v, True, window)
 
         def bwd():
             return fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
-                                            window=window)
+                                            window=window, **kw)
 
         out[name] = dict(shape=[b, s, h, kvh, hd], window=window,
                          kernels=ran(bwd), ms_b2b=cuda_ms_b2b(bwd, 5),
                          sdpa_ms_b2b=cuda_ms_b2b(
                              sdpa_grad_fns(q, k, v, do, window)[0], 5))
-        del q, k, v, do, o, lse
+        del q, k, v, do, o, lse, kw
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     kv_lens = np.random.default_rng(0).integers(64, S + 1, size=B)
     kv_lens[0] = S
@@ -3311,14 +3401,13 @@ def simt_flash_rows(dev, n_sm):
              SIMT_DENSE_SHAPES["256"][5])):
         q, k, v, do = rnd(b, s, h, hd), rnd(b, s, kvh, hd), \
             rnd(b, s, kvh, hd), rnd(b, s, h, hd)
-        o, lse = fa._flash_dense_cuda(q, k, v, causal=True, window=window,
-                                      with_lse=True)
+        o, lse, kw = dense_fwd_res(fa, q, k, v, True, window)
         route = fa.flash_bwd_route(torch.float32, hd)
         kernel = fa.FLASH_F32_BWD_BY_ROUTE[route][0]
 
         def backward():
             return fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
-                                            window=window)
+                                            window=window, **kw)
 
         def simt_backward():
             return fa._flash_simt_bwd_cuda(
@@ -3347,16 +3436,24 @@ def simt_flash_rows(dev, n_sm):
 
 
 def fp16_flash_rows(dev, n_sm):
-    """fp16 flash attention, which runs the general kernels: the fp16 path
-    with the counts from 0 before it and read after (``flash_attention``
-    with a schedule at the main path's lanes, fac2, sched_p = SM count;
-    dense attention at SIMT_BWD_SHAPE forward and backward under
-    autograd; FP16_PATH_LAUNCHES), then each kernel against its plain
-    version at FP16_FLASH_TOL and timed against SDPA in fp16 on the same
-    tensors: dense at qwen3-4b's prefill (SIMT_DENSE_SHAPES["128"]), the
-    scheduled call (plan made beforehand) and the backward.  Beside each
-    bound (operations at the tensor cores' fp16 rate), the bound at the
-    CUDA cores' fp32 FMA rate the kernels compute at."""
+    """fp16 flash attention: the fp16 path with the counts from 0 before it
+    and read after (``flash_attention`` with a schedule at the main path's
+    lanes, fac2, sched_p = SM count, on ``flash_sched_simt``; dense
+    attention at SIMT_BWD_SHAPE forward and backward under autograd, on
+    the fp16 instantiations of ``flash_dense`` and ``flash_dense_bwd``;
+    FP16_PATH_LAUNCHES), then each kernel against its fp32 plain version
+    at FP16_FLASH_TOL (with the share of the gate it uses) and timed
+    against SDPA in fp16 on the same tensors: dense at qwen3-4b's prefill
+    (SIMT_DENSE_SHAPES["128"]) and the backward at SIMT_BWD_SHAPE, each
+    with the general kernel's run on the same tensors beside it
+    (``simt``), and the scheduled call (plan made beforehand, the general
+    kernel).  The tensor-core rows' bound is operations at the tensor
+    cores' fp16 rate; ``bound_ms_fp32_pv`` is the bound of the work at the
+    reference's precision (forward: S once and P V twice; backward: S and
+    dP once, dV, dK and dQ twice, P and dS as hi + lo); the general
+    kernels' rows carry the bound at the CUDA cores' fp32 FMA rate they
+    compute at (``bound_ms_fp32_fma``).  Last ``flash16_digest`` twice,
+    which must agree."""
     import numpy as np
     import torch
     from repro_torch.kernels import _build
@@ -3391,19 +3488,27 @@ def fp16_flash_rows(dev, n_sm):
     def with_fma(row, flops):
         return dict(row, bound_ms_fp32_fma=1e3 * flops / PEAK_FP32_FLOPS)
 
-    # dense forward, qwen3-4b's prefill
+    # dense forward, qwen3-4b's prefill: flash_dense, flash_dense_simt beside
     b, s, h, kvh, hd, window = SIMT_DENSE_SHAPES["128"]
     xq, xk, xv = rnd(b, s, h, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd)
     flops = 4 * hd * b * h * live_pairs(s, window)
-    rows["dense"] = dict(shape=[b, s, h, kvh, hd], **with_fma(measured(
-        "flash_dense_simt fp16", fa.FLASH_DENSE_SIMT,
-        lambda: fa._flash_dense_cuda(xq, xk, xv, causal=True, window=0),
-        lambda: plain_attention(xq, xk, xv).half(),
-        sdpa_fn(xq, xk, xv, 0), flops,
-        2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd), torch.float16,
-        FP16_FLASH_TOL, reps=5), flops))
+    args = (lambda: plain_attention(xq.float(), xk.float(), xv.float()),
+            sdpa_fn(xq, xk, xv, 0), flops,
+            2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd), torch.float16,
+            FP16_FLASH_TOL)
+    assert fa._check_kernel_inputs("flash_dense", xq, xk, xv) == "wgmma"
+    rows["dense"] = dict(
+        shape=[b, s, h, kvh, hd], route="wgmma", **measured(
+            "flash_dense fp16", fa.FLASH_DENSE,
+            lambda: fa._flash_dense_cuda(xq, xk, xv, causal=True, window=0),
+            *args), bound_ms_fp32_pv=bound(flops * 3 // 2, args[3])[0],
+        simt=with_fma(measured(
+            "flash_dense_simt fp16", fa.FLASH_DENSE_SIMT,
+            lambda: fa._flash_dense_simt_cuda(xq, xk, xv, causal=True,
+                                              window=0), *args, reps=5),
+            flops))
     del xq, xk, xv
-    # the scheduled call at the main path's lanes
+    # the scheduled call at the main path's lanes (the general kernel)
     desc, plan = fa._plan_kv_descriptors(
         B * H, S, 512, 512, causal=True, window=0,
         kv_lens=np.repeat(kv_lens, H), schedule="fac2", p=n_sm)
@@ -3423,22 +3528,109 @@ def fp16_flash_rows(dev, n_sm):
              + 2 * KVH * HD * int(np.minimum(kv_lens, S).sum())),
         torch.float16, FP16_FLASH_TOL, reps=5), flops))
     del q, k, v
-    # the backward at qwen3-4b's training shape
+    # the backward at qwen3-4b's training shape: flash_dense_bwd, the
+    # general backward beside (on the same forward's output and lse)
     b, s, h, kvh, hd = SIMT_BWD_SHAPE
-    o, lse = fa._flash_dense_cuda(tq, tk, tv, causal=True, window=0,
-                                  with_lse=True)
+    o, lse, kw = dense_fwd_res(fa, tq, tk, tv, True, 0)
     flops = 10 * hd * b * h * live_pairs(s, 0)
-    rows["bwd"] = dict(shape=[b, s, h, kvh, hd], **with_fma(measured(
-        "flash_simt_bwd fp16", fa.FLASH_SIMT_BWD_DKDV,
-        lambda: fa._flash_dense_bwd_cuda(tq, tk, tv, o, tdo, lse,
-                                         causal=True, window=0),
-        lambda: tuple(x.half() for x in fa.flash_attention_dense_bwd_plain(
-            tq, tk, tv, tdo)),
-        sdpa_grad_fns(tq, tk, tv, tdo, 0)[0], flops,
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (lambda: tuple(fa.flash_attention_dense_bwd_plain(
+        tq, tk, tv, tdo)), sdpa_grad_fns(tq, tk, tv, tdo, 0)[0], flops,
         2 * (4 * b * s * h * hd + 4 * b * s * kvh * hd) + 4 * b * h * s,
-        torch.float16, FP16_FLASH_TOL, reps=3), flops))
-    del tq, tk, tv, tdo, o, lse
+        torch.float16, FP16_FLASH_TOL)
+    assert fa.flash_bwd_route(torch.float16, hd) == "wgmma"
+    rows["bwd"] = dict(
+        shape=[b, s, h, kvh, hd], route="wgmma", **measured(
+            "flash_dense_bwd fp16", fa.FLASH_DENSE_BWD_DKDV,
+            lambda: fa._flash_dense_bwd_cuda(tq, tk, tv, o, tdo, lse,
+                                             causal=True, window=0, **kw),
+            *args, reps=10), bound_ms_fp32_pv=bound(flops * 8 // 5,
+                                                    args[3])[0],
+        # the general backward, D from the output and its rounding
+        # residual as the tensor-core kernels form it, held to the same
+        # fp32 plain version
+        simt=with_fma(measured(
+            "flash_simt_bwd fp16", fa.FLASH_SIMT_BWD_DKDV,
+            lambda: fa._flash_simt_bwd_cuda(tq, tk, tv, o, tdo, lse,
+                                            causal=True, window=0,
+                                            stream=stream, **kw),
+            *args, reps=3), flops))
+    del tq, tk, tv, tdo, o, lse, kw
+    digests = [flash16_digest(dev), flash16_digest(dev)]
+    assert digests[0] == digests[1], digests
+    rows["flash16_digest"] = digests[0]
     return rows
+
+
+def flash16_times(dev):
+    """Back-to-back times of the fp16 dense flash forward at qwen3-4b's
+    prefill (SIMT_DENSE_SHAPES["128"]), of its backward at SIMT_BWD_SHAPE
+    and of the schedule-aware entry at the main path's lanes (fac2,
+    sched_p = the SM count, the plan made beforehand), through the private
+    launchers (older trees have them too; ``dense_fwd_res`` passes the
+    output's residual where a tree asks for it), with SDPA's in fp16 on
+    the same tensors and the kernels each call launched."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(161)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).half()
+
+    def ran(fn):
+        """The names of the kernels one call of ``fn`` launches."""
+        before = {n: k.launches for n, k in _build.KERNELS.items()}
+        fn()
+        torch.cuda.synchronize()
+        return sorted(n for n, k in _build.KERNELS.items()
+                      if k.launches != before[n])
+
+    out = {}
+    b, s, h, kvh, hd, window = SIMT_DENSE_SHAPES["128"]
+    q, k, v = rnd(b, s, h, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd)
+
+    def fwd():
+        return fa._flash_dense_cuda(q, k, v, causal=True, window=window)
+
+    out["dense"] = dict(shape=[b, s, h, kvh, hd], kernels=ran(fwd),
+                        ms_b2b=cuda_ms_b2b(fwd, REPS),
+                        sdpa_ms_b2b=cuda_ms_b2b(sdpa_fn(q, k, v, window),
+                                                REPS))
+    del q, k, v
+    b, s, h, kvh, hd = SIMT_BWD_SHAPE
+    q, k, v, do = (rnd(b, s, n, hd) for n in (h, kvh, kvh, h))
+    o, lse, kw = dense_fwd_res(fa, q, k, v, True, 0)
+
+    def bwd():
+        return fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
+                                        window=0, **kw)
+
+    out["bwd"] = dict(shape=[b, s, h, kvh, hd], kernels=ran(bwd),
+                      ms_b2b=cuda_ms_b2b(bwd, 5),
+                      sdpa_ms_b2b=cuda_ms_b2b(
+                          sdpa_grad_fns(q, k, v, do, 0)[0], 5))
+    del q, k, v, do, o, lse, kw
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    kv_lens = np.random.default_rng(0).integers(64, S + 1, size=B)
+    kv_lens[0] = S
+    q, k, v = rnd(B, S, H, HD), rnd(B, S, KVH, HD), rnd(B, S, KVH, HD)
+    desc, plan = fa._plan_kv_descriptors(
+        B * H, S, 512, 512, causal=True, window=0,
+        kv_lens=np.repeat(kv_lens, H), schedule="fac2", p=n_sm)
+    bounds = fa.descriptor_bounds(desc, plan)
+
+    def sched():
+        return fa._flash_sched_cuda(q, k, v, desc, bounds, block_q=512,
+                                    block_k=512, causal=True, window=0)
+
+    out["sched"] = dict(
+        shape=[B, S, H, KVH, HD], kernels=ran(sched),
+        ms_b2b=cuda_ms_b2b(sched, 5),
+        sdpa_ms_b2b=cuda_ms_b2b(
+            sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev)), 3))
+    return out
 
 
 def sdpa32_kernels(dev):
@@ -3719,7 +3911,7 @@ def main(argv) -> int:
     # --dense-digest / --hd80-digest / --sched-digest / --dense-times /
     # --bwd-times / --moe-bwd-times / --yardsticks / --serve-times /
     # --gmm-digest / --gmm-times / --flash32-digest / --flash32-times /
-    # --sdpa32-kernels [SRC]:
+    # --sdpa32-kernels / --bwd-digest / --flash16-times [SRC]:
     # print only that function's result
     # for the package under SRC (default: this checkout's src), to hold two
     # trees' builds against each other
@@ -3730,7 +3922,8 @@ def main(argv) -> int:
              "--gmm-digest": gmm_digest, "--gmm-times": gmm_times,
              "--flash32-digest": flash32_digests,
              "--flash32-times": flash32_times,
-             "--sdpa32-kernels": sdpa32_kernels}
+             "--sdpa32-kernels": sdpa32_kernels,
+             "--bwd-digest": bwd_digest, "--flash16-times": flash16_times}
     mode = modes.get(argv[0]) if argv else None
     src = ROOT / "src"
     if mode is not None and len(argv) > 1:
@@ -4108,6 +4301,16 @@ def main(argv) -> int:
 
     # the tensor-core kernels' bound_ms is the work as they do it, three
     # TF32 products each (bound_ms_fp32_fma: at the CUDA cores' fp32 rate)
+    def fp16_summary(row):
+        """An fp16 tensor-core row (``fp16_flash_rows``) with the general
+        kernel's numbers on the same tensors beside it."""
+        keys = ("max_abs_err", "gate_share", "ms", "ms_b2b", "plain_ms",
+                "library_ms_b2b", "bound_ms")
+        return dict(shape=row["shape"], route=row["route"],
+                    bound_ms_fp32_pv=row["bound_ms_fp32_pv"],
+                    **{k: row[k] for k in keys},
+                    simt={k: row["simt"][k] for k in keys})
+
     def tf32x3_summary(row):
         """A tensor-core row's numbers beside the general kernel's on the
         same tensors."""
@@ -4181,7 +4384,8 @@ def main(argv) -> int:
                       + recurrent_launches["recurrentgemma-2b"][
                           "flash_dense"]
                       + train_launches["flash_dense"]
-                      + moe_train_launches["flash_dense"]),
+                      + moe_train_launches["flash_dense"]
+                      + fp16_launches["flash_dense"]),
          "launches_by_path": {
              "prefill": prefill_launches["flash_dense"],
              "moe_prefill": moe_launches["flash_dense"],
@@ -4189,21 +4393,27 @@ def main(argv) -> int:
              "recurrentgemma_prefill": recurrent_launches[
                  "recurrentgemma-2b"]["flash_dense"],
              "train": train_launches["flash_dense"],
-             "moe_train": moe_train_launches["flash_dense"]},
-         "tolerance": f"{ATOL} + {RTOL}*|plain|", **dense},
+             "moe_train": moe_train_launches["flash_dense"],
+             "fp16": fp16_launches["flash_dense"]},
+         "tolerance": f"{ATOL} + {RTOL}*|plain|", **dense,
+         "fp16": fp16_summary(fp16_flash["dense"]),
+         "flash16_digest": fp16_flash["flash16_digest"]},
         {"name": "flash_dense_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_dense_bwd.cu",
          "replaces": "src/repro/models/attention.py:191",
          "replaces_note": "no Pallas kernel: the reference differentiates "
                           "_attend_flash by autodiff",
          "launches": (train_launches["flash_dense_bwd_dkdv"]
-                      + moe_train_launches["flash_dense_bwd_dkdv"]),
-         "launches_by_kernel": {n: train_launches[n]
-                                + moe_train_launches[n] for n in BWD_KERNELS},
+                      + moe_train_launches["flash_dense_bwd_dkdv"]
+                      + fp16_launches["flash_dense_bwd_dkdv"]),
+         "launches_by_kernel": {n: train_launches[n] + moe_train_launches[n]
+                                + fp16_launches[n] for n in BWD_KERNELS},
          "launches_by_path": {
              "train": train_launches["flash_dense_bwd_dkdv"],
-             "moe_train": moe_train_launches["flash_dense_bwd_dkdv"]},
-         "tolerance": f"{BWD_REL_TOL}*max|plain| per gradient", **bwd},
+             "moe_train": moe_train_launches["flash_dense_bwd_dkdv"],
+             "fp16": fp16_launches["flash_dense_bwd_dkdv"]},
+         "tolerance": f"{BWD_REL_TOL}*max|plain| per gradient", **bwd,
+         "fp16": fp16_summary(fp16_flash["bwd"])},
         {"name": "gmm_dx", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gmm.cu",
          "replaces": "src/repro/models/moe.py:143",
@@ -4316,13 +4526,12 @@ def main(argv) -> int:
             "flash_dense_simt", simt_src + "flash_simt.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:51",
             simt_flash["dense"]["256"],
-            {"fp32_model": fp32_launches["flash_dense_simt"],
-             "fp16": fp16_launches["flash_dense_simt"]},
+            {"fp32_model": fp32_launches["flash_dense_simt"]},
             shape=simt_flash["dense"]["256"]["shape"],
             window=simt_flash["dense"]["256"]["window"],
             by_head_dim={k: r.get("simt", r)
                          for k, r in simt_flash["dense"].items()},
-            fp16=fp16_flash["dense"]),
+            fp16=fp16_flash["dense"]["simt"]),
         simt_entry(
             "flash_sched_simt", simt_src + "flash_simt.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:168",
@@ -4333,16 +4542,22 @@ def main(argv) -> int:
             fp32=tf32x3_summary(simt_flash["sched"])["simt"]),
         simt_entry(
             "flash_simt_bwd", simt_src + "flash_simt_bwd.cu",
-            "src/repro/models/attention.py:191", fp16_flash["bwd"],
-            {"fp16": fp16_launches["flash_simt_bwd_dkdv"]},
+            "src/repro/models/attention.py:191", fp16_flash["bwd"]["simt"],
+            {"fp32_model": fp32_launches["flash_simt_bwd_delta"],
+             "fp16": fp16_launches.get("flash_simt_bwd_delta", 0)},
             replaces_note="no Pallas kernel: the reference differentiates "
                           "_attend_flash by autodiff",
-            launches_by_kernel={n: fp16_launches[n] for n in (
-                "flash_simt_bwd_dkdv", "flash_simt_bwd_dq")} | {
-                "flash_simt_bwd_delta": fp16_launches["flash_simt_bwd_delta"]
-                + fp32_launches["flash_simt_bwd_delta"]},
+            launches_note="its delta pass serves every fp32 backward; dkdv "
+                          "and dq launch on neither counted path (fp32 "
+                          "takes flash_f32_bwd, fp16 flash_dense_bwd), "
+                          "only beside the rows",
+            launches_by_kernel={n: fp32_launches.get(n, 0)
+                                + fp16_launches.get(n, 0) for n in (
+                                    "flash_simt_bwd_delta",
+                                    "flash_simt_bwd_dkdv",
+                                    "flash_simt_bwd_dq")},
             shape=fp16_flash["bwd"]["shape"],
-            bound_ms_fp32_fma=fp16_flash["bwd"]["bound_ms_fp32_fma"],
+            bound_ms_fp32_fma=fp16_flash["bwd"]["simt"]["bound_ms_fp32_fma"],
             fp32_hd256=tf32x3_summary(simt_flash["bwd_256"])["simt"],
             fp32_training_shape=simt_flash["bwd"]["simt"]),
     ]

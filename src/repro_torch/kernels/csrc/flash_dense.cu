@@ -32,6 +32,27 @@
 // 64-column K / V tiles in 2 stages (Q 64 KB + 2 x 64 KB; S 32, P hi + lo
 // 32 registers) and runs P V as two n128 halves.
 //
+// Element types: bf16 and fp16 (the launcher's dtype code 1 or 2), each
+// instantiated at the four tile shapes (<64,128,3>, <128,128,3,80>,
+// <128,128,3>, <256,64,2>).  The reference casts q, k and v to fp32, so its
+// products and its P are fp32; here q, k and v enter wgmma as they are
+// (.bf16 or .f16: their products are exact in the fp32 accumulators, the
+// tensor cores' rate is the same for both types) and P = hi + lo in the
+// input's type.  fp16 changes only the conversions and the rounding:
+//   * hi + lo keeps 2 x 11 bits of p where bf16 keeps 2 x 8, but fp16's
+//     range is narrow.  lo, about 2^-11 p, goes subnormal once p < 2^-3
+//     (steps of 2^-24), and an hi below fp16's smallest subnormal (2^-24,
+//     about 6e-8) rounds to 0.  p = exp2(s - m) is at most 1 and l >= 1,
+//     so hi + lo misses p by at most 2^-25 (half a subnormal step), about
+//     3e-8 of a column's weight at most, and by 2^-22 p while lo is
+//     normal (bf16's hi + lo: 2^-18 p).
+//   * The output is rounded to fp16 once.  Given o_lo, the epilogue also
+//     writes o - fp16(o) in fp16, the residual the backward's delta pass
+//     adds back (flash_dense_bwd.cu's note says why); the Python side asks
+//     for it under autograd in fp16 only.
+//   * TMA moves the 2-byte elements as it does bf16 (its zero fill is +0.0
+//     in both), so the tiles, the ring and the turns are the bf16 kernel's.
+//
 // Design (TMA + wgmma + warp specialisation):
 //   * The TPU's sequential kv grid axis becomes a loop inside the CTA: one
 //     CTA per (lane, 128-row q tile), walking NKV-column kv tiles (128, or
@@ -90,14 +111,44 @@ namespace {
 using namespace flash_hopper;
 
 struct DenseParams {
-  __nv_bfloat16* o;
+  void* o;            // (b, s, h, hd) of the kernel's element type
+  void* o_lo;         // o's rounding residual, laid out as o, or null
   float* lse;         // (b, h, s) log-sum-exp of each row, or null
   long long o_sb, o_sh, o_ss;
   int lanes, nq, s, H, group, hd, causal, window;
   float scale_log2;   // softmax scale * log2(e)
 };
 
-template <int HD, int NKV, int NST, int HDW>
+// o_lo = o / l - T(o / l) as T for the rows and columns store_rows writes,
+// at the same offsets: what rounding the output to T dropped, which the
+// backward's delta pass adds back (its D is then the fp32 output's, as in
+// the reference)
+template <int HDW, typename T>
+__device__ __forceinline__ void store_residual(T* ob, long long o_ss,
+                                               const float* o,
+                                               const float (&m)[2],
+                                               const float (&l)[2], int r_lo,
+                                               int row_end, int lane, int hd) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = r_lo + 8 * j;
+    if (row >= row_end) continue;
+    const float inv = m[j] > NEG_INF * 0.5f
+                          ? __fdividef(1.f, fmaxf(l[j], 1e-30f)) : 0.f;
+#pragma unroll
+    for (int nt = 0; nt < HDW / 8; ++nt) {
+      if (nt * 8 >= hd) break;
+      const int col = nt * 8 + 2 * (lane & 3);
+      const float x0 = o[4 * nt + 2 * j] * inv;
+      const float x1 = o[4 * nt + 2 * j + 1] * inv;
+      const float2 h = unpack2<T>(pack2<T>(x0, x1));
+      *reinterpret_cast<uint32_t*>(ob + row * o_ss + col) =
+          pack2<T>(x0 - h.x, x1 - h.y);
+    }
+  }
+}
+
+template <typename T, int HD, int NKV, int NST, int HDW>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -192,19 +243,21 @@ flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
       float sacc[NKV / 2];
       const uint64_t dk = smem_desc(smem + L::K + s * L::KVTILE, 16, 1024);
       mbar_wait(&k_full[s], ph);
-      issue_s<HDW, NKV>(sacc, dq, dk, c);
+      issue_s<HDW, NKV, T>(sacc, dq, dk, c);
 
       uint32_t phi[NKV / 16][4], plo[NKV / 16][4];
       if (mask)
-        softmax<HDW, true, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane, P);
+        softmax<HDW, true, NKV, T>(sacc, m, l, o, phi, plo, col0, r_lo, lane,
+                                   P);
       else
-        softmax<HDW, false, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane, P);
+        softmax<HDW, false, NKV, T>(sacc, m, l, o, phi, plo, col0, r_lo, lane,
+                                    P);
 
       // O += (P_hi + P_lo) V
       const uint64_t dv = smem_desc(smem + L::V + s * L::KVTILE, L::KVBOX,
                                     1024);
       mbar_wait(&v_full[s], ph);
-      issue_pv<HDW, NKV>(o, phi, plo, dv);
+      issue_pv<HDW, NKV, T>(o, phi, plo, dv);
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
@@ -213,8 +266,12 @@ flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // out = o / l for the rows below s and the columns below hd; rows that
     // never saw a live column (m <= NEG_INF / 2) are written as 0
-    store_rows<HDW>(P.o + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m, l, r_lo,
-                   P.s, lane, P.hd);
+    store_rows<HDW, T>(static_cast<T*>(P.o) + b * P.o_sb + hh * P.o_sh,
+                       P.o_ss, o, m, l, r_lo, P.s, lane, P.hd);
+    if (P.o_lo != nullptr)
+      store_residual<HDW, T>(
+          static_cast<T*>(P.o_lo) + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m,
+          l, r_lo, P.s, lane, P.hd);
     // lse = (m + log2 l) ln 2 of the rows below s (+inf for a row with no
     // live column, so that the backward's exp(S - lse) is 0 there)
     if (P.lse != nullptr && (lane & 3) == 0) {
@@ -231,48 +288,72 @@ flash_dense_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// HD: the padded head dim; NKV, NST: the K / V tile's columns and stages;
-// HDW: the width the products run at
-template <int HD, int NKV, int NST, int HDW = HD>
+// T: the element type; HD: the padded head dim; NKV, NST: the K / V
+// tile's columns and stages; HDW: the width the products run at
+template <typename T, int HD, int NKV, int NST, int HDW = HD>
 int launch_hd(const void* q, const void* k, const void* v, int batch, int kvh,
               int hd, const long long* qs, const long long* ks,
               const long long* vs, const DenseParams& P, cudaStream_t st) {
+  constexpr int dt = is_f16<T> ? F16 : BF16;
   CUtensorMap qm, km, vm;
-  int rc = encode_bshd(&qm, q, batch, P.s, P.H, hd, qs[0], qs[1], qs[2]);
+  int rc = encode_bshd(&qm, q, dt, batch, P.s, P.H, hd, qs[0], qs[1], qs[2]);
   if (rc == 0)
-    rc = encode_bshd(&km, k, batch, P.s, kvh, hd, ks[0], ks[1], ks[2], NKV);
+    rc = encode_bshd(&km, k, dt, batch, P.s, kvh, hd, ks[0], ks[1], ks[2],
+                     NKV);
   if (rc == 0)
-    rc = encode_bshd(&vm, v, batch, P.s, kvh, hd, vs[0], vs[1], vs[2], NKV);
+    rc = encode_bshd(&vm, v, dt, batch, P.s, kvh, hd, vs[0], vs[1], vs[2],
+                     NKV);
   if (rc != 0) return rc;
   constexpr int bytes = Layout<HD, NKV, NST>::BYTES;
+  auto kern = flash_dense_kernel<T, HD, NKV, NST, HDW>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dense_kernel<HD, NKV, NST, HDW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long grid = static_cast<long long>(P.lanes) * P.nq;
-  flash_dense_kernel<HD, NKV, NST, HDW>
-      <<<static_cast<unsigned>(grid), NTHREADS, bytes, st>>>(qm, km, vm, P);
+  kern<<<static_cast<unsigned>(grid), NTHREADS, bytes, st>>>(qm, km, vm, P);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation of each head dim, at the element type T
+template <typename T>
+int launch_t(const void* q, const void* k, const void* v, int batch, int kvh,
+             int hd, const long long* qs, const long long* ks,
+             const long long* vs, const DenseParams& P, cudaStream_t st) {
+  if (hd <= 64)
+    return launch_hd<T, 64, 128, 3>(q, k, v, batch, kvh, hd, qs, ks, vs, P,
+                                    st);
+  if (hd == 80)
+    return launch_hd<T, 128, 128, 3, 80>(q, k, v, batch, kvh, hd, qs, ks, vs,
+                                         P, st);
+  if (hd <= 128)
+    return launch_hd<T, 128, 128, 3>(q, k, v, batch, kvh, hd, qs, ks, vs, P,
+                                     st);
+  return launch_hd<T, 256, 64, 2>(q, k, v, batch, kvh, hd, qs, ks, vs, P, st);
 }
 
 }  // namespace
 
+// q (b, s, H, hd), k / v (b, s, H / group, hd) and o (b, s, H, hd), all
+// bf16 (dtype 1) or fp16 (dtype 2), by their (batch, head, row) element
+// strides; o_lo (o's rounding residual, o's strides) or null; lse
+// (b, H, s) fp32 or null
 extern "C" int flash_dense_launch(
-    const void* q, const void* k, const void* v, void* o, void* lse, int batch,
-    int s,
-    int H, int group, int hd, int causal, int window, long long q_sb,
-    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-    long long o_sb, long long o_sh, long long o_ss, float scale,
-    void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* o_lo,
+    void* lse, int batch, int s, int H, int group, int hd, int causal,
+    int window, int dtype,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+    float scale, void* stream) {
   if (batch <= 0 || s <= 0 || H <= 0 || group <= 0 || H % group != 0 ||
-      hd <= 0 || hd > 256 || hd % 8 != 0)
+      hd <= 0 || hd > 256 || hd % 8 != 0 || (dtype != BF16 && dtype != F16))
     return static_cast<int>(cudaErrorInvalidValue);
   const int kvh = H / group;
   const long long qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss},
                   vs[3] = {v_sb, v_sh, v_ss};
   DenseParams P;
-  P.o = static_cast<__nv_bfloat16*>(o);
+  P.o = o;
+  P.o_lo = o_lo;
   P.lse = static_cast<float*>(lse);
   P.o_sb = o_sb; P.o_sh = o_sh; P.o_ss = o_ss;
   P.lanes = batch * H;
@@ -281,14 +362,10 @@ extern "C" int flash_dense_launch(
   P.causal = causal; P.window = window;
   P.scale_log2 = scale * LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 64)
-    return launch_hd<64, 128, 3>(q, k, v, batch, kvh, hd, qs, ks, vs, P, st);
-  if (hd == 80)
-    return launch_hd<128, 128, 3, 80>(q, k, v, batch, kvh, hd, qs, ks, vs, P,
-                                      st);
-  if (hd <= 128)
-    return launch_hd<128, 128, 3>(q, k, v, batch, kvh, hd, qs, ks, vs, P, st);
-  return launch_hd<256, 64, 2>(q, k, v, batch, kvh, hd, qs, ks, vs, P, st);
+  return dtype == F16
+             ? launch_t<__half>(q, k, v, batch, kvh, hd, qs, ks, vs, P, st)
+             : launch_t<__nv_bfloat16>(q, k, v, batch, kvh, hd, qs, ks, vs,
+                                       P, st);
 }
 
 extern "C" const char* flash_dense_error_string(int code) {

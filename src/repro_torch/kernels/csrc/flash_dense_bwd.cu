@@ -4,8 +4,9 @@
 // twin of _flash_kernel, _attend_flash (src/repro/models/attention.py:191),
 // by autodiff; this file computes the same gradients for flash_dense.cu's
 // forward, at the layout and GQA that forward reads: q, o, dO (b, s, h, hd),
-// k, v (b, s, kvh, hd), all contiguous bf16, and the forward's per-row
-// log-sum-exp lse (b, h, s) fp32.  With S = Q K^T scale (masked),
+// k, v (b, s, kvh, hd), all contiguous bf16 or all fp16 (the launchers'
+// dtype code 1 or 2; fp16 below), and the forward's per-row log-sum-exp lse
+// (b, h, s) fp32.  With S = Q K^T scale (masked),
 // P = exp(S - lse), D = rowsum(dO o O):
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - D),
 //   dK = dS^T Q scale,  dQ = dS K scale.
@@ -59,11 +60,13 @@
 //     back to the producer (one arrival per consumer warp) once its last
 //     wgmma has retired.
 //   * P and dS are rounded to bf16 before their products (their fp32
-//     values are kept for dS); the accumulators are fp32.
+//     values are kept for dS; in fp16 each is split in two, below); the
+//     accumulators are fp32.
 //   * Masking only where a tile needs it: the causal diagonal, the
 //     window's edge, and (dq) k columns past s.
-//   * dK (scaled), dV and dQ (scaled) are written as bf16 straight from the
-//     accumulators, rows below s and columns below the real head dim.
+//   * dK (scaled), dV and dQ (scaled) are written in the inputs' type
+//     straight from the accumulators, rows below s and columns below the
+//     real head dim.
 //
 // Padded head dim 256 (recurrentgemma-2b: MQA 10 / 1, window 2048) runs
 // the same hardware in another split, since dK + dV for 64 rows at 256
@@ -88,23 +91,61 @@
 //   * So each product is computed once a tile: 4 in dkdv and 3 in dq, the
 //     7 of the narrower head dims.  No atomics: two runs give the same
 //     bits.  Shared memory: ~210 KB (dkdv), ~226 KB (dq).
+//
+// fp16 (every kernel above at T = __half, wgmma .f16) is held to the
+// reference elementwise, within 2^-10 + 2^-10 |plain|, where bf16 is held
+// within 2^-6 max |plain|.  The reference computes in fp32 (q, k, v cast
+// up, autodiff through fp32 O and P).  Emulating the kernels' roundings in
+// fp32 at qwen3-4b's training shape (s 4096, hd 128, a GQA group of 4;
+// ref.attention_bwd_f16, tests/test_torch_fp16_flash.py) gave the share of
+// that gate each rounding uses, measured against fp64:
+//   * D from the fp16 output O: 1.06 of the gate in dK on its own (0.71 in
+//     dQ).  D = rowsum(dO o O) cancels little, and O's rounding (2^-11) goes
+//     into every dS of the row.  So the forward, under autograd, also
+//     writes o_lo = O - fp16(O) (flash_dense.cu) and the delta pass sums
+//     dO o (O + o_lo): 0.003 of the gate.  The general kernels do the same
+//     for the fp16 calls they take (flash_simt.cu, flash_simt_bwd.cu).
+//   * P rounded once to fp16 before dV += P^T dO: 1.19 of the gate in dV.
+//     dS rounded once before dK, dQ: 0.89 in dK, 0.42 in dQ.  Each is split
+//     as the forward splits P, hi + lo in fp16 (pack_frags: NTERM 2), with
+//     a wgmma for each: 0.009 of the gate.  The split takes dkdv from 4
+//     products a tile to 6 and dq from 3 to 4 (10 against 7).
+//   * What is left is the rounding of the outputs to fp16, at most half
+//     the gate (0.39 measured).
+// At hd 64 and 128 the dkdv consumer would hold dK + dV (128 fp32), S^T and
+// dP^T (64) and both fragment sets of P^T (32) at once if it issued dV
+// before forming dS^T as bf16 does; fp16 forms dS^T first, so that P^T's
+// registers pass to its fragments.
+// fp16 saturates at 65504 where bf16 does not.  dS = P (dP - D) with
+// 0 <= P <= 1 is formed in fp32 and split; once |dS| >= 65520 its hi
+// rounds to inf and its lo, dS - hi, is -inf, so the two wgmmas that sum
+// them give NaN in dK and dQ, not inf.  |dP| <= hd max|dO| max|V| and
+// |D| <= hd max|dO| max|O| <= hd max|dO| max|V|, so no input reaches it
+// with hd max|dO| max|V| < 32760 (at hd 128: max|dO| max|V| < 255.9).
+// Unit-scale q, k, v with dO scaled by 2^8 stays below it in practice:
+// dP's spread is then 2^8 sqrt(hd), 2^11.5 at hd 128, and its largest
+// value over a training shape's 2^30 pairs about six spreads, near 2^14.
+// A dynamic loss scale can pass it (torch.amp.GradScaler starts at 2^16):
+// the scaler reads a NaN gradient as an overflow, as it reads inf, skips
+// the step and lowers the scale.  A gradient whose own value passes 65504
+// is out of fp16's range for the reference too.
 
 #include "flash_hopper.cuh"
 
 namespace {
 
 using namespace flash_hopper;
-using bf16 = __nv_bfloat16;
 
 constexpr int BLK = 128;         // rows a wgmma CTA owns (k in dkdv, q in dq)
 constexpr int BT = 64;           // rows of a ring stage (q in dkdv, k in dq)
 constexpr int RING = 3;          // stages of the ring
 constexpr int SPAD = 128;        // s_pad: s rounded up to this
 
+// pointers to the element type T of the kernel (bf16 or fp16)
 struct BwdParams {
-  const bf16 *q, *k, *v, *dout;
+  const void *q, *k, *v, *dout;
   const float *lse2, *delta;     // (b, h, s_pad): lse log2(e), D
-  bf16 *dq, *dk, *dv;
+  void *dq, *dk, *dv;
   int batch, s, s_pad, H, group, hd, causal, window;
   float scale, scale_log2;
 };
@@ -112,12 +153,15 @@ struct BwdParams {
 // ------------------------------------------------------------- delta ---
 
 // one warp per (b, row, head) of the padded rows: D and lse log2(e) at
-// (b, head, row); rows past s get D = 0 and lse = +inf
+// (b, head, row); rows past s get D = 0 and lse = +inf.  o_lo, where given,
+// is the forward's rounding residual of O (fp16: O - fp16(O) in fp16), so
+// that D is that of the fp32 O as in the reference
+template <typename T>
 __global__ void __launch_bounds__(128)
-delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-             const float* __restrict__ lse, float* __restrict__ lse2,
-             float* __restrict__ delta, int batch, int s, int s_pad, int H,
-             int hd) {
+delta_kernel(const T* __restrict__ o, const T* __restrict__ o_lo,
+             const T* __restrict__ dout, const float* __restrict__ lse,
+             float* __restrict__ lse2, float* __restrict__ delta, int batch,
+             int s, int s_pad, int H, int hd) {
   const long long r = static_cast<long long>(blockIdx.x) * 4 +
                       threadIdx.x / 32;
   if (r >= static_cast<long long>(batch) * s_pad * H) return;
@@ -137,10 +181,15 @@ delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   const long long in = ((b * s + row) * H + head) * hd;
   float acc = 0.f;
   for (int d = 2 * lane; d < hd; d += 64) {
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(o + in + d));
-    const float2 c = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(dout + in + d));
+    float2 a = unpack2<T>(*reinterpret_cast<const uint32_t*>(o + in + d));
+    const float2 c =
+        unpack2<T>(*reinterpret_cast<const uint32_t*>(dout + in + d));
+    if (o_lo != nullptr) {
+      const float2 r =
+          unpack2<T>(*reinterpret_cast<const uint32_t*>(o_lo + in + d));
+      a.x += r.x;
+      a.y += r.y;
+    }
     acc = fmaf(a.x, c.x, acc);
     acc = fmaf(a.y, c.y, acc);
   }
@@ -162,8 +211,8 @@ delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 template <int HD>
 struct BwdLayout {
   static constexpr int NBOX = HD / 64;
-  static constexpr int RBOX = BLK * 128;            // BLK rows x 64 bf16
-  static constexpr int TBOX = BT * 128;             // BT rows x 64 bf16
+  static constexpr int RBOX = BLK * 128;            // BLK rows x 64 T
+  static constexpr int TBOX = BT * 128;             // BT rows x 64 T
   static constexpr int RTILE = NBOX * RBOX;
   static constexpr int TTILE = NBOX * TBOX;
   static constexpr int R0 = 0;
@@ -175,29 +224,50 @@ struct BwdLayout {
   static constexpr int BYTES = BAR + (1 + 2 * RING) * 8 + 1024;  // + align
 };
 
+// the terms a fp32 P or dS is split into before its product: 1 in bf16 (the
+// rounding of P and dS to bf16), 2 in fp16 (hi + lo, see the note)
+template <typename T>
+constexpr int NTERM = is_f16<T> ? 2 : 1;
+
 // D (64 x HDW) += A (64 x 16, registers) * B (16 x HDW, smem, MN-major)
-template <int HDW>
+template <int HDW, typename T>
 __device__ __forceinline__ void rs_hd(float* d, const uint32_t* a,
                                       uint64_t db) {
   if constexpr (HDW == 128)
-    wgmma_m64n128k16_rs<1>(d, a, db, 1);
+    wgmma_m64n128k16_rs<1, T>(d, a, db, 1);
   else if constexpr (HDW == 80)
-    wgmma_m64n80k16_rs<1>(d, a, db, 1);
+    wgmma_m64n80k16_rs<1, T>(d, a, db, 1);
   else
-    wgmma_m64n64k16_rs<1>(d, a, db, 1);
+    wgmma_m64n64k16_rs<1, T>(d, a, db, 1);
 }
 
 // acc (64 x 64) = A (64 x HDW) B^T (HDW x 64), ceil(HDW / 16) k steps: A
 // rows of a resident BLK-row tile (da: its row offset included), B a
 // BT-row stage, both K-major
-template <int HDW>
+template <int HDW, typename T>
 __device__ __forceinline__ void ss_hd(float* acc, uint64_t da, uint64_t db) {
 #pragma unroll
   for (int kk = 0; kk < (HDW + 15) / 16; ++kk) {
     const int aoff = (kk / 4) * (BLK * 128 / 16) + (kk % 4) * 2;
     const int boff = (kk / 4) * (BT * 128 / 16) + (kk % 4) * 2;
-    wgmma_m64n64k16_ss<0>(acc, da + aoff, db + boff, kk);
+    wgmma_m64n64k16_ss<0, 0, T>(acc, da + aoff, db + boff, kk);
   }
+}
+
+// D (64 x HDW) += A B for the NTERM fragment sets of A (the 4 16-column
+// slices of a 64 x 64 fp32 accumulator each) and B, a BT-row stage read
+// MN-major (db: its descriptor, 64-column boxes L::TBOX bytes apart): one
+// wgmma group, committed
+template <int HDW, typename T>
+__device__ __forceinline__ void rs_frags(float* d,
+                                         uint32_t (&f)[NTERM<T>][4][4],
+                                         uint64_t db) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NTERM<T>; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) rs_hd<HDW, T>(d, f[j][kk], db + 128 * kk);
+  wgmma_commit();
 }
 
 // the m64n64 accumulator value v of this thread: its row (of the 64) and
@@ -209,21 +279,30 @@ __device__ __forceinline__ int acc_col(int tq, int v) {
   return 8 * (v >> 2) + 2 * (tq & 3) + (v & 1);
 }
 
-// 16-column slice kk of a 64 x 64 fp32 accumulator as a bf16 A fragment
+// 16-column slice kk of a 64 x 64 fp32 accumulator as A fragments of T:
+// f[0] the rounding of x to T and, in fp16, f[1] the rounding of the rest,
+// so that f[0] + f[1] keeps x's fp32 value as the reference does
+template <typename T>
 __device__ __forceinline__ void pack_frags(const float* x,
-                                           uint32_t (&f)[4][4]) {
+                                           uint32_t (&f)[NTERM<T>][4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      f[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+    for (int i = 0; i < 4; ++i) {
+      const float x0 = x[8 * kk + 2 * i], x1 = x[8 * kk + 2 * i + 1];
+      f[0][kk][i] = pack2<T>(x0, x1);
+      if constexpr (NTERM<T> == 2) {
+        const float2 h = unpack2<T>(f[0][kk][i]);
+        f[1][kk][i] = pack2<T>(x0 - h.x, x1 - h.y);
+      }
+    }
 }
 
 // rows r_lo, r_lo + 8 (below row_end) and the columns below hd of a
-// 64 x HDW fp32 accumulator, times mul, as bf16 into the (row, hd) plane
+// 64 x HDW fp32 accumulator, times mul, as T into the (row, hd) plane
 // at ob, rows o_ss elements apart
-template <int HDW>
-__device__ __forceinline__ void store_acc(bf16* ob, long long o_ss,
+template <int HDW, typename T>
+__device__ __forceinline__ void store_acc(T* ob, long long o_ss,
                                           const float* acc, float mul,
                                           int r_lo, int row_end, int lane,
                                           int hd) {
@@ -235,7 +314,7 @@ __device__ __forceinline__ void store_acc(bf16* ob, long long o_ss,
     for (int nt = 0; nt < HDW / 8; ++nt) {
       if (nt * 8 >= hd) break;
       const int col = nt * 8 + 2 * (lane & 3);
-      *reinterpret_cast<uint32_t*>(ob + row * o_ss + col) = pack_bf16(
+      *reinterpret_cast<uint32_t*>(ob + row * o_ss + col) = pack2<T>(
           acc[4 * nt + 2 * j] * mul, acc[4 * nt + 2 * j + 1] * mul);
     }
   }
@@ -247,8 +326,9 @@ __device__ __forceinline__ bool live_pair(int qr, int kr, int causal,
   return (!causal || kr <= qr) && (window <= 0 || qr - kr < window);
 }
 
-// HD: the tiles' padded head dim; HDW: the width the products run at
-template <int HD, int HDW>
+// HD: the tiles' padded head dim; HDW: the width the products run at; T:
+// the element type
+template <int HD, int HDW, typename T>
 __global__ void __launch_bounds__(NTHREADS, 1)
 dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
            const __grid_constant__ CUtensorMap kmap,
@@ -349,9 +429,9 @@ dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
         // S^T = K Q^T and dP^T = V dO^T, two groups
         float st[32], dpt[32];
         wgmma_fence();
-        ss_hd<HDW>(st, ka, smem_desc(qs, 16, 1024));
+        ss_hd<HDW, T>(st, ka, smem_desc(qs, 16, 1024));
         wgmma_commit();
-        ss_hd<HDW>(dpt, va, smem_desc(os, 16, 1024));
+        ss_hd<HDW, T>(dpt, va, smem_desc(os, 16, 1024));
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs<32>(st);
@@ -368,34 +448,38 @@ dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
             p = 0.f;
           st[v] = p;
         }
-        uint32_t pf[4][4];
-        pack_frags(st, pf);
-        wgmma_wait<0>();
-        fence_regs<32>(dpt);
-
-        // dV += P^T dO
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          rs_hd<HDW>(dv, pf[kk], smem_desc(os, L::TBOX, 1024) + 128 * kk);
-        wgmma_commit();
+        // dV += P^T dO (the stage's dO read MN-major): in bf16 issued here,
+        // while dP^T may still run; in fp16 after dS^T is formed, so that
+        // P^T's fp32 registers pass to its two fragment sets (dK + dV, S^T,
+        // dP^T and both sets would not fit in 240 registers)
+        const uint64_t dos = smem_desc(os, L::TBOX, 1024);
+        uint32_t pf[NTERM<T>][4][4];
+        if constexpr (NTERM<T> == 1) {
+          pack_frags<T>(st, pf);
+          wgmma_wait<0>();
+          fence_regs<32>(dpt);
+          rs_frags<HDW, T>(dv, pf, dos);
+        } else {
+          wgmma_wait<0>();
+          fence_regs<32>(dpt);
+        }
 
         // dS^T = P^T o (dP^T - D); dK += dS^T Q
 #pragma unroll
         for (int v = 0; v < 32; ++v)
           dpt[v] = st[v] * (dpt[v] - dl[acc_col(tq, v)]);
-        uint32_t sf[4][4];
-        pack_frags(dpt, sf);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          rs_hd<HDW>(dk, sf[kk], smem_desc(qs, L::TBOX, 1024) + 128 * kk);
-        wgmma_commit();
+        if constexpr (NTERM<T> == 2) {
+          pack_frags<T>(st, pf);
+          rs_frags<HDW, T>(dv, pf, dos);
+        }
+        uint32_t sf[NTERM<T>][4][4];
+        pack_frags<T>(dpt, sf);
+        rs_frags<HDW, T>(dk, sf, smem_desc(qs, L::TBOX, 1024));
         wgmma_wait<0>();
         fence_regs<HDW / 2>(dv);
         fence_regs<HDW / 2>(dk);
-        fence_regs<16>(&pf[0][0]);
-        fence_regs<16>(&sf[0][0]);
+        fence_regs<16 * NTERM<T>>(&pf[0][0][0]);
+        fence_regs<16 * NTERM<T>>(&sf[0][0][0]);
         if (lane == 0) mbar_arrive(&empty[s]);
       }
     }
@@ -403,14 +487,16 @@ dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     // dK (scaled) and dV at the KV head, rows below s
     const int r_lo = kr0 + acc_row(tq, 0);
     const long long base = static_cast<long long>(b) * P.s * kvh + kh;
-    store_acc<HDW>(P.dk + base * P.hd, static_cast<long long>(kvh) * P.hd, dk,
-                   P.scale, r_lo, P.s, lane, P.hd);
-    store_acc<HDW>(P.dv + base * P.hd, static_cast<long long>(kvh) * P.hd, dv,
-                   1.f, r_lo, P.s, lane, P.hd);
+    store_acc<HDW, T>(static_cast<T*>(P.dk) + base * P.hd,
+                      static_cast<long long>(kvh) * P.hd, dk, P.scale, r_lo,
+                      P.s, lane, P.hd);
+    store_acc<HDW, T>(static_cast<T*>(P.dv) + base * P.hd,
+                      static_cast<long long>(kvh) * P.hd, dv, 1.f, r_lo, P.s,
+                      lane, P.hd);
   }
 }
 
-template <int HD, int HDW>
+template <int HD, int HDW, typename T>
 __global__ void __launch_bounds__(NTHREADS, 1)
 dq_wgmma(const __grid_constant__ CUtensorMap qmap,
          const __grid_constant__ CUtensorMap kmap,
@@ -503,9 +589,9 @@ dq_wgmma(const __grid_constant__ CUtensorMap qmap,
       // S = Q K^T and dP = dO V^T, two groups
       float sc[32], dp[32];
       wgmma_fence();
-      ss_hd<HDW>(sc, qa, smem_desc(ks, 16, 1024));
+      ss_hd<HDW, T>(sc, qa, smem_desc(ks, 16, 1024));
       wgmma_commit();
-      ss_hd<HDW>(dp, oa, smem_desc(vs, 16, 1024));
+      ss_hd<HDW, T>(dp, oa, smem_desc(vs, 16, 1024));
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs<32>(sc);
@@ -530,22 +616,19 @@ dq_wgmma(const __grid_constant__ CUtensorMap qmap,
       // dS = P o (dP - D); dQ += dS K
 #pragma unroll
       for (int v = 0; v < 32; ++v) dp[v] = sc[v] * (dp[v] - dl[(v >> 1) & 1]);
-      uint32_t sf[4][4];
-      pack_frags(dp, sf);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        rs_hd<HDW>(dq, sf[kk], smem_desc(ks, L::TBOX, 1024) + 128 * kk);
-      wgmma_commit();
+      uint32_t sf[NTERM<T>][4][4];
+      pack_frags<T>(dp, sf);
+      rs_frags<HDW, T>(dq, sf, smem_desc(ks, L::TBOX, 1024));
       wgmma_wait<0>();
       fence_regs<HDW / 2>(dq);
-      fence_regs<16>(&sf[0][0]);
+      fence_regs<16 * NTERM<T>>(&sf[0][0][0]);
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
     const long long base = static_cast<long long>(b) * P.s * P.H + hh;
-    store_acc<HDW>(P.dq + base * P.hd, static_cast<long long>(P.H) * P.hd, dq,
-                   P.scale, r_lo, P.s, lane, P.hd);
+    store_acc<HDW, T>(static_cast<T*>(P.dq) + base * P.hd,
+                      static_cast<long long>(P.H) * P.hd, dq, P.scale, r_lo,
+                      P.s, lane, P.hd);
   }
 }
 
@@ -578,27 +661,30 @@ struct Layout256 {
 
 // acc (64 x 64) = A (64 x 256) B^T (256 x 64), A and B 64-row tiles, both
 // K-major
+template <typename T>
 __device__ __forceinline__ void ss256(float* acc, uint64_t da, uint64_t db) {
 #pragma unroll
   for (int kk = 0; kk < 16; ++kk) {
     const int off = (kk / 4) * (Layout256<1>::BOX / 16) + (kk % 4) * 2;
-    wgmma_m64n64k16_ss<0>(acc, da + off, db + off, kk);
+    wgmma_m64n64k16_ss<0, 0, T>(acc, da + off, db + off, kk);
   }
 }
 
 // D (64 x 128) += A (64 x 16, registers) times rows 16 kk .. 16 kk + 15 and
 // columns 128 h .. 128 h + 127 of a 64-row tile read MN-major (db: the
 // tile's descriptor, 64-column boxes BOX bytes apart)
+template <typename T>
 __device__ __forceinline__ void rs_half(float* d, const uint32_t* a,
                                         uint64_t db, int h, int kk) {
   constexpr int half = 2 * Layout256<1>::BOX / 16;     // two boxes on
-  wgmma_m64n128k16_rs<1>(d, a, db + h * half + 128 * kk, 1);
+  wgmma_m64n128k16_rs<1, T>(d, a, db + h * half + 128 * kk, 1);
 }
 
 // dkdv at hd 256: the CTA owns a 64-row k block.  Warpgroup 1 computes S^T
 // = K Q^T, P^T, and dV += P^T dO; warpgroup 2 computes dP^T = V dO^T and,
 // with warpgroup 1's fp32 P^T from the exchange buffer, dS^T and dK +=
 // dS^T Q.  Each holds one 64 x 256 output (128 fp32 a thread).
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS, 1)
 dkdv_wgmma_hd256(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
@@ -696,7 +782,7 @@ dkdv_wgmma_hd256(const __grid_constant__ CUtensorMap qmap,
       // c 0: S^T = K Q^T; c 1: dP^T = V dO^T
       float x[32];
       wgmma_fence();
-      ss256(x, ra, smem_desc(c ? os : qs, 16, 1024));
+      ss256<T>(x, ra, smem_desc(c ? os : qs, 16, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs<32>(x);
@@ -729,28 +815,30 @@ dkdv_wgmma_hd256(const __grid_constant__ CUtensorMap qmap,
       }
 
       // c 0: dV += P^T dO; c 1: dK += dS^T Q (the stage read MN-major)
-      uint32_t fr[4][4];
-      pack_frags(x, fr);
+      uint32_t fr[NTERM<T>][4][4];
+      pack_frags<T>(x, fr);
       const uint64_t db = smem_desc(c ? qs : os, L::BOX, 1024);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        rs_half(acc, fr[kk], db, 0, kk);
-        rs_half(acc + 64, fr[kk], db, 1, kk);
-      }
+      for (int j = 0; j < NTERM<T>; ++j)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          rs_half<T>(acc, fr[j][kk], db, 0, kk);
+          rs_half<T>(acc + 64, fr[j][kk], db, 1, kk);
+        }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs<128>(acc);
-      fence_regs<16>(&fr[0][0]);
+      fence_regs<16 * NTERM<T>>(&fr[0][0][0]);
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
     // dV, or dK (scaled), at the KV head, rows below s
     const int r_lo = k0 + acc_row(tq, 0);
     const long long base = static_cast<long long>(b) * P.s * kvh + kh;
-    store_acc<256>((c ? P.dk : P.dv) + base * P.hd,
-                   static_cast<long long>(kvh) * P.hd, acc,
-                   c ? P.scale : 1.f, r_lo, P.s, lane, P.hd);
+    store_acc<256, T>(static_cast<T*>(c ? P.dk : P.dv) + base * P.hd,
+                      static_cast<long long>(kvh) * P.hd, acc,
+                      c ? P.scale : 1.f, r_lo, P.s, lane, P.hd);
   }
 }
 
@@ -759,6 +847,7 @@ dkdv_wgmma_hd256(const __grid_constant__ CUtensorMap qmap,
 // fp32 through the exchange buffers, each forms dS = P o (dP - D) (the same
 // arithmetic on the same values, so the same bits) and accumulates half of
 // dQ += dS K: columns 0-127 (c 0) or 128-255 (c 1), 64 fp32 a thread.
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS, 1)
 dq_wgmma_hd256(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
@@ -853,7 +942,7 @@ dq_wgmma_hd256(const __grid_constant__ CUtensorMap qmap,
       // c 0: S = Q K^T; c 1: dP = dO V^T
       float x[32];
       wgmma_fence();
-      ss256(x, ra, smem_desc(c ? vs : ks, 16, 1024));
+      ss256<T>(x, ra, smem_desc(c ? vs : ks, 16, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs<32>(x);
@@ -888,32 +977,35 @@ dq_wgmma_hd256(const __grid_constant__ CUtensorMap qmap,
       }
 
       // dQ[:, 128 c ..] += dS K (the stage read MN-major)
-      uint32_t fr[4][4];
-      pack_frags(x, fr);
+      uint32_t fr[NTERM<T>][4][4];
+      pack_frags<T>(x, fr);
       const uint64_t db = smem_desc(ks, L::BOX, 1024);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) rs_half(dq, fr[kk], db, c, kk);
+      for (int j = 0; j < NTERM<T>; ++j)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) rs_half<T>(dq, fr[j][kk], db, c, kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs<64>(dq);
-      fence_regs<16>(&fr[0][0]);
+      fence_regs<16 * NTERM<T>>(&fr[0][0][0]);
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
     const long long base = static_cast<long long>(b) * P.s * P.H + hh;
-    store_acc<128>(P.dq + base * P.hd + 128 * c,
-                   static_cast<long long>(P.H) * P.hd, dq, P.scale, r_lo, P.s,
-                   lane, P.hd - 128 * c);
+    store_acc<128, T>(static_cast<T*>(P.dq) + base * P.hd + 128 * c,
+                      static_cast<long long>(P.H) * P.hd, dq, P.scale, r_lo,
+                      P.s, lane, P.hd - 128 * c);
   }
 }
 
 // ------------------------------------------------------------- host ---
 
-int check_params(const BwdParams& P) {
+int check_params(const BwdParams& P, int dtype) {
   if (P.batch <= 0 || P.s <= 0 || P.H <= 0 || P.group <= 0 ||
       P.H % P.group != 0 || P.hd <= 0 || P.hd > 256 || P.hd % 8 != 0 ||
-      P.s_pad != (P.s + SPAD - 1) / SPAD * SPAD)
+      P.s_pad != (P.s + SPAD - 1) / SPAD * SPAD ||
+      (dtype != BF16 && dtype != F16))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
@@ -924,15 +1016,10 @@ BwdParams make_params(const void* q, const void* k, const void* v,
                       int s_pad, int H, int group, int hd, int causal,
                       int window, float scale) {
   BwdParams P;
-  P.q = static_cast<const bf16*>(q);
-  P.k = static_cast<const bf16*>(k);
-  P.v = static_cast<const bf16*>(v);
-  P.dout = static_cast<const bf16*>(dout);
+  P.q = q; P.k = k; P.v = v; P.dout = dout;
   P.lse2 = static_cast<const float*>(lse2);
   P.delta = static_cast<const float*>(delta);
-  P.dq = static_cast<bf16*>(dq);
-  P.dk = static_cast<bf16*>(dk);
-  P.dv = static_cast<bf16*>(dv);
+  P.dq = dq; P.dk = dk; P.dv = dv;
   P.batch = batch; P.s = s; P.s_pad = s_pad; P.H = H; P.group = group;
   P.hd = hd; P.causal = causal; P.window = window;
   P.scale = scale; P.scale_log2 = scale * LOG2E;
@@ -940,32 +1027,36 @@ BwdParams make_params(const void* q, const void* k, const void* v,
 }
 
 // the four 4-D maps of q, dO (heads H) and k, v (heads H / group), all
-// contiguous (b, s, heads, hd), with boxes of 64 columns x qrows / krows
-int encode_maps(CUtensorMap* m, const BwdParams& P, int qrows, int krows) {
+// contiguous (b, s, heads, hd) of the dtype code dt, with boxes of 64
+// columns x qrows / krows
+int encode_maps(CUtensorMap* m, const BwdParams& P, int dt, int qrows,
+                int krows) {
   const long long hd = P.hd, s = P.s, H = P.H, kvh = P.H / P.group;
-  int rc = encode_bshd(&m[0], P.q, P.batch, P.s, P.H, P.hd, s * H * hd, hd,
-                       H * hd, qrows);
+  int rc = encode_bshd(&m[0], P.q, dt, P.batch, P.s, P.H, P.hd, s * H * hd,
+                       hd, H * hd, qrows);
   if (rc == 0)
-    rc = encode_bshd(&m[1], P.k, P.batch, P.s, kvh, P.hd, s * kvh * hd, hd,
-                     kvh * hd, krows);
+    rc = encode_bshd(&m[1], P.k, dt, P.batch, P.s, kvh, P.hd, s * kvh * hd,
+                     hd, kvh * hd, krows);
   if (rc == 0)
-    rc = encode_bshd(&m[2], P.v, P.batch, P.s, kvh, P.hd, s * kvh * hd, hd,
-                     kvh * hd, krows);
+    rc = encode_bshd(&m[2], P.v, dt, P.batch, P.s, kvh, P.hd, s * kvh * hd,
+                     hd, kvh * hd, krows);
   if (rc == 0)
-    rc = encode_bshd(&m[3], P.dout, P.batch, P.s, P.H, P.hd, s * H * hd, hd,
-                     H * hd, qrows);
+    rc = encode_bshd(&m[3], P.dout, dt, P.batch, P.s, P.H, P.hd, s * H * hd,
+                     hd, H * hd, qrows);
   return rc;
 }
 
-template <int HD, bool DKDV, int HDW = HD>
+template <int HD, bool DKDV, typename T, int HDW = HD>
 int launch_wgmma(const BwdParams& P, cudaStream_t st) {
   CUtensorMap m[4];
   // dkdv: q / dO in the ring (BT rows), k / v resident (BLK); dq: the other
   // way round
-  int rc = DKDV ? encode_maps(m, P, BT, BLK) : encode_maps(m, P, BLK, BT);
+  constexpr int dt = is_f16<T> ? F16 : BF16;
+  int rc = DKDV ? encode_maps(m, P, dt, BT, BLK)
+                : encode_maps(m, P, dt, BLK, BT);
   if (rc != 0) return rc;
   constexpr int bytes = BwdLayout<HD>::BYTES;
-  auto kern = DKDV ? dkdv_wgmma<HD, HDW> : dq_wgmma<HD, HDW>;
+  auto kern = DKDV ? dkdv_wgmma<HD, HDW, T> : dq_wgmma<HD, HDW, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -977,14 +1068,14 @@ int launch_wgmma(const BwdParams& P, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool DKDV>
+template <bool DKDV, typename T>
 int launch_wgmma_hd256(const BwdParams& P, cudaStream_t st) {
   CUtensorMap m[4];
   // resident and ring tiles are both 64 rows
-  int rc = encode_maps(m, P, BT, BLK256);
+  int rc = encode_maps(m, P, is_f16<T> ? F16 : BF16, BT, BLK256);
   if (rc != 0) return rc;
   constexpr int bytes = DKDV ? Layout256<1>::BYTES : Layout256<2>::BYTES;
-  auto kern = DKDV ? dkdv_wgmma_hd256 : dq_wgmma_hd256;
+  auto kern = DKDV ? dkdv_wgmma_hd256<T> : dq_wgmma_hd256<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -996,60 +1087,82 @@ int launch_wgmma_hd256(const BwdParams& P, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the instantiation of each head dim, at the element type T
+template <bool DKDV, typename T>
+int launch_t(const BwdParams& P, cudaStream_t st) {
+  if (P.hd <= 64) return launch_wgmma<64, DKDV, T>(P, st);
+  if (P.hd == 80) return launch_wgmma<128, DKDV, T, 80>(P, st);
+  if (P.hd <= 128) return launch_wgmma<128, DKDV, T>(P, st);
+  return launch_wgmma_hd256<DKDV, T>(P, st);
+}
+
+template <bool DKDV>
+int launch(const BwdParams& P, int dtype, void* stream) {
+  if (int rc = check_params(P, dtype)) return rc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == F16 ? launch_t<DKDV, __half>(P, st)
+                      : launch_t<DKDV, __nv_bfloat16>(P, st);
+}
+
 }  // namespace
 
-// D and lse log2(e), both (b, h, s_pad), of o, dout (b, s, h, hd), contiguous
-// bf16, and the forward's lse (b, h, s)
-extern "C" int flash_dense_bwd_delta_launch(const void* o, const void* dout,
-                                            const void* lse, void* lse2,
-                                            void* delta, int batch, int s,
-                                            int s_pad, int H, int hd,
+// D and lse log2(e), both (b, h, s_pad), of o, dout (b, s, h, hd),
+// contiguous bf16 (dtype 1) or fp16 (dtype 2), o_lo (the forward's
+// rounding residual of o, the same layout; may be null) and the forward's
+// lse (b, h, s)
+extern "C" int flash_dense_bwd_delta_launch(const void* o, const void* o_lo,
+                                            const void* dout, const void* lse,
+                                            void* lse2, void* delta,
+                                            int batch, int s, int s_pad,
+                                            int H, int hd, int dtype,
                                             void* stream) {
   if (batch <= 0 || s <= 0 || H <= 0 || hd <= 0 || hd % 2 != 0 ||
-      s_pad != (s + SPAD - 1) / SPAD * SPAD)
+      s_pad != (s + SPAD - 1) / SPAD * SPAD ||
+      (dtype != BF16 && dtype != F16))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(batch) * s_pad * H;
-  delta_kernel<<<static_cast<unsigned>((rows + 3) / 4), 128, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(lse2),
-      static_cast<float*>(delta), batch, s, s_pad, H, hd);
+  const unsigned grid = static_cast<unsigned>((rows + 3) / 4);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* l2 = static_cast<float*>(lse2);
+  float* d = static_cast<float*>(delta);
+  if (dtype == F16)
+    delta_kernel<__half><<<grid, 128, 0, st>>>(
+        static_cast<const __half*>(o), static_cast<const __half*>(o_lo),
+        static_cast<const __half*>(dout), l, l2, d, batch, s, s_pad, H, hd);
+  else
+    delta_kernel<__nv_bfloat16><<<grid, 128, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(o),
+        static_cast<const __nv_bfloat16*>(o_lo),
+        static_cast<const __nv_bfloat16*>(dout), l, l2, d, batch, s, s_pad, H,
+        hd);
   return static_cast<int>(cudaGetLastError());
 }
 
 // dK, dV (b, s, kvh, hd) of q, dout (b, s, H, hd), k, v (b, s, kvh, hd),
-// lse log2(e) and delta (b, H, s_pad); group = H / kvh
+// lse log2(e) and delta (b, H, s_pad); group = H / kvh; all 2-byte tensors
+// of one dtype (1 bf16, 2 fp16)
 extern "C" int flash_dense_bwd_dkdv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse2, const void* delta, void* dk, void* dv, int batch, int s,
-    int s_pad, int H, int group, int hd, int causal, int window, float scale,
-    void* stream) {
-  const BwdParams P = make_params(q, k, v, dout, lse2, delta, nullptr, dk, dv,
+    int s_pad, int H, int group, int hd, int causal, int window, int dtype,
+    float scale, void* stream) {
+  return launch<true>(make_params(q, k, v, dout, lse2, delta, nullptr, dk, dv,
                                   batch, s, s_pad, H, group, hd, causal,
-                                  window, scale);
-  if (int rc = check_params(P)) return rc;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 64) return launch_wgmma<64, true>(P, st);
-  if (hd == 80) return launch_wgmma<128, true, 80>(P, st);
-  if (hd <= 128) return launch_wgmma<128, true>(P, st);
-  return launch_wgmma_hd256<true>(P, st);
+                                  window, scale),
+                      dtype, stream);
 }
 
 // dQ (b, s, H, hd) of the same inputs
 extern "C" int flash_dense_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse2, const void* delta, void* dq, int batch, int s,
-    int s_pad, int H, int group, int hd, int causal, int window, float scale,
-    void* stream) {
-  const BwdParams P = make_params(q, k, v, dout, lse2, delta, dq, nullptr,
-                                  nullptr, batch, s, s_pad, H, group, hd,
-                                  causal, window, scale);
-  if (int rc = check_params(P)) return rc;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 64) return launch_wgmma<64, false>(P, st);
-  if (hd == 80) return launch_wgmma<128, false, 80>(P, st);
-  if (hd <= 128) return launch_wgmma<128, false>(P, st);
-  return launch_wgmma_hd256<false>(P, st);
+    int s_pad, int H, int group, int hd, int causal, int window, int dtype,
+    float scale, void* stream) {
+  return launch<false>(make_params(q, k, v, dout, lse2, delta, dq, nullptr,
+                                   nullptr, batch, s, s_pad, H, group, hd,
+                                   causal, window, scale),
+                       dtype, stream);
 }
 
 extern "C" const char* flash_dense_bwd_error_string(int code) {

@@ -14,8 +14,8 @@
 //   * the online softmax in registers in the log2 domain (softmax), with
 //     the mask arithmetic only where the caller says the tile needs it;
 //   * O += P V with two RS wgmmas (four at head dim 256: two n128 halves),
-//     P = hi + lo in bf16 kept fp32 as in the reference, V MN-major through
-//     the transpose bit (issue_pv);
+//     P = hi + lo in the element type kept fp32 as in the reference, V
+//     MN-major through the transpose bit (issue_pv);
 // and writes out = o / l from the accumulators (store_rows).  The tiles
 // have a padded head dim (64, 128 or 256): columns past the real head dim
 // arrive as zeros from TMA and are not written.  The products run at a
@@ -23,6 +23,10 @@
 // exactly 80: S = Q K^T takes ceil(HDW / 16) k steps (the steps dropped
 // would add only products of zeros) and O += P V one m64n80 (its columns
 // are the first 80 of the m64n128), so o holds HDW / 2 floats a thread.
+//
+// Every piece takes the element type T of q, k, v and the output:
+// __nv_bfloat16 (the default, which flash_sched.cu takes) or __half, with
+// wgmma's .bf16 or .f16; the accumulators and the softmax are fp32 in both.
 //
 // Every block here is inline: an out-of-line block shared by the producer
 // and the consumers would make ptxas compile both roles for the launch's
@@ -42,7 +46,7 @@ constexpr int BQ = 128;                 // q rows of a tile
 constexpr int BKV = 128;                // kv columns of a tile (default)
 constexpr int NTHREADS = 384;           // producer + two consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;
-constexpr int BOX = 128 * 128;          // one Q box: 128 rows x 64 bf16
+constexpr int BOX = 128 * 128;          // one Q box: 128 rows x 64 T
 constexpr int TURN = 1;                 // named barriers 1, 2: the turns
 constexpr int STAGES = 3;               // K / V tiles in flight (default)
 
@@ -53,7 +57,7 @@ template <int HD, int NKV = BKV, int NSTAGES = STAGES>
 struct Layout {
   static constexpr int NBOX = HD / 64;              // boxes per tile
   static constexpr int TILE = NBOX * BOX;           // the Q tile
-  static constexpr int KVBOX = NKV * 128;           // NKV rows x 64 bf16
+  static constexpr int KVBOX = NKV * 128;           // NKV rows x 64 T
   static constexpr int KVTILE = NBOX * KVBOX;
   static constexpr int Q = 0;
   static constexpr int K = Q + TILE;                // NSTAGES tiles
@@ -70,13 +74,14 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 // scores of this thread (m64n{NKV} accumulator layout) -> P = exp2(S scale
-// log2(e) - m) as bf16 hi / lo A fragments of the NKV / 16 16-column slices;
+// log2(e) - m) as T hi / lo A fragments of the NKV / 16 16-column slices;
 // updates m, l (log2 domain) and rescales o (HDW / 2 floats).  MASK:
 // columns >= P.s, above
 // the diagonal (P.causal) or outside the window (P.window) get NEG_INF
 // first; without it the scale is folded into one FFMA per score.  MP is
 // any type with the fields s, causal, window and scale_log2.
-template <int HDW, bool MASK, int NKV = BKV, class MP>
+template <int HDW, bool MASK, int NKV = BKV, typename T = __nv_bfloat16,
+          class MP>
 __device__ __forceinline__ void softmax(float* sacc, float (&m)[2],
                                         float (&l)[2], float* o,
                                         uint32_t (&phi)[NKV / 16][4],
@@ -124,12 +129,10 @@ __device__ __forceinline__ void softmax(float* sacc, float (&m)[2],
       const float p1 = MASK ? fast_exp2(sacc[v + 1] - mj)
                             : fast_exp2(fmaf(sacc[v + 1], P.scale_log2, -mj));
       rs[i & 1] += p0 + p1;
-      // fp32 p = hi + lo, both bf16
-      __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-      const float2 hf = __bfloat1622float2(h);
-      __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
-      phi[kk][i] = *reinterpret_cast<uint32_t*>(&h);
-      plo[kk][i] = *reinterpret_cast<uint32_t*>(&lo);
+      // fp32 p = hi + lo, both T
+      phi[kk][i] = pack2<T>(p0, p1);
+      const float2 hf = unpack2<T>(phi[kk][i]);
+      plo[kk][i] = pack2<T>(p0 - hf.x, p1 - hf.y);
     }
   }
 #pragma unroll
@@ -149,7 +152,7 @@ __device__ __forceinline__ void softmax(float* sacc, float (&m)[2],
 // stage must have landed.  A 16-wide k step moves 32 bytes inside a
 // 64-column box; the next box of Q is BOX bytes on, of K NKV * 128.  The
 // depth is HDW columns, ceil(HDW / 16) k steps.
-template <int HDW, int NKV = BKV>
+template <int HDW, int NKV = BKV, typename T = __nv_bfloat16>
 __device__ __forceinline__ void issue_s(float* sacc, uint64_t dq, uint64_t dk,
                                         int c) {
   named_bar_sync(TURN + c, 256);
@@ -159,9 +162,9 @@ __device__ __forceinline__ void issue_s(float* sacc, uint64_t dq, uint64_t dk,
     const int off = (kk / 4) * (BOX / 16) + (kk % 4) * 2;
     const int koff = (kk / 4) * (NKV * 128 / 16) + (kk % 4) * 2;
     if constexpr (NKV == 128)
-      wgmma_m64n128k16_ss<0>(sacc, dq + off, dk + koff, kk);
+      wgmma_m64n128k16_ss<0, 0, T>(sacc, dq + off, dk + koff, kk);
     else
-      wgmma_m64n64k16_ss<0>(sacc, dq + off, dk + koff, kk);
+      wgmma_m64n64k16_ss<0, 0, T>(sacc, dq + off, dk + koff, kk);
   }
   wgmma_commit();
   named_bar_arrive(TURN + 1 - c, 256);
@@ -174,7 +177,7 @@ __device__ __forceinline__ void issue_s(float* sacc, uint64_t dq, uint64_t dk,
 // n128 halves, accumulators o[0..63] (columns 0-127, boxes 0-1) and
 // o[64..127] (columns 128-255, boxes 2-3): the layout of one m64n256.  At
 // HDW 80 it is one n80 over box 0 and the first 16 columns of box 1.
-template <int HDW, int NKV = BKV>
+template <int HDW, int NKV = BKV, typename T = __nv_bfloat16>
 __device__ __forceinline__ void issue_pv(float* o, uint32_t (&phi)[NKV / 16][4],
                                          uint32_t (&plo)[NKV / 16][4],
                                          uint64_t dv) {
@@ -183,19 +186,19 @@ __device__ __forceinline__ void issue_pv(float* o, uint32_t (&phi)[NKV / 16][4],
   for (int kk = 0; kk < NKV / 16; ++kk) {
     if constexpr (HDW == 256) {
       constexpr int half = 2 * NKV * 128 / 16;      // two boxes on
-      wgmma_m64n128k16_rs<1>(o, phi[kk], dv + 128 * kk, 1);
-      wgmma_m64n128k16_rs<1>(o + 64, phi[kk], dv + half + 128 * kk, 1);
-      wgmma_m64n128k16_rs<1>(o, plo[kk], dv + 128 * kk, 1);
-      wgmma_m64n128k16_rs<1>(o + 64, plo[kk], dv + half + 128 * kk, 1);
+      wgmma_m64n128k16_rs<1, T>(o, phi[kk], dv + 128 * kk, 1);
+      wgmma_m64n128k16_rs<1, T>(o + 64, phi[kk], dv + half + 128 * kk, 1);
+      wgmma_m64n128k16_rs<1, T>(o, plo[kk], dv + 128 * kk, 1);
+      wgmma_m64n128k16_rs<1, T>(o + 64, plo[kk], dv + half + 128 * kk, 1);
     } else if constexpr (HDW == 128) {
-      wgmma_m64n128k16_rs<1>(o, phi[kk], dv + 128 * kk, 1);
-      wgmma_m64n128k16_rs<1>(o, plo[kk], dv + 128 * kk, 1);
+      wgmma_m64n128k16_rs<1, T>(o, phi[kk], dv + 128 * kk, 1);
+      wgmma_m64n128k16_rs<1, T>(o, plo[kk], dv + 128 * kk, 1);
     } else if constexpr (HDW == 80) {
-      wgmma_m64n80k16_rs<1>(o, phi[kk], dv + 128 * kk, 1);
-      wgmma_m64n80k16_rs<1>(o, plo[kk], dv + 128 * kk, 1);
+      wgmma_m64n80k16_rs<1, T>(o, phi[kk], dv + 128 * kk, 1);
+      wgmma_m64n80k16_rs<1, T>(o, plo[kk], dv + 128 * kk, 1);
     } else {
-      wgmma_m64n64k16_rs<1>(o, phi[kk], dv + 128 * kk, 1);
-      wgmma_m64n64k16_rs<1>(o, plo[kk], dv + 128 * kk, 1);
+      wgmma_m64n64k16_rs<1, T>(o, phi[kk], dv + 128 * kk, 1);
+      wgmma_m64n64k16_rs<1, T>(o, plo[kk], dv + 128 * kk, 1);
     }
   }
   wgmma_commit();
@@ -205,13 +208,13 @@ __device__ __forceinline__ void issue_pv(float* o, uint32_t (&phi)[NKV / 16][4],
   fence_regs<NKV / 4>(&plo[0][0]);
 }
 
-// out = o / l as bf16 for this thread's rows r_lo and r_lo + 8 that lie
+// out = o / l as T for this thread's rows r_lo and r_lo + 8 that lie
 // below row_end and its columns below hd, a multiple of 8 (ob: the
 // (row, hd) plane of the output head, rows o_ss apart; o holds HDW
 // columns); rows that never saw a live column (m <= NEG_INF / 2) are
 // written as 0
-template <int HDW>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* ob, long long o_ss,
+template <int HDW, typename T = __nv_bfloat16>
+__device__ __forceinline__ void store_rows(T* ob, long long o_ss,
                                            const float* o, const float (&m)[2],
                                            const float (&l)[2], int r_lo,
                                            int row_end, int lane, int hd) {
@@ -226,22 +229,23 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, long long o_ss,
       if (nt * 8 >= hd) break;
       const int col = nt * 8 + 2 * (lane & 3);
       *reinterpret_cast<uint32_t*>(ob + row * o_ss + col) =
-          pack_bf16(o[4 * nt + 2 * j] * inv, o[4 * nt + 2 * j + 1] * inv);
+          pack2<T>(o[4 * nt + 2 * j] * inv, o[4 * nt + 2 * j + 1] * inv);
     }
   }
 }
 
-// q / k / v (b, s, heads, hd) by element strides -> a 4-D map with boxes of
-// 64 hd x `rows` rows of one head; a box reaching past hd or s is filled
-// with zeros (and still counts its full size towards expect_tx)
-inline int encode_bshd(CUtensorMap* map, const void* base, int batch, int s,
-                       int heads, int hd, long long sb, long long sh,
-                       long long ss, int rows = 128) {
+// q / k / v (b, s, heads, hd) of the dtype code `dtype` (bf16 or fp16) by
+// element strides -> a 4-D map with boxes of 64 hd x `rows` rows of one
+// head; a box reaching past hd or s is filled with zeros (and still counts
+// its full size towards expect_tx)
+inline int encode_bshd(CUtensorMap* map, const void* base, int dtype,
+                       int batch, int s, int heads, int hd, long long sb,
+                       long long sh, long long ss, int rows = 128) {
   using u64 = cuuint64_t;
   const u64 dims[4] = {(u64)hd, (u64)s, (u64)heads, (u64)batch};
   const u64 strides[3] = {(u64)ss * 2, (u64)sh * 2, (u64)sb * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  return encode_bf16(map, base, 4, dims, strides, box);
+  return encode_tiled(map, base, 4, dims, strides, box, dtype);
 }
 
 }  // namespace flash_hopper

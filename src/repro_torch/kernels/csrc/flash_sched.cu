@@ -230,11 +230,14 @@ int launch_hd(const void* q, const void* k, const void* v, int batch,
               const SchedParams& P, int p, cudaStream_t st) {
   CUtensorMap qm, km, vm;
   const int kvh = P.H / P.group;
-  int rc = encode_bshd(&qm, q, batch, P.s, P.H, P.hd, qs[0], qs[1], qs[2]);
+  int rc = encode_bshd(&qm, q, BF16, batch, P.s, P.H, P.hd, qs[0], qs[1],
+                       qs[2]);
   if (rc == 0)
-    rc = encode_bshd(&km, k, batch, P.s, kvh, P.hd, ks[0], ks[1], ks[2], NKV);
+    rc = encode_bshd(&km, k, BF16, batch, P.s, kvh, P.hd, ks[0], ks[1], ks[2],
+                     NKV);
   if (rc == 0)
-    rc = encode_bshd(&vm, v, batch, P.s, kvh, P.hd, vs[0], vs[1], vs[2], NKV);
+    rc = encode_bshd(&vm, v, BF16, batch, P.s, kvh, P.hd, vs[0], vs[1], vs[2],
+                     NKV);
   if (rc != 0) return rc;
   constexpr int bytes = Layout<HD, NKV, NST>::BYTES;
   auto kern = flash_sched_kernel<HD, NKV, NST, HDW>;

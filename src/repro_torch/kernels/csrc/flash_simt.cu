@@ -6,14 +6,14 @@
 // plan order) in src/repro/kernels/flash_attention/flash_attention.py where
 // the tensor-core kernels cannot take the call.  The reference casts q, k
 // and v to fp32 inside both kernels and so takes any float dtype;
-// flash_dense.cu and flash_sched.cu take bf16 with a head dim that is a
-// multiple of 8 and 16-byte aligned rows, and flash_f32.cu takes fp32
-// calls so at head dims up to 128, dense and schedule-aware.  Everything
-// else runs here, at both entries: fp32 at head dims 136-256
-// (recurrentgemma-2b's local attention in fp32, whose backward runs on
-// flash_f32_bwd.cu's cluster pairs) or at a head dim or strides TMA cannot
-// describe, fp16, and bf16 at a head dim or stride the TMA boxes cannot
-// describe.  Head dims up to 256.
+// flash_dense.cu takes bf16 and fp16 and flash_sched.cu bf16 with a head
+// dim that is a multiple of 8 and 16-byte aligned rows, and flash_f32.cu
+// takes fp32 calls so at head dims up to 128, dense and schedule-aware.
+// Everything else runs here: fp32 at head dims 136-256 (recurrentgemma-2b's
+// local attention in fp32, whose backward runs on flash_f32_bwd.cu's
+// cluster pairs) or at a head dim or strides TMA cannot describe, fp16 at
+// the schedule-aware entry, and bf16 and fp16 at a head dim or stride the
+// TMA boxes cannot describe.  Head dims up to 256.
 //
 // What bounds it on an H100: operations on the CUDA cores.  S = Q K^T and
 // O += P V are plain fp32 FMA, SIMT, never TF32, as the reference's fp32
@@ -41,7 +41,10 @@
 //   * Dense entry: one CTA per (64-row q tile, lane); the kv tiles are
 //     those inside the causal diagonal and the window.  With `lse` given it
 //     also writes each row's log-sum-exp (m + log l, +inf for a dead row)
-//     for the backward (flash_simt_bwd.cu).
+//     for the backward (flash_simt_bwd.cu), and with `o_lo` given (fp16)
+//     the output's rounding residual o - T(o) in T, which the backward's
+//     delta pass adds back as flash_dense.cu's residual (flash_dense_bwd.cu
+//     says why).
 //   * Schedule-aware entry: persistent over the plan as flash_sched.cu is:
 //     p CTAs, CTA w walks descriptors [bounds[w], bounds[w+1]) -- its share
 //     of the DLS plan -- group by group (a group runs from a `first` flag to
@@ -67,6 +70,7 @@ constexpr float NEG_INF = -1e30f;
 struct FwdParams {
   const void *q, *k, *v;
   void* o;
+  void* o_lo;                 // dense: o's rounding residual, o's strides, or null
   float* lse;                 // (b, h, s) or null
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
       o_sh, o_ss;
@@ -104,7 +108,7 @@ __device__ __forceinline__ float row_sum16(float x) {
 
 // rows [q0, q1) of lane (b, h) against kv columns [c_lo, c_hi) (both ends
 // already cut to the lane's length), masked by `lim`, the causal diagonal
-// and the window; writes o (and lse) of the rows
+// and the window; writes o (and o_lo, lse) of the rows
 template <typename T, int HDP>
 __device__ void attend_unit(const FwdParams& P, float* sm, int b, int h,
                             int q0, int q1, int c_lo, int c_hi, int lim) {
@@ -210,6 +214,9 @@ __device__ void attend_unit(const FwdParams& P, float* sm, int b, int h,
   }
   // epilogue: acc / max(l, 1e-30), dead rows 0
   T* out = static_cast<T*>(P.o) + b * P.o_sb + h * P.o_sh;
+  T* out_lo = P.o_lo == nullptr
+                  ? nullptr
+                  : static_cast<T*>(P.o_lo) + b * P.o_sb + h * P.o_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
@@ -221,8 +228,12 @@ __device__ void attend_unit(const FwdParams& P, float* sm, int b, int h,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = tx * 4 + 64 * jc + e;
-        if (d < hd)
-          out[r * P.o_ss + d] = Cvt<T>::out(alive ? o[i][jc * 4 + e] / lc : 0.f);
+        if (d >= hd) continue;
+        const float x = alive ? o[i][jc * 4 + e] / lc : 0.f;
+        const T y = Cvt<T>::out(x);
+        out[r * P.o_ss + d] = y;
+        if (out_lo != nullptr)
+          out_lo[r * P.o_ss + d] = Cvt<T>::out(x - Cvt<T>::in(y));
       }
     if (P.lse != nullptr && tx == 0)
       P.lse[(static_cast<long long>(b) * P.H + h) * P.s + r] =
@@ -322,18 +333,20 @@ int launch(FwdParams& P, bool sched, int p, int batch, int s, int H,
 
 }  // namespace
 
-// q (b, s, h, hd), k / v (b, s, kvh, hd) -> o (b, s, h, hd), and with
-// `lse` each row's log-sum-exp (b, h, s); strides (batch, head, row) of q,
-// k, v and o in elements
+// q (b, s, h, hd), k / v (b, s, kvh, hd) -> o (b, s, h, hd), with `o_lo`
+// o's rounding residual (o's strides) and with `lse` each row's
+// log-sum-exp (b, h, s); strides (batch, head, row) of q, k, v and o in
+// elements
 extern "C" int flash_dense_simt_launch(
-    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q, const void* k, const void* v, void* o, void* o_lo,
+    void* lse,
     int batch, int s, int H, int group, int hd, int causal, int window,
     int dtype, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss,
     float scale, void* stream) {
   FwdParams P{};
-  P.q = q; P.k = k; P.v = v; P.o = o;
+  P.q = q; P.k = k; P.v = v; P.o = o; P.o_lo = o_lo;
   P.lse = static_cast<float*>(lse);
   const long long str[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                              v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};

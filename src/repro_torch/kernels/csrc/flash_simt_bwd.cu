@@ -63,19 +63,25 @@ __device__ __forceinline__ bool live(const BwdParams& P, int r, int c) {
 }
 
 // ---------------------------------------------------------------- delta ---
-// one warp per (b, row, head): D = sum_d dO o O in fp32 at (b, head, row)
+// one warp per (b, row, head): D = sum_d dO o O in fp32 at (b, head, row).
+// o_lo, where given, is the forward's rounding residual of O (fp16: O -
+// fp16(O) in fp16), so that D is that of the fp32 O as in the reference
 template <typename T>
 __global__ void __launch_bounds__(128)
-delta_simt_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                  float* __restrict__ delta, int batch, int s, int H, int hd) {
+delta_simt_kernel(const T* __restrict__ o, const T* __restrict__ o_lo,
+                  const T* __restrict__ dout, float* __restrict__ delta,
+                  int batch, int s, int H, int hd) {
   const long long row = static_cast<long long>(blockIdx.x) * 4 + threadIdx.x / 32;
   if (row >= static_cast<long long>(batch) * s * H) return;
   const int lane = threadIdx.x % 32;
   const T* orow = o + row * hd;
   const T* drow = dout + row * hd;
   float acc = 0.f;
-  for (int d = lane; d < hd; d += 32)
-    acc = fmaf(Cvt<T>::in(drow[d]), Cvt<T>::in(orow[d]), acc);
+  for (int d = lane; d < hd; d += 32) {
+    float a = Cvt<T>::in(orow[d]);
+    if (o_lo != nullptr) a += Cvt<T>::in(o_lo[row * hd + d]);
+    acc = fmaf(Cvt<T>::in(drow[d]), a, acc);
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffff, acc, off);
@@ -406,11 +412,12 @@ int launch(int pass, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// D (b, h, s) = rowsum(dout o o) of o, dout (b, s, h, hd), contiguous
-extern "C" int flash_simt_bwd_delta_launch(const void* o, const void* dout,
-                                           void* delta, int batch, int s,
-                                           int H, int hd, int dtype,
-                                           void* stream) {
+// D (b, h, s) = rowsum(dout o (o + o_lo)) of o, dout (b, s, h, hd),
+// contiguous, and o_lo (o's rounding residual, the same layout) or null
+extern "C" int flash_simt_bwd_delta_launch(const void* o, const void* o_lo,
+                                           const void* dout, void* delta,
+                                           int batch, int s, int H, int hd,
+                                           int dtype, void* stream) {
   if (batch <= 0 || s <= 0 || H <= 0 || hd <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(batch) * s * H;
@@ -420,18 +427,19 @@ extern "C" int flash_simt_bwd_delta_launch(const void* o, const void* dout,
   switch (dtype) {
     case F32:
       delta_simt_kernel<float><<<grid, 128, 0, st>>>(
-          static_cast<const float*>(o), static_cast<const float*>(dout), d,
-          batch, s, H, hd);
+          static_cast<const float*>(o), static_cast<const float*>(o_lo),
+          static_cast<const float*>(dout), d, batch, s, H, hd);
       break;
     case BF16:
       delta_simt_kernel<__nv_bfloat16><<<grid, 128, 0, st>>>(
           static_cast<const __nv_bfloat16*>(o),
+          static_cast<const __nv_bfloat16*>(o_lo),
           static_cast<const __nv_bfloat16*>(dout), d, batch, s, H, hd);
       break;
     case F16:
       delta_simt_kernel<__half><<<grid, 128, 0, st>>>(
-          static_cast<const __half*>(o), static_cast<const __half*>(dout), d,
-          batch, s, H, hd);
+          static_cast<const __half*>(o), static_cast<const __half*>(o_lo),
+          static_cast<const __half*>(dout), d, batch, s, H, hd);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -456,9 +456,9 @@ extern "C" int gmm_launch(const void* x, const void* w, void* out,
   const u64 od[3] = {(u64)f, (u64)bm, (u64)T};
   const u64 os[2] = {(u64)f * 2, (u64)bm * f * 2};
   const cuuint32_t ob[3] = {64, 64, 1};
-  int rc = encode_bf16(&xmap, x, 3, xd, xs, xb);
-  if (rc == 0) rc = encode_bf16(&wmap, w, 3, wd, ws, wb);
-  if (rc == 0) rc = encode_bf16(&omap, out, 3, od, os, ob);
+  int rc = encode_tiled(&xmap, x, 3, xd, xs, xb, BF16);
+  if (rc == 0) rc = encode_tiled(&wmap, w, 3, wd, ws, wb, BF16);
+  if (rc == 0) rc = encode_tiled(&omap, out, 3, od, os, ob, BF16);
   if (rc != 0) return rc;
   GmmParams P;
   P.order = static_cast<const int*>(order);
@@ -496,9 +496,9 @@ extern "C" int gmm_dx_launch(const void* dy, const void* w, void* dx, int E,
   const u64 od[3] = {(u64)d, (u64)BM, T};
   const u64 os[2] = {(u64)d * 2, (u64)BM * d * 2};
   const cuuint32_t ob[3] = {64, 64, 1};
-  int rc = encode_bf16(&ymap, dy, 3, yd, ys, yb);
-  if (rc == 0) rc = encode_bf16(&wmap, w, 3, wd, ws, wb);
-  if (rc == 0) rc = encode_bf16(&omap, dx, 3, od, os, ob);
+  int rc = encode_tiled(&ymap, dy, 3, yd, ys, yb, BF16);
+  if (rc == 0) rc = encode_tiled(&wmap, w, 3, wd, ws, wb, BF16);
+  if (rc == 0) rc = encode_tiled(&omap, dx, 3, od, os, ob, BF16);
   if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(
       gmm_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -526,9 +526,9 @@ extern "C" int gmm_dw_launch(const void* x, const void* dy, void* dw, int E,
   const u64 ys[2] = {(u64)N * 2, (u64)R * N * 2};
   const u64 od[3] = {(u64)N, (u64)M, (u64)E};
   const u64 os[2] = {(u64)N * 2, (u64)M * N * 2};
-  int rc = encode_bf16(&xmap, x, 3, xd, xs, box);
-  if (rc == 0) rc = encode_bf16(&ymap, dy, 3, yd, ys, box);
-  if (rc == 0) rc = encode_bf16(&omap, dw, 3, od, os, box);
+  int rc = encode_tiled(&xmap, x, 3, xd, xs, box, BF16);
+  if (rc == 0) rc = encode_tiled(&ymap, dy, 3, yd, ys, box, BF16);
+  if (rc == 0) rc = encode_tiled(&omap, dw, 3, od, os, box, BF16);
   if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(
       gmm_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);

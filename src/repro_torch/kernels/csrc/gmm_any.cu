@@ -108,133 +108,18 @@ constexpr int SMEM_BAR = SMEM_C + 2 * C_BYTES;
 constexpr int SMEM_BYTES = SMEM_BAR + 2 * STAGES * 8 + 1024;  // + alignment
 
 enum Mode { FWD = 0, DX = 1, DW = 2 };
-enum DType { BF16 = 1, F16 = 2 };        // simt::DType's codes
 
-// wgmma.m64nNk16 with fp32 accumulators, A and B from shared memory, the
-// operand type given as a PTX type name; trans-a TA, trans-b TB (a
-// transposed operand is allowed for 16-bit types, and both types are)
-#define GMM_ANY_WGMMA_N64(TY)                                                 \
-  asm volatile(                                                               \
-      "{\n.reg .pred p;\n"                                                    \
-      "setp.ne.b32 p, %34, 0;\n"                                              \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                      \
-      " %8, %9, %10, %11, %12, %13, %14, %15,"                                \
-      " %16, %17, %18, %19, %20, %21, %22, %23,"                              \
-      " %24, %25, %26, %27, %28, %29, %30, %31},"                             \
-      " %32, %33, p, 1, 1, %36, %35;\n}\n"                                     \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
-        "+f"(d[30]), "+f"(d[31])                                              \
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA))
-
-
-#define GMM_ANY_WGMMA_N128(TY)                                                \
-  asm volatile(                                                               \
-      "{\n.reg .pred p;\n"                                                    \
-      "setp.ne.b32 p, %66, 0;\n"                                              \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "            \
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                      \
-      " %8, %9, %10, %11, %12, %13, %14, %15,"                                \
-      " %16, %17, %18, %19, %20, %21, %22, %23,"                              \
-      " %24, %25, %26, %27, %28, %29, %30, %31,"                              \
-      " %32, %33, %34, %35, %36, %37, %38, %39,"                              \
-      " %40, %41, %42, %43, %44, %45, %46, %47,"                              \
-      " %48, %49, %50, %51, %52, %53, %54, %55,"                              \
-      " %56, %57, %58, %59, %60, %61, %62, %63},"                             \
-      " %64, %65, p, 1, 1, %68, %67;\n}\n"                                     \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                    \
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA))
-
-
-#define GMM_ANY_WGMMA_N256(TY)                                                \
-  asm volatile(                                                               \
-      "{\n.reg .pred p;\n"                                                    \
-      "setp.ne.b32 p, %130, 0;\n"                                             \
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "            \
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                      \
-      " %8, %9, %10, %11, %12, %13, %14, %15,"                                \
-      " %16, %17, %18, %19, %20, %21, %22, %23,"                              \
-      " %24, %25, %26, %27, %28, %29, %30, %31,"                              \
-      " %32, %33, %34, %35, %36, %37, %38, %39,"                              \
-      " %40, %41, %42, %43, %44, %45, %46, %47,"                              \
-      " %48, %49, %50, %51, %52, %53, %54, %55,"                              \
-      " %56, %57, %58, %59, %60, %61, %62, %63,"                              \
-      " %64, %65, %66, %67, %68, %69, %70, %71,"                              \
-      " %72, %73, %74, %75, %76, %77, %78, %79,"                              \
-      " %80, %81, %82, %83, %84, %85, %86, %87,"                              \
-      " %88, %89, %90, %91, %92, %93, %94, %95,"                              \
-      " %96, %97, %98, %99, %100, %101, %102, %103,"                          \
-      " %104, %105, %106, %107, %108, %109, %110, %111,"                      \
-      " %112, %113, %114, %115, %116, %117, %118, %119,"                      \
-      " %120, %121, %122, %123, %124, %125, %126, %127},"                     \
-      " %128, %129, p, 1, 1, %132, %131;\n}\n"                                 \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), \
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), \
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), \
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), \
-        "+f"(d[126]), "+f"(d[127])                                            \
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA))
-
+// wgmma.m64nNk16 of the element type T, A and B from shared memory,
+// trans-a TA, trans-b TB
 template <typename T, int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int scale_d) {
-  constexpr bool H = std::is_same<T, __half>::value;
-  if constexpr (N == 256) {
-    if constexpr (H) GMM_ANY_WGMMA_N256("f16"); else GMM_ANY_WGMMA_N256("bf16");
-  } else if constexpr (N == 128) {
-    if constexpr (H) GMM_ANY_WGMMA_N128("f16"); else GMM_ANY_WGMMA_N128("bf16");
-  } else {
-    if constexpr (H) GMM_ANY_WGMMA_N64("f16"); else GMM_ANY_WGMMA_N64("bf16");
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same<T, __half>::value) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  } else {
-    return pack_bf16(lo, hi);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T cvt(float v) {
-  if constexpr (std::is_same<T, __half>::value)
-    return __float2half_rn(v);
+  if constexpr (N == 256)
+    wgmma_m64n256k16_ss<TB, TA, T>(d, da, db, scale_d);
+  else if constexpr (N == 128)
+    wgmma_m64n128k16_ss<TB, TA, T>(d, da, db, scale_d);
   else
-    return __float2bfloat16_rn(v);
+    wgmma_m64n64k16_ss<TB, TA, T>(d, da, db, scale_d);
 }
 
 struct Params {
@@ -864,24 +749,6 @@ gmm_any_kernel(const __grid_constant__ CUtensorMap amap,
   }
 }
 
-// a 2-byte tensor map of rank 3 (sizes innermost first, byte strides of
-// dims 1 and 2), SWIZZLE_128B boxes, zero fill outside the tensor
-int encode(CUtensorMap* map, const void* base, int dtype,
-           const cuuint64_t* dims, const cuuint64_t* strides,
-           const cuuint32_t* box) {
-  EncodeTiledFn fn = encode_fn();
-  if (fn == nullptr) return NO_ENCODE_ERROR;
-  bind_context();
-  const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = fn(map, dtype == F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                  3, const_cast<void*>(base), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR_BASE + static_cast<int>(r);
-}
-
 // maps (A, B) of a 2-byte (E', rows, width) pair, boxes of 64 x `arows`
 // and 64 x 64: A (E', ar, aw), B (E', br, bw); 0 or an error code
 int encode_pair(CUtensorMap* amap, CUtensorMap* bmap, const void* a,
@@ -894,8 +761,8 @@ int encode_pair(CUtensorMap* amap, CUtensorMap* bmap, const void* a,
   const u64 bd[3] = {(u64)bw, (u64)br, (u64)eb};
   const u64 bs[2] = {(u64)bw * 2, (u64)br * bw * 2};
   const cuuint32_t bb[3] = {64, 64, 1};
-  const int rc = encode(amap, a, dtype, ad, as, ab);
-  return rc != 0 ? rc : encode(bmap, b, dtype, bd, bs, bb);
+  const int rc = encode_tiled(amap, a, 3, ad, as, ab, dtype);
+  return rc != 0 ? rc : encode_tiled(bmap, b, 3, bd, bs, bb, dtype);
 }
 
 // the thread loader's copy: the widest of 16, 8 and 4 bytes that the base
@@ -1031,7 +898,7 @@ extern "C" int gmm_any_dw_launch(const void* x, const void* dy, void* dw,
     const u64 os[2] = {(u64)f * 2, (u64)d * f * 2};
     const cuuint32_t ob[3] = {64, 64, 1};
     int rc = encode_pair(&m.a, &m.w, x, dy, dtype, E, R, d, 64, E, R, f);
-    if (rc == 0) rc = encode(&m.o, dw, dtype, od, os, ob);
+    if (rc == 0) rc = encode_tiled(&m.o, dw, 3, od, os, ob, dtype);
     if (rc != 0) return rc;
   }
   Params P{};

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels (gmm.cu,
-// gmm_dw.cu, flash_dense.cu, flash_dense_bwd.cu, flash_sched.cu): mbarriers
+// gmm_any.cu, flash_dense.cu, flash_dense_bwd.cu, flash_sched.cu): mbarriers
 // with a phase bit, TMA tensor loads and stores, 1-D bulk loads, the wgmma
 // shared-memory descriptor and the wgmma instructions the kernels issue,
 // register re-allocation between warpgroups, and the host-side encoding of
 // tensor maps.
 //
 // Every shared-memory tile these kernels hand to wgmma is written by TMA
-// with CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), the 16-byte
-// chunks of row r stored at chunk ^ (r % 8), each tile 1024-byte aligned.
+// with CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 2-byte elements, bf16 or
+// fp16 (128 bytes), the 16-byte chunks of row r stored at chunk ^ (r % 8),
+// each tile 1024-byte aligned.
 // Such a tile is described to wgmma by
 //   * K-major (the reduction dimension contiguous, A of both kernels and B
 //     of S = Q K^T): 8-row groups 1024 bytes apart (SBO); the next 16-wide
@@ -27,11 +28,17 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
 
+#include <type_traits>
+
 namespace hopper {
+
+// the launchers' dtype codes of the 2-byte types (SIMT_DTYPES in Python)
+enum DType { BF16 = 1, F16 = 2 };
 
 // ---------------------------------------------------------------- device ---
 
@@ -222,195 +229,226 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The 2-byte element types the kernels take, as the wgmma, TMA and
+// conversion code below names them.  T = __half is fp16, anything else bf16.
+template <typename T>
+constexpr bool is_f16 = std::is_same<T, __half>::value;
+
+// two floats -> one register of two T (round to nearest), the first in the
+// low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+// one register of two T -> two floats (exact), the low half first
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  if constexpr (is_f16<T>)
+    return __half22float2(*reinterpret_cast<__half2*>(&v));
+  else
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+template <typename T>
+__device__ __forceinline__ T cvt(float v) {
+  if constexpr (is_f16<T>)
+    return __float2half_rn(v);
+  else
+    return __float2bfloat16_rn(v);
+}
+
 // Accumulator layout of wgmma m64nN (fp32), value v of thread t of the
 // warpgroup: row 16 (t / 32) + (t % 32) / 4 + 8 ((v / 2) % 2), column
 // 8 (v / 4) + 2 (t % 4) + v % 2.  The A fragment of an RS wgmma (m64k16)
 // has the same layout over its 16 columns: register i holds the pair
 // (v = 2 i, 2 i + 1) of the accumulator of a 16-column slice.
+//
+// The wgmma wrappers below take the operands' element type T (default
+// bf16) and emit .bf16 or .f16 with fp32 accumulators: the same instruction
+// string but for that type name.  SS: A and B from shared memory, trans-a
+// TRANS_A and trans-b TRANS_B (a transposed operand is allowed for both
+// 16-bit types); RS: A from registers (four of two T each), trans-b only.
+// The macros' operands: HOPPER_D<n> are d[0 .. n) read and written.
+
+#define HOPPER_D8(i)                                                         \
+  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]),        \
+      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+#define HOPPER_D32 HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
+#define HOPPER_D40 HOPPER_D32, HOPPER_D8(32)
+#define HOPPER_D64                                                           \
+  HOPPER_D32, HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
+#define HOPPER_D128                                                          \
+  HOPPER_D64, HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88),    \
+      HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120)
+
+#define HOPPER_WGMMA_M64N256K16_SS(TY, TB, TA)                               \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %130, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                     \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                               \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                             \
+      " %24, %25, %26, %27, %28, %29, %30, %31,"                             \
+      " %32, %33, %34, %35, %36, %37, %38, %39,"                             \
+      " %40, %41, %42, %43, %44, %45, %46, %47,"                             \
+      " %48, %49, %50, %51, %52, %53, %54, %55,"                             \
+      " %56, %57, %58, %59, %60, %61, %62, %63,"                             \
+      " %64, %65, %66, %67, %68, %69, %70, %71,"                             \
+      " %72, %73, %74, %75, %76, %77, %78, %79,"                             \
+      " %80, %81, %82, %83, %84, %85, %86, %87,"                             \
+      " %88, %89, %90, %91, %92, %93, %94, %95,"                             \
+      " %96, %97, %98, %99, %100, %101, %102, %103,"                         \
+      " %104, %105, %106, %107, %108, %109, %110, %111,"                     \
+      " %112, %113, %114, %115, %116, %117, %118, %119,"                     \
+      " %120, %121, %122, %123, %124, %125, %126, %127},"                    \
+      " %128, %129, p, 1, 1, %132, %131;\n}\n"                               \
+      : HOPPER_D128                                                          \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA))
+
+#define HOPPER_WGMMA_M64N128K16_SS(TY, TB, TA)                               \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %66, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                     \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                               \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                             \
+      " %24, %25, %26, %27, %28, %29, %30, %31,"                             \
+      " %32, %33, %34, %35, %36, %37, %38, %39,"                             \
+      " %40, %41, %42, %43, %44, %45, %46, %47,"                             \
+      " %48, %49, %50, %51, %52, %53, %54, %55,"                             \
+      " %56, %57, %58, %59, %60, %61, %62, %63},"                            \
+      " %64, %65, p, 1, 1, %68, %67;\n}\n"                                   \
+      : HOPPER_D64                                                           \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA))
+
+#define HOPPER_WGMMA_M64N64K16_SS(TY, TB, TA)                                \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %34, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                     \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                               \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                             \
+      " %24, %25, %26, %27, %28, %29, %30, %31},"                            \
+      " %32, %33, p, 1, 1, %36, %35;\n}\n"                                   \
+      : HOPPER_D32                                                           \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA))
+
+#define HOPPER_WGMMA_M64N128K16_RS(TY, TB)                                   \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %69, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                     \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                               \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                             \
+      " %24, %25, %26, %27, %28, %29, %30, %31,"                             \
+      " %32, %33, %34, %35, %36, %37, %38, %39,"                             \
+      " %40, %41, %42, %43, %44, %45, %46, %47,"                             \
+      " %48, %49, %50, %51, %52, %53, %54, %55,"                             \
+      " %56, %57, %58, %59, %60, %61, %62, %63},"                            \
+      " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"                       \
+      : HOPPER_D64                                                           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),   \
+        "n"(TB))
+
+#define HOPPER_WGMMA_M64N80K16_RS(TY, TB)                                    \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %45, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " "            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                     \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                               \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                             \
+      " %24, %25, %26, %27, %28, %29, %30, %31,"                             \
+      " %32, %33, %34, %35, %36, %37, %38, %39},"                            \
+      " {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"                       \
+      : HOPPER_D40                                                           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),   \
+        "n"(TB))
+
+#define HOPPER_WGMMA_M64N64K16_RS(TY, TB)                                    \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %37, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                     \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                               \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                             \
+      " %24, %25, %26, %27, %28, %29, %30, %31},"                            \
+      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"                       \
+      : HOPPER_D32                                                           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),   \
+        "n"(TB))
 
 // D (64 x 256, fp32) (+)= A (64 x 16, smem) * B (16 x 256, smem)
-template <int TRANS_B, int TRANS_A = 0>
+template <int TRANS_B, int TRANS_A = 0, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(float* d, uint64_t da,
                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71,"
-      " %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87,"
-      " %88, %89, %90, %91, %92, %93, %94, %95,"
-      " %96, %97, %98, %99, %100, %101, %102, %103,"
-      " %104, %105, %106, %107, %108, %109, %110, %111,"
-      " %112, %113, %114, %115, %116, %117, %118, %119,"
-      " %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, %132, %131;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_M64N256K16_SS("f16", TRANS_B, TRANS_A);
+  else
+    HOPPER_WGMMA_M64N256K16_SS("bf16", TRANS_B, TRANS_A);
 }
 
 // D (64 x 128, fp32) (+)= A (64 x 16, smem) * B (16 x 128, smem)
-template <int TRANS_B, int TRANS_A = 0>
+template <int TRANS_B, int TRANS_A = 0, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da,
                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, %68, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_M64N128K16_SS("f16", TRANS_B, TRANS_A);
+  else
+    HOPPER_WGMMA_M64N128K16_SS("bf16", TRANS_B, TRANS_A);
 }
 
 // D (64 x 64, fp32) (+)= A (64 x 16, smem) * B (16 x 64, smem)
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
                                                  uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_M64N64K16_SS("f16", TRANS_B, TRANS_A);
+  else
+    HOPPER_WGMMA_M64N64K16_SS("bf16", TRANS_B, TRANS_A);
 }
 
 // D (64 x 128, fp32) (+)= A (64 x 16, registers) * B (16 x 128, smem)
-template <int TRANS_B>
+template <int TRANS_B, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a,
                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TRANS_B));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_M64N128K16_RS("f16", TRANS_B);
+  else
+    HOPPER_WGMMA_M64N128K16_RS("bf16", TRANS_B);
 }
 
 // D (64 x 80, fp32) (+)= A (64 x 16, registers) * B (16 x 80, smem).  MN-
 // major, the 80 columns cross from one 64-column swizzle atom into the
 // next, LBO bytes on, as an n128's do.
-template <int TRANS_B>
+template <int TRANS_B, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n80k16_rs(float* d, const uint32_t* a,
                                                  uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39},"
-      " {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TRANS_B));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_M64N80K16_RS("f16", TRANS_B);
+  else
+    HOPPER_WGMMA_M64N80K16_RS("bf16", TRANS_B);
 }
 
 // D (64 x 64, fp32) (+)= A (64 x 16, registers) * B (16 x 64, smem)
-template <int TRANS_B>
+template <int TRANS_B, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a,
                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TRANS_B));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_M64N64K16_RS("f16", TRANS_B);
+  else
+    HOPPER_WGMMA_M64N64K16_RS("bf16", TRANS_B);
 }
 
 // ------------------------------------------------------------------ host ---
@@ -453,17 +491,20 @@ inline void bind_context() {
   if (cudaGetDevice(&dev) == cudaSuccess) cudaSetDevice(dev);
 }
 
-// A bf16 tensor map of `rank` dims (sizes innermost first, byte strides of
-// dims 1..rank-1), SWIZZLE_128B boxes of `box`, zero fill outside the
-// tensor.  Returns 0 or an error code for the launcher to return.
-inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box) {
+// A tensor map of `rank` dims of 2-byte elements, bf16 or fp16 by `dtype`
+// (TMA only moves them, and its zero fill is +0.0 in both), sizes innermost
+// first, byte strides of dims 1..rank-1, SWIZZLE_128B boxes of `box`, zero
+// fill outside the tensor.  Returns 0 or an error code for the launcher to
+// return.
+inline int encode_tiled(CUtensorMap* map, const void* base, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box, int dtype) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return NO_ENCODE_ERROR;
   bind_context();
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+  CUresult r = fn(map, dtype == F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                   static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims,
                   strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -42,23 +42,31 @@ take any head dim that is a multiple of 8 up to 256 (the configs use 64,
 filling the columns past the real head dim with zeros, except 80, whose
 products run at its exact width on tiles of 128.
 
-Those kernels take bf16.  The reference casts q, k and v to fp32 inside
-its kernels and so takes any float dtype.  An fp32 call of either entry at
-a head dim that is a multiple of 8 up to 128, with strides and alignment
-TMA can describe, runs ``csrc/flash_f32.cu`` (route ``"tf32x3"``: TMA +
-wgmma .tf32 with every product split into three TF32 products,
-fp32-accurate; kernels ``flash_dense_f32`` and ``flash_sched_f32``), and
-its backward ``csrc/flash_f32_bwd.cu``; so does the backward of a dense
-fp32 call at head dims 136-256 (``flash_f32_bwd256_*``, cluster pairs),
-whose forward stays on the general kernel (:func:`flash_bwd_route`).  The
-rest runs the general kernels in plain fp32 FMA, ``csrc/flash_simt.cu``
-(dense and schedule-aware entries, the same plan walk) and
-``csrc/flash_simt_bwd.cu`` (the backward; its delta pass serves every
-fp32 backward): fp16, fp32 at head dims 136-256 (both forwards) or at
-strides TMA cannot describe, and bf16 at a head dim or stride the TMA
-boxes cannot describe.  ``_check_kernel_inputs`` picks the kernel from the
-dtype, the head dim and the strides alone; nothing falls back on a
-failure.
+The tensor-core kernels ``flash_dense`` and ``flash_dense_bwd`` take bf16
+and fp16 (one instantiation of each tile shape per type, the dtype code of
+``SIMT_DTYPES`` in the launch); ``flash_sched`` takes bf16.  The reference
+casts q, k and v to fp32 inside its kernels and so takes any float dtype.
+fp16 keeps the reference's fp32 P and dS as two fp16 terms each (hi + lo)
+and its backward's D from the fp32 output: with ``with_lse`` every fp16
+dense forward, tensor-core or general, also writes the output's rounding
+residual ``o_lo``, which the delta pass adds back (see the note of
+``csrc/flash_dense_bwd.cu``).
+An fp32 call of either entry at a head dim that is a multiple of 8 up to
+128, with strides and alignment TMA can describe, runs
+``csrc/flash_f32.cu`` (route ``"tf32x3"``: TMA + wgmma .tf32 with every
+product split into three TF32 products, fp32-accurate; kernels
+``flash_dense_f32`` and ``flash_sched_f32``), and its backward
+``csrc/flash_f32_bwd.cu``; so does the backward of a dense fp32 call at
+head dims 136-256 (``flash_f32_bwd256_*``, cluster pairs), whose forward
+stays on the general kernel (:func:`flash_bwd_route`).  The rest runs the
+general kernels in plain fp32 FMA, ``csrc/flash_simt.cu`` (dense and
+schedule-aware entries, the same plan walk) and ``csrc/flash_simt_bwd.cu``
+(the backward; its delta pass serves every fp32 backward): the
+schedule-aware entry in fp16 (``flash_route(..., sched=True)``), fp32 at
+head dims 136-256 (both forwards) or at strides TMA cannot describe, and
+bf16 / fp16 at a head dim or stride the TMA boxes cannot describe.
+``_check_kernel_inputs`` picks the kernel from the dtype, the head dim,
+the strides and the entry alone; nothing falls back on a failure.
 """
 
 from __future__ import annotations
@@ -88,24 +96,26 @@ FLASH_SCHED = Kernel(
     "flash_sched", source="flash_sched", symbol="flash_sched_launch",
     argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 11 + [_c.c_longlong] * 12
     + [_c.c_float, _c.c_void_p])
+#: the tensor-core kernels of bf16 and fp16 (``csrc/flash_dense.cu``; the
+#: dtype code of ``SIMT_DTYPES`` picks the instantiation)
 FLASH_DENSE = Kernel(
     "flash_dense", source="flash_dense", symbol="flash_dense_launch",
-    argtypes=[_c.c_void_p] * 5 + [_c.c_int] * 7 + [_c.c_longlong] * 12
+    argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 8 + [_c.c_longlong] * 12
     + [_c.c_float, _c.c_void_p])
 #: the backward (``csrc/flash_dense_bwd.cu``): D = rowsum(dO o O) and lse
 #: log2(e), then dK and dV, then dQ; each launch counts on its own kernel
 FLASH_DENSE_BWD_DELTA = Kernel(
     "flash_dense_bwd_delta", source="flash_dense_bwd",
     symbol="flash_dense_bwd_delta_launch",
-    argtypes=[_c.c_void_p] * 5 + [_c.c_int] * 5 + [_c.c_void_p])
+    argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 6 + [_c.c_void_p])
 FLASH_DENSE_BWD_DKDV = Kernel(
     "flash_dense_bwd_dkdv", source="flash_dense_bwd",
     symbol="flash_dense_bwd_dkdv_launch",
-    argtypes=[_c.c_void_p] * 8 + [_c.c_int] * 8 + [_c.c_float, _c.c_void_p])
+    argtypes=[_c.c_void_p] * 8 + [_c.c_int] * 9 + [_c.c_float, _c.c_void_p])
 FLASH_DENSE_BWD_DQ = Kernel(
     "flash_dense_bwd_dq", source="flash_dense_bwd",
     symbol="flash_dense_bwd_dq_launch",
-    argtypes=[_c.c_void_p] * 7 + [_c.c_int] * 8 + [_c.c_float, _c.c_void_p])
+    argtypes=[_c.c_void_p] * 7 + [_c.c_int] * 9 + [_c.c_float, _c.c_void_p])
 #: the backward's (b, h, s_pad) rows: s rounded up to its 128-row blocks
 BWD_ROW_PAD = 128
 #: the general kernels (``csrc/flash_simt.cu``, ``csrc/flash_simt_bwd.cu``):
@@ -116,12 +126,12 @@ FLASH_SCHED_SIMT = Kernel(
     + [_c.c_float, _c.c_void_p])
 FLASH_DENSE_SIMT = Kernel(
     "flash_dense_simt", source="flash_simt", symbol="flash_dense_simt_launch",
-    argtypes=[_c.c_void_p] * 5 + [_c.c_int] * 8 + [_c.c_longlong] * 12
+    argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 8 + [_c.c_longlong] * 12
     + [_c.c_float, _c.c_void_p])
 FLASH_SIMT_BWD_DELTA = Kernel(
     "flash_simt_bwd_delta", source="flash_simt_bwd",
     symbol="flash_simt_bwd_delta_launch",
-    argtypes=[_c.c_void_p] * 3 + [_c.c_int] * 5 + [_c.c_void_p])
+    argtypes=[_c.c_void_p] * 4 + [_c.c_int] * 5 + [_c.c_void_p])
 FLASH_SIMT_BWD_DKDV = Kernel(
     "flash_simt_bwd_dkdv", source="flash_simt_bwd",
     symbol="flash_simt_bwd_dkdv_launch",
@@ -306,15 +316,18 @@ def flash_attention_sched_plain(q, k, v, *,
     return torch.cat(outs, dim=0)
 
 
-def flash_route(dtype, hd: int, tma_ok: bool = True) -> str:
+def flash_route(dtype, hd: int, tma_ok: bool = True, *,
+                sched: bool = False) -> str:
     """The kernel family a flash forward of this dtype and head dim runs on
-    the card: ``"wgmma"`` (``flash_dense`` / ``flash_sched``) for bfloat16
-    with a head dim that is a multiple of 8 and ``tma_ok`` (strides and
-    alignment TMA can describe), ``"tf32x3"`` (``flash_dense_f32`` /
-    ``flash_sched_f32``) for float32 likewise up to head dim 128,
-    ``"simt"`` (the general kernels) for every other float32 / bfloat16 /
-    float16 call with a head dim up to 256.  Raises for another dtype or
-    head dim, which no kernel takes."""
+    the card: ``"wgmma"`` for bfloat16 and float16 with a head dim that is
+    a multiple of 8 and ``tma_ok`` (strides and alignment TMA can
+    describe): ``flash_dense`` (both types) and ``flash_sched`` (bfloat16);
+    ``"tf32x3"`` (``flash_dense_f32`` / ``flash_sched_f32``) for float32
+    likewise up to head dim 128; ``"simt"`` (the general kernels) for
+    every other float32 / bfloat16 / float16 call with a head dim up to
+    256.  ``sched``: the schedule-aware entry's route, which is ``"simt"``
+    for float16 (``flash_sched`` has no fp16 instantiation).  Raises for
+    another dtype or head dim, which no kernel takes."""
     if dtype not in SIMT_DTYPES:
         raise TypeError(f"the flash kernels take float32, bfloat16 or "
                         f"float16, got {dtype}")
@@ -323,7 +336,7 @@ def flash_route(dtype, hd: int, tma_ok: bool = True) -> str:
                          f"{PADDED_HEAD_DIMS[-1]}, got {hd}")
     if hd % 8 or not tma_ok:
         return "simt"
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 or (dtype == torch.float16 and not sched):
         return "wgmma"
     if dtype == torch.float32 and hd <= TF32X3_MAX_HEAD_DIM:
         return "tf32x3"
@@ -355,11 +368,12 @@ def _tma_ok(*tensors) -> bool:
                            for st in t.stride()[:3]) for t in tensors)
 
 
-def _check_kernel_inputs(name: str, q, k, v) -> str:
+def _check_kernel_inputs(name: str, q, k, v, *, sched: bool = False) -> str:
     """Check q (b, s, h, hd), k/v (b, s, kvh, hd) and return the kernel
-    family that takes them (:func:`flash_route`): a GQA layout and one
-    dtype; the TMA kernels also need a contiguous last dim, strides that
-    are multiples of 16 bytes and 16-byte aligned data."""
+    family that takes them (:func:`flash_route`; ``sched``: the
+    schedule-aware entry's): a GQA layout and one dtype; the TMA kernels
+    also need a contiguous last dim, strides that are multiples of 16 bytes
+    and 16-byte aligned data."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     if k.shape != (b, s, kvh, hd) or v.shape != k.shape or h % kvh:
@@ -368,7 +382,7 @@ def _check_kernel_inputs(name: str, q, k, v) -> str:
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes q, k and v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    return flash_route(q.dtype, hd, _tma_ok(q, k, v))
+    return flash_route(q.dtype, hd, _tma_ok(q, k, v), sched=sched)
 
 
 def _strides(*tensors) -> list[int]:
@@ -390,7 +404,7 @@ def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
     (``FLASH_SCHED_BY_ROUTE``) on q (b, s, h, hd), k/v (b, s, kvh, hd) in
     place of their strides; returns a new (b, s, h, hd) tensor."""
     kernel = FLASH_SCHED_BY_ROUTE[_check_kernel_inputs("flash_sched", q, k,
-                                                       v)]
+                                                       v, sched=True)]
     if kernel is FLASH_SCHED_SIMT:
         return _flash_sched_simt_cuda(q, k, v, desc, bounds, block_q=block_q,
                                       block_k=block_k, causal=causal,
@@ -461,23 +475,26 @@ def _flash_dense_cuda(q, k, v, *, causal: bool, window: int,
                       with_lse: bool = False):
     """Launch the dense kernel of the inputs' route on q (b, s, h, hd),
     k/v (b, s, kvh, hd) in place of their strides; returns a new
-    (b, s, h, hd) tensor, and with ``with_lse`` also each row's
-    log-sum-exp (b, h, s) fp32 (the output is the same bits either way)."""
+    (b, s, h, hd) tensor, and with ``with_lse`` (out, lse, o_lo): each
+    row's log-sum-exp (b, h, s) fp32 and, in fp16, the output's rounding
+    residual out_fp32 - out (else None), the residuals that
+    :func:`_flash_dense_bwd_cuda` takes as they come.  The output is the
+    same bits either way."""
     route = _check_kernel_inputs("flash_dense", q, k, v)
     if route == "simt":
         return _flash_dense_simt_cuda(q, k, v, causal=causal, window=window,
                                       with_lse=with_lse)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
-    out, lse, ptrs, shape, tail = _dense_args(q, k, v, causal, window,
+    out, res, ptrs, shape, tail = _dense_args(q, k, v, causal, window,
                                               with_lse)
     if route == "wgmma":
-        FLASH_DENSE.launch(*ptrs, *shape, *tail)
+        FLASH_DENSE.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
     else:
         kc, vt, s_pad = _f32_copies(b, s, kvh, hd, q.device)
-        FLASH_DENSE_F32.launch(*ptrs, *_ptrs(*kc, *vt), s_pad, *shape,
-                               *tail)
-    return (out, lse) if with_lse else out
+        FLASH_DENSE_F32.launch(*ptrs[:4], ptrs[5], *_ptrs(*kc, *vt), s_pad,
+                               *shape, *tail)
+    return (out, *res) if with_lse else out
 
 
 def _flash_dense_simt_cuda(q, k, v, *, causal: bool, window: int,
@@ -485,45 +502,56 @@ def _flash_dense_simt_cuda(q, k, v, *, causal: bool, window: int,
     """The general dense kernel on q (b, s, h, hd), k/v (b, s, kvh, hd) of
     any dtype of ``SIMT_DTYPES``, as :func:`_flash_dense_cuda` returns."""
     q, k, v = _unit_stride(q, k, v)
-    out, lse, ptrs, shape, tail = _dense_args(q, k, v, causal, window,
+    out, res, ptrs, shape, tail = _dense_args(q, k, v, causal, window,
                                               with_lse)
     FLASH_DENSE_SIMT.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
-    return (out, lse) if with_lse else out
+    return (out, *res) if with_lse else out
 
 
 def _dense_args(q, k, v, causal, window, with_lse):
-    """The dense kernels' output, lse (or None) and their launch
-    arguments: pointers, shape and the strides, scale and stream."""
+    """The dense kernels' output, residuals (lse, o_lo): each None where
+    not written, o_lo written in fp16 only, and their launch arguments:
+    pointers (q, k, v, out, o_lo, lse), shape and the strides, scale and
+    stream."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr())
+    o_lo = (torch.empty_like(out)
+            if with_lse and q.dtype == torch.float16 else None)
+    ptrs = _ptrs(q, k, v, out) + tuple(
+        None if x is None else x.data_ptr() for x in (o_lo, lse))
     shape = (b, s, h, h // kvh, hd, int(causal), int(window))
     tail = (*_strides(q, k, v, out), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
-    return out, lse, ptrs, shape, tail
+    return out, (lse, o_lo), ptrs, shape, tail
 
 
-def _flash_dense_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int):
+def _flash_dense_bwd_cuda(q, k, v, o, do, lse, o_lo=None, *, causal: bool,
+                          window: int):
     """Launch the three backward kernels on the forward's q (b, s, h, hd),
-    k/v (b, s, kvh, hd), output o, its gradient do and lse (b, h, s); returns
+    k/v (b, s, kvh, hd), output o, its gradient do and the residuals of
+    :func:`_flash_dense_cuda`, lse (b, h, s) and o_lo (fp16 only); returns
     (dq, dk, dv) in the inputs' shapes and dtype.  By
     :func:`flash_bwd_route`: ``flash_dense_bwd`` ("wgmma"),
     ``flash_f32_bwd`` ("tf32x3", "tf32x3_256") or the general kernels
     (``flash_simt_bwd``)."""
     _check_kernel_inputs("flash_dense", q, k, v)
+    if (o_lo is None) == (q.dtype == torch.float16):
+        raise ValueError(f"the backward of {q.dtype} takes "
+                         + ("the forward's o_lo" if o_lo is None
+                            else "no o_lo"))
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     route = flash_bwd_route(q.dtype, hd, _tma_ok(q, k, v))
     q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do.to(q.dtype)))
     lse = lse.contiguous()
+    o_lo = None if o_lo is None else o_lo.contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if route == "simt":
         return _flash_simt_bwd_cuda(q, k, v, o, do, lse, causal=causal,
-                                    window=window, stream=stream)
+                                    window=window, stream=stream, o_lo=o_lo)
     if route != "wgmma":
         return _flash_f32_bwd_cuda(q, k, v, o, do, lse, causal=causal,
                                    window=window, stream=stream,
@@ -532,11 +560,13 @@ def _flash_dense_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int):
     # lse log2(e) and D, (b, h, s_pad): +inf and 0 past s
     lse2, delta = torch.empty((2, b, h, s_pad), dtype=torch.float32,
                               device=q.device).unbind(0)
-    FLASH_DENSE_BWD_DELTA.launch(o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                                 lse2.data_ptr(), delta.data_ptr(), b, s,
-                                 s_pad, h, hd, stream)
+    code = SIMT_DTYPES[q.dtype]
+    FLASH_DENSE_BWD_DELTA.launch(
+        o.data_ptr(), None if o_lo is None else o_lo.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), lse2.data_ptr(), delta.data_ptr(), b,
+        s, s_pad, h, hd, code, stream)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    shape = (b, s, s_pad, h, h // kvh, hd, int(causal), int(window),
+    shape = (b, s, s_pad, h, h // kvh, hd, int(causal), int(window), code,
              1.0 / math.sqrt(hd), stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse2.data_ptr(), delta.data_ptr())
@@ -546,14 +576,14 @@ def _flash_dense_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int):
 
 
 def _flash_simt_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int,
-                         stream):
+                         stream, o_lo=None):
     """The general backward on contiguous q (b, s, h, hd), k/v
-    (b, s, kvh, hd), o, do and the forward's lse (b, h, s): D, then dK and
-    dV, then dQ."""
+    (b, s, kvh, hd), o, do, the forward's lse (b, h, s) and o_lo (or
+    None): D, then dK and dV, then dQ."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     code = SIMT_DTYPES[q.dtype]
-    delta = _simt_delta(o, do, stream)
+    delta = _simt_delta(o, do, stream, o_lo)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
@@ -564,13 +594,16 @@ def _flash_simt_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int,
     return dq, dk, dv
 
 
-def _simt_delta(o, do, stream):
-    """D = rowsum(dO o O), (b, h, s) fp32, of contiguous o and do
-    (b, s, h, hd) by the general delta pass."""
+def _simt_delta(o, do, stream, o_lo=None):
+    """D = rowsum(dO o (O + o_lo)), (b, h, s) fp32, of contiguous o, do
+    (b, s, h, hd) and o's rounding residual o_lo (or None) by the general
+    delta pass."""
     b, s, h, hd = o.shape
     delta = torch.empty((b, h, s), dtype=torch.float32, device=o.device)
-    FLASH_SIMT_BWD_DELTA.launch(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                                b, s, h, hd, SIMT_DTYPES[o.dtype], stream)
+    FLASH_SIMT_BWD_DELTA.launch(o.data_ptr(), None if o_lo is None
+                                else o_lo.data_ptr(), do.data_ptr(),
+                                delta.data_ptr(), b, s, h, hd,
+                                SIMT_DTYPES[o.dtype], stream)
     return delta
 
 
@@ -621,16 +654,16 @@ class _FlashDense(torch.autograd.Function):
         grad = any(ctx.needs_input_grad[:3])
         if not grad:
             return _flash_dense_cuda(q, k, v, causal=causal, window=window)
-        out, lse = _flash_dense_cuda(q, k, v, causal=causal, window=window,
-                                     with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, o_lo = _flash_dense_cuda(q, k, v, causal=causal,
+                                           window=window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, o_lo)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_dense_bwd_cuda(q, k, v, out, do, lse,
+        q, k, v, out, lse, o_lo = ctx.saved_tensors
+        dq, dk, dv = _flash_dense_bwd_cuda(q, k, v, out, do, lse, o_lo,
                                            causal=ctx.causal,
                                            window=ctx.window)
         return dq, dk, dv, None, None

@@ -1,6 +1,6 @@
 """Plain PyTorch oracle for the flash-attention kernels (fp32 math), and
-an emulation of the fp32 tensor-core kernels' three-term TF32 split for
-the tests."""
+emulations, for the tests, of the fp32 tensor-core kernels' three-term
+TF32 split and of the fp16 tensor-core kernels' roundings."""
 
 from __future__ import annotations
 
@@ -126,3 +126,88 @@ def attention_bwd_tf32x3(q, k, v, do, *, causal: bool = True,
     dq = matmul_tf32x3(ds, k, terms=terms) * scale
     dk = matmul_tf32x3(ds.transpose(1, 2), q, terms=terms) * scale
     return dq, dk, dv
+
+
+def round_f16(x):
+    """fp32 ``x`` rounded to the nearest fp16 (subnormals kept, |x| >= 65520
+    to inf) and back to fp32, exactly: what a kernel's fp16 conversion
+    keeps."""
+    return x.to(torch.float16).float()
+
+
+def split_f16(x):
+    """fp32 ``x`` as the fp16 kernels pass P and dS to the tensor cores:
+    hi = x rounded to fp16, lo = the rest rounded to fp16; returns hi + lo
+    in fp32 (within 2^-22 |x| while lo is normal, 2^-25 below)."""
+    hi = round_f16(x)
+    return hi + round_f16(x - hi)
+
+
+def attention_f16(q, k, v, *, causal: bool = True, window: int = 0,
+                  kv_lens: Optional[Sequence[int]] = None,
+                  split: bool = True):
+    """:func:`attention_ref` as ``csrc/flash_dense.cu`` computes it in fp16:
+    q, k, v (bh, s, hd) of fp16 values; S = Q K^T in fp32; P = exp(S - m)
+    (m the row's max, P <= 1) passed to P V as :func:`split_f16` (``split``
+    False: rounded once to fp16, which the kernels never do); O = P V / l,
+    l the fp32 sum of P; the output rounded to fp16 once.  Returns
+    (out, o_lo, lse): out fp16, o_lo = round_f16(O - out) (the residual the
+    forward writes for the backward) and lse = m + log l fp32.  Rows with
+    no live column are 0.  The kernel's running maximum only makes its P
+    larger before the rescaling, so rounding against the final maximum
+    errs as much or more.  Used by the tests only."""
+    bh, s, hd = q.shape
+    scores = (q.float() @ k.float().transpose(1, 2)) / math.sqrt(hd)
+    mask = _mask(s, q.device, causal=causal, window=window, kv_lens=kv_lens)
+    scores = torch.where(mask, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    alive = mask.any(dim=-1, keepdim=True)
+    o32 = torch.where(alive, ((split_f16(p) if split else round_f16(p))
+                              @ v.float()) / l.clamp_min(1e-30), 0.0)
+    out = round_f16(o32)
+    return (out.to(torch.float16), round_f16(o32 - out).to(torch.float16),
+            (m + torch.log(l)).squeeze(-1))
+
+
+def attention_bwd_f16(q, k, v, do, *, causal: bool = True, window: int = 0,
+                      split: bool = True, residual: bool = True):
+    """(dq, dk, dv) of the dense function in the model layout, q, do
+    (b, s, h, hd), k, v (b, s, kvh, hd) of fp16 values, as
+    ``csrc/flash_dense_bwd.cu`` computes them in fp16: the forward of
+    :func:`attention_f16` (its fp16 output, o_lo and lse); D = rowsum(dO o
+    (O + o_lo)) in fp32 (``residual`` False: from the fp16 O alone); P =
+    exp(S - lse) and dS = P o (dP - D) in fp32, each passed to its products
+    as :func:`split_f16` (``split`` False: rounded once to fp16); dQ = dS K
+    scale, dK = dS^T Q scale and dV = P^T dO summed over the GQA group in
+    fp32, then rounded to fp16 once.  Used by the tests only."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+
+    def heads(x):
+        return x.float().permute(0, 2, 1, 3).repeat_interleave(
+            h // x.shape[2], dim=1).reshape(b * h, s, hd)
+
+    qf, kf, vf, dof = (heads(x) for x in (q, k, v, do))
+    out, o_lo, lse = attention_f16(qf.half(), kf.half(), vf.half(),
+                                   causal=causal, window=window)
+    mask = _mask(s, q.device, causal=causal, window=window)
+    scores = torch.where(mask, (qf @ kf.transpose(1, 2)) * scale, NEG_INF)
+    p = torch.where(mask, torch.exp(scores - lse[..., None]), 0.0)
+    o = out.float() + (o_lo.float() if residual else 0.0)
+    delta = (dof * o).sum(dim=-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(1, 2) - delta)
+    rnd = split_f16 if split else round_f16
+    p, ds = rnd(p), rnd(ds)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(1, 2) @ qf) * scale
+    dv = p.transpose(1, 2) @ dof
+
+    def model(x, n):
+        return (x.reshape(b, n, h // n, s, hd).sum(2).permute(0, 2, 1, 3)
+                .to(torch.float16))
+
+    return model(dq, h), model(dk, kvh), model(dv, kvh)

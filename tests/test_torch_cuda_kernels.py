@@ -15,7 +15,8 @@ final rounding), also for ``gmm_any``'s.  The general kernels' fp32 outputs (``g
 flash attention (sums of up to thousands of products in another order),
 and so are ``flash_dense_f32`` and ``flash_sched_f32`` (three TF32
 products each, about 2^-20 relative error a product);
-fp16 outputs to 2^-10 + 2^-10 |plain| (two fp16 rounding steps).  Across
+fp16 outputs to 2^-10 + 2^-10 |plain| (two fp16 rounding steps), the
+general kernels' and the fp16 instantiations of ``flash_dense``.  Across
 schedules and ``sched_p`` the outputs must be bit-identical.
 """
 
@@ -112,7 +113,7 @@ def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
         kw = dict(causal=causal, window=window, block_q=blk, block_k=blk,
                   kv_lens=lens)
         kernel = fa.FLASH_SCHED_BY_ROUTE[fa._check_kernel_inputs(
-            "flash_sched", q, k, v)]
+            "flash_sched", q, k, v, sched=True)]
         assert kernel is {torch.bfloat16: fa.FLASH_SCHED,
                           torch.float32: fa.FLASH_SCHED_F32 if hd <= 128
                           else fa.FLASH_SCHED_SIMT}[dt]
@@ -134,8 +135,10 @@ def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
 def test_flash_bhsd_entry_and_errors(dev):
     """The bhsd entry; fp32 at hd 64 and 80 on the tensor cores
     (``flash_sched_f32``), fp32 at hd 256, fp16 and a bf16 head dim of 20
-    on the general kernel, with ragged lens and a window; what no kernel
-    takes raises, with no route to the plain version."""
+    on the general kernel (fp16 on ``flash_sched_simt``, not the bf16-only
+    ``flash_sched``, though the dense fp16 call takes the tensor cores),
+    with ragged lens and a window; what no kernel takes raises, with no
+    route to the plain version."""
     q = _randn(dev, 4, 256, 64)
     out = fa.flash_attention_sched_bhsd(q, q, q, schedule="gss", block_q=128,
                                         block_k=128)
@@ -151,9 +154,11 @@ def test_flash_bhsd_entry_and_errors(dev):
                    (torch.float32, 256)):
         y = _randn(dev, 3, 300, hd, seed=hd, dtype=dt)
         lens = [300, 77, 1]
-        kernel = fa.FLASH_SCHED_BY_ROUTE[fa.flash_route(dt, hd)]
+        kernel = fa.FLASH_SCHED_BY_ROUTE[fa.flash_route(dt, hd, sched=True)]
         assert (kernel is fa.FLASH_SCHED_F32) == (
             dt == torch.float32 and hd <= 128)
+        assert (kernel is fa.FLASH_SCHED_SIMT) == (
+            dt != torch.float32 or hd > 128)
         launches = kernel.launches
         got = fa.flash_attention_sched_bhsd(y, y, y, schedule="fac2",
                                             kv_lens=lens, window=50,
@@ -189,7 +194,9 @@ def test_flash_dense_tile_edges(dev):
     are padded inside the kernel: 80 (stablelm-3b, tiles of 128, products
     at its exact width) and 256
     (recurrentgemma-2b, 64-column K / V tiles in 2 stages), causal, windowed
-    MQA, non-causal, a window of 2048 and windows narrower than a tile.
+    MQA, non-causal, a window of 2048 and windows narrower than a tile; in
+    fp16 (the fp16 instantiations of ``flash_dense``) at head dims 64, 80,
+    128 and 256 likewise, and fp32 on its two routes.
 
     The cases share one test instead of being parametrize items only while
     the reference's order-dependent ``test_shard_as_applies_constraint``
@@ -209,6 +216,16 @@ def test_flash_dense_tile_edges(dev):
                  (1, 300, 2, 2, 256, 63, True),    # window 63 < a kv tile
                  (1, 200, 2, 2, 256, 0, False)):   # hd 256, non-causal
         _check_flash_dense(dev, case)
+    # fp16 on the tensor cores (route "wgmma", the fp16 instantiation of
+    # each tile shape): ragged s, windows narrower than a tile (1, 31, 63),
+    # MQA and GQA, non-causal, recurrentgemma's window of 2048
+    for case in ((1, 300, 4, 2, 64, 0, True), (2, 129, 4, 1, 64, 31, True),
+                 (1, 333, 4, 1, 80, 63, True), (1, 200, 4, 4, 80, 0, False),
+                 (1, 300, 4, 2, 128, 1, True), (2, 257, 8, 2, 128, 0, True),
+                 (1, 96, 2, 1, 128, 0, False), (2, 333, 10, 1, 256, 100, True),
+                 (1, 2100, 4, 1, 256, 2048, True),
+                 (1, 200, 2, 2, 256, 0, False)):
+        _check_flash_dense(dev, case, torch.float16)
     # fp32 on the tensor cores (route "tf32x3", head dims 64, 80 and 128,
     # and 8, 72, 96 and 120 computed at the widths 64, 80 and 128): s off
     # the 128-row q tiles and the 32- / 64-column kv tiles (s 1 too), MQA

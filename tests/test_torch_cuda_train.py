@@ -19,6 +19,13 @@ sums over 64 to 4096 columns average those roundings.  The forward's lse
 is held to the plain log-sum-exp within 1e-3 (the kernel's exp2 is
 ``ex2.approx``).  Two runs of the backward must give the same bits.
 
+fp16 (``flash_dense_bwd`` at T = __half) is held elementwise to the fp16
+gate, |kernel - plain| <= 2^-10 + 2^-10 |plain| (on the gradients divided
+by dO's power-of-two scale where dO is scaled): the kernels split P and dS
+into two fp16 terms each and form D from the forward's output plus its
+rounding residual, so only the outputs' rounding to fp16 is left (see the
+note of ``csrc/flash_dense_bwd.cu``).
+
 The MoE backward's bf16 dX and dW against ``grouped_matmul_bwd_plain``
 (fp32 sums, one rounding): |kernel - plain| <= 2^-7 + 2^-7 |plain|
 elementwise, about two bf16 steps, the gate of the forward kernels; two
@@ -44,6 +51,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as fa
 
 FP32_FLASH_TOL, FP32_GMM_TOL = 1e-4, 1e-5
+FP16_TOL = 2.0 ** -10
 GRAD_TOL = 2.0 ** -6
 GRAD_ATOL = 1e-5
 LSE_TOL = 1e-3
@@ -95,10 +103,14 @@ def _plain_lse(q, k, causal, window):
 
 
 def _bwd(q, k, v, do, causal, window):
-    out, lse = fa._flash_dense_cuda(q, k, v, causal=causal, window=window,
-                                    with_lse=True)
-    return (out, lse, *fa._flash_dense_bwd_cuda(q, k, v, out, do, lse,
-                                                causal=causal, window=window))
+    """The forward's output and lse, then dQ, dK, dV from the forward's
+    residuals (lse, and in fp16 the output's rounding residual), as under
+    autograd."""
+    out, lse, o_lo = fa._flash_dense_cuda(q, k, v, causal=causal,
+                                          window=window, with_lse=True)
+    return (out, lse, *fa._flash_dense_bwd_cuda(q, k, v, out, do, lse, o_lo,
+                                                causal=causal,
+                                                window=window))
 
 
 @pytest.mark.parametrize("hd,windowed", [(64, False), (64, True),
@@ -130,11 +142,17 @@ def test_flash_dense_bwd_matches_plain(dev, hd, windowed):
 
 
 def test_flash_dense_bwd_is_deterministic(dev):
-    """Two runs of the backward give the same bits (no atomics): bf16, and
-    fp32 on the tensor cores at head dims 64, 80 and 128 (route "tf32x3")
-    and 200 and 256 (cluster pairs, "tf32x3_256") with windows."""
+    """Two runs of the backward give the same bits (no atomics): bf16, fp16
+    at head dims 64, 80, 128 and 256 (the fp16 instantiations of
+    ``flash_dense_bwd``), and fp32 on the tensor cores at head dims 64, 80
+    and 128 (route "tf32x3") and 200 and 256 (cluster pairs,
+    "tf32x3_256") with windows."""
     for hd, window, dtype in ((128, 0, torch.bfloat16),
                               (64, 100, torch.bfloat16),
+                              (64, 100, torch.float16),
+                              (80, 50, torch.float16),
+                              (128, 0, torch.float16),
+                              (256, 2048, torch.float16),
                               (64, 100, torch.float32),
                               (80, 50, torch.float32),
                               (128, 300, torch.float32),
@@ -142,7 +160,7 @@ def test_flash_dense_bwd_is_deterministic(dev):
                               (256, 2048, torch.float32)):
         q, k, v, do = _inputs(dev, 2, 1000, 8, 2, hd, seed=3, dtype=dtype)
         assert fa.flash_bwd_route(dtype, hd) == (
-            "wgmma" if dtype == torch.bfloat16 else
+            "wgmma" if dtype != torch.float32 else
             "tf32x3" if hd <= 128 else "tf32x3_256")
         first = _bwd(q, k, v, do, True, window)
         second = _bwd(q, k, v, do, True, window)
@@ -168,9 +186,20 @@ def test_flash_dense_autograd_counts_each_kernel(dev):
         assert torch.equal(leaf.grad, want)
 
 
-def _check_grads(got, want, where):
+def _check_grads(got, want, where, scale=1.0):
+    """bf16: max |kernel - plain| <= GRAD_TOL max |plain| + GRAD_ATOL per
+    gradient; fp16: the fp16 gate elementwise on the gradients divided by
+    ``scale``, the power of two dO was scaled by (an exact division), i.e.
+    |kernel - plain| <= FP16_TOL (scale + |plain|)."""
     for name, g, ref in zip("qkv", got, want):
-        assert g.shape == ref.shape and g.dtype == torch.bfloat16
+        assert g.shape == ref.shape
+        if g.dtype == torch.float16:
+            diff = ((g.float() - ref) / scale).abs()
+            gate = FP16_TOL + FP16_TOL * (ref / scale).abs()
+            assert bool((diff <= gate).all()), (
+                name, where, float((diff / gate).max()))
+            continue
+        assert g.dtype == torch.bfloat16
         err = float((g.float() - ref).abs().max())
         top = float(ref.abs().max())
         assert err <= GRAD_TOL * top + GRAD_ATOL, (name, where, err, top)
@@ -191,6 +220,57 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
                    zip(got, _bwd(q, k, v, do, True, window)))
         want = fa.flash_attention_dense_bwd_plain(q, k, v, do, window=window)
         _check_grads(got[2:], want, (b, s, h, kvh, hd, window))
+    # fp16 on the tensor cores at head dims 64, 80, 128 and 256 (P and dS
+    # as hi + lo, D from the output and its rounding residual) and at the
+    # odd head dim 100 on the general kernels (D likewise): under
+    # autograd one launch of each pass, the leaves' gradients the bits of
+    # the launchers', two runs bit-identical, the forward's output within
+    # the fp16 gate and its lse within LSE_TOL, each gradient within the
+    # fp16 gate; GQA, MQA, windows narrower and wider than a tile, ragged s,
+    # non-causal, and one case with dO scaled by 2^8 (dS 256 times larger,
+    # within fp16's range: see the note of csrc/flash_dense_bwd.cu)
+    for i, (b, s, h, kvh, hd, window, causal, scale) in enumerate((
+            (2, 300, 4, 2, 64, 0, True, 1.0),
+            (1, 1000, 4, 2, 80, 100, True, 1.0),
+            (1, 129, 4, 1, 128, 0, True, 2.0 ** 8),
+            (1, 200, 2, 2, 128, 0, False, 1.0),
+            (1, 2100, 4, 1, 128, 300, True, 1.0),
+            (2, 520, 10, 1, 256, 130, True, 1.0),
+            (1, 700, 5, 1, 256, 2048, True, 1.0),
+            (1, 150, 2, 1, 100, 30, True, 1.0))):
+        q, k, v, do = _inputs(dev, b, s, h, kvh, hd, seed=80 + i,
+                              dtype=torch.float16)
+        do = do * scale
+        where = (b, s, h, kvh, hd, window, causal, scale)
+        assert fa.flash_bwd_route(torch.float16, hd) == (
+            "simt" if hd % 8 else "wgmma")
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        _build.reset_launches()
+        out = fa.flash_attention_dense_bshd(*leaves, causal=causal,
+                                            window=window)
+        out.backward(do)
+        torch.cuda.synchronize()
+        launches = {n: _build.KERNELS[n].launches for n in (
+            ("flash_dense_simt", "flash_simt_bwd_delta",
+             "flash_simt_bwd_dkdv", "flash_simt_bwd_dq") if hd % 8 else
+            ("flash_dense", "flash_dense_bwd_delta", "flash_dense_bwd_dkdv",
+             "flash_dense_bwd_dq"))}
+        assert launches == dict.fromkeys(launches, 1), (where, launches)
+        got = _bwd(q, k, v, do, causal, window)
+        assert torch.equal(out.detach(), got[0])
+        assert all(torch.equal(a, g) for a, g in
+                   zip((l.grad for l in leaves), got[2:]))
+        assert all(torch.equal(a, g) for a, g in
+                   zip(got, _bwd(q, k, v, do, causal, window)))
+        assert float((got[1] - _plain_lse(q, k, causal, window)).abs().max()) \
+            <= LSE_TOL
+        plain = fa.flash_attention_dense_plain(
+            *fa.broadcast_flatten(q, k, v), causal=causal, window=window)
+        _assert_close(got[0], plain.reshape(b, h, s, hd).permute(0, 2, 1, 3),
+                      FP16_TOL)
+        want = fa.flash_attention_dense_bwd_plain(q, k, v, do, causal=causal,
+                                                  window=window)
+        _check_grads(got[2:], want, where, scale)
     # fp32, forward and backward: on the tensor cores (route "tf32x3") at
     # head dims 64, 80 and 128 and the padded 16 and 72, with windows, GQA
     # / MQA, non-causal, s off the 16-row stages, and a long MQA sum (dK,
