@@ -221,7 +221,8 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                80 and 128 on the tensor cores (``flash_f32.cu``, route
                "tf32x3": three TF32 products each) with the general
                kernel's error and times on the same tensors beside it, and
-               at 256 (window 2048) on the general kernel; ragged at the
+               at 256 (window 2048) on cluster pairs (``"tf32x3_256"``,
+               ``flash_dense_f32_256``, the general kernel beside it); ragged at the
                main path's lanes in a fac2 plan (``flash_sched_f32``, the
                general kernel beside it; bit-identical under static / 8
                and gss / 1); the fp32 backward at qwen3-4b's training
@@ -230,13 +231,15 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                the general backward beside each); fp16 flash (the fp16
                path, counts from 0: ``FP16_PATH_LAUNCHES``, dense forward
                and backward on the fp16 instantiations of ``flash_dense``
-               and ``flash_dense_bwd``, the schedule-aware call on
-               ``flash_sched_simt``; then dense at qwen3-4b's prefill and
-               the backward at qwen3-4b's training shape, each with the
-               general kernel on the same tensors beside it, and the
-               scheduled call at the main path's lanes, against SDPA in
-               fp16, each with the share of the fp16 gate it uses;
-               ``flash16_digest`` twice, equal).
+               and ``flash_dense_bwd``, the schedule-aware call on the
+               fp16 instantiation of ``flash_sched``; then dense at
+               qwen3-4b's prefill, the backward at qwen3-4b's training
+               shape and the scheduled call at the main path's lanes (bits
+               equal under static / 8 and gss / 1), each with the general
+               kernel on the same tensors beside it, against SDPA in fp16,
+               each with the share of the fp16 gate it uses;
+               ``flash16_digest`` and ``flash16_sched_digest`` twice each,
+               equal).
                Each: its route, its time (single calls and back to back),
                the plain version's, ``torch.bmm`` / SDPA in fp32 on the
                same tensors, and the bound (fp32 operations at 67 TFLOP/s;
@@ -256,7 +259,11 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                read right after (``FP32_PATH_LAUNCHES`` for the flash
                kernels, every other general kernel launched), then the
                gradients against the plain attention's and the plain
-               grouped matmul's
+               grouped matmul's; then counts set to 0 and the general
+               kernels' path (``GENERAL_PATH_LAUNCHES``: the schedule-aware
+               fp32 call at recurrentgemma-2b's hd 256, and a dense fp32
+               call there forward and backward on views whose strides TMA
+               cannot describe), each output against its plain version
   examples     the seven twins of ``examples/`` (``torch_*.py``), each in
                its own process at its default arguments, launch counts from
                0 at its start and read at its end: exit code, wall seconds
@@ -312,10 +319,12 @@ tiles in fp32, bf16 and fp16 and at f 764 in bf16 and fp16 with
 ``torch.bmm`` beside them and the routes taken (``gmm_times``), or only
 a hash of the fp32 dense flash forward's output and lse and its
 backward's dQ, dK, dV at FLASH32_DIGEST_SHAPES (``flash32_digest``) and,
-under names of their own, of the hd-256 windowed backward and the ragged
-schedule-aware fp32 forward (``flash32_digests``), or only the fp32
+under names of their own, of the hd-256 windowed backward fed the general
+forward's output and lse, of that forward on the tree's own route then
+that backward, and of the ragged schedule-aware fp32 forward
+(``flash32_digests``), or only the fp32
 dense flash forward's back-to-back times at SIMT_DENSE_SHAPES' head dims
-64, 80 and 128, the backward's at SIMT_BWD_SHAPE and at
+64, 80, 128 and 256 (the general kernel's beside each), the backward's at SIMT_BWD_SHAPE and at
 recurrentgemma-2b's hd-256 window and the schedule-aware call's at the
 main path's lanes, with SDPA's beside them and the kernels each call
 launched (``flash32_times``), or only the profiler's names of the kernels SDPA
@@ -324,8 +333,8 @@ hashes of ``flash_dense_bwd``'s bf16 gradients (with the forward's output
 and lse) at hd 128 and at a windowed hd-256 MQA (``bwd_digest``), or only
 the fp16 dense forward's back-to-back time at qwen3-4b's prefill, its
 backward's at SIMT_BWD_SHAPE and the schedule-aware call's at the main
-path's lanes, with SDPA's in fp16 beside them and the kernels each call
-launched (``flash16_times``), for
+path's lanes (the general kernel's beside it), with SDPA's in fp16 beside
+them and the kernels each call launched (``flash16_times``), for
 the package under ``SRC`` (default: this
 checkout's ``src``), so that another tree's kernels can be held against
 this one bit for bit, and timed against it in turns (parent, change,
@@ -538,14 +547,23 @@ TF32X3_HEAD_DIMS = ("64", "80", "128")
 # the fp32 model path's flash launches: qwen3-4b's and qwen3-moe's 2 layers
 # each run the dense forward twice (remat "full") and the backward once,
 # on the tensor cores, and so do the scheduled call and the hd-256
-# attention's backward (cluster pairs); that attention's forward on the
-# general kernel, whose delta pass serves every fp32 backward (and no
-# general dkdv or dq pass); the fp32 grouped matmul family must launch too
+# attention, forward and backward (cluster pairs); the general kernels'
+# delta pass serves every fp32 backward (no general dense, dkdv or dq
+# pass); the fp32 grouped matmul family must launch too
 FP32_PATH_LAUNCHES = {"flash_dense_f32": 8, "flash_f32_bwd_dkdv": 4,
                       "flash_f32_bwd_dq": 4, "flash_sched_f32": 1,
-                      "flash_dense_simt": 1, "flash_simt_bwd_delta": 5,
+                      "flash_dense_simt": 0, "flash_dense_f32_256": 1,
+                      "flash_simt_bwd_delta": 5,
                       "flash_simt_bwd_dkdv": 0, "flash_simt_bwd_dq": 0,
                       "flash_f32_bwd256_dkdv": 1, "flash_f32_bwd256_dq": 1}
+# what the tensor-core kernels leave to the general flash kernels, counted
+# on a path of its own: the schedule-aware fp32 call at recurrentgemma-2b's
+# local attention (hd 256; ragged lanes, fac2) and a dense fp32 call there,
+# forward and backward, on q, k, v views whose head stride (hd + 2 floats)
+# TMA cannot describe
+GENERAL_PATH_LAUNCHES = {"flash_sched_simt": 1, "flash_dense_simt": 1,
+                         "flash_simt_bwd_delta": 1, "flash_simt_bwd_dkdv": 1,
+                         "flash_simt_bwd_dq": 1}
 FP32_PATH_GMM = ("gmm_simt", "gmm_dx_simt", "gmm_dw_simt")
 # flash32_digest(): (b, s, h, kvh, hd, window, causal) of the fp32 dense
 # kernels' outputs hashed for later trees to hold bit for bit
@@ -555,11 +573,17 @@ FLASH32_DIGEST_SHAPES = ((1, 1000, 8, 2, 128, 0, True),
 # flash32_digest() as PR 27's kernels computed it (on an H100); later trees
 # hold it bit for bit
 PARENT_FLASH32_DIGEST = "ef94b919e827c1f1"
-# flash32_digests()' two more, each under a name of its own: the hd-256
-# windowed backward (b, s, h, kvh, hd, window; causal) and the ragged
-# schedule-aware forward (b, s, h, kvh, hd, sched_p; kv_lens from numpy
-# seed 28, one lane of length 0, causal, fac2)
+# flash32_digests()' three more, each under a name of its own: the hd-256
+# windowed backward (b, s, h, kvh, hd, window; causal) fed the general
+# forward's output and lse (``flash32_bwd256_digest``, held to the bits
+# the cluster-pair backward first computed on an H100,
+# PARENT_FLASH32_BWD256_DIGEST), the hd-256 forward on
+# the tree's own route and that backward on its output and lse
+# (``flash32_256_digest``), and the ragged schedule-aware forward (b, s,
+# h, kvh, hd, sched_p; kv_lens from numpy seed 28, one lane of length 0,
+# causal, fac2)
 FLASH32_BWD256_DIGEST_SHAPE = (1, 1100, 10, 1, 256, 300)
+PARENT_FLASH32_BWD256_DIGEST = "fefc47f2ed3e1d1f"
 FLASH32_SCHED_DIGEST_SHAPE = (3, 1000, 8, 2, 128, 7)
 # bwd_digest(): the bf16 backward, (b, s, h, kvh, hd, window), causal
 BWD_DIGEST_SHAPES = ((2, 1100, 32, 8, 128, 0), (1, 1300, 10, 1, 256, 300))
@@ -570,16 +594,23 @@ FLASH16_DIGEST_SHAPES = ((1, 1000, 8, 2, 128, 0, True),
                          (1, 600, 4, 1, 64, 0, False),
                          (1, 1100, 10, 1, 256, 300, True))
 # fp16 flash, counted as the fp16 path and timed against SDPA in fp16:
-# dense at qwen3-4b's prefill and the backward at SIMT_BWD_SHAPE on the
-# fp16 instantiations of flash_dense.cu and flash_dense_bwd.cu (the
-# general kernels, flash_simt.cu and flash_simt_bwd.cu, beside them on the
-# same tensors), the schedule-aware entry at the main path's lanes on the
-# general kernel; the fp16 gate 2^-10 + 2^-10 |plain| (two fp16 rounding
-# steps) against the fp32 plain versions
+# dense at qwen3-4b's prefill, the backward at SIMT_BWD_SHAPE and the
+# schedule-aware entry at the main path's lanes on the fp16 instantiations
+# of flash_dense.cu, flash_dense_bwd.cu and flash_sched.cu (the general
+# kernels, flash_simt.cu and flash_simt_bwd.cu, beside them on the same
+# tensors); the fp16 gate 2^-10 + 2^-10 |plain| (two fp16 rounding steps)
+# against the fp32 plain versions
 FP16_FLASH_TOL = 2.0 ** -10
-FP16_PATH_LAUNCHES = {"flash_dense": 1, "flash_sched_simt": 1,
+FP16_PATH_LAUNCHES = {"flash_dense": 1, "flash_sched": 1,
+                      "flash_sched_simt": 0,
                       "flash_dense_bwd_delta": 1, "flash_dense_bwd_dkdv": 1,
                       "flash_dense_bwd_dq": 1}
+# flash16_sched_digest(): the fp16 schedule-aware forward, (b, s, h, kvh,
+# hd, window, block, sched_p; kv_lens from numpy seed 16, causal, fac2)
+FLASH16_SCHED_DIGEST_SHAPES = ((3, 1000, 8, 2, 128, 0, 128, 7),
+                               (2, 700, 4, 1, 64, 100, 64, 7),
+                               (2, 600, 4, 2, 80, 0, 512, 5),
+                               (2, 1100, 10, 1, 256, 300, 128, 7))
 # the examples phase: the seven twins of examples/, each in its own process
 # at its default arguments (their printed lines are held against the
 # originals' on the CPU by tests/test_torch_examples_*.py)
@@ -1105,6 +1136,30 @@ def flash16_digest(dev):
                 q, k, v, o, do, lse, causal=causal, window=window, **kw)):
             digest.update(x.contiguous().view(torch.uint8).cpu().numpy()
                           .tobytes())
+    return digest.hexdigest()[:16]
+
+
+def flash16_sched_digest(dev):
+    """sha256 (16 hex digits) of the fp16 schedule-aware forward's outputs
+    at FLASH16_SCHED_DIGEST_SHAPES (hd 64, 80, 128 and 256, ragged lanes,
+    windows, 64- to 512-row blocks; fac2), on inputs of a seed of their own
+    (16): two runs must give the same hex."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rng = np.random.default_rng(16)
+    digest = hashlib.sha256()
+    for b, s, h, kvh, hd, win, blk, p in FLASH16_SCHED_DIGEST_SHAPES:
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                   .half() for n in (h, kvh, kvh))
+        out = flash_attention(q, k, v, causal=True, window=win,
+                              schedule="fac2", block_q=blk, block_k=blk,
+                              kv_lens=rng.integers(1, s + 1, size=b),
+                              sched_p=p)
+        digest.update(out.view(torch.int16).cpu().numpy().tobytes())
     return digest.hexdigest()[:16]
 
 
@@ -3189,12 +3244,15 @@ def flash32_digest(dev):
 
 
 def flash32_digests(dev):
-    """``flash32_digest`` and, under names of their own, hashes of the
-    hd-256 windowed backward's dQ, dK and dV at
-    FLASH32_BWD256_DIGEST_SHAPE (fp32, through ``_flash_dense_bwd_cuda``)
-    and of the ragged schedule-aware forward at FLASH32_SCHED_DIGEST_SHAPE
-    (fp32, ``flash_attention`` with a schedule), on inputs of seeds of
-    their own."""
+    """``flash32_digest`` and, under names of their own, hashes at
+    FLASH32_BWD256_DIGEST_SHAPE (fp32) of the hd-256 windowed backward's
+    dQ, dK and dV (``_flash_dense_bwd_cuda``) fed the general forward's
+    output and lse (``flash32_bwd256_digest``) and of the forward of the
+    tree's own route (output, lse) then that backward on them
+    (``flash32_256_digest``, twice, equal), and of the ragged
+    schedule-aware forward at FLASH32_SCHED_DIGEST_SHAPE (fp32,
+    ``flash_attention`` with a schedule), on inputs of seeds of their
+    own."""
     import hashlib
 
     import numpy as np
@@ -3213,9 +3271,19 @@ def flash32_digests(dev):
     b, s, h, kvh, hd, window = FLASH32_BWD256_DIGEST_SHAPE
     q, k, v, do = (torch.randn(b, s, n, hd, generator=gen, device=dev)
                    for n in (h, kvh, kvh, h))
-    o, lse, kw = dense_fwd_res(fa, q, k, v, True, window)
+    o, lse, _ = fa._flash_dense_simt_cuda(q, k, v, causal=True,
+                                          window=window, with_lse=True)
     bwd = digest(fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
-                                          window=window, **kw))
+                                          window=window))
+
+    def chain():
+        o, lse, kw = dense_fwd_res(fa, q, k, v, True, window)
+        return digest([o, lse, *fa._flash_dense_bwd_cuda(
+            q, k, v, o, do, lse, causal=True, window=window, **kw)])
+
+    chains = [chain(), chain()]
+    assert chains[0] == chains[1], chains
+    del q, k, v, do, o, lse
     b, s, h, kvh, hd, p = FLASH32_SCHED_DIGEST_SHAPE
     kv_lens = np.random.default_rng(28).integers(1, s + 1, size=b)
     kv_lens[0] = 0
@@ -3224,12 +3292,14 @@ def flash32_digests(dev):
     sched = digest([flash_attention(q, k, v, causal=True, schedule="fac2",
                                     kv_lens=kv_lens, sched_p=p)])
     return {"flash32_digest": flash32_digest(dev),
-            "flash32_bwd256_digest": bwd, "flash32_sched_digest": sched}
+            "flash32_bwd256_digest": bwd, "flash32_256_digest": chains[0],
+            "flash32_sched_digest": sched}
 
 
 def flash32_times(dev):
-    """Back-to-back times of the fp32 flash forward at SIMT_DENSE_SHAPES'
-    head dims 64, 80 and 128, of its backward at SIMT_BWD_SHAPE and at
+    """Back-to-back times of the fp32 flash forward at SIMT_DENSE_SHAPES
+    (head dims 64, 80, 128 and 256; the general kernel's on the same
+    tensors beside each, ``simt_ms_b2b``), of its backward at SIMT_BWD_SHAPE and at
     recurrentgemma-2b's hd-256 window (``bwd_256``), and of the
     schedule-aware entry at the main path's lanes (fac2, sched_p = the SM
     count, the plan made beforehand), through the private launchers
@@ -3252,16 +3322,20 @@ def flash32_times(dev):
                       if k.launches != before[n])
 
     out = {}
-    for key in TF32X3_HEAD_DIMS:
-        b, s, h, kvh, hd, window = SIMT_DENSE_SHAPES[key]
+    for key, (b, s, h, kvh, hd, window) in SIMT_DENSE_SHAPES.items():
         q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev)
                    for n in (h, kvh, kvh))
 
         def fwd():
             return fa._flash_dense_cuda(q, k, v, causal=True, window=window)
 
-        out[key] = dict(shape=[b, s, h, kvh, hd], kernels=ran(fwd),
-                        ms_b2b=cuda_ms_b2b(fwd, REPS),
+        def simt():
+            return fa._flash_dense_simt_cuda(q, k, v, causal=True,
+                                             window=window)
+
+        out[key] = dict(shape=[b, s, h, kvh, hd], window=window,
+                        kernels=ran(fwd), ms_b2b=cuda_ms_b2b(fwd, REPS),
+                        simt_ms_b2b=cuda_ms_b2b(simt, 5),
                         sdpa_ms_b2b=cuda_ms_b2b(sdpa_fn(q, k, v, window),
                                                 REPS))
         del q, k, v
@@ -3306,16 +3380,18 @@ def flash32_times(dev):
 
 def simt_flash_rows(dev, n_sm):
     """fp32 flash attention: dense causal at SIMT_DENSE_SHAPES, on the
-    tensor cores at head dims 64, 80 and 128 (route "tf32x3", with the
-    general kernel's run on the same tensors beside each) and on the
-    general kernel at head dim 256 (recurrentgemma-2b's window); ragged in
+    tensor cores at head dims 64, 80 and 128 (route "tf32x3") and on their
+    cluster pairs at head dim 256 (recurrentgemma-2b's window, route
+    "tf32x3_256"), with the general kernel's run on the same tensors beside
+    each; ragged in
     a fac2 plan at the main path's lanes (sched_p = SM count, the plan made
     beforehand; ``flash_sched_f32``, the general kernel beside it, and bits
     equal under static / 8 and gss / 1); the backward at SIMT_BWD_SHAPE and
     at recurrentgemma-2b's shape (tensor cores, the hd-256 one on cluster
     pairs; the general backward beside each).  Each against its plain
     version, with SDPA in fp32 (TF32 off) on the same tensors as the
-    yardstick; ``flash32_digests``."""
+    yardstick, and each backward's delta pass (``flash_simt_bwd_delta``)
+    with ``torch.linalg.vecdot`` beside it; ``flash32_digests``."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -3346,9 +3422,10 @@ def simt_flash_rows(dev, n_sm):
             lambda: fa._flash_dense_simt_cuda(q, k, v, causal=True,
                                               window=window), *args, reps=5)
         row = simt
-        if route == "tf32x3":
+        if route != "simt":
+            kernel = fa.FLASH_DENSE_BY_ROUTE[route]
             row = dict(measured(
-                f"flash_dense_f32 hd {hd}", fa.FLASH_DENSE_F32,
+                f"{kernel.name} hd {hd}", kernel,
                 lambda: flash_attention(q, k, v, causal=True, window=window),
                 *args, reps=5), bound_ms_tf32x3=tf32x3_bound(flops),
                 simt=simt)
@@ -3393,8 +3470,9 @@ def simt_flash_rows(dev, n_sm):
             q, k, v, causal=True, schedule=tech, kv_lens=kv_lens,
             sched_p=p), out), tech
     del q, k, v, out
-    # the backward at qwen3-4b's training shape (tensor cores, the general
-    # kernels beside) and at recurrentgemma-2b's (general kernels)
+    # the backward at qwen3-4b's training shape and at recurrentgemma-2b's
+    # (tensor cores, the latter on cluster pairs; the general kernels
+    # beside)
     for name, (b, s, h, kvh, hd), window in (
             ("bwd", SIMT_BWD_SHAPE, 0),
             ("bwd_256", SIMT_DENSE_SHAPES["256"][:5],
@@ -3402,7 +3480,7 @@ def simt_flash_rows(dev, n_sm):
         q, k, v, do = rnd(b, s, h, hd), rnd(b, s, kvh, hd), \
             rnd(b, s, kvh, hd), rnd(b, s, h, hd)
         o, lse, kw = dense_fwd_res(fa, q, k, v, True, window)
-        route = fa.flash_bwd_route(torch.float32, hd)
+        route = fa.flash_route(torch.float32, hd)
         kernel = fa.FLASH_F32_BWD_BY_ROUTE[route][0]
 
         def backward():
@@ -3424,36 +3502,49 @@ def simt_flash_rows(dev, n_sm):
             bwd_bytes(b, s, h, kvh, hd), torch.float32, SIMT_FLASH_TOL)
         simt = measured(f"flash_simt_bwd hd {hd}", fa.FLASH_SIMT_BWD_DKDV,
                         simt_backward, *args, reps=5)
+        # the delta pass every fp32 backward runs, D = rowsum(dO o O)
+        # (b, h, s): bytes, O and dO read and D written once
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        delta = measured(
+            f"flash_simt_bwd_delta hd {hd}", fa.FLASH_SIMT_BWD_DELTA,
+            lambda: fa._simt_delta(o, do, stream),
+            lambda: (do * o).sum(-1).permute(0, 2, 1),
+            lambda: torch.linalg.vecdot(do, o), 2 * b * s * h * hd,
+            4 * (2 * b * s * h * hd + b * h * s), torch.float32,
+            SIMT_FLASH_TOL)
         rows[name] = dict(shape=[b, s, h, kvh, hd], window=window,
                           route=route, **measured(
                               f"{kernel.name} hd {hd}", kernel, backward,
                               *args, reps=5),
-                          bound_ms_tf32x3=tf32x3_bound(flops), simt=simt)
+                          bound_ms_tf32x3=tf32x3_bound(flops), simt=simt,
+                          delta=delta)
         del q, k, v, do, o, lse, sdpa_bwd
     rows.update(flash32_digests(dev))
     assert rows["flash32_digest"] == PARENT_FLASH32_DIGEST, rows
+    assert rows["flash32_bwd256_digest"] == PARENT_FLASH32_BWD256_DIGEST, \
+        rows
     return rows
 
 
 def fp16_flash_rows(dev, n_sm):
     """fp16 flash attention: the fp16 path with the counts from 0 before it
     and read after (``flash_attention`` with a schedule at the main path's
-    lanes, fac2, sched_p = SM count, on ``flash_sched_simt``; dense
-    attention at SIMT_BWD_SHAPE forward and backward under autograd, on
-    the fp16 instantiations of ``flash_dense`` and ``flash_dense_bwd``;
+    lanes, fac2, sched_p = SM count; dense attention at SIMT_BWD_SHAPE
+    forward and backward under autograd; all on the fp16 instantiations of
+    ``flash_sched``, ``flash_dense`` and ``flash_dense_bwd``;
     FP16_PATH_LAUNCHES), then each kernel against its fp32 plain version
     at FP16_FLASH_TOL (with the share of the gate it uses) and timed
     against SDPA in fp16 on the same tensors: dense at qwen3-4b's prefill
-    (SIMT_DENSE_SHAPES["128"]) and the backward at SIMT_BWD_SHAPE, each
-    with the general kernel's run on the same tensors beside it
-    (``simt``), and the scheduled call (plan made beforehand, the general
-    kernel).  The tensor-core rows' bound is operations at the tensor
-    cores' fp16 rate; ``bound_ms_fp32_pv`` is the bound of the work at the
-    reference's precision (forward: S once and P V twice; backward: S and
-    dP once, dV, dK and dQ twice, P and dS as hi + lo); the general
-    kernels' rows carry the bound at the CUDA cores' fp32 FMA rate they
-    compute at (``bound_ms_fp32_fma``).  Last ``flash16_digest`` twice,
-    which must agree."""
+    (SIMT_DENSE_SHAPES["128"]), the scheduled call (plan made beforehand;
+    bits equal under static / 8 and gss / 1) and the backward at
+    SIMT_BWD_SHAPE, each with the general kernel's run on the same tensors
+    beside it (``simt``).  The tensor-core rows' bound is operations at
+    the tensor cores' fp16 rate; ``bound_ms_fp32_pv`` is the bound of the
+    work at the reference's precision (forward: S once and P V twice;
+    backward: S and dP once, dV, dK and dQ twice, P and dS as hi + lo); the
+    general kernels' rows carry the bound at the CUDA cores' fp32 FMA rate
+    they compute at (``bound_ms_fp32_fma``).  Last ``flash16_digest`` and
+    ``flash16_sched_digest`` twice each, which must agree."""
     import numpy as np
     import torch
     from repro_torch.kernels import _build
@@ -3479,7 +3570,8 @@ def fp16_flash_rows(dev, n_sm):
     torch.cuda.synchronize()
     launches = {n: kern.launches for n, kern in _build.KERNELS.items()
                 if kern.launches}
-    assert launches == FP16_PATH_LAUNCHES, launches
+    assert launches == {n: c for n, c in FP16_PATH_LAUNCHES.items() if c}, \
+        launches
     for x in (attn, dense, *(x.grad for x in leaves)):
         assert x.dtype == torch.float16 and bool(torch.isfinite(x).all())
     del attn, dense, leaves
@@ -3508,7 +3600,8 @@ def fp16_flash_rows(dev, n_sm):
                                               window=0), *args, reps=5),
             flops))
     del xq, xk, xv
-    # the scheduled call at the main path's lanes (the general kernel)
+    # the scheduled call at the main path's lanes: flash_sched, the
+    # general kernel beside it
     desc, plan = fa._plan_kv_descriptors(
         B * H, S, 512, 512, causal=True, window=0,
         kv_lens=np.repeat(kv_lens, H), schedule="fac2", p=n_sm)
@@ -3516,18 +3609,35 @@ def fp16_flash_rows(dev, n_sm):
     pairs = sum(H * int(np.minimum(np.arange(1, S + 1), lim).sum())
                 for lim in kv_lens)
     flops = 4 * HD * pairs
-    rows["sched"] = dict(shape=[B, S, H, KVH, HD], **with_fma(measured(
-        "flash_sched_simt fp16", fa.FLASH_SCHED_SIMT,
-        lambda: fa._flash_sched_cuda(q, k, v, desc, bounds, block_q=512,
-                                     block_k=512, causal=True, window=0),
-        lambda: fa.flash_attention_sched_plain(
-            *fa.broadcast_flatten(q, k, v), kv_lens=np.repeat(kv_lens, H),
-            causal=True).reshape(B, H, S, HD).permute(0, 2, 1, 3),
+
+    def sched(launcher=fa._flash_sched_cuda):
+        return lambda: launcher(q, k, v, desc, bounds, block_q=512,
+                                block_k=512, causal=True, window=0)
+
+    args = (lambda: fa.flash_attention_sched_plain(
+        *(x.float() for x in fa.broadcast_flatten(q, k, v)),
+        kv_lens=np.repeat(kv_lens, H), causal=True).reshape(
+            B, H, S, HD).permute(0, 2, 1, 3),
         sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev)), flops,
         2 * (2 * B * S * H * HD
              + 2 * KVH * HD * int(np.minimum(kv_lens, S).sum())),
-        torch.float16, FP16_FLASH_TOL, reps=5), flops))
-    del q, k, v
+        torch.float16, FP16_FLASH_TOL)
+    assert fa._check_kernel_inputs("flash_sched", q, k, v) == "wgmma"
+    rows["sched"] = dict(
+        shape=[B, S, H, KVH, HD], route="wgmma", **measured(
+            "flash_sched fp16", fa.FLASH_SCHED, sched(), *args, reps=10),
+        bound_ms_fp32_pv=bound(flops * 3 // 2, args[3])[0],
+        simt=with_fma(measured(
+            "flash_sched_simt fp16", fa.FLASH_SCHED_SIMT,
+            sched(fa._flash_sched_simt_cuda), *args, reps=3), flops))
+    out = flash_attention(q, k, v, causal=True, schedule="fac2",
+                          kv_lens=kv_lens, sched_p=n_sm)
+    assert torch.equal(out, sched()())
+    for tech, p in (("static", 8), ("gss", 1)):
+        assert torch.equal(flash_attention(
+            q, k, v, causal=True, schedule=tech, kv_lens=kv_lens,
+            sched_p=p), out), tech
+    del q, k, v, out
     # the backward at qwen3-4b's training shape: flash_dense_bwd, the
     # general backward beside (on the same forward's output and lse)
     b, s, h, kvh, hd = SIMT_BWD_SHAPE
@@ -3538,7 +3648,7 @@ def fp16_flash_rows(dev, n_sm):
         tq, tk, tv, tdo)), sdpa_grad_fns(tq, tk, tv, tdo, 0)[0], flops,
         2 * (4 * b * s * h * hd + 4 * b * s * kvh * hd) + 4 * b * h * s,
         torch.float16, FP16_FLASH_TOL)
-    assert fa.flash_bwd_route(torch.float16, hd) == "wgmma"
+    assert fa.flash_route(torch.float16, hd) == "wgmma"
     rows["bwd"] = dict(
         shape=[b, s, h, kvh, hd], route="wgmma", **measured(
             "flash_dense_bwd fp16", fa.FLASH_DENSE_BWD_DKDV,
@@ -3556,9 +3666,10 @@ def fp16_flash_rows(dev, n_sm):
                                             stream=stream, **kw),
             *args, reps=3), flops))
     del tq, tk, tv, tdo, o, lse, kw
-    digests = [flash16_digest(dev), flash16_digest(dev)]
-    assert digests[0] == digests[1], digests
-    rows["flash16_digest"] = digests[0]
+    for fn in (flash16_digest, flash16_sched_digest):
+        digests = [fn(dev), fn(dev)]
+        assert digests[0] == digests[1], (fn.__name__, digests)
+        rows[fn.__name__] = digests[0]
     return rows
 
 
@@ -3566,7 +3677,8 @@ def flash16_times(dev):
     """Back-to-back times of the fp16 dense flash forward at qwen3-4b's
     prefill (SIMT_DENSE_SHAPES["128"]), of its backward at SIMT_BWD_SHAPE
     and of the schedule-aware entry at the main path's lanes (fac2,
-    sched_p = the SM count, the plan made beforehand), through the private
+    sched_p = the SM count, the plan made beforehand; the general kernel's
+    on the same tensors beside it, ``simt_ms_b2b``), through the private
     launchers (older trees have them too; ``dense_fwd_res`` passes the
     output's residual where a tree asks for it), with SDPA's in fp16 on
     the same tensors and the kernels each call launched."""
@@ -3625,9 +3737,13 @@ def flash16_times(dev):
         return fa._flash_sched_cuda(q, k, v, desc, bounds, block_q=512,
                                     block_k=512, causal=True, window=0)
 
+    def simt():
+        return fa._flash_sched_simt_cuda(q, k, v, desc, bounds, block_q=512,
+                                         block_k=512, causal=True, window=0)
+
     out["sched"] = dict(
         shape=[B, S, H, KVH, HD], kernels=ran(sched),
-        ms_b2b=cuda_ms_b2b(sched, 5),
+        ms_b2b=cuda_ms_b2b(sched, 5), simt_ms_b2b=cuda_ms_b2b(simt, 3),
         sdpa_ms_b2b=cuda_ms_b2b(
             sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev)), 3))
     return out
@@ -3658,8 +3774,8 @@ def fp32_model_path(dev, n_sm):
     """The path of a float32 model above flash_threshold, counts from 0
     before it and read after: ``flash_attention`` with a schedule at the
     main path's lanes in fp32, dense attention at recurrentgemma-2b's
-    local-attention shape (hd 256, window 2048; the general forward, the
-    backward on the tensor cores' cluster pairs) forward and backward,
+    local-attention shape (hd 256, window 2048; forward and backward on
+    the tensor cores' cluster pairs) forward and backward,
     then one loss and gradient of qwen3-4b and of
     qwen3-moe-30b-a3b (ragged dispatch) at full width, FP32_MODEL_LAYERS
     layers, compute_dtype "float32", on TRAIN_BATCH x TRAIN_S tokens.
@@ -3756,11 +3872,71 @@ def fp32_model_path(dev, n_sm):
     return out
 
 
+def general_path(dev, n_sm):
+    """What the tensor-core flash kernels leave to the general ones, counts
+    from 0 before it and read after (GENERAL_PATH_LAUNCHES): at
+    recurrentgemma-2b's local-attention shape in fp32
+    (SIMT_DENSE_SHAPES["256"]), ``flash_attention`` with a schedule on
+    ragged lanes (fac2, sched_p = SM count) and a dense call forward and
+    backward under autograd on q, k, v views of one (b, s, h + 2 kvh,
+    hd + 2) buffer, whose head stride TMA cannot describe.  Then the
+    outputs against the plain versions at SIMT_FLASH_TOL.  Returns the
+    launches and the outputs' max abs errors."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(30)
+    b, s, h, kvh, hd, window = SIMT_DENSE_SHAPES["256"]
+    kv_lens = np.random.default_rng(30).integers(64, s + 1, size=b)
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+               for n in (h, kvh, kvh))
+    buf = torch.randn(b, s, h + 2 * kvh, hd + 2, generator=gen, device=dev,
+                      requires_grad=True)
+    views = buf[..., :h, :hd], buf[..., h:h + kvh, :hd], \
+        buf[..., h + kvh:, :hd]
+    do = torch.randn(b, s, h, hd, generator=gen, device=dev)
+    assert fa._check_kernel_inputs("flash_dense", *views) == "simt"
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    ragged = flash_attention(q, k, v, causal=True, schedule="fac2",
+                             kv_lens=kv_lens, sched_p=n_sm)
+    dense = flash_attention(*views, causal=True, window=window)
+    dense.backward(do)
+    torch.cuda.synchronize()
+    launches = {n: kern.launches for n, kern in _build.KERNELS.items()
+                if kern.launches}
+    assert launches == GENERAL_PATH_LAUNCHES, launches
+    plain = fa.flash_attention_sched_plain(
+        *fa.broadcast_flatten(q, k, v), kv_lens=np.repeat(kv_lens, h),
+        causal=True).reshape(b, h, s, hd).permute(0, 2, 1, 3)
+    err = {"sched": check_tol("general sched", ragged, plain,
+                              SIMT_FLASH_TOL)}
+    views = [x.detach() for x in views]
+    plain = fa.flash_attention_dense_plain(
+        *fa.broadcast_flatten(*views), causal=True,
+        window=window).reshape(b, h, s, hd).permute(0, 2, 1, 3)
+    err["dense"] = check_tol("general dense", dense.detach(), plain,
+                             SIMT_FLASH_TOL)
+    grads = fa.flash_attention_dense_bwd_plain(*views, do, window=window)
+    grad = buf.grad
+    for name, got, want in zip(
+            ("dq", "dk", "dv"), (grad[..., :h, :hd],
+                                 grad[..., h:h + kvh, :hd],
+                                 grad[..., h + kvh:, :hd]), grads):
+        err[name] = check_tol(f"general {name}", got, want, SIMT_FLASH_TOL)
+    del q, k, v, buf, views, do, ragged, dense, plain, grads, grad
+    torch.cuda.empty_cache()
+    return dict(launches=launches, max_abs_err=err)
+
+
 def phase_kernels_any_dtype(dev, n_sm):
     """The general kernels against their plain versions at every dtype and
     shape of this slice, the off-block path (counted), fp32 flash, fp16
-    flash (counted), then the fp32 model path (counted).  Returns the rows
-    and the paths' launch counts."""
+    flash (counted), the fp32 model path (counted), then the general
+    kernels' path (counted).  Returns the rows and the paths' launch
+    counts."""
     import torch
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3771,12 +3947,14 @@ def phase_kernels_any_dtype(dev, n_sm):
     flash_rows = simt_flash_rows(dev, n_sm)
     fp16_rows = fp16_flash_rows(dev, n_sm)
     model = fp32_model_path(dev, n_sm)
+    general = general_path(dev, n_sm)
     emit("kernels_any_dtype", seconds=time.perf_counter() - t0,
          gmm=gmm_rows, gmm_digest=digest,
          gmm_digest_parent=PARENT_GMM_DIGEST, off_block_path=off_block,
-         flash=flash_rows, flash_fp16=fp16_rows, model_path=model)
+         flash=flash_rows, flash_fp16=fp16_rows, model_path=model,
+         general_path=general)
     return (gmm_rows, flash_rows, fp16_rows, model["launches"],
-            off_block["launches"])
+            off_block["launches"], general["launches"])
 
 
 EXAMPLE_RUNNER = """
@@ -4281,8 +4459,8 @@ def main(argv) -> int:
     moe_train_launches, moe_bwd = phase_moe_train(dev, n_sm)
 
     # ---- this slice: every dtype and shape, and the examples ------------
-    simt_gmm, simt_flash, fp16_flash, fp32_launches, any_launches = (
-        phase_kernels_any_dtype(dev, n_sm))
+    (simt_gmm, simt_flash, fp16_flash, fp32_launches, any_launches,
+     general_launches) = phase_kernels_any_dtype(dev, n_sm)
     fp16_launches = fp16_flash["launches"]
     torch.cuda.empty_cache()
     examples = phase_examples(dev)
@@ -4338,7 +4516,10 @@ def main(argv) -> int:
         {"name": "flash_sched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_sched.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:168",
-         "launches": launches["flash_sched"], "max_abs_err": flash_err,
+         "launches": launches["flash_sched"] + fp16_launches["flash_sched"],
+         "launches_by_path": {"main_path": launches["flash_sched"],
+                              "fp16": fp16_launches["flash_sched"]},
+         "max_abs_err": flash_err,
          "tolerance": f"{ATOL} + {RTOL}*|plain|",
          "ms": flash_ms, "plain_ms": plain_ms, "bound_ms": flash_bound,
          "bound_by": ("operations" if flash_flops / PEAK_BF16_FLOPS
@@ -4349,7 +4530,9 @@ def main(argv) -> int:
              "shape", "max_abs_err", "ms", "ms_b2b", "plain_ms", "library_ms",
              "bound_ms", "bound_by", "bound_ms_fp32_pv")}
              for hd, r in sched_by_head_dim.items()},
-         "bound_ms_fp32_pv": flash_bound_fp32_pv},
+         "bound_ms_fp32_pv": flash_bound_fp32_pv,
+         "fp16": fp16_summary(fp16_flash["sched"]),
+         "flash16_sched_digest": fp16_flash["flash16_sched_digest"]},
         {"name": "gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gmm.cu",
          "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:37",
@@ -4523,41 +4706,57 @@ def main(argv) -> int:
             general_kernel=tf32x3_summary(simt_flash["bwd_256"])["simt"],
             flash32_bwd256_digest=simt_flash["flash32_bwd256_digest"]),
         simt_entry(
-            "flash_dense_simt", simt_src + "flash_simt.cu",
+            "flash_dense_f32_256", simt_src + "flash_f32.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:51",
             simt_flash["dense"]["256"],
-            {"fp32_model": fp32_launches["flash_dense_simt"]},
+            {"fp32_model": fp32_launches["flash_dense_f32_256"]},
             shape=simt_flash["dense"]["256"]["shape"],
             window=simt_flash["dense"]["256"]["window"],
-            by_head_dim={k: r.get("simt", r)
+            flash_route="tf32x3_256",
+            bound_ms=simt_flash["dense"]["256"]["bound_ms_tf32x3"],
+            bound_ms_fp32_fma=simt_flash["dense"]["256"]["bound_ms"],
+            general_kernel=tf32x3_summary(simt_flash["dense"]["256"])["simt"],
+            flash32_256_digest=simt_flash["flash32_256_digest"]),
+        simt_entry(
+            "flash_dense_simt", simt_src + "flash_simt.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:51",
+            simt_flash["dense"]["256"]["simt"],
+            {"general": general_launches["flash_dense_simt"]},
+            shape=simt_flash["dense"]["256"]["shape"],
+            window=simt_flash["dense"]["256"]["window"],
+            by_head_dim={k: r["simt"]
                          for k, r in simt_flash["dense"].items()},
             fp16=fp16_flash["dense"]["simt"]),
         simt_entry(
             "flash_sched_simt", simt_src + "flash_simt.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:168",
-            fp16_flash["sched"],
-            {"fp16": fp16_launches["flash_sched_simt"]},
+            fp16_flash["sched"]["simt"],
+            {"general": general_launches["flash_sched_simt"]},
             shape=fp16_flash["sched"]["shape"],
-            bound_ms_fp32_fma=fp16_flash["sched"]["bound_ms_fp32_fma"],
+            bound_ms_fp32_fma=fp16_flash["sched"]["simt"]["bound_ms_fp32_fma"],
             fp32=tf32x3_summary(simt_flash["sched"])["simt"]),
         simt_entry(
             "flash_simt_bwd", simt_src + "flash_simt_bwd.cu",
             "src/repro/models/attention.py:191", fp16_flash["bwd"]["simt"],
             {"fp32_model": fp32_launches["flash_simt_bwd_delta"],
-             "fp16": fp16_launches.get("flash_simt_bwd_delta", 0)},
+             "fp16": fp16_launches.get("flash_simt_bwd_delta", 0),
+             "general": general_launches["flash_simt_bwd_delta"]},
             replaces_note="no Pallas kernel: the reference differentiates "
                           "_attend_flash by autodiff",
             launches_note="its delta pass serves every fp32 backward; dkdv "
-                          "and dq launch on neither counted path (fp32 "
-                          "takes flash_f32_bwd, fp16 flash_dense_bwd), "
-                          "only beside the rows",
+                          "and dq launch on the general path only (fp32 "
+                          "takes flash_f32_bwd, fp16 flash_dense_bwd)",
             launches_by_kernel={n: fp32_launches.get(n, 0)
-                                + fp16_launches.get(n, 0) for n in (
+                                + fp16_launches.get(n, 0)
+                                + general_launches.get(n, 0) for n in (
                                     "flash_simt_bwd_delta",
                                     "flash_simt_bwd_dkdv",
                                     "flash_simt_bwd_dq")},
             shape=fp16_flash["bwd"]["shape"],
             bound_ms_fp32_fma=fp16_flash["bwd"]["simt"]["bound_ms_fp32_fma"],
+            delta={k: {x: simt_flash[k]["delta"][x] for x in (
+                "max_abs_err", "ms", "ms_b2b", "plain_ms", "library_ms_b2b",
+                "bound_ms", "bound_by", "bytes")} for k in ("bwd", "bwd_256")},
             fp32_hd256=tf32x3_summary(simt_flash["bwd_256"])["simt"],
             fp32_training_shape=simt_flash["bwd"]["simt"]),
     ]

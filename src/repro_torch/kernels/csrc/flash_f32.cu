@@ -7,8 +7,9 @@
 // flash_attention_sched_bhsd) in src/repro/kernels/flash_attention/
 // flash_attention.py for fp32 calls at a head dim that is a multiple of 8
 // up to 128 with strides and alignment TMA can describe (the configs' 64,
-// 80 and 128).  fp32 at head dim 256 or at shapes TMA cannot describe, and
-// fp16, stay on flash_simt.cu.
+// 80 and 128), and dense calls at head dims 136-256 likewise (the configs'
+// 256, on cluster pairs, below).  fp32 schedule-aware calls past 128 and
+// shapes TMA cannot describe stay on flash_simt.cu.
 //
 // What bounds it on an H100: operations on the tensor cores.  Each product
 // is three TF32 products (tf32_common.cuh: hi hi + hi lo + lo hi, about
@@ -77,6 +78,29 @@
 // rows are written (below its q block's end and s), a row with no live
 // column as 0.  A unit's result depends on the unit alone, so the output
 // is bit-identical for every schedule and every p.
+//
+// Dense entry at head dims 136-256 (kernel flash_dense_f32_256, entry
+// flash_f32_256_launch; recurrentgemma-2b's local attention, hd 256,
+// window 2048): at a padded width of 256 the tiles above do not fit (Q
+// 128 KB, a stage 128 KB) and a consumer would hold o and Q_hi at 128
+// registers each.  So a cluster of two CTAs takes each (lane, 128-row q
+// tile), flash_f32_bwd.cu's pairs: CTA r owns head-dim columns 128 r ..
+// 128 r + 127 of Q, of the K hi / lo and V^T hi / lo copies and of O, and
+// runs the HDW 128 tiles on that half (CL = 2).  S = Q K^T reduces over the
+// whole head dim: each consumer's three-term partial S (m64n32, 16 floats a
+// thread) goes to the same warpgroup of the peer through distributed shared
+// memory every kv tile (tf32_common.cuh, exchange), and each CTA adds the
+// two partials, p0 + p1 = p1 + p0, so both hold the same bits of S, m, l
+// and P; then each runs O += P V on its own V^T half and writes its own
+// output columns.  Rank 0 alone writes lse.  Every product is computed
+// once, as at HDW 128, and the pair reads each tile once between them.
+// Shared memory (two exchange buffers a warpgroup, so that a warpgroup
+// writes tile i + 1's partial while the peer may still read tile i's):
+//   64 KB Q + 2 x 64 KB stages + 4 x 8 KB exchange = 224 KB, plus 128 bytes
+//   of barriers and the 1 KB alignment slack: 230,528 of 232,448 bytes,
+// so NKV stays 32 and the exchange moves whole m64n32 partials.  A
+// consumer thread's registers are HDW 128's (o 64, Q_hi 64, S 16, P hi / lo
+// 32); the exchange reuses S's.
 
 #include <type_traits>
 
@@ -95,7 +119,9 @@ constexpr int NST = 2;                  // K / V stages
 constexpr int TURN = 1;                 // named barriers 1, 2: the S turns
 constexpr int QSPLIT = 3;               // named barriers 3, 4: Q split
 
-template <int HDW, int NKV>
+// CL 2: a cluster pair's CTA, which also holds the exchange buffers (two a
+// consumer warpgroup, NKV / 2 floats a thread each) and their barriers
+template <int HDW, int NKV, int CL = 1>
 struct Layout {
   static constexpr int HDP = (HDW + 31) / 32 * 32;
   static constexpr int QBOX = BQ * 128;              // 128 rows x 32 fp32
@@ -105,11 +131,15 @@ struct Layout {
   static constexpr int VBOX = HDW * 128;             // HDW rows x 32 kv
   static constexpr int VBYTES = NKV / 32 * VBOX;     // V^T hi (or lo)
   static constexpr int STAGE = 2 * KBYTES + 2 * VBYTES;
+  static constexpr int XBUF = NKV / 2 * 128 * 4;    // one exchange buffer
   static constexpr int Q = 0;
   static constexpr int KV = QBYTES;
-  static constexpr int BAR = KV + NST * STAGE;
-  // q_full, q_empty (schedule-aware), then k_full, v_full, empty a stage
-  static constexpr int BYTES = BAR + (2 + 3 * NST) * 8 + 1024;  // + align
+  static constexpr int XB = KV + NST * STAGE;
+  static constexpr int BAR = XB + (CL == 2 ? 4 * XBUF : 0);
+  // q_full, q_empty (schedule-aware), then k_full, v_full, empty a stage;
+  // CL 2: xfull, xempty of each consumer's two buffers
+  static constexpr int BYTES =
+      BAR + (2 + 3 * NST + (CL == 2 ? 8 : 0)) * 8 + 1024;  // + align
 };
 
 struct F32Params {
@@ -280,7 +310,9 @@ __device__ __forceinline__ void store_rows(float* ob, long long o_ss,
   }
 }
 
-template <int HDW, int NKV>
+// CL 1: one CTA a (lane, q tile); CL 2: a cluster pair a (lane, q tile),
+// CTA r on head-dim columns HDW r .. HDW r + HDW - 1
+template <int HDW, int NKV, int CL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap khimap,
@@ -288,13 +320,15 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap vhimap,
                  const __grid_constant__ CUtensorMap vlomap,
                  const F32Params P) {
-  using L = Layout<HDW, NKV>;
+  using L = Layout<HDW, NKV, CL>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + NST;
   uint64_t* empty = v_full + NST;
+  uint64_t* xfull = empty + NST;      // CL 2: [warpgroup][buffer]
+  uint64_t* xempty = xfull + 4;
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
@@ -305,13 +339,24 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_init(&v_full[s], 1);
       mbar_init(&empty[s], CONSUMER_WARPS);
     }
+    // one arrive from each thread of the peer's warpgroup
+    if constexpr (CL == 2)
+      for (int i = 0; i < 8; ++i) mbar_init(&xfull[i], 128);
     fence_mbar_init();
   }
-  __syncthreads();
+  // in a pair every thread of both CTAs waits, so that no arrive finds a
+  // barrier not yet initialised
+  if constexpr (CL == 2)
+    cluster_sync();
+  else
+    __syncthreads();
+  const uint32_t rank = CL == 2 ? cluster_rank() : 0;
+  const int hd0 = HDW * static_cast<int>(rank);
 
   // bottom (longest) q tiles first
-  const int qt = P.nq - 1 - static_cast<int>(blockIdx.x) / P.lanes;
-  const int lane_id = static_cast<int>(blockIdx.x) % P.lanes;
+  const int unit = static_cast<int>(blockIdx.x) / CL;
+  const int qt = P.nq - 1 - unit / P.lanes;
+  const int lane_id = unit % P.lanes;
   const int b = lane_id / P.H;
   const int hh = lane_id % P.H;
   const int row0 = qt * BQ;
@@ -326,8 +371,8 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
       const int kvh = hh / P.group;
       mbar_expect_tx(q_full, L::QBYTES);
       for (int j = 0; j < L::HDP / 32; ++j)
-        tma_load_4d(smem + L::Q + j * L::QBOX, &qmap, q_full, 32 * j, row0,
-                    hh, b);
+        tma_load_4d(smem + L::Q + j * L::QBOX, &qmap, q_full, hd0 + 32 * j,
+                    row0, hh, b);
       for (int i = 0; i < ntiles; ++i) {
         const int s = i % NST;
         const int col0 = c_lo + i * NKV;
@@ -335,17 +380,17 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
         mbar_wait(&empty[s], ((i / NST) & 1) ^ 1);
         mbar_expect_tx(&k_full[s], 2 * L::KBYTES);
         for (int j = 0; j < L::HDP / 32; ++j) {
-          tma_load_4d(st + j * L::KBOX, &khimap, &k_full[s], 32 * j, col0,
-                      kvh, b);
+          tma_load_4d(st + j * L::KBOX, &khimap, &k_full[s], hd0 + 32 * j,
+                      col0, kvh, b);
           tma_load_4d(st + L::KBYTES + j * L::KBOX, &klomap, &k_full[s],
-                      32 * j, col0, kvh, b);
+                      hd0 + 32 * j, col0, kvh, b);
         }
         mbar_expect_tx(&v_full[s], 2 * L::VBYTES);
         for (int j = 0; j < NKV / 32; ++j) {
           tma_load_4d(st + 2 * L::KBYTES + j * L::VBOX, &vhimap, &v_full[s],
-                      col0 + 32 * j, 0, kvh, b);
+                      col0 + 32 * j, hd0, kvh, b);
           tma_load_4d(st + 2 * L::KBYTES + L::VBYTES + j * L::VBOX, &vlomap,
-                      &v_full[s], col0 + 32 * j, 0, kvh, b);
+                      &v_full[s], col0 + 32 * j, hd0, kvh, b);
         }
       }
     }
@@ -383,6 +428,11 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_wait(&k_full[s], ph);
       issue_s<HDW, NKV>(sacc, qhi, dq, smem_desc(st, 16, 1024),
                         smem_desc(st + L::KBYTES, 16, 1024), c);
+      // the pair: S over the whole head dim, the same bits in both CTAs
+      if constexpr (CL == 2)
+        exchange<NKV / 2>(
+            sacc, reinterpret_cast<float*>(smem + L::XB + c * 2 * L::XBUF),
+            xfull + 2 * c, xempty + 2 * c, i, ntiles, tq, rank ^ 1);
 
       uint32_t phi[NKV / 8][4], plo[NKV / 8][4];
       if (mask)
@@ -401,9 +451,10 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     // consumer 1's last hand-over is taken here, so every turn is matched
     if (c == 0) named_bar_sync(TURN, 256);
 
-    store_rows<HDW>(P.o + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m, l, r_lo,
-                    P.s, lane, P.hd,
-                    P.lse == nullptr
+    // this CTA's output columns; the pair's rank 0 writes lse
+    store_rows<HDW>(P.o + b * P.o_sb + hh * P.o_sh + hd0, P.o_ss, o, m, l,
+                    r_lo, P.s, lane, P.hd - hd0,
+                    P.lse == nullptr || rank != 0
                         ? nullptr
                         : P.lse + static_cast<long long>(lane_id) * P.s);
   }
@@ -561,14 +612,17 @@ struct Operands {
   int batch, s, H, kvh, hd, s_pad;
 };
 
-// validates the shape, writes K's and V's split copies into the scratch
-// (tf32_common.cuh, split_kernel) and fills `ops`
+// validates the shape (head dims up to 128, or, wide, 136-256), writes K's
+// and V's split copies into the scratch (tf32_common.cuh, split_kernel)
+// and fills `ops`
 int split_operands(Operands& ops, const void* q, const void* k,
                    const void* v, void* khi, void* klo, void* vthi,
                    void* vtlo, int s_pad, int batch, int s, int H, int group,
-                   int hd, const long long* str, cudaStream_t st) {
+                   int hd, const long long* str, cudaStream_t st,
+                   bool wide = false) {
   if (batch <= 0 || s <= 0 || H <= 0 || group <= 0 || H % group != 0 ||
-      hd <= 0 || hd > 128 || hd % 8 != 0 || s_pad < s || s_pad % 32 != 0)
+      hd <= (wide ? 128 : 0) || hd > (wide ? 256 : 128) || hd % 8 != 0 ||
+      s_pad < s || s_pad % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int kvh = H / group;
   SplitParams sk{static_cast<const float*>(k), str[3], str[4], str[5],
@@ -610,25 +664,22 @@ int encode_maps(CUtensorMap (&m)[5], const Operands& c) {
 }
 
 // `grid` CTAs of the dense (P: F32Params) or the schedule-aware (P:
-// SchedF32Params) kernel at width HDW
-template <int HDW, int NKV, typename Params>
+// SchedF32Params) kernel at width HDW, the dense one in clusters of CL
+template <int HDW, int NKV, int CL = 1, typename Params>
 int launch_hd(const Operands& c, const Params& P, unsigned grid,
               cudaStream_t st) {
   CUtensorMap m[5];
   const int rc = encode_maps<HDW, NKV>(m, c);
   if (rc != 0) return rc;
-  constexpr int bytes = Layout<HDW, NKV>::BYTES;
+  constexpr int bytes = Layout<HDW, NKV, CL>::BYTES;
   void (*kern)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
                CUtensorMap, Params);
   if constexpr (std::is_same<Params, SchedF32Params>::value)
     kern = flash_sched_f32_kernel<HDW, NKV>;
   else
-    kern = flash_f32_kernel<HDW, NKV>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<grid, NTHREADS, bytes, st>>>(m[0], m[1], m[2], m[3], m[4], P);
-  return static_cast<int>(cudaGetLastError());
+    kern = flash_f32_kernel<HDW, NKV, CL>;
+  return launch_clusters<CL>(kern, grid, NTHREADS, bytes, st, m[0], m[1],
+                             m[2], m[3], m[4], P);
 }
 
 // the width of a head dim: 64 (NKV 64), 80 or 128 (NKV 32)
@@ -638,6 +689,32 @@ int launch_width(const Operands& c, const Params& P, unsigned grid,
   if (c.hd <= 64) return launch_hd<64, 64>(c, P, grid, st);
   if (c.hd <= 80) return launch_hd<80, 32>(c, P, grid, st);
   return launch_hd<128, 32>(c, P, grid, st);
+}
+
+// the dense entries: head dims up to 128 (one CTA a tile), or (wide)
+// 136-256 on cluster pairs
+int launch_dense(bool wide, const void* q, const void* k, const void* v,
+                 void* o, void* lse, void* khi, void* klo, void* vthi,
+                 void* vtlo, int s_pad, int batch, int s, int H, int group,
+                 int hd, int causal, int window, const long long* str,
+                 long long o_sb, long long o_sh, long long o_ss, float scale,
+                 cudaStream_t st) {
+  Operands ops;
+  const int rc = split_operands(ops, q, k, v, khi, klo, vthi, vtlo, s_pad,
+                                batch, s, H, group, hd, str, st, wide);
+  if (rc != 0) return rc;
+  F32Params P;
+  P.o = static_cast<float*>(o);
+  P.lse = static_cast<float*>(lse);
+  P.o_sb = o_sb; P.o_sh = o_sh; P.o_ss = o_ss;
+  P.lanes = batch * H;
+  P.nq = (s + BQ - 1) / BQ;
+  P.s = s; P.H = H; P.group = group; P.hd = hd;
+  P.causal = causal; P.window = window;
+  P.scale_log2 = scale * LOG2E;
+  const unsigned grid = static_cast<unsigned>(P.lanes * P.nq);
+  if (wide) return launch_hd<128, 32, 2>(ops, P, 2 * grid, st);
+  return launch_width(ops, P, grid, st);
 }
 
 }  // namespace
@@ -654,23 +731,27 @@ extern "C" int flash_f32_launch(
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long str[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                             v_sb, v_sh, v_ss};
-  Operands ops;
-  const int rc = split_operands(ops, q, k, v, khi, klo, vthi, vtlo, s_pad,
-                                batch, s, H, group, hd, str, st);
-  if (rc != 0) return rc;
-  F32Params P;
-  P.o = static_cast<float*>(o);
-  P.lse = static_cast<float*>(lse);
-  P.o_sb = o_sb; P.o_sh = o_sh; P.o_ss = o_ss;
-  P.lanes = batch * H;
-  P.nq = (s + BQ - 1) / BQ;
-  P.s = s; P.H = H; P.group = group; P.hd = hd;
-  P.causal = causal; P.window = window;
-  P.scale_log2 = scale * LOG2E;
-  return launch_width(ops, P, static_cast<unsigned>(P.lanes * P.nq), st);
+  return launch_dense(false, q, k, v, o, lse, khi, klo, vthi, vtlo, s_pad,
+                      batch, s, H, group, hd, causal, window, str, o_sb, o_sh,
+                      o_ss, scale, static_cast<cudaStream_t>(stream));
+}
+
+// the same at head dims 136-256 (multiples of 8), on cluster pairs; the
+// same arguments and scratch
+extern "C" int flash_f32_256_launch(
+    const void* q, const void* k, const void* v, void* o, void* lse, void* khi,
+    void* klo, void* vthi, void* vtlo, int s_pad, int batch, int s, int H,
+    int group, int hd, int causal, int window, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+    long long o_sh, long long o_ss, float scale, void* stream) {
+  const long long str[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                            v_sb, v_sh, v_ss};
+  return launch_dense(true, q, k, v, o, lse, khi, klo, vthi, vtlo, s_pad,
+                      batch, s, H, group, hd, causal, window, str, o_sb, o_sh,
+                      o_ss, scale, static_cast<cudaStream_t>(stream));
 }
 
 // the schedule-aware form on `p` CTAs: the descriptors (6 x G int32) in

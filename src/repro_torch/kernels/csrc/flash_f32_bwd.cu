@@ -236,32 +236,6 @@ __device__ __forceinline__ void get_p(const float* pbuf, float* p, int j,
   if (j + 2 < total) named_bar_arrive(PEMPTY + (j & 1), 256);
 }
 
-// In a cluster pair: x (this thread's 8 values of its warpgroup's m64n16
-// product over this CTA's half of the head dim) += the peer CTA's.  Stage
-// j's half goes into the peer's buffer j % 2 of this warpgroup once the
-// peer has handed that buffer back (xempty, the arrive of its stage
-// j - 2), announced on the peer's xfull; then the peer's half is read from
-// this CTA's own buffer, which is handed back unless no later stage uses
-// it (so that no arrive reaches a CTA that may have finished).  xbuf: the
-// warpgroup's two buffers of 8 floats a thread as two float4 halves.
-__device__ __forceinline__ void exchange(float* x, float* xbuf,
-                                         uint64_t* xfull, uint64_t* xempty,
-                                         int j, int total, int tq,
-                                         uint32_t peer) {
-  const int k = j & 1;
-  float4* buf = reinterpret_cast<float4*>(xbuf) + k * 256;
-  if (j >= 2) mbar_wait_cluster(&xempty[k], ((j >> 1) - 1) & 1);
-  const uint32_t dst = peer_addr(buf + tq, peer);
-  st_peer(dst, x[0], x[1], x[2], x[3]);
-  st_peer(dst + 128 * 16, x[4], x[5], x[6], x[7]);
-  mbar_arrive_peer(peer_addr(&xfull[k], peer));
-  mbar_wait_cluster(&xfull[k], (j >> 1) & 1);
-  const float4 a = buf[tq], b = buf[128 + tq];
-  x[0] += a.x; x[1] += a.y; x[2] += a.z; x[3] += a.w;
-  x[4] += b.x; x[5] += b.y; x[6] += b.z; x[7] += b.w;
-  if (j + 2 < total) mbar_arrive_peer(peer_addr(&xempty[k], peer));
-}
-
 // the pass's barriers: the resident tiles, the ring's full and empty and,
 // in a cluster pair, each warpgroup's two exchange buffers' full and empty
 // (one arrive from each thread of the peer's warpgroup); then every
@@ -403,8 +377,8 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap kmap,
       issue_s16<HDW>(sacc, ahi, da, smem_desc(st + brow, 16, 1024),
                      smem_desc(st + brow + T::SBYTES, 16, 1024));
       if constexpr (CL == 2)
-        exchange(sacc, xbuf + c * (PBUF / 2), xfull + 2 * c, xempty + 2 * c,
-                 i, total, tq, rank ^ 1);
+        exchange<8>(sacc, xbuf + c * (PBUF / 2), xfull + 2 * c,
+                    xempty + 2 * c, i, total, tq, rank ^ 1);
       float x[8];
       if (c == 0) {
 #pragma unroll
@@ -539,7 +513,7 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                        smem_desc(st + T::SBYTES, 16, 1024));
         if (lane == 0) mbar_arrive(&empty[s]);
         if constexpr (CL == 2)
-          exchange(sacc, xbuf, xfull, xempty, i, total, tq, rank ^ 1);
+          exchange<8>(sacc, xbuf, xfull, xempty, i, total, tq, rank ^ 1);
         float p[8];
 #pragma unroll
         for (int v = 0; v < 8; ++v) {
@@ -563,8 +537,8 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
         issue_s16<HDW>(dp, ahi, da, smem_desc(st + 2 * T::SBYTES, 16, 1024),
                        smem_desc(st + 3 * T::SBYTES, 16, 1024));
         if constexpr (CL == 2)
-          exchange(dp, xbuf + PBUF / 2, xfull + 2, xempty + 2, i, total, tq,
-                   rank ^ 1);
+          exchange<8>(dp, xbuf + PBUF / 2, xfull + 2, xempty + 2, i, total,
+                      tq, rank ^ 1);
         float p[8];
         get_p(pbuf, p, i, total, tq);
 #pragma unroll
@@ -579,39 +553,6 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
       store_acc<HDW>(out, q_rs, acc, P.scale, r_row, P.s, P.hd - hd0, lane);
     }
   }
-}
-
-template <typename K>
-int set_smem(K kernel, int bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
-// `grid` CTAs of `kernel` in clusters of CL along x (CL 1: a plain launch)
-template <int CL, typename... Params, typename... Args>
-int launch_grid(void (*kernel)(Params...), unsigned grid, int bytes,
-                cudaStream_t st, Args&&... args) {
-  int rc = set_smem(kernel, bytes);
-  if (rc != 0) return rc;
-  if constexpr (CL == 1) {
-    kernel<<<grid, NTHREADS, bytes, st>>>(args...);
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(grid);
-    cfg.blockDim = dim3(NTHREADS);
-    cfg.dynamicSmemBytes = bytes;
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = CL;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // a contiguous (b, s, heads, hd) tensor as 64-row (resident) or 16-row
@@ -643,10 +584,11 @@ int launch_dkdv(const float* const* in, float* ws, BwdParams P, int batch,
   if (rc != 0) return rc;
   P.lanes = batch * kvh;
   P.ntile = (P.s + BR - 1) / BR;
-  return launch_grid<CL>(dkdv_f32_kernel<HDW, CL>,
-                         static_cast<unsigned>(CL * P.lanes * P.ntile),
-                         Layout<HDW, 4, 2, CL>::BYTES, st, m[0], m[1], m[2],
-                         m[3], m[4], m[5], m[6], m[7], m[8], m[9], P);
+  return launch_clusters<CL>(dkdv_f32_kernel<HDW, CL>,
+                             static_cast<unsigned>(CL * P.lanes * P.ntile),
+                             NTHREADS, Layout<HDW, 4, 2, CL>::BYTES, st, m[0],
+                             m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8],
+                             m[9], P);
 }
 
 template <int HDW, int CL>
@@ -669,10 +611,11 @@ int launch_dq(const float* const* in, float* ws, BwdParams P, int batch,
   if (rc != 0) return rc;
   P.lanes = batch * P.H;
   P.ntile = (P.s + BR - 1) / BR;
-  return launch_grid<CL>(dq_f32_kernel<HDW, CL>,
-                         static_cast<unsigned>(CL * P.lanes * P.ntile),
-                         Layout<HDW, 2, dq_stages(CL), CL>::BYTES, st, m[0],
-                         m[1], m[2], m[3], m[4], m[5], m[6], m[7], P);
+  return launch_clusters<CL>(dq_f32_kernel<HDW, CL>,
+                             static_cast<unsigned>(CL * P.lanes * P.ntile),
+                             NTHREADS, Layout<HDW, 2, dq_stages(CL), CL>::BYTES,
+                             st, m[0], m[1], m[2], m[3], m[4], m[5], m[6],
+                             m[7], P);
 }
 
 // split the pass's stage operands into ws, then run the pass: head dims up

@@ -25,7 +25,7 @@
 // are the first 80 of the m64n128), so o holds HDW / 2 floats a thread.
 //
 // Every piece takes the element type T of q, k, v and the output:
-// __nv_bfloat16 (the default, which flash_sched.cu takes) or __half, with
+// __nv_bfloat16 (the default) or __half, with
 // wgmma's .bf16 or .f16; the accumulators and the softmax are fp32 in both.
 //
 // Every block here is inline: an out-of-line block shared by the producer

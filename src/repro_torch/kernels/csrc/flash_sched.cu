@@ -11,8 +11,8 @@
 // causal) the function does about 0.55 TFLOP over 0.56 GB, some 1,000
 // operations per byte against the card's ~295, so the tensor cores are the
 // limit and only wgmma reaches their rate.  The fp32 P V of the reference
-// (P split into bf16 hi + lo) makes the P V half of the tensor work twice
-// as large as a bf16-P kernel's.
+// (P split into hi + lo of the input's type) makes the P V half of the
+// tensor work twice as large as a kernel's with P in one term.
 //
 // Design (flash_dense.cu's, made persistent over the plan):
 //   * Persistent: the grid has p CTAs, one per plan worker.  CTA w walks
@@ -56,6 +56,11 @@
 //     pays for the mask arithmetic only where it crosses the causal
 //     diagonal, the window's lower edge, the lane's `lim` or the end of
 //     the group's kv blocks.
+//   * Element types: bf16 and fp16 (the launcher's dtype code 1 or 2), as
+//     flash_dense.cu: q, k and v enter wgmma as they are, P = hi + lo in
+//     the input's type (fp16's hi + lo misses p by at most 2^-25, see
+//     flash_dense.cu's note), the output rounded to that type once.  The
+//     schedule-aware entry has no backward, so no o_lo is written.
 //   * The reference's _finalize: NEG_INF is -1e30 and is wiped by corr = 0
 //     once a row sees its first live column; rows that never saw one
 //     (m <= NEG_INF / 2) are written as 0, which covers a lane of `lim` 0
@@ -72,7 +77,7 @@ namespace {
 using namespace flash_hopper;
 
 struct SchedParams {
-  __nv_bfloat16* o;
+  void* o;             // (b, s, h, hd) of the kernel's element type
   long long o_sb, o_sh, o_ss;
   const int* desc;     // 6 x G int32: bi, qi, kj, first, last, lim
   const int* bounds;   // p + 1 int32: CTA w owns descriptors [b[w], b[w+1])
@@ -89,9 +94,9 @@ struct MaskParams {
 
 using Walk = sched_walk::Walk<BQ>;
 
-// HD: the padded head dim; NKV, NST: the K / V tile's columns and stages;
-// HDW: the width the products run at
-template <int HD, int NKV, int NST, int HDW>
+// T: the element type; HD: the padded head dim; NKV, NST: the K / V
+// tile's columns and stages; HDW: the width the products run at
+template <typename T, int HD, int NKV, int NST, int HDW>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_sched_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -191,30 +196,30 @@ flash_sched_kernel(const __grid_constant__ CUtensorMap qmap,
         float sacc[NKV / 2];
         const uint64_t dk = smem_desc(smem + L::K + s * L::KVTILE, 16, 1024);
         mbar_wait(&k_full[s], ph);
-        issue_s<HDW, NKV>(sacc, dq, dk, c);
+        issue_s<HDW, NKV, T>(sacc, dq, dk, c);
         if (i == w.ntiles - 1 && lane == 0) mbar_arrive(q_empty);
 
         uint32_t phi[NKV / 16][4], plo[NKV / 16][4];
         if (mask)
-          softmax<HDW, true, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane,
-                                  mp);
+          softmax<HDW, true, NKV, T>(sacc, m, l, o, phi, plo, col0, r_lo,
+                                     lane, mp);
         else
-          softmax<HDW, false, NKV>(sacc, m, l, o, phi, plo, col0, r_lo, lane,
-                                   mp);
+          softmax<HDW, false, NKV, T>(sacc, m, l, o, phi, plo, col0, r_lo,
+                                      lane, mp);
 
         // O += (P_hi + P_lo) V
         const uint64_t dv = smem_desc(smem + L::V + s * L::KVTILE, L::KVBOX,
                                       1024);
         mbar_wait(&v_full[s], ph);
-        issue_pv<HDW, NKV>(o, phi, plo, dv);
+        issue_pv<HDW, NKV, T>(o, phi, plo, dv);
         if (lane == 0) mbar_arrive(&empty[s]);
       }
 
       // the unit's rows only; dead rows (no live column) are written as 0
       const int b = w.lane_id / P.H;
       const int hh = w.lane_id % P.H;
-      store_rows<HDW>(P.o + b * P.o_sb + hh * P.o_sh, P.o_ss, o, m, l, r_lo,
-                      w.rend, lane, P.hd);
+      store_rows<HDW, T>(static_cast<T*>(P.o) + b * P.o_sb + hh * P.o_sh,
+                         P.o_ss, o, m, l, r_lo, w.rend, lane, P.hd);
     }
 
     // consumer 1's last hand-over is taken here, so every turn is matched
@@ -222,25 +227,26 @@ flash_sched_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// q, k, v (b, s, heads, hd) by element strides, qs / ks / vs = (batch,
-// head, row) strides; the K / V maps' boxes are NKV rows
-template <int HD, int NKV = BKV, int NST = STAGES, int HDW = HD>
+// q, k, v (b, s, heads, hd) of element type T by element strides, qs /
+// ks / vs = (batch, head, row) strides; the K / V maps' boxes are NKV rows
+template <typename T, int HD, int NKV = BKV, int NST = STAGES, int HDW = HD>
 int launch_hd(const void* q, const void* k, const void* v, int batch,
               const long long* qs, const long long* ks, const long long* vs,
               const SchedParams& P, int p, cudaStream_t st) {
+  constexpr int dt = is_f16<T> ? F16 : BF16;
   CUtensorMap qm, km, vm;
   const int kvh = P.H / P.group;
-  int rc = encode_bshd(&qm, q, BF16, batch, P.s, P.H, P.hd, qs[0], qs[1],
+  int rc = encode_bshd(&qm, q, dt, batch, P.s, P.H, P.hd, qs[0], qs[1],
                        qs[2]);
   if (rc == 0)
-    rc = encode_bshd(&km, k, BF16, batch, P.s, kvh, P.hd, ks[0], ks[1], ks[2],
+    rc = encode_bshd(&km, k, dt, batch, P.s, kvh, P.hd, ks[0], ks[1], ks[2],
                      NKV);
   if (rc == 0)
-    rc = encode_bshd(&vm, v, BF16, batch, P.s, kvh, P.hd, vs[0], vs[1], vs[2],
+    rc = encode_bshd(&vm, v, dt, batch, P.s, kvh, P.hd, vs[0], vs[1], vs[2],
                      NKV);
   if (rc != 0) return rc;
   constexpr int bytes = Layout<HD, NKV, NST>::BYTES;
-  auto kern = flash_sched_kernel<HD, NKV, NST, HDW>;
+  auto kern = flash_sched_kernel<T, HD, NKV, NST, HDW>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -248,24 +254,43 @@ int launch_hd(const void* q, const void* k, const void* v, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the instantiation of each head dim, at the element type T
+template <typename T>
+int launch_t(const void* q, const void* k, const void* v, int batch,
+             const long long* qs, const long long* ks, const long long* vs,
+             const SchedParams& P, int p, cudaStream_t st) {
+  if (P.hd <= 64)
+    return launch_hd<T, 64>(q, k, v, batch, qs, ks, vs, P, p, st);
+  if (P.hd == 80)
+    return launch_hd<T, 128, BKV, STAGES, 80>(q, k, v, batch, qs, ks, vs, P,
+                                              p, st);
+  if (P.hd <= 128)
+    return launch_hd<T, 128>(q, k, v, batch, qs, ks, vs, P, p, st);
+  return launch_hd<T, 256, 64, 2>(q, k, v, batch, qs, ks, vs, P, p, st);
+}
+
 }  // namespace
 
+// q (b, s, H, hd), k / v (b, s, H / group, hd) and o (b, s, H, hd), all
+// bf16 (dtype 1) or fp16 (dtype 2), by their (batch, head, row) element
+// strides; the plan's descriptors (6 x G int32) and each CTA's span of them
+// (p + 1 int32)
 extern "C" int flash_sched_launch(
     const void* q, const void* k, const void* v, void* o, const void* desc,
     const void* bounds, int G, int p, int batch, int s, int H, int group,
-    int hd, int block_q, int block_k, int causal, int window, long long q_sb,
-    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-    long long o_sb, long long o_sh, long long o_ss, float scale,
-    void* stream) {
+    int hd, int block_q, int block_k, int causal, int window, int dtype,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+    float scale, void* stream) {
   if (p <= 0 || G < 0 || batch <= 0 || s <= 0 || H <= 0 || group <= 0 ||
       H % group != 0 || block_q <= 0 || block_k <= 0 || hd <= 0 ||
-      hd > 256 || hd % 8 != 0)
+      hd > 256 || hd % 8 != 0 || (dtype != BF16 && dtype != F16))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss},
                   vs[3] = {v_sb, v_sh, v_ss};
   SchedParams P;
-  P.o = static_cast<__nv_bfloat16*>(o);
+  P.o = o;
   P.o_sb = o_sb; P.o_sh = o_sh; P.o_ss = o_ss;
   P.desc = static_cast<const int*>(desc);
   P.bounds = static_cast<const int*>(bounds);
@@ -274,12 +299,9 @@ extern "C" int flash_sched_launch(
   P.causal = causal; P.window = window;
   P.scale_log2 = scale * LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 64) return launch_hd<64>(q, k, v, batch, qs, ks, vs, P, p, st);
-  if (hd == 80)
-    return launch_hd<128, BKV, STAGES, 80>(q, k, v, batch, qs, ks, vs, P, p,
-                                           st);
-  if (hd <= 128) return launch_hd<128>(q, k, v, batch, qs, ks, vs, P, p, st);
-  return launch_hd<256, 64, 2>(q, k, v, batch, qs, ks, vs, P, p, st);
+  return dtype == F16
+             ? launch_t<__half>(q, k, v, batch, qs, ks, vs, P, p, st)
+             : launch_t<__nv_bfloat16>(q, k, v, batch, qs, ks, vs, P, p, st);
 }
 
 extern "C" const char* flash_sched_error_string(int code) {

@@ -3,7 +3,8 @@
 // operands for wgmma, the wgmma.m64nNk8 .tf32 instructions they issue,
 // fp32 tensor maps, the pass that writes the split copies of an operand in
 // device memory, and what a cluster pair of CTAs needs to trade partial
-// products (the backward at head dims 136-256).
+// products and to be launched (the forward and the backward at head dims
+// 136-256).
 //
 // The split.  wgmma .tf32 reads 19 bits of each fp32 word (sign, exponent,
 // 10 mantissa bits).  Write hi = x with its low 13 bits cleared and
@@ -105,9 +106,9 @@ __device__ __forceinline__ void split_resident(unsigned char* tile, int box,
 }
 
 // ------------------------------------------------- clusters of two CTAs ---
-// (flash_f32_bwd.cu at head dims 136-256: each CTA of a pair computes half
-// of the head dim's reduction and the two trade their partial products
-// through distributed shared memory)
+// (flash_f32.cu and flash_f32_bwd.cu at head dims 136-256: each CTA of a
+// pair computes half of the head dim's reduction and the two trade their
+// partial products through distributed shared memory)
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -164,6 +165,40 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+// In a cluster pair: x (this thread's NV values, a multiple of 4, of its
+// warpgroup's partial product over this CTA's half of the head dim) += the
+// peer CTA's.  Step j's half goes into the peer's buffer j % 2 of this
+// warpgroup once the peer has handed that buffer back (xempty, the arrive
+// of its step j - 2), announced on the peer's xfull; then the peer's half
+// is read from this CTA's own buffer, which is handed back unless no later
+// step uses it (so that no arrive reaches a CTA that may have finished).
+// Both CTAs add the same two partials (p0 + p1 = p1 + p0), so both hold
+// the same bits.  xbuf: the warpgroup's two buffers of NV floats a thread,
+// each NV / 4 float4 slices of 128 threads; total: the steps of the run.
+template <int NV>
+__device__ __forceinline__ void exchange(float* x, float* xbuf,
+                                         uint64_t* xfull, uint64_t* xempty,
+                                         int j, int total, int tq,
+                                         uint32_t peer) {
+  const int k = j & 1;
+  float4* buf = reinterpret_cast<float4*>(xbuf) + k * (NV / 4) * 128;
+  if (j >= 2) mbar_wait_cluster(&xempty[k], ((j >> 1) - 1) & 1);
+  const uint32_t dst = peer_addr(buf + tq, peer);
+#pragma unroll
+  for (int i = 0; i < NV / 4; ++i)
+    st_peer(dst + i * 128 * 16, x[4 * i], x[4 * i + 1], x[4 * i + 2],
+            x[4 * i + 3]);
+  mbar_arrive_peer(peer_addr(&xfull[k], peer));
+  mbar_wait_cluster(&xfull[k], (j >> 1) & 1);
+#pragma unroll
+  for (int i = 0; i < NV / 4; ++i) {
+    const float4 a = buf[i * 128 + tq];
+    x[4 * i] += a.x; x[4 * i + 1] += a.y;
+    x[4 * i + 2] += a.z; x[4 * i + 3] += a.w;
+  }
+  if (j + 2 < total) mbar_arrive_peer(peer_addr(&xempty[k], peer));
 }
 
 // The four accumulator registers of 8-column group kk, (v0, v1, v2, v3) =
@@ -408,6 +443,35 @@ __global__ void __launch_bounds__(256) split_kernel(const SplitParams P) {
 }
 
 // ------------------------------------------------------------------ host ---
+
+// `grid` CTAs of `kernel` (`threads` each, `bytes` of dynamic shared
+// memory) in clusters of CL along x (CL 1: a plain launch)
+template <int CL, typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), unsigned grid, int threads,
+                    int bytes, cudaStream_t st, Args&&... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (CL == 1) {
+    kernel<<<grid, threads, bytes, st>>>(args...);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 inline int split_launch(const SplitParams& P, int batch, cudaStream_t st) {
   const dim3 grid(P.s_pad / 32, batch * P.heads);

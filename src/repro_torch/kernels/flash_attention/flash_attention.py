@@ -42,31 +42,33 @@ take any head dim that is a multiple of 8 up to 256 (the configs use 64,
 filling the columns past the real head dim with zeros, except 80, whose
 products run at its exact width on tiles of 128.
 
-The tensor-core kernels ``flash_dense`` and ``flash_dense_bwd`` take bf16
-and fp16 (one instantiation of each tile shape per type, the dtype code of
-``SIMT_DTYPES`` in the launch); ``flash_sched`` takes bf16.  The reference
-casts q, k and v to fp32 inside its kernels and so takes any float dtype.
-fp16 keeps the reference's fp32 P and dS as two fp16 terms each (hi + lo)
-and its backward's D from the fp32 output: with ``with_lse`` every fp16
-dense forward, tensor-core or general, also writes the output's rounding
-residual ``o_lo``, which the delta pass adds back (see the note of
-``csrc/flash_dense_bwd.cu``).
+The tensor-core kernels ``flash_dense``, ``flash_sched`` and
+``flash_dense_bwd`` take bf16 and fp16 (one instantiation of each tile
+shape per type, the dtype code of ``SIMT_DTYPES`` in the launch).  The
+reference casts q, k and v to fp32 inside its kernels and so takes any
+float dtype.  fp16 keeps the reference's fp32 P and dS as two fp16 terms
+each (hi + lo) and its backward's D from the fp32 output: with
+``with_lse`` every fp16 dense forward, tensor-core or general, also writes
+the output's rounding residual ``o_lo``, which the delta pass adds back
+(see the note of ``csrc/flash_dense_bwd.cu``).
 An fp32 call of either entry at a head dim that is a multiple of 8 up to
 128, with strides and alignment TMA can describe, runs
 ``csrc/flash_f32.cu`` (route ``"tf32x3"``: TMA + wgmma .tf32 with every
 product split into three TF32 products, fp32-accurate; kernels
 ``flash_dense_f32`` and ``flash_sched_f32``), and its backward
-``csrc/flash_f32_bwd.cu``; so does the backward of a dense fp32 call at
-head dims 136-256 (``flash_f32_bwd256_*``, cluster pairs), whose forward
-stays on the general kernel (:func:`flash_bwd_route`).  The rest runs the
-general kernels in plain fp32 FMA, ``csrc/flash_simt.cu`` (dense and
-schedule-aware entries, the same plan walk) and ``csrc/flash_simt_bwd.cu``
-(the backward; its delta pass serves every fp32 backward): the
-schedule-aware entry in fp16 (``flash_route(..., sched=True)``), fp32 at
-head dims 136-256 (both forwards) or at strides TMA cannot describe, and
-bf16 / fp16 at a head dim or stride the TMA boxes cannot describe.
-``_check_kernel_inputs`` picks the kernel from the dtype, the head dim,
-the strides and the entry alone; nothing falls back on a failure.
+``csrc/flash_f32_bwd.cu``.  A dense fp32 call at head dims 136-256 (route
+``"tf32x3_256"``) runs the same files on cluster pairs of CTAs that split
+the head dim (``flash_dense_f32_256``, ``flash_f32_bwd256_*``).  The rest
+runs the general kernels in plain fp32 FMA, ``csrc/flash_simt.cu`` (dense
+and schedule-aware entries, the same plan walk) and
+``csrc/flash_simt_bwd.cu`` (the backward; its delta pass serves every fp32
+backward): the schedule-aware fp32 call at head dims 136-256
+(``FLASH_SCHED_BY_ROUTE["tf32x3_256"]``), and every dtype at a head dim or
+stride the TMA boxes cannot describe.  ``_check_kernel_inputs`` picks the
+route from the dtype, the head dim and the strides alone, and each entry's
+table (``FLASH_DENSE_BY_ROUTE``, ``FLASH_SCHED_BY_ROUTE``,
+``FLASH_F32_BWD_BY_ROUTE``) names the kernel that takes it; nothing falls
+back on a failure.
 """
 
 from __future__ import annotations
@@ -92,12 +94,13 @@ PADDED_HEAD_DIMS = (64, 128, 256)
 TF32X3_MAX_HEAD_DIM = 128
 
 _c = ctypes
+#: the tensor-core kernels of bf16 and fp16 (``csrc/flash_sched.cu``,
+#: ``csrc/flash_dense.cu``; the dtype code of ``SIMT_DTYPES`` picks the
+#: instantiation)
 FLASH_SCHED = Kernel(
     "flash_sched", source="flash_sched", symbol="flash_sched_launch",
-    argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 11 + [_c.c_longlong] * 12
+    argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 12 + [_c.c_longlong] * 12
     + [_c.c_float, _c.c_void_p])
-#: the tensor-core kernels of bf16 and fp16 (``csrc/flash_dense.cu``; the
-#: dtype code of ``SIMT_DTYPES`` picks the instantiation)
 FLASH_DENSE = Kernel(
     "flash_dense", source="flash_dense", symbol="flash_dense_launch",
     argtypes=[_c.c_void_p] * 6 + [_c.c_int] * 8 + [_c.c_longlong] * 12
@@ -143,10 +146,16 @@ FLASH_SIMT_BWD_DQ = Kernel(
 #: fp32 on the tensor cores, three TF32 products each (``csrc/flash_f32.cu``,
 #: ``csrc/flash_f32_bwd.cu``); the backward's delta pass stays
 #: ``flash_simt_bwd_delta``
+_F32_DENSE_ARGS = ([_c.c_void_p] * 9 + [_c.c_int] * 8 + [_c.c_longlong] * 12
+                   + [_c.c_float, _c.c_void_p])
 FLASH_DENSE_F32 = Kernel(
     "flash_dense_f32", source="flash_f32", symbol="flash_f32_launch",
-    argtypes=[_c.c_void_p] * 9 + [_c.c_int] * 8 + [_c.c_longlong] * 12
-    + [_c.c_float, _c.c_void_p])
+    argtypes=_F32_DENSE_ARGS)
+#: the dense forward at head dims 136-256, each tile on a cluster pair of
+#: CTAs that split the head dim
+FLASH_DENSE_F32_256 = Kernel(
+    "flash_dense_f32_256", source="flash_f32", symbol="flash_f32_256_launch",
+    argtypes=_F32_DENSE_ARGS)
 FLASH_SCHED_F32 = Kernel(
     "flash_sched_f32", source="flash_f32", symbol="flash_sched_f32_launch",
     argtypes=[_c.c_void_p] * 10 + [_c.c_int] * 12 + [_c.c_longlong] * 12
@@ -172,11 +181,17 @@ FLASH_F32_BWD256_DQ = Kernel(
 #: the transposed copies of the fp32 kernels hold s rounded up to this, a
 #: multiple of their 32-column tiles (the launchers refuse another s_pad)
 F32_COPY_PAD = 32
-#: the schedule-aware kernel of each route (:func:`flash_route`)
+#: the dense and the schedule-aware kernel of each route
+#: (:func:`flash_route`); the schedule-aware fp32 call at head dims 136-256
+#: runs the general kernel
+FLASH_DENSE_BY_ROUTE = {"wgmma": FLASH_DENSE, "tf32x3": FLASH_DENSE_F32,
+                        "tf32x3_256": FLASH_DENSE_F32_256,
+                        "simt": FLASH_DENSE_SIMT}
 FLASH_SCHED_BY_ROUTE = {"wgmma": FLASH_SCHED, "tf32x3": FLASH_SCHED_F32,
+                        "tf32x3_256": FLASH_SCHED_SIMT,
                         "simt": FLASH_SCHED_SIMT}
-#: the (dkdv, dq) kernels of the backward's tensor-core fp32 routes
-#: (:func:`flash_bwd_route`): head dims up to 128, and 136-256
+#: the (dkdv, dq) kernels of the backward's tensor-core fp32 routes: head
+#: dims up to 128, and 136-256
 FLASH_F32_BWD_BY_ROUTE = {
     "tf32x3": (FLASH_F32_BWD_DKDV, FLASH_F32_BWD_DQ),
     "tf32x3_256": (FLASH_F32_BWD256_DKDV, FLASH_F32_BWD256_DQ)}
@@ -316,18 +331,20 @@ def flash_attention_sched_plain(q, k, v, *,
     return torch.cat(outs, dim=0)
 
 
-def flash_route(dtype, hd: int, tma_ok: bool = True, *,
-                sched: bool = False) -> str:
-    """The kernel family a flash forward of this dtype and head dim runs on
-    the card: ``"wgmma"`` for bfloat16 and float16 with a head dim that is
-    a multiple of 8 and ``tma_ok`` (strides and alignment TMA can
-    describe): ``flash_dense`` (both types) and ``flash_sched`` (bfloat16);
-    ``"tf32x3"`` (``flash_dense_f32`` / ``flash_sched_f32``) for float32
-    likewise up to head dim 128; ``"simt"`` (the general kernels) for
-    every other float32 / bfloat16 / float16 call with a head dim up to
-    256.  ``sched``: the schedule-aware entry's route, which is ``"simt"``
-    for float16 (``flash_sched`` has no fp16 instantiation).  Raises for
-    another dtype or head dim, which no kernel takes."""
+def flash_route(dtype, hd: int, tma_ok: bool = True) -> str:
+    """The kernel family a flash call of this dtype and head dim runs on
+    the card, forward and backward: ``"wgmma"`` for bfloat16 and float16
+    with a head dim that is a multiple of 8 and ``tma_ok`` (strides and
+    alignment TMA can describe; ``flash_dense``, ``flash_sched``,
+    ``flash_dense_bwd``); ``"tf32x3"`` for float32 likewise up to head dim
+    128 and ``"tf32x3_256"`` at 136-256 (the fp32 tensor-core kernels;
+    at 136-256 the schedule-aware entry's kernel is the general one);
+    ``"simt"`` (the general kernels) for every other float32 / bfloat16 /
+    float16 call with a head dim up to 256.  Each entry's table names the
+    kernel of a route.  Every forward writes the lse its backward reads:
+    the natural log-sum-exp of the scaled, masked scores, +inf for a row
+    with no live column (at 136-256 the pair's rank 0 writes it).  Raises
+    for another dtype or head dim, which no kernel takes."""
     if dtype not in SIMT_DTYPES:
         raise TypeError(f"the flash kernels take float32, bfloat16 or "
                         f"float16, got {dtype}")
@@ -336,27 +353,9 @@ def flash_route(dtype, hd: int, tma_ok: bool = True, *,
                          f"{PADDED_HEAD_DIMS[-1]}, got {hd}")
     if hd % 8 or not tma_ok:
         return "simt"
-    if dtype == torch.bfloat16 or (dtype == torch.float16 and not sched):
+    if dtype != torch.float32:
         return "wgmma"
-    if dtype == torch.float32 and hd <= TF32X3_MAX_HEAD_DIM:
-        return "tf32x3"
-    return "simt"
-
-
-def flash_bwd_route(dtype, hd: int, tma_ok: bool = True) -> str:
-    """The kernel family of the backward of a dense call ("wgmma", "simt"
-    or a key of :data:`FLASH_F32_BWD_BY_ROUTE`): the forward's
-    :func:`flash_route`, but
-    float32 at a head dim of 136-256 that is a multiple of 8 with
-    ``tma_ok`` goes to the tensor cores (``"tf32x3_256"``) while its
-    forward stays on the general kernel.  That backward reads the general
-    forward's lse: both fp32 forwards write the natural log-sum-exp of the
-    scaled, masked scores, +inf for a row with no live column
-    (``flash_simt.cu``'s m + log l, ``flash_f32.cu``'s (m + log2 l) ln 2)."""
-    route = flash_route(dtype, hd, tma_ok)
-    if route == "simt" and dtype == torch.float32 and hd % 8 == 0 and tma_ok:
-        return "tf32x3_256"     # past TF32X3_MAX_HEAD_DIM
-    return route
+    return "tf32x3" if hd <= TF32X3_MAX_HEAD_DIM else "tf32x3_256"
 
 
 def _tma_ok(*tensors) -> bool:
@@ -368,12 +367,11 @@ def _tma_ok(*tensors) -> bool:
                            for st in t.stride()[:3]) for t in tensors)
 
 
-def _check_kernel_inputs(name: str, q, k, v, *, sched: bool = False) -> str:
+def _check_kernel_inputs(name: str, q, k, v) -> str:
     """Check q (b, s, h, hd), k/v (b, s, kvh, hd) and return the kernel
-    family that takes them (:func:`flash_route`; ``sched``: the
-    schedule-aware entry's): a GQA layout and one dtype; the TMA kernels
-    also need a contiguous last dim, strides that are multiples of 16 bytes
-    and 16-byte aligned data."""
+    family that takes them (:func:`flash_route`): a GQA layout and one
+    dtype; the TMA kernels also need a contiguous last dim, strides that
+    are multiples of 16 bytes and 16-byte aligned data."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     if k.shape != (b, s, kvh, hd) or v.shape != k.shape or h % kvh:
@@ -382,7 +380,7 @@ def _check_kernel_inputs(name: str, q, k, v, *, sched: bool = False) -> str:
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes q, k and v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    return flash_route(q.dtype, hd, _tma_ok(q, k, v), sched=sched)
+    return flash_route(q.dtype, hd, _tma_ok(q, k, v))
 
 
 def _strides(*tensors) -> list[int]:
@@ -404,7 +402,7 @@ def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
     (``FLASH_SCHED_BY_ROUTE``) on q (b, s, h, hd), k/v (b, s, kvh, hd) in
     place of their strides; returns a new (b, s, h, hd) tensor."""
     kernel = FLASH_SCHED_BY_ROUTE[_check_kernel_inputs("flash_sched", q, k,
-                                                       v, sched=True)]
+                                                       v)]
     if kernel is FLASH_SCHED_SIMT:
         return _flash_sched_simt_cuda(q, k, v, desc, bounds, block_q=block_q,
                                       block_k=block_k, causal=causal,
@@ -416,7 +414,7 @@ def _flash_sched_cuda(q, k, v, desc, bounds, *, block_q: int, block_k: int,
         kc, vt, s_pad = _f32_copies(b, s, k.shape[2], hd, q.device)
         kernel.launch(*ptrs, *_ptrs(*kc, *vt), s_pad, *shape, *tail)
     else:
-        kernel.launch(*ptrs, *shape, *tail)
+        kernel.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
     return out
 
 
@@ -486,14 +484,15 @@ def _flash_dense_cuda(q, k, v, *, causal: bool, window: int,
                                       with_lse=with_lse)
     b, s, h, hd = q.shape
     kvh = k.shape[2]
+    kernel = FLASH_DENSE_BY_ROUTE[route]
     out, res, ptrs, shape, tail = _dense_args(q, k, v, causal, window,
                                               with_lse)
     if route == "wgmma":
-        FLASH_DENSE.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
+        kernel.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
     else:
         kc, vt, s_pad = _f32_copies(b, s, kvh, hd, q.device)
-        FLASH_DENSE_F32.launch(*ptrs[:4], ptrs[5], *_ptrs(*kc, *vt), s_pad,
-                               *shape, *tail)
+        kernel.launch(*ptrs[:4], ptrs[5], *_ptrs(*kc, *vt), s_pad, *shape,
+                      *tail)
     return (out, *res) if with_lse else out
 
 
@@ -533,18 +532,16 @@ def _flash_dense_bwd_cuda(q, k, v, o, do, lse, o_lo=None, *, causal: bool,
     """Launch the three backward kernels on the forward's q (b, s, h, hd),
     k/v (b, s, kvh, hd), output o, its gradient do and the residuals of
     :func:`_flash_dense_cuda`, lse (b, h, s) and o_lo (fp16 only); returns
-    (dq, dk, dv) in the inputs' shapes and dtype.  By
-    :func:`flash_bwd_route`: ``flash_dense_bwd`` ("wgmma"),
-    ``flash_f32_bwd`` ("tf32x3", "tf32x3_256") or the general kernels
-    (``flash_simt_bwd``)."""
-    _check_kernel_inputs("flash_dense", q, k, v)
+    (dq, dk, dv) in the inputs' shapes and dtype.  By the forward's
+    :func:`flash_route`: ``flash_dense_bwd`` ("wgmma"), ``flash_f32_bwd``
+    ("tf32x3", "tf32x3_256") or the general kernels (``flash_simt_bwd``)."""
+    route = _check_kernel_inputs("flash_dense", q, k, v)
     if (o_lo is None) == (q.dtype == torch.float16):
         raise ValueError(f"the backward of {q.dtype} takes "
                          + ("the forward's o_lo" if o_lo is None
                             else "no o_lo"))
     b, s, h, hd = q.shape
     kvh = k.shape[2]
-    route = flash_bwd_route(q.dtype, hd, _tma_ok(q, k, v))
     q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do.to(q.dtype)))
     lse = lse.contiguous()
     o_lo = None if o_lo is None else o_lo.contiguous()

@@ -77,9 +77,10 @@ def _mask(s: int, device, *, causal: bool, window: int, kv_lens=None):
 
 
 def matmul_halves(a, b, *, terms: int = 3, width: int = 128):
-    """``a @ b`` reduced over a dim wider than ``width`` as
-    ``csrc/flash_f32_bwd.cu``'s cluster pairs do at head dims 136-256: the
-    three-term product of each ``width``-column half, then their sum."""
+    """``a @ b`` reduced over a dim wider than ``width`` as the cluster
+    pairs of ``csrc/flash_f32.cu`` and ``csrc/flash_f32_bwd.cu`` do at head
+    dims 136-256: the three-term product of each ``width``-column half,
+    then their sum."""
     if a.shape[-1] <= width:
         return matmul_tf32x3(a, b, terms=terms)
     return (matmul_tf32x3(a[..., :width], b[..., :width, :], terms=terms)
@@ -89,12 +90,15 @@ def matmul_halves(a, b, *, terms: int = 3, width: int = 128):
 def attention_tf32x3(q, k, v, *, causal: bool = True, window: int = 0,
                      kv_lens: Optional[Sequence[int]] = None,
                      terms: int = 3):
-    """:func:`attention_ref` with both products through
-    :func:`matmul_tf32x3`: q, k, v (bh, s, hd) fp32 -> (bh, s, hd), rows
-    with no live column 0.  Used by the tests only, to hold the split's
-    arithmetic to the reference on the CPU."""
+    """:func:`attention_ref` with both products split as
+    ``csrc/flash_f32.cu`` splits them: S = Q K^T through
+    :func:`matmul_halves` (in two halves of the head dim past 128 columns,
+    as the cluster pairs reduce it), P V through :func:`matmul_tf32x3`:
+    q, k, v (bh, s, hd) fp32 -> (bh, s, hd), rows with no live column 0.
+    Used by the tests only, to hold the split's arithmetic to the
+    reference on the CPU."""
     bh, s, hd = q.shape
-    scores = matmul_tf32x3(q.float(), k.float().transpose(1, 2),
+    scores = matmul_halves(q.float(), k.float().transpose(1, 2),
                            terms=terms) / math.sqrt(hd)
     mask = _mask(s, q.device, causal=causal, window=window, kv_lens=kv_lens)
     probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)

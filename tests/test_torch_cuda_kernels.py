@@ -13,11 +13,13 @@ final rounding), also for ``gmm_any``'s.  The general kernels' fp32 outputs (``g
 ``flash_*_simt``; plain fp32 FMA, TF32 off on both sides) are held to
 1e-5 + 1e-5 |plain| for the grouped matmul and 1e-4 + 1e-4 |plain| for
 flash attention (sums of up to thousands of products in another order),
-and so are ``flash_dense_f32`` and ``flash_sched_f32`` (three TF32
-products each, about 2^-20 relative error a product);
-fp16 outputs to 2^-10 + 2^-10 |plain| (two fp16 rounding steps), the
-general kernels' and the fp16 instantiations of ``flash_dense``.  Across
-schedules and ``sched_p`` the outputs must be bit-identical.
+and so are ``flash_dense_f32``, ``flash_dense_f32_256`` and
+``flash_sched_f32`` (three TF32 products each, about 2^-20 relative error
+a product); fp16 outputs to 2^-10 + 2^-10 |plain| (two fp16 rounding
+steps), the general kernels' and the fp16 instantiations of
+``flash_dense`` and ``flash_sched`` (the scheduled calls against the fp32
+plain version).  Across schedules and ``sched_p`` the outputs must be
+bit-identical.
 """
 
 import numpy as np
@@ -82,13 +84,14 @@ def _assert_close(got, want, tol=TOL):
      (2, 300, 4, 2, 80, 128, 0, True, None, True)),     # hd 80, strided
 ])
 def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
-    """Each case against the plain version, then bit-identical for all 27
-    techniques at sched_p 1 (one CTA wraps the stage ring across every
+    """Each case against the fp32 plain version, then bit-identical for all
+    27 techniques at sched_p 1 (one CTA wraps the stage ring across every
     unit), 8 and the SM count; head dims 64 and 128, and 32 (padded to
     64), 80 (its exact width) and 256 (64-column kv tiles in 2 stages).
-    The first and the last case of each group also in fp32: on the
-    tensor cores (``flash_sched_f32``) up to head dim 128, on the general
-    kernel at 256.
+    The first and the last case of each group also in fp16 (the fp16
+    instantiations of ``flash_sched``) and in fp32: on the tensor cores
+    (``flash_sched_f32``) up to head dim 128, on the general kernel at
+    256.
 
     The edge cases share the four items instead of being items of their
     own only while the reference's order-dependent
@@ -98,7 +101,7 @@ def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
     """
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     runs = [(c, dt) for i, c in enumerate(case)
-            for dt in ((torch.bfloat16, torch.float32)
+            for dt in ((torch.bfloat16, torch.float16, torch.float32)
                        if i in (0, len(case) - 1) else (torch.bfloat16,))]
     for (b, s, h, kvh, hd, blk, window, causal, lens, strided), dt in runs:
         if strided:
@@ -113,14 +116,15 @@ def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
         kw = dict(causal=causal, window=window, block_q=blk, block_k=blk,
                   kv_lens=lens)
         kernel = fa.FLASH_SCHED_BY_ROUTE[fa._check_kernel_inputs(
-            "flash_sched", q, k, v, sched=True)]
+            "flash_sched", q, k, v)]
         assert kernel is {torch.bfloat16: fa.FLASH_SCHED,
+                          torch.float16: fa.FLASH_SCHED,
                           torch.float32: fa.FLASH_SCHED_F32 if hd <= 128
                           else fa.FLASH_SCHED_SIMT}[dt]
         before = kernel.launches
         out = flash_attention(q, k, v, schedule="static", sched_p=5, **kw)
         assert kernel.launches == before + 1
-        qf, kf, vf = fa.broadcast_flatten(q, k, v)
+        qf, kf, vf = (x.float() for x in fa.broadcast_flatten(q, k, v))
         want = fa.flash_attention_sched_plain(
             qf, kf, vf, kv_lens=np.repeat(lens, h), causal=causal,
             window=window)
@@ -134,11 +138,10 @@ def test_flash_sched_matches_plain_and_is_schedule_free(dev, case):
 
 def test_flash_bhsd_entry_and_errors(dev):
     """The bhsd entry; fp32 at hd 64 and 80 on the tensor cores
-    (``flash_sched_f32``), fp32 at hd 256, fp16 and a bf16 head dim of 20
-    on the general kernel (fp16 on ``flash_sched_simt``, not the bf16-only
-    ``flash_sched``, though the dense fp16 call takes the tensor cores),
-    with ragged lens and a window; what no kernel takes raises, with no
-    route to the plain version."""
+    (``flash_sched_f32``), fp16 on ``flash_sched``, fp32 at hd 256 and a
+    bf16 head dim of 20 on the general kernel, with ragged lens and a
+    window, against the fp32 plain version; what no kernel takes raises,
+    with no route to the plain version."""
     q = _randn(dev, 4, 256, 64)
     out = fa.flash_attention_sched_bhsd(q, q, q, schedule="gss", block_q=128,
                                         block_k=128)
@@ -149,16 +152,16 @@ def test_flash_bhsd_entry_and_errors(dev):
     _assert_close(fa.flash_attention_sched_bhsd(x, x, x, schedule="fac2"),
                   fa.flash_attention_sched_plain(x, x, x))
     assert fa.FLASH_SCHED.launches == before + 1
-    for dt, hd in ((torch.float32, 64), (torch.float16, 128),
-                   (torch.bfloat16, 20), (torch.float32, 80),
-                   (torch.float32, 256)):
+    for dt, hd, want_kernel in (
+            (torch.float32, 64, fa.FLASH_SCHED_F32),
+            (torch.float16, 128, fa.FLASH_SCHED),
+            (torch.bfloat16, 20, fa.FLASH_SCHED_SIMT),
+            (torch.float32, 80, fa.FLASH_SCHED_F32),
+            (torch.float32, 256, fa.FLASH_SCHED_SIMT)):
         y = _randn(dev, 3, 300, hd, seed=hd, dtype=dt)
         lens = [300, 77, 1]
-        kernel = fa.FLASH_SCHED_BY_ROUTE[fa.flash_route(dt, hd, sched=True)]
-        assert (kernel is fa.FLASH_SCHED_F32) == (
-            dt == torch.float32 and hd <= 128)
-        assert (kernel is fa.FLASH_SCHED_SIMT) == (
-            dt != torch.float32 or hd > 128)
+        kernel = fa.FLASH_SCHED_BY_ROUTE[fa.flash_route(dt, hd)]
+        assert kernel is want_kernel
         launches = kernel.launches
         got = fa.flash_attention_sched_bhsd(y, y, y, schedule="fac2",
                                             kv_lens=lens, window=50,
@@ -166,13 +169,13 @@ def test_flash_bhsd_entry_and_errors(dev):
         assert kernel.launches == launches + 1
         assert got.dtype == dt
         _assert_close(got, fa.flash_attention_sched_plain(
-            y, y, y, kv_lens=lens, window=50), SIMT_TOL[dt][1])
+            *(y.float(),) * 3, kv_lens=lens, window=50), SIMT_TOL[dt][1])
     y = _randn(dev, 1, 64, 1, 264)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(y, y, y, schedule="fac2")
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         flash_attention(*(q[:, :, None].double(),) * 3, schedule="fac2")
-    assert fa.FLASH_SCHED.launches == before + 1
+    assert fa.FLASH_SCHED.launches == before + 2
 
 
 @pytest.mark.parametrize("case", [
@@ -229,8 +232,11 @@ def test_flash_dense_tile_edges(dev):
     # fp32 on the tensor cores (route "tf32x3", head dims 64, 80 and 128,
     # and 8, 72, 96 and 120 computed at the widths 64, 80 and 128): s off
     # the 128-row q tiles and the 32- / 64-column kv tiles (s 1 too), MQA
-    # and GQA, windows narrower than a kv tile, non-causal; then on the
-    # general kernel (head dim 256 with a window of 2048, an odd head dim)
+    # and GQA, windows narrower than a kv tile, non-causal; on the cluster
+    # pairs (route "tf32x3_256": head dim 256 with recurrentgemma's window
+    # of 2048 and its 10 / 1 heads, windows narrower than a kv tile, 200
+    # and 136, whose second CTA holds 72 and 8 real columns, non-causal,
+    # s 1); then on the general kernel (an odd head dim)
     for case in ((1, 300, 4, 2, 64, 0, True), (2, 129, 4, 1, 80, 40, True),
                  (1, 300, 4, 2, 128, 1, True), (1, 65, 2, 2, 128, 0, False),
                  (1, 2100, 8, 2, 128, 0, True), (2, 333, 4, 1, 64, 31, True),
@@ -238,6 +244,9 @@ def test_flash_dense_tile_edges(dev):
                  (1, 1000, 4, 4, 80, 0, False), (2, 1, 4, 2, 128, 0, True),
                  (1, 37, 2, 1, 8, 0, True), (1, 300, 2, 1, 120, 20, True),
                  (1, 2100, 4, 1, 256, 2048, True),
+                 (2, 333, 10, 1, 256, 100, True),
+                 (1, 300, 2, 2, 256, 1, True), (2, 129, 4, 1, 200, 31, True),
+                 (1, 200, 2, 2, 136, 0, False), (2, 1, 2, 1, 256, 0, True),
                  (2, 200, 4, 4, 100, 63, True)):
         _check_flash_dense(dev, case, torch.float32)
 
@@ -246,8 +255,7 @@ def _check_flash_dense(dev, case, dtype=torch.bfloat16):
     b, s, h, kvh, hd, window, causal = case
     q, k, v = (_randn(dev, b, s, n, hd, seed=i, dtype=dtype)
                for i, n in enumerate((h, kvh, kvh)))
-    kernel = {"wgmma": fa.FLASH_DENSE, "tf32x3": fa.FLASH_DENSE_F32,
-              "simt": fa.FLASH_DENSE_SIMT}[fa.flash_route(dtype, hd)]
+    kernel = fa.FLASH_DENSE_BY_ROUTE[fa.flash_route(dtype, hd)]
     before = kernel.launches
     out = flash_attention(q, k, v, causal=causal, window=window)
     assert kernel.launches == before + 1
@@ -282,10 +290,12 @@ def test_flash_dense_reads_strided_heads(dev):
         assert torch.equal(flash_attention(q.contiguous(), k.contiguous(),
                                            v.contiguous(), causal=True), out)
     # fp32: heads 16-byte multiples apart are read in place on the tensor
-    # cores (the same bits as a contiguous copy); rows 130 floats apart are
-    # not TMA's, and take the general kernel
+    # cores (the same bits as a contiguous copy), at 256 by the cluster
+    # pairs; rows 130 floats apart are not TMA's, and take the general
+    # kernel
     for hd, width, kernel in ((128, 128, fa.FLASH_DENSE_F32),
                               (80, 80, fa.FLASH_DENSE_F32),
+                              (256, 256, fa.FLASH_DENSE_F32_256),
                               (128, 130, fa.FLASH_DENSE_SIMT)):
         buf = _randn(dev, b, s, 3, h, width, seed=6, dtype=torch.float32)
         q, k, v = (buf[:, :, i, :n, :hd] for i, n in enumerate((h, kvh, kvh)))
@@ -296,7 +306,7 @@ def test_flash_dense_reads_strided_heads(dev):
                                               causal=True, window=50)
         _assert_close(out, want.reshape(b, h, s, hd).permute(0, 2, 1, 3),
                       SIMT_TOL[torch.float32][1])
-        if kernel is fa.FLASH_DENSE_F32:
+        if kernel is not fa.FLASH_DENSE_SIMT:
             assert torch.equal(flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
                 window=50), out)

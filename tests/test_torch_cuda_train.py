@@ -145,8 +145,8 @@ def test_flash_dense_bwd_is_deterministic(dev):
     """Two runs of the backward give the same bits (no atomics): bf16, fp16
     at head dims 64, 80, 128 and 256 (the fp16 instantiations of
     ``flash_dense_bwd``), and fp32 on the tensor cores at head dims 64, 80
-    and 128 (route "tf32x3") and 200 and 256 (cluster pairs,
-    "tf32x3_256") with windows."""
+    and 128 (route "tf32x3") and 200 and 256 (cluster pairs, forward and
+    backward, "tf32x3_256") with windows."""
     for hd, window, dtype in ((128, 0, torch.bfloat16),
                               (64, 100, torch.bfloat16),
                               (64, 100, torch.float16),
@@ -159,7 +159,7 @@ def test_flash_dense_bwd_is_deterministic(dev):
                               (200, 70, torch.float32),
                               (256, 2048, torch.float32)):
         q, k, v, do = _inputs(dev, 2, 1000, 8, 2, hd, seed=3, dtype=dtype)
-        assert fa.flash_bwd_route(dtype, hd) == (
+        assert fa.flash_route(dtype, hd) == (
             "wgmma" if dtype != torch.float32 else
             "tf32x3" if hd <= 128 else "tf32x3_256")
         first = _bwd(q, k, v, do, True, window)
@@ -242,7 +242,7 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
                               dtype=torch.float16)
         do = do * scale
         where = (b, s, h, kvh, hd, window, causal, scale)
-        assert fa.flash_bwd_route(torch.float16, hd) == (
+        assert fa.flash_route(torch.float16, hd) == (
             "simt" if hd % 8 else "wgmma")
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
         _build.reset_launches()
@@ -274,12 +274,12 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
     # fp32, forward and backward: on the tensor cores (route "tf32x3") at
     # head dims 64, 80 and 128 and the padded 16 and 72, with windows, GQA
     # / MQA, non-causal, s off the 16-row stages, and a long MQA sum (dK,
-    # dV over 4 heads x 2100 rows); at head dims 136-256 the forward on the
-    # general kernel and the backward on the tensor cores' cluster pairs
-    # ("tf32x3_256": 256, 200 and 136, non-causal, and recurrentgemma-2b's
-    # MQA 10 / 1 at window 2048, dK and dV summing 10 heads x ~2048 rows);
-    # an odd head dim on the general kernels; under autograd one launch of
-    # each pass, two runs bit-identical
+    # dV over 4 heads x 2100 rows); at head dims 136-256 forward and
+    # backward on the tensor cores' cluster pairs ("tf32x3_256": 256, 200
+    # and 136, non-causal, and recurrentgemma-2b's MQA 10 / 1 at window
+    # 2048, dK and dV summing 10 heads x ~2048 rows); an odd head dim on
+    # the general kernels; under autograd one launch of each pass, two
+    # runs bit-identical, the forward's output within the gate
     for i, (b, s, h, kvh, hd, window, causal) in enumerate((
             (2, 300, 4, 2, 64, 0, True), (1, 200, 4, 1, 80, 70, True),
             (1, 129, 4, 2, 128, 0, True), (2, 100, 2, 2, 128, 0, False),
@@ -301,7 +301,7 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
                   "flash_simt_bwd_dkdv", "flash_simt_bwd_dq") if hd % 8 else
                  ("flash_dense_f32", "flash_simt_bwd_delta",
                   "flash_f32_bwd_dkdv", "flash_f32_bwd_dq") if hd <= 128 else
-                 ("flash_dense_simt", "flash_simt_bwd_delta",
+                 ("flash_dense_f32_256", "flash_simt_bwd_delta",
                   "flash_f32_bwd256_dkdv", "flash_f32_bwd256_dq"))
         launches = {n: _build.KERNELS[n].launches for n in names}
         assert launches == dict.fromkeys(launches, 1), launches
@@ -312,6 +312,10 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
                    zip(got, _bwd(q, k, v, do, causal, window)))
         assert float((got[1] - _plain_lse(q, k, causal, window)).abs().max()) \
             <= FP32_FLASH_TOL
+        plain = fa.flash_attention_dense_plain(
+            *fa.broadcast_flatten(q, k, v), causal=causal, window=window)
+        _assert_close(got[0], plain.reshape(b, h, s, hd).permute(0, 2, 1, 3),
+                      FP32_FLASH_TOL)
         want = fa.flash_attention_dense_bwd_plain(q, k, v, do, causal=causal,
                                                   window=window)
         for g, ref in zip(got[2:], want):

@@ -1,6 +1,7 @@
-"""The arithmetic of the fp16 dense flash kernels on the tensor cores
-(``csrc/flash_dense.cu`` and ``csrc/flash_dense_bwd.cu`` at T = __half,
-route ``"wgmma"``), emulated on the CPU and held to the JAX reference.
+"""The arithmetic of the fp16 flash kernels on the tensor cores
+(``csrc/flash_dense.cu``, ``csrc/flash_sched.cu`` and
+``csrc/flash_dense_bwd.cu`` at T = __half, route ``"wgmma"``), emulated on
+the CPU and held to the JAX reference.
 
 The reference casts q, k and v to fp32, so its products, its P and (under
 autodiff) its dS and D are fp32.  The kernels feed wgmma fp16 operands
@@ -11,7 +12,10 @@ plus its rounding residual o_lo, which the forward writes.
 fp32; they must agree with the reference's ``flash_attention_bhsd`` (its
 Pallas kernel in interpret mode, as the reference's own tests run it) and
 with ``jax.vjp`` of its ``_attend_flash`` (causal; a non-causal case
-against the same attention in jnp) within the fp16 gate,
+against the same attention in jnp), and the ragged forward with the
+reference's schedule-aware kernel (``flash_attention_sched_bhsd``,
+interpret mode) and the port's plain schedule-aware version, within the
+fp16 gate,
 2^-10 + 2^-10 |plain|, on inputs drawn from a numpy seed and rounded to
 fp16, at head dims 64, 80, 128 and 256 with GQA, MQA, windows and
 non-causal cases.  The tests print the share of the gate each case uses.
@@ -128,7 +132,7 @@ def test_fp16_backward_matches_reference_autodiff(hd):
     for i, (b, s, h, kvh, window, causal) in enumerate(CASES):
         rng = np.random.default_rng(20 * hd + i)
         q, k, v, do = (_f16(rng, (b, s, n, hd)) for n in (h, kvh, kvh, h))
-        assert fa.flash_bwd_route(q.dtype, hd) == "wgmma"
+        assert fa.flash_route(q.dtype, hd) == "wgmma"
         got = attention_bwd_f16(q, k, v, do, causal=causal, window=window)
         want = _vjp(q, k, v, do, causal, window)
         for name, g, w in zip("qkv", got, want):
@@ -137,6 +141,39 @@ def test_fp16_backward_matches_reference_autodiff(hd):
             print(f"fp16 backward hd {hd} case {i} d{name}: gate share "
                   f"{share:.3f}")
             assert share < 0.6, (name, hd, i, share)
+
+
+def test_fp16_ragged_attention_matches_reference_sched_kernel():
+    """The schedule-aware entry's case in fp16 (``flash_sched`` at T =
+    __half): ragged lanes from a numpy seed (one of length 0, whose rows
+    are 0), causal and windowed, GQA and MQA, at head dims 128, 64, 80 and
+    256, P as hi + lo, within the gate of the reference's schedule-aware
+    Pallas kernel in interpret mode and of the port's plain schedule-aware
+    version; such a call takes ``flash_sched`` on the card."""
+    for i, (b, s, h, kvh, hd, window) in enumerate((
+            (2, 300, 4, 2, 128, 0), (3, 200, 2, 1, 64, 70),
+            (2, 257, 4, 1, 80, 0), (2, 200, 2, 1, 256, 40))):
+        rng = np.random.default_rng(30 + i)
+        q, k, v = (_f16(rng, (b, s, n, hd)) for n in (h, kvh, kvh))
+        assert fa.FLASH_SCHED_BY_ROUTE[fa._check_kernel_inputs(
+            "flash_sched", q, k, v)] is fa.FLASH_SCHED
+        lens = rng.integers(1, s + 1, size=b)
+        lens[0] = 0
+        lane_lens = np.repeat(lens, h)
+        lanes = fa.broadcast_flatten(q, k, v)
+        got, _, _ = attention_f16(*lanes, window=window, kv_lens=lane_lens)
+        assert got.dtype == torch.float16
+        plain = fa.flash_attention_sched_plain(
+            *(x.float() for x in lanes), kv_lens=lane_lens, window=window)
+        ref = torch.from_numpy(np.array(ref_fa.flash_attention_sched_bhsd(
+            *(jnp.asarray(x.float().numpy()) for x in lanes),
+            schedule="fac2", kv_lens=lane_lens, window=window, block_q=128,
+            block_k=128, interpret=True)))
+        shares = _gate(got, plain), _gate(got, ref)
+        print(f"fp16 ragged hd {hd} case {i}: gate share {shares[0]:.3f} "
+              f"of plain, {shares[1]:.3f} of the reference")
+        assert max(shares) < 0.6, (hd, i, shares)
+        assert not bool(got[:h].any()) and not bool(ref[:h].any())
 
 
 def test_one_rounding_uses_more_than_half_the_gate():

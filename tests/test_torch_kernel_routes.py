@@ -3,10 +3,12 @@ dtype and the shape alone: the routing functions of the grouped matmul
 and of the flash kernels (``gmm_route`` / ``gmm_dx_route`` /
 ``gmm_dw_route``, ``flash_route`` and ``_check_kernel_inputs``).
 
-bf16 at the wgmma kernels' blocks goes to them ("wgmma"), so does a dense
-fp16 flash call (the schedule-aware fp16 call stays on the general
-kernel), and a dense fp32 flash call up to head dim 128 with strides TMA
-can describe to the fp32 tensor-core kernels ("tf32x3"); every other
+bf16 at the wgmma kernels' blocks goes to them ("wgmma"), so does an fp16
+flash call of either entry, and an fp32 flash call up to head dim 128 with
+strides TMA can describe to the fp32 tensor-core kernels ("tf32x3"), at
+136-256 to their cluster pairs ("tf32x3_256": the dense forward and the
+backward; the schedule-aware entry's table names the general kernel
+there); every other
 bf16 and fp16 call of the grouped matmul family goes to ``gmm_any`` / ``gmm_dx_any`` /
 ``gmm_dw_any``, fed by TMA where TMA can describe the rows (d and f
 multiples of 8, 16-byte aligned data: "wgmma_any") and by the producer
@@ -128,40 +130,31 @@ def test_every_2byte_gmm_call_takes_a_wgmma_route():
 
 def test_flash_routes_by_dtype_head_dim_and_strides():
     for hd in range(8, 257, 8):
+        # bf16 and fp16 on the tensor cores, both entries and the backward
         assert fa.flash_route(BF16, hd) == "wgmma"
-        # fp32 on the tensor cores up to 128 (three TF32 products each)
-        assert fa.flash_route(F32, hd) == ("tf32x3" if hd <= 128 else "simt")
-        # fp16 on the dense kernels' fp16 instantiations; the
-        # schedule-aware entry keeps fp16 on the general kernel
         assert fa.flash_route(F16, hd) == "wgmma"
-        assert fa.flash_route(F16, hd, sched=True) == "simt"
-        assert fa.flash_route(BF16, hd, sched=True) == "wgmma"
+        # fp32 on the tensor cores: up to 128 (three TF32 products each),
+        # 136-256 on cluster pairs
+        assert fa.flash_route(F32, hd) == (
+            "tf32x3" if hd <= 128 else "tf32x3_256")
+        for dt in (BF16, F16, F32):
+            assert fa.flash_route(dt, hd, tma_ok=False) == "simt"
     for hd in (64, 80, 96, 128):
         assert fa.flash_route(F32, hd) == "tf32x3"
-    for hd in (1, 20, 100, 250, 256):
-        assert fa.flash_route(F32, hd) == "simt"
+    for hd in (136, 200, 256):
+        assert fa.flash_route(F32, hd) == "tf32x3_256"
     for hd in (1, 20, 100, 250):
         assert fa.flash_route(BF16, hd) == "simt"
         assert fa.flash_route(F16, hd) == "simt"
-    assert fa.flash_route(BF16, 128, tma_ok=False) == "simt"
-    assert fa.flash_route(F32, 128, tma_ok=False) == "simt"
-    assert fa.flash_route(F16, 128, tma_ok=False) == "simt"
-    # the schedule-aware entry's fp32 tensor-core kernel
-    assert fa.FLASH_SCHED_BY_ROUTE["tf32x3"] is fa.FLASH_SCHED_F32
-    assert fa.FLASH_SCHED_BY_ROUTE["simt"] is fa.FLASH_SCHED_SIMT
-    assert fa.FLASH_SCHED_BY_ROUTE["wgmma"] is fa.FLASH_SCHED
-    # the backward: the forward's route, but fp32 at head dims 136-256 on
-    # the tensor cores (cluster pairs) while its forward is general
-    for hd in range(8, 257, 8):
-        assert fa.flash_bwd_route(BF16, hd) == "wgmma"
-        assert fa.flash_bwd_route(F16, hd) == "wgmma"
-        assert fa.flash_bwd_route(F16, hd, tma_ok=False) == "simt"
-        assert fa.flash_bwd_route(F32, hd) == (
-            "tf32x3" if hd <= 128 else "tf32x3_256")
-        assert fa.flash_bwd_route(F32, hd, tma_ok=False) == "simt"
-    for hd in (1, 20, 100, 250):
-        assert fa.flash_bwd_route(F32, hd) == "simt"
-        assert fa.flash_bwd_route(F16, hd) == "simt"
+        assert fa.flash_route(F32, hd) == "simt"
+    # each entry's kernel of a route: the schedule-aware fp32 call at
+    # 136-256 on the general kernel, the dense one on the cluster pairs
+    assert fa.FLASH_SCHED_BY_ROUTE == {
+        "wgmma": fa.FLASH_SCHED, "tf32x3": fa.FLASH_SCHED_F32,
+        "tf32x3_256": fa.FLASH_SCHED_SIMT, "simt": fa.FLASH_SCHED_SIMT}
+    assert fa.FLASH_DENSE_BY_ROUTE == {
+        "wgmma": fa.FLASH_DENSE, "tf32x3": fa.FLASH_DENSE_F32,
+        "tf32x3_256": fa.FLASH_DENSE_F32_256, "simt": fa.FLASH_DENSE_SIMT}
     assert fa.FLASH_F32_BWD_BY_ROUTE == {
         "tf32x3": (fa.FLASH_F32_BWD_DKDV, fa.FLASH_F32_BWD_DQ),
         "tf32x3_256": (fa.FLASH_F32_BWD256_DKDV, fa.FLASH_F32_BWD256_DQ)}
@@ -191,23 +184,23 @@ def test_flash_kernel_check_reads_layout_and_strides():
                                    kv32) == "tf32x3"
     odd32 = torch.zeros(1, 16, 4, 130)[..., :128]
     assert fa._check_kernel_inputs("flash_dense", odd32, kv32, kv32) == "simt"
-    # fp32 past head dim 128 on the general kernels
+    # fp32 past head dim 128 on the cluster pairs where TMA can describe
+    # the strides (rows 1032 bytes apart: it cannot), the schedule-aware
+    # entry there on the general kernel
     wide = torch.zeros(1, 16, 2, 256)
-    assert fa._check_kernel_inputs("flash_dense", wide, wide, wide) == "simt"
-    # ... whose backward runs on the tensor cores where TMA can describe
-    # the strides (rows 1032 bytes apart: it cannot)
-    assert fa.flash_bwd_route(torch.float32, 256, fa._tma_ok(
-        wide, wide, wide)) == "tf32x3_256"
+    assert fa._check_kernel_inputs("flash_dense", wide, wide,
+                                   wide) == "tf32x3_256"
+    assert fa.FLASH_SCHED_BY_ROUTE[fa._check_kernel_inputs(
+        "flash_sched", wide, wide, wide)] is fa.FLASH_SCHED_SIMT
     odd256 = torch.zeros(1, 16, 2, 258)[..., :256]
-    assert fa.flash_bwd_route(torch.float32, 256, fa._tma_ok(
-        odd256, wide, wide)) == "simt"
-    # fp16: the dense entry on the tensor cores; the schedule-aware entry,
-    # an odd head dim and rows TMA cannot step on the general kernels
+    assert fa._check_kernel_inputs("flash_dense", odd256, wide,
+                                   wide) == "simt"
+    # fp16: both entries on the tensor cores; an odd head dim and rows TMA
+    # cannot step on the general kernels
     assert fa._check_kernel_inputs("flash_dense", q.half(), kv.half(),
                                    kv.half()) == "wgmma"
     assert fa.FLASH_SCHED_BY_ROUTE[fa._check_kernel_inputs(
-        "flash_sched", q.half(), kv.half(), kv.half(),
-        sched=True)] is fa.FLASH_SCHED_SIMT
+        "flash_sched", q.half(), kv.half(), kv.half())] is fa.FLASH_SCHED
     odd16 = torch.zeros(1, 16, 4, 132, dtype=F16)[..., :128]
     assert fa._check_kernel_inputs("flash_dense", odd16, kv.half(),
                                    kv.half()) == "simt"

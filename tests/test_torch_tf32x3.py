@@ -1,12 +1,13 @@
 """The arithmetic of the fp32 flash kernels on the tensor cores
-(``csrc/flash_f32.cu``, dense and schedule-aware, and
-``csrc/flash_f32_bwd.cu`` up to head dim 256, routes ``"tf32x3"`` and
+(``csrc/flash_f32.cu``, dense up to head dim 256 and schedule-aware up to
+128, and ``csrc/flash_f32_bwd.cu`` up to 256, routes ``"tf32x3"`` and
 ``"tf32x3_256"``), emulated on the CPU and held to the JAX reference.
 
 Each product is three TF32 products: hi = x with its low 13 mantissa bits
 cleared, lo = x - hi (read as TF32 too), and hi_a hi_b + hi_a lo_b +
 lo_a hi_b.  ``ref.attention_tf32x3`` runs the attention with both products
-split so; it must agree with the reference's ``flash_attention_bhsd`` (its
+split so (S, past 128 columns, in two halves of the head dim as the
+cluster pairs reduce it); it must agree with the reference's ``flash_attention_bhsd`` (its
 Pallas kernel in interpret mode, as the reference's own tests run it) and
 with the port's fp32 plain version within the kernels' gate, 1e-4 +
 1e-4 |plain|; so must its ragged form against the reference's
@@ -51,6 +52,9 @@ TOL = 1e-4
 #: than a kv tile, non-causal MHA with a ragged tail
 CASES = ((1, 300, 4, 2, 0, True), (2, 257, 2, 1, 40, True),
          (1, 200, 2, 2, 0, False))
+#: recurrentgemma-2b's local attention (MQA, window 2048) cut to 2 of its
+#: 10 heads, with rows past the window
+RG_WINDOW_CASE = (1, 2100, 2, 1, 2048, True)
 
 
 def _inputs(seed, b, s, h, kvh, hd):
@@ -73,15 +77,18 @@ def _gate(got, want):
     return float(((got - want).abs() / (TOL + TOL * want.abs())).max())
 
 
-@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 def test_split_attention_matches_reference_and_plain(hd):
     """At the configs' head dims, causal, windowed, GQA / MQA and
-    non-causal: the three-term attention within the gate of the reference
-    kernel and of the port's plain version (measured at about 2% of it),
-    and the route that takes such a call on the card."""
-    for i, (b, s, h, kvh, window, causal) in enumerate(CASES):
+    non-causal (at 256 also recurrentgemma-2b's window of 2048, S in two
+    halves of the head dim): the three-term attention within the gate of
+    the reference kernel and of the port's plain version (measured at about
+    2% of it), and the route that takes such a call on the card."""
+    cases = CASES + ((RG_WINDOW_CASE,) if hd > 128 else ())
+    for i, (b, s, h, kvh, window, causal) in enumerate(cases):
         q, k, v = _inputs(10 * hd + i, b, s, h, kvh, hd)
-        assert fa._check_kernel_inputs("flash_dense", q, k, v) == "tf32x3"
+        assert fa._check_kernel_inputs("flash_dense", q, k, v) == (
+            "tf32x3" if hd <= 128 else "tf32x3_256")
         lanes = fa.broadcast_flatten(q, k, v)
         got = attention_tf32x3(*lanes, causal=causal, window=window)
         plain = attention_ref(*lanes, causal=causal, window=window)
@@ -157,8 +164,7 @@ def test_split_backward_at_head_dim_256_matches_reference_autodiff():
     product three TF32 products and S, dP reduced in two halves of the head
     dim (the cluster pairs of ``flash_f32_bwd256_*``) within the gate of
     ``jax.vjp`` of the reference's ``_attend_flash``; such a backward takes
-    the tensor cores on the card while its forward stays on the general
-    kernel."""
+    the tensor cores' cluster pairs on the card, as its forward does."""
     rng = np.random.default_rng(28)
     for b, s, h, kvh, hd, window in ((1, 48, 10, 1, 256, 16),
                                      (2, 40, 4, 2, 200, 0)):
@@ -168,8 +174,8 @@ def test_split_backward_at_head_dim_256_matches_reference_autodiff():
             q_, k_, v_, None, window), *map(jnp.asarray, (q, k, v)))
         want = [torch.from_numpy(np.array(x)) for x in vjp(jnp.asarray(do))]
         tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
-        assert fa._check_kernel_inputs("flash_dense", tq, tk, tv) == "simt"
-        assert fa.flash_bwd_route(tq.dtype, hd) == "tf32x3_256"
+        assert fa._check_kernel_inputs("flash_dense", tq, tk,
+                                       tv) == "tf32x3_256"
         lanes = fa.broadcast_flatten(tq, tk, tv)
         dof = tdo.permute(0, 2, 1, 3).reshape(b * h, s, hd)
         dq, dk, dv = attention_bwd_tf32x3(*lanes, dof, window=window)

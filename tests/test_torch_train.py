@@ -254,6 +254,10 @@ def test_trainer_with_a_failure_matches_reference(tmp_path):
                      RefTrainerConfig(checkpoint_dir=str(tmp_path / "ref"),
                                       **tkw),
                      RefDataConfig(**dkw), failure_hook=hook())
+    # the reference's store writes on a thread and its restore after the
+    # failure lists the directory without waiting for it, so step 4 could
+    # be missing there; written on the caller's thread, it is not
+    ref.store.async_write = False
     params, opt = ref.init_state(0)
     params, opt = jax.tree.map(np.asarray, (params, opt))
     port = Trainer(pcfg, tadam.OptimizerConfig(**ocfg),
