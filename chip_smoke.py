@@ -133,6 +133,35 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                ``decode_step`` on one block-pattern period (8 and 3 layers)
                fed the same tokens, and ``DecodeEngine`` with 4 requests on
                2 slots, so that lanes are reset and reused
+  archs        one line each for internvl2-1b (14 / 2 heads, hd 64, a
+               256-row prefix, tied embeddings), musicgen-medium (24 / 24,
+               hd 64, a 64-row prefix), codeqwen1.5-7b (32 / 32, hd 128)
+               and granite-20b (MQA 48 / 1, hd 128), in that order, each
+               at full width from ``init_decoder(0, ...)`` (fp32 weights,
+               bf16 compute) and at all of its layers, or at the largest
+               depth whose fp32 tree and the serving engine's bf16 copy
+               leave ARCHS_FREE_BYTES free (granite-20b; the line's
+               ``cut`` and ``memory`` say so); each tree freed before the
+               next.  The prefill: launch counts set to 0, then
+               ``models.forward`` on 4096 positions (4096 - prefix_len
+               tokens from numpy seed 0 after a (1, prefix_len, d_model)
+               standard normal prefix from seed 1), the counts read right
+               after (flash_dense: one a layer, no other kernel); logits
+               (1, 4096, padded_vocab) and finite; a warm run's wall time,
+               tokens/s and device profile.  The first 2 layers on the
+               same positions with the kernels against plain attention
+               swapped in for ``ops.flash_attention`` (the logits
+               tolerance below).  ``DecodeEngine`` through
+               ``launch.serve``'s code path: 4 requests, 4 slots, max_len
+               128, fac2, bf16 KV (token prompts, no prefix), peak memory.
+               The loss and every gradient of 2 layers on 2 x 4096
+               positions (a (2, prefix_len, d_model) prefix from seed 2
+               and the DataLoader's tokens cut to 4096 - prefix_len) with
+               the kernels against plain attention, one launch of each
+               backward kernel a layer.  Then ``flash_dense`` at (1, 4096)
+               and ``flash_dense_bwd`` at (2, 4096) at the arch's heads,
+               as the flash_dense and train phases time them (granite-20b's
+               backward also pass by pass, ``split_ms``)
   prefill_80   launch counts set to 0, then ``models.forward`` of
                full-width, full-depth stablelm-3b (32 layers, head_dim 80,
                random fp32 weights from seed 0, ~11 GB, bf16 compute) on
@@ -276,7 +305,11 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                (``launches_by_path``); flash_sched's and flash_dense's
                entries carry ``by_head_dim`` and ``bound_ms_fp32_pv``, the
                bound of the work at the reference's precision (S = Q K^T
-               once and P V twice: P in fp32 as bf16 hi + lo)
+               once and P V twice: P in fp32 as bf16 hi + lo);
+               flash_dense's and flash_dense_bwd's carry ``by_arch``, the
+               archs phase's times at each arch's shape (their
+               ``archs_prefill`` and ``archs_train`` paths count its
+               prefills and 2-layer gradients)
 
 then the card's name and power limit as ``nvidia-smi`` prints them, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises and the
@@ -621,6 +654,17 @@ EXAMPLES = ("torch_cluster_demo", "torch_quickstart",
 EXAMPLES_TOGETHER = ("torch_cluster_demo", "torch_quickstart",
                      "torch_custom_technique")
 EXAMPLE_TIMEOUT_S = 300
+# the archs phase: the four archs no other phase runs, in this order, at
+# full width (random fp32 weights from seed 0, bf16 compute); each at all
+# of its layers unless its fp32 tree and the serving engine's bf16 copy of
+# the matmul weights would leave less than ARCHS_FREE_BYTES of the card
+# free; ARCHS_SERVE_ROWS requests on that many slots at ARCHS_SERVE_MAX_LEN;
+# the backward of ARCHS_BWD_SPLIT also profiled pass by pass
+ARCHS_RUN = ("internvl2-1b", "musicgen-medium", "codeqwen1.5-7b",
+             "granite-20b")
+ARCHS_FREE_BYTES = 8e9
+ARCHS_SERVE_ROWS, ARCHS_SERVE_MAX_LEN = 4, 128
+ARCHS_BWD_SPLIT = "granite-20b"
 
 
 T0 = time.perf_counter()
@@ -962,6 +1006,7 @@ def dense_full_shape(randn, plain, b, s, h, kvh, hd, window):
     plain_ms = cuda_ms(lambda: plain(q, k, v, True, window), 3)
     run_sdpa = sdpa_fn(q, k, v, window)
     library_ms = cuda_ms(run_sdpa, REPS)
+    library_ms_b2b = cuda_ms_b2b(run_sdpa, REPS)
     sdpa_err = float((run_sdpa().permute(0, 2, 1, 3).float()
                       - out.float()).abs().max())
     # live (row, col) pairs: row r sees min(r + 1, window) columns
@@ -973,7 +1018,8 @@ def dense_full_shape(randn, plain, b, s, h, kvh, hd, window):
     bound_ms, bound_by = bound(flops, nbytes)
     return dict(shape=[b, s, h, kvh, hd], window=window, max_abs_err=err,
                 ms=ms, ms_b2b=ms_b2b, call_ms=call_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, library_ms_b2b=library_ms_b2b,
+                bound_ms=bound_ms, bound_by=bound_by,
                 bound_ms_fp32_pv=bound(flops * 3 // 2, nbytes)[0],
                 sdpa_max_abs_diff=sdpa_err, flops=flops, bytes=nbytes), out
 
@@ -2349,7 +2395,7 @@ def live_pairs(s, window=0):
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def bwd_shape(dev, seed, b, s, h, kvh, hd, window=0):
+def bwd_shape(dev, seed, b, s, h, kvh, hd, window=0, split=False):
     """``flash_dense_bwd`` at one full (b, s, h, kvh, hd) causal shape (with
     a sliding ``window`` when > 0): the three kernels against the plain
     backward (``torch.autograd.grad`` through the fp32 plain forward),
@@ -2357,7 +2403,9 @@ def bwd_shape(dev, seed, b, s, h, kvh, hd, window=0):
     backward (single calls and back to back), the plain backward's, and
     ``scaled_dot_product_attention``'s backward and forward + backward on
     the same tensors (``is_causal``, or the window as a boolean mask;
-    ``enable_gqa``; a yardstick the port never calls)."""
+    ``enable_gqa``; a yardstick the port never calls).  ``split``: also
+    each pass's device ms a launch (``split_ms``), from a profile of REPS
+    backwards back to back (the profiler may miss the first launches)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2393,7 +2441,16 @@ def bwd_shape(dev, seed, b, s, h, kvh, hd, window=0):
     sdpa_bwd, sdpa_fwd_bwd = sdpa_grad_fns(q, k, v, do, window)
     library_ms = cuda_ms(sdpa_bwd, REPS)
     library_fb_ms = cuda_ms(sdpa_fwd_bwd, REPS)
+    library_ms_b2b = cuda_ms_b2b(sdpa_bwd, REPS)
     del sdpa_bwd, sdpa_fwd_bwd
+    extra = {}
+    if split:
+        passes = ("delta_kernel", "dkdv_wgmma", "dq_wgmma")
+        prof = device_profile(lambda: [backward() for _ in range(REPS)],
+                              watch=passes)
+        assert all(prof[p]["count"] for p in passes), prof
+        extra["split_ms"] = {p: prof[p]["ms"] / prof[p]["count"]
+                             for p in passes}
     # the backward's MMA work at the real head dim: 5 products of depth hd
     # per live pair, 2.5x the forward's 2; bytes: q, k, v, o, dO and lse
     # read, dq, dk, dv written
@@ -2408,10 +2465,11 @@ def bwd_shape(dev, seed, b, s, h, kvh, hd, window=0):
                 tolerance=f"{BWD_REL_TOL}*max|plain|", bit_identical=identical,
                 ms=ms, ms_b2b=ms_b2b, fwd_bwd_ms=fb_ms,
                 fwd_bwd_ms_b2b=fb_b2b, plain_ms=plain_ms,
-                library_ms=library_ms, library_fwd_bwd_ms=library_fb_ms,
+                library_ms=library_ms, library_ms_b2b=library_ms_b2b,
+                library_fwd_bwd_ms=library_fb_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 fwd_bwd_bound_ms=bound(14 * hd * b * h * pairs, nbytes)[0],
-                flops=flops, bytes=nbytes)
+                flops=flops, bytes=nbytes, **extra)
 
 
 def plain_attention(q, k, v, causal=True, window=0):
@@ -2452,10 +2510,12 @@ def grads_agree(params, grads_k, grads_p):
     return rel
 
 
-def train_parity(dev, cfg, batch, layers=TRAIN_PARITY_LAYERS):
+def train_parity(dev, cfg, batch, layers=TRAIN_PARITY_LAYERS, prefix=None):
     """Loss and gradients of the first ``layers`` full-width layers with
     the kernels, then with ``plain_attention`` in place of
-    ``ops.flash_attention`` (the check calls the plain version itself)."""
+    ``ops.flash_attention`` (the check calls the plain version itself);
+    ``prefix``: the (b, prefix_len, d_model) embeddings put before the
+    tokens."""
     import dataclasses
 
     import torch
@@ -2471,7 +2531,7 @@ def train_parity(dev, cfg, batch, layers=TRAIN_PARITY_LAYERS):
     params, _ = init_decoder(0, cfg2, device=dev)
     before = {n: kern.launches for n, kern in _build.KERNELS.items()}
     loss_k, _, grads_k = tsteps._grads(params, batch["tokens"],
-                                       batch["labels"], None, cfg2)
+                                       batch["labels"], prefix, cfg2)
     torch.cuda.synchronize()
     launches = {n: kern.launches - before[n]
                 for n, kern in _build.KERNELS.items()}
@@ -2482,7 +2542,7 @@ def train_parity(dev, cfg, batch, layers=TRAIN_PARITY_LAYERS):
     tattn.flash_attention = plain_attention
     try:
         loss_p, _, grads_p = tsteps._grads(params, batch["tokens"],
-                                           batch["labels"], None, cfg2)
+                                           batch["labels"], prefix, cfg2)
         torch.cuda.synchronize()
     finally:
         tattn.flash_attention = real
@@ -2618,6 +2678,188 @@ def train_trainer(dev, tmp):
                 replay_tolerance=TRAIN_REPLAY_TOL,
                 losses=[r["loss"] for r in hist],
                 checkpoints=tr.store.steps())
+
+
+def arch_depth(cfg):
+    """(layers, cut, memory) of ``cfg`` on the card: all of its layers, or
+    the largest depth whose fp32 tree and the serving engine's bf16 copy
+    of its matmul weights (reckoned from the parameters' shapes) leave
+    ARCHS_FREE_BYTES of what ``torch.cuda.mem_get_info`` finds free."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.decoder import decoder_param_specs
+    from repro_torch.serve.engine import _MATMUL_WEIGHTS
+    from repro_torch.tree import tree_flatten_with_path
+
+    def need(n):
+        specs, _ = decoder_param_specs(dataclasses.replace(cfg, num_layers=n))
+        fp32 = bf16 = 0
+        for path, x in tree_flatten_with_path(specs):
+            kind, name = path[-1]
+            fp32 += 4 * x.numel()
+            if kind == "key" and name in _MATMUL_WEIGHTS:
+                bf16 += 2 * x.numel()
+        return fp32, bf16
+
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    layers = next(n for n in range(cfg.num_layers, 0, -1)
+                  if free - sum(need(n)) >= ARCHS_FREE_BYTES)
+    fp32, bf16 = need(layers)
+    memory = dict(free_gb=free / 1e9, total_gb=total / 1e9,
+                  fp32_tree_gb=fp32 / 1e9, bf16_copy_gb=bf16 / 1e9,
+                  left_gb=(free - fp32 - bf16) / 1e9,
+                  full_depth_gb=sum(need(cfg.num_layers)) / 1e9)
+    if layers == cfg.num_layers:
+        return layers, "none: full width and depth; random fp32 weights " \
+            "from seed 0", memory
+    return layers, (
+        f"{layers} of {cfg.num_layers} layers at full width: the fp32 tree "
+        f"and the serving engine's bf16 copy of all {cfg.num_layers} need "
+        f"{memory['full_depth_gb']:.1f} GB of the {free / 1e9:.1f} GB free; "
+        f"{layers} is the largest depth that leaves "
+        f"{ARCHS_FREE_BYTES / 1e9:.0f} GB free; random fp32 weights from "
+        "seed 0"), memory
+
+
+def arch_run(dev, arch, seed):
+    """One arch of the archs phase (module docstring).  Returns (its
+    ``dense_full_shape`` and ``bwd_shape`` fields, its prefill's launch
+    counts, its 2-layer gradient's)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import forward, init_decoder
+
+    full = get_arch(arch)
+    layers, cut, memory = arch_depth(full)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    pre = cfg.prefix_len
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, _ = init_decoder(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    memory.update(init_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                  free_after_init_gb=torch.cuda.mem_get_info()[0] / 1e9)
+
+    # the prefill, the counted path: PREFILL_S positions, the prefix first
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PREFILL_S - pre))).to(dev)
+    prefix = (torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, pre, cfg.d_model), dtype=np.float32)).to(dev) if pre else None)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = forward(params, cfg, tokens, prefix)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
+    assert {n: c for n, c in launches.items() if c} == {
+        "flash_dense": layers}, (arch, launches)
+    assert tuple(logits.shape) == (1, PREFILL_S, cfg.padded_vocab), \
+        (arch, logits.shape)
+    assert bool(torch.isfinite(logits).all()), f"{arch}: logits not finite"
+    del logits
+
+    def run():
+        forward(params, cfg, tokens, prefix)
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    prefill = dict(tokens=PREFILL_S - pre, positions=PREFILL_S,
+                   launches={n: c for n, c in launches.items() if c},
+                   first_s=first_s, warm_s=warm_s,
+                   tokens_per_s=PREFILL_S / warm_s,
+                   profile=device_profile(run, watch=("flash_dense",)))
+
+    # 2 layers with the kernels against plain attention, same positions
+    cfg2, params2 = first_layers(cfg, params, PARITY_LAYERS)
+    before = _build.KERNELS["flash_dense"].launches
+    got, _ = forward(params2, cfg2, tokens, prefix)
+    real = tattn.flash_attention
+    tattn.flash_attention = plain_attention
+    try:
+        want, _ = forward(params2, cfg2, tokens, prefix)
+    finally:
+        tattn.flash_attention = real
+    torch.cuda.synchronize()
+    assert _build.KERNELS["flash_dense"].launches == before + PARITY_LAYERS
+    max_diff, agree = logits_agree(f"{arch} 2 layers", got, want)
+    parity = dict(layers=PARITY_LAYERS, positions=PREFILL_S,
+                  max_abs_diff=max_diff, argmax_agreement=agree,
+                  tolerance=[PARITY_MAX_DIFF, PARITY_ARGMAX],
+                  logit_abs_max=float(want.abs().max()))
+    del got, want, params2
+
+    # serving: token prompts, no prefix (as in the reference's engine)
+    torch.cuda.reset_peak_memory_stats(dev)
+    serve, eng = serve_rows(dev, cfg, params, ARCHS_SERVE_ROWS,
+                            ARCHS_SERVE_ROWS, ARCHS_SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    serve.update(requests=ARCHS_SERVE_ROWS, slots=ARCHS_SERVE_ROWS,
+                 max_len=ARCHS_SERVE_MAX_LEN, technique="fac2",
+                 kv_cache=cfg.kv_cache_dtype, peak_allocated_gb=peak / 1e9,
+                 total_less_peak_gb=memory["total_gb"] - peak / 1e9)
+    del eng, params, tokens, prefix
+    torch.cuda.empty_cache()
+
+    # the gradient of 2 layers at TRAIN_BATCH x TRAIN_S positions
+    batch = train_batches(cfg, 1)[0]
+    batch = {k: torch.from_numpy(batch[k][:, :TRAIN_S - pre]).to(dev)
+             for k in ("tokens", "labels")}
+    prefix = (torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (TRAIN_BATCH, pre, cfg.d_model), dtype=np.float32)).to(dev)
+        if pre else None)
+    train = train_parity(dev, cfg, batch, PARITY_LAYERS, prefix)
+    del batch, prefix
+    torch.cuda.empty_cache()
+
+    # the kernels alone at the arch's attention shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    fwd, _ = dense_full_shape(randn, plain_attention, 1, PREFILL_S, h, kvh,
+                              hd, 0)
+    torch.cuda.empty_cache()
+    bwd = bwd_shape(dev, seed, TRAIN_BATCH, TRAIN_S, h, kvh, hd,
+                    split=arch == ARCHS_BWD_SPLIT)
+    torch.cuda.empty_cache()
+    emit("archs", arch=arch, layers=layers, of_layers=full.num_layers,
+         cut=cut, heads=[h, kvh, hd], prefix_len=pre,
+         memory=memory, prefill=prefill, parity=parity, serve=serve,
+         train_parity=train, flash_dense=fwd, flash_dense_bwd=bwd)
+    return fwd, bwd, launches, train["launches"]
+
+
+def phase_archs(dev):
+    """The archs phase: ``arch_run`` for each of ARCHS_RUN.  Returns (the
+    ``by_arch`` maps of flash_dense's and flash_dense_bwd's kernels
+    entries, the prefills' summed launch counts, the 2-layer gradients'
+    summed launch counts)."""
+    keys = ("shape", "max_abs_err", "ms", "ms_b2b", "plain_ms", "library_ms",
+            "library_ms_b2b", "bound_ms", "bound_by")
+    fwd, bwd, prefill, train = {}, {}, {}, {}
+    for i, arch in enumerate(ARCHS_RUN):
+        f, b, pl, tl = arch_run(dev, arch, 31 + i)
+        fwd[arch] = {k: f[k] for k in keys}
+        bwd[arch] = {k: v for k, v in b.items() if k in (
+            *keys, "max_rel_err", "bit_identical", "fwd_bwd_ms",
+            "fwd_bwd_ms_b2b", "library_fwd_bwd_ms", "split_ms")}
+        for total, counts in ((prefill, pl), (train, tl)):
+            for n, c in counts.items():
+                total[n] = total.get(n, 0) + c
+    return fwd, bwd, prefill, train
 
 
 def phase_train(dev):
@@ -4440,6 +4682,9 @@ def main(argv) -> int:
     recurrent_launches = {arch: phase_recurrent(dev, arch)
                           for arch in RECURRENT_ARCHS}
 
+    # ---- this slice: the four archs no other phase runs -----------------
+    arch_fwd, arch_bwd, arch_prefill, arch_train = phase_archs(dev)
+
     # ---- this slice: stablelm-3b (head dim 80) and the campaign engine ----
     cfg = get_arch(DENSE80_ARCH)
     params, _ = init_decoder(0, cfg, device=dev)
@@ -4568,7 +4813,8 @@ def main(argv) -> int:
                           "flash_dense"]
                       + train_launches["flash_dense"]
                       + moe_train_launches["flash_dense"]
-                      + fp16_launches["flash_dense"]),
+                      + fp16_launches["flash_dense"]
+                      + arch_prefill["flash_dense"]),
          "launches_by_path": {
              "prefill": prefill_launches["flash_dense"],
              "moe_prefill": moe_launches["flash_dense"],
@@ -4577,8 +4823,10 @@ def main(argv) -> int:
                  "recurrentgemma-2b"]["flash_dense"],
              "train": train_launches["flash_dense"],
              "moe_train": moe_train_launches["flash_dense"],
-             "fp16": fp16_launches["flash_dense"]},
+             "fp16": fp16_launches["flash_dense"],
+             "archs_prefill": arch_prefill["flash_dense"]},
          "tolerance": f"{ATOL} + {RTOL}*|plain|", **dense,
+         "by_arch": arch_fwd,
          "fp16": fp16_summary(fp16_flash["dense"]),
          "flash16_digest": fp16_flash["flash16_digest"]},
         {"name": "flash_dense_bwd", "route": "cuda",
@@ -4588,14 +4836,18 @@ def main(argv) -> int:
                           "_attend_flash by autodiff",
          "launches": (train_launches["flash_dense_bwd_dkdv"]
                       + moe_train_launches["flash_dense_bwd_dkdv"]
-                      + fp16_launches["flash_dense_bwd_dkdv"]),
+                      + fp16_launches["flash_dense_bwd_dkdv"]
+                      + arch_train["flash_dense_bwd_dkdv"]),
          "launches_by_kernel": {n: train_launches[n] + moe_train_launches[n]
-                                + fp16_launches[n] for n in BWD_KERNELS},
+                                + fp16_launches[n] + arch_train[n]
+                                for n in BWD_KERNELS},
          "launches_by_path": {
              "train": train_launches["flash_dense_bwd_dkdv"],
              "moe_train": moe_train_launches["flash_dense_bwd_dkdv"],
-             "fp16": fp16_launches["flash_dense_bwd_dkdv"]},
+             "fp16": fp16_launches["flash_dense_bwd_dkdv"],
+             "archs_train": arch_train["flash_dense_bwd_dkdv"]},
          "tolerance": f"{BWD_REL_TOL}*max|plain| per gradient", **bwd,
+         "by_arch": arch_bwd,
          "fp16": fp16_summary(fp16_flash["bwd"])},
         {"name": "gmm_dx", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gmm.cu",

@@ -176,10 +176,20 @@ def _group_split(cfg) -> tuple[int, tuple[str, ...], tuple[str, ...]]:
 
 
 def _stack_init(init_fn, n: int):
-    outs = [init_fn() for _ in range(n)]
-    params = tree_map(lambda *a: torch.stack(a), *[p for p, _ in outs])
-    axes = tree_map(lambda ax: Ax("stack", *ax.names), outs[0][1])
-    return params, axes
+    """``n`` layers from ``init_fn`` stacked on a leading axis.  Each layer
+    is drawn in turn (the draws of a list of layers, in the same order)
+    and copied into its slot, so the peak is the stack and one layer: a
+    list of ``n`` layers and their stack would hold two copies (81 GB for
+    half of granite-20b's layers in fp32)."""
+    first, axes = init_fn()
+    params = tree_map(lambda x: x.new_empty((n, *x.shape)), first)
+    slots = tree_leaves(params)
+    for i in range(n):
+        layer = first if i == 0 else init_fn()[0]
+        for dst, src in zip(slots, tree_leaves(layer)):
+            dst[i].copy_(src)
+        first = layer = None
+    return params, tree_map(lambda ax: Ax("stack", *ax.names), axes)
 
 
 def init_decoder(seed: int, cfg, *, device=None):

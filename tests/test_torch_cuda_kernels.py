@@ -197,7 +197,9 @@ def test_flash_dense_tile_edges(dev):
     are padded inside the kernel: 80 (stablelm-3b, tiles of 128, products
     at its exact width) and 256
     (recurrentgemma-2b, 64-column K / V tiles in 2 stages), causal, windowed
-    MQA, non-causal, a window of 2048 and windows narrower than a tile; in
+    MQA, non-causal, a window of 2048 and windows narrower than a tile, and
+    the head layouts of granite-20b, internvl2-1b, musicgen-medium and
+    codeqwen1.5-7b; in
     fp16 (the fp16 instantiations of ``flash_dense``) at head dims 64, 80,
     128 and 256 likewise, and fp32 on its two routes.
 
@@ -217,7 +219,14 @@ def test_flash_dense_tile_edges(dev):
                  (1, 2100, 10, 1, 256, 2048, True),  # recurrentgemma's window
                  (1, 129, 2, 1, 256, 1, True),     # hd 256, window 1
                  (1, 300, 2, 2, 256, 63, True),    # window 63 < a kv tile
-                 (1, 200, 2, 2, 256, 0, False)):   # hd 256, non-causal
+                 (1, 200, 2, 2, 256, 0, False),    # hd 256, non-causal
+                 # the heads of granite-20b (MQA 48 / 1), internvl2-1b
+                 # (GQA 14 / 2 at hd 64), musicgen-medium (MHA 24 / 24 at
+                 # hd 64) and codeqwen1.5-7b (MHA 32 / 32 at hd 128)
+                 (1, 300, 48, 1, 128, 0, True),
+                 (2, 333, 14, 2, 64, 0, True),
+                 (1, 300, 24, 24, 64, 0, True),
+                 (1, 129, 32, 32, 128, 0, True)):
         _check_flash_dense(dev, case)
     # fp16 on the tensor cores (route "wgmma", the fp16 instantiation of
     # each tile shape): ragged s, windows narrower than a tile (1, 31, 63),

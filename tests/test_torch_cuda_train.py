@@ -208,12 +208,16 @@ def _check_grads(got, want, where, scale=1.0):
 def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
     """Head dim 80 (stablelm-3b, tiles of 128, products at its exact
     width) and 256 (recurrentgemma-2b: MQA, its 10 / 1 heads, windows
-    narrower and wider than a tile, the model's 2048): the backward
+    narrower and wider than a tile, the model's 2048), and the head
+    layouts of granite-20b (48 / 1) and internvl2-1b (14 / 2): the backward
     against the plain version, and two runs bit-identical."""
     for i, (b, s, h, kvh, hd, window) in enumerate((
             (2, 300, 4, 4, 80, 0), (1, 1000, 4, 2, 80, 100),
             (1, 700, 5, 1, 256, 0), (2, 300, 4, 1, 256, 32),
-            (1, 2500, 2, 1, 256, 2048), (2, 520, 10, 1, 256, 130))):
+            (1, 2500, 2, 1, 256, 2048), (2, 520, 10, 1, 256, 130),
+            # granite-20b's MQA (48 / 1 at hd 128: every q head's dK / dV
+            # summed in one CTA) and internvl2-1b's GQA (14 / 2 at hd 64)
+            (1, 700, 48, 1, 128, 0), (2, 300, 14, 2, 64, 0))):
         q, k, v, do = _inputs(dev, b, s, h, kvh, hd, seed=40 + i)
         got = _bwd(q, k, v, do, True, window)
         assert all(torch.equal(x, y) for x, y in
