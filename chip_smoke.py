@@ -445,8 +445,9 @@ DENSE80_ARCH = "stablelm-3b"
 # flash_sched at the head dims of stablelm-3b and recurrentgemma-2b: the
 # main path's 8 ragged lanes of 4096 at 32 / 8 heads
 SCHED_WIDE_HEAD_DIMS, SCHED_WIDE_KVH = (80, 256), 8
-# the campaign phase: time-steps of each Table 1 config (of 352.nab's 1,002)
-CAMPAIGN_TIMESTEPS = 3
+# the campaign phase: time-steps of each Table 1 config (of 352.nab's
+# 1,002); 3 until the dryrun phase took its place in the time limit
+CAMPAIGN_TIMESTEPS = 2
 IDENTITY_SCHEDULES = ("static", "ss", "gss", "fac2", "awf_b", "ws_rr",
                       "dls_steal")
 # the sample phase: the sampler on the card against the CPU for these keys,
@@ -594,6 +595,20 @@ FP32_PATH_LAUNCHES = {"flash_dense_f32": 8, "flash_f32_bwd_dkdv": 4,
 # local attention (hd 256; ragged lanes, fac2) and a dense fp32 call there,
 # forward and backward, on q, k, v views whose head stride (hd + 2 floats)
 # TMA cannot describe
+# the dry run's cells on the card's machine: (arch, shape, multi_pod,
+# variant, layers at full width or None for all), on meta shards over the
+# fake group; the train cells cut in depth to keep the phase near a minute
+# (DTensor's strategy search on the 512-rank mesh's three axes costs some
+# 30 s of host time a new op shape, whatever the depth)
+DRYRUN_META_CELLS = (("qwen3-4b", "train_4k", False, "baseline", 8),
+                     ("qwen3-4b", "prefill_32k", False, "baseline", None),
+                     ("qwen3-4b", "decode_32k", False, "baseline", None),
+                     ("qwen3-moe-30b-a3b", "train_4k", True, "ragged", 2))
+# the card-resident cell's depth (qwen3-4b train_4k, rank 0 of 16 x 16)
+# and its launches: 8 layers x 4 microbatches, flash_dense in the forward
+# and the remat recompute, each flash_dense_bwd pass once
+DRYRUN_CARD_LAYERS = 8
+DRYRUN_CARD_LAUNCHES = {"flash_dense": 64, **{n: 32 for n in BWD_KERNELS}}
 GENERAL_PATH_LAUNCHES = {"flash_sched_simt": 1, "flash_dense_simt": 1,
                          "flash_simt_bwd_delta": 1, "flash_simt_bwd_dkdv": 1,
                          "flash_simt_bwd_dq": 1}
@@ -4168,9 +4183,30 @@ def general_path(dev, n_sm):
                                  grad[..., h:h + kvh, :hd],
                                  grad[..., h + kvh:, :hd]), grads):
         err[name] = check_tol(f"general {name}", got, want, SIMT_FLASH_TOL)
+    # the schedule-aware call's general kernel timed at this shape, on a
+    # plan made beforehand, beside SDPA fp32 with the boolean mask
+    desc, plan = fa._plan_kv_descriptors(
+        b * h, s, 512, 512, causal=True, window=0,
+        kv_lens=np.repeat(kv_lens, h), schedule="fac2", p=n_sm)
+    bounds = fa.descriptor_bounds(desc, plan)
+    pairs = sum(h * int(np.minimum(np.arange(1, s + 1), lim).sum())
+                for lim in kv_lens)
+    sched_256 = measured(
+        "flash_sched_simt", fa.FLASH_SCHED_SIMT,
+        lambda: fa._flash_sched_simt_cuda(q, k, v, desc, bounds, block_q=512,
+                                          block_k=512, causal=True,
+                                          window=0),
+        lambda: fa.flash_attention_sched_plain(
+            *fa.broadcast_flatten(q, k, v), kv_lens=np.repeat(kv_lens, h),
+            causal=True).reshape(b, h, s, hd).permute(0, 2, 1, 3),
+        sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev)), 4 * hd * pairs,
+        4 * (2 * b * s * h * hd
+             + 2 * kvh * hd * int(np.minimum(kv_lens, s).sum())),
+        torch.float32, SIMT_FLASH_TOL, reps=5)
+    sched_256["shape"] = [b, s, h, kvh, hd]
     del q, k, v, buf, views, do, ragged, dense, plain, grads, grad
     torch.cuda.empty_cache()
-    return dict(launches=launches, max_abs_err=err)
+    return dict(launches=launches, max_abs_err=err, sched_256=sched_256)
 
 
 def phase_kernels_any_dtype(dev, n_sm):
@@ -4196,7 +4232,7 @@ def phase_kernels_any_dtype(dev, n_sm):
          flash=flash_rows, flash_fp16=fp16_rows, model_path=model,
          general_path=general)
     return (gmm_rows, flash_rows, fp16_rows, model["launches"],
-            off_block["launches"], general["launches"])
+            off_block["launches"], general["launches"], general["sched_256"])
 
 
 EXAMPLE_RUNNER = """
@@ -4266,6 +4302,198 @@ def example_numbers(name, lines):
     return out
 
 
+def dryrun_collectives(coll):
+    """The dry run's collectives record, without the per-kind bytes."""
+    return dict(n_ops=coll["n_ops"],
+                total_wire_bytes=coll["total_wire_bytes"],
+                total_result_bytes=coll["total_result_bytes"],
+                counts={k: v["count"] for k, v in coll["ops"].items()})
+
+
+def dryrun_cell(arch, shape, multi_pod, variant, layers):
+    """One dry-run cell (``repro_torch.launch.dryrun.measure``) on meta
+    shards over the fake group, ``layers`` of the arch's layers at full
+    width (None: all): the record's fields, and the production run's
+    FLOPs and collectives beside the one-microbatch run's."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch import dryrun
+    cfg = dryrun.variant_config(get_arch(arch), variant)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    t0 = time.perf_counter()
+    m = dryrun.measure(cfg, SHAPES[shape], multi_pod=multi_pod,
+                       variant=variant)
+    return dict(arch=arch, shape=shape, mesh="pod2" if multi_pod else "pod1",
+                variant=variant, layers=f"{cfg.num_layers} of "
+                f"{get_arch(arch).num_layers}", status="ok",
+                chips=m["chips"], microbatches=m["microbatches"],
+                seconds=time.perf_counter() - t0, step_s=m["seconds"],
+                flops=m["flops"], memory=m["memory"],
+                collectives=dryrun_collectives(m["collectives"]),
+                production=dict(flops=m["production"]["flops"],
+                                collectives=dryrun_collectives(
+                                    m["production"]["collectives"])))
+
+
+def dryrun_card_cell(dev):
+    """Rank 0 of the 16 x 16 mesh with every local shard on the card:
+    qwen3-4b train_4k at DRYRUN_CARD_LAYERS layers, one step at the
+    production microbatch count (``dryrun.run_step``)."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(get_arch("qwen3-4b"),
+                              num_layers=DRYRUN_CARD_LAYERS)
+    shape = SHAPES["train_4k"]
+    t0 = time.perf_counter()
+    with dryrun.cell_mesh(cfg, device=dev) as (mesh, rules):
+        mb = dryrun.production_microbatches(cfg, shape, mesh)
+        r = dryrun.run_step(cfg, shape, mesh, rules, num_microbatches=mb,
+                            device=dev)
+    return dict(arch="qwen3-4b", shape="train_4k", mesh="pod1",
+                variant="baseline", layers=f"{cfg.num_layers} of "
+                f"{get_arch('qwen3-4b').num_layers}", microbatches=mb,
+                seconds=time.perf_counter() - t0, step_s=r["seconds"],
+                flops=r["flops"], memory=r["memory"],
+                collectives=dryrun_collectives(r["collectives"]))
+
+
+def dryrun_flash_check(dev, b=64, s=4096, seed=0):
+    """The card cell's sharded flash attention held to its plain version
+    on rank 0's shards: ``attention._flash_sharded`` on DTensors over the
+    fake group of the 16 x 16 mesh at qwen3-4b's heads, q (b, s, 32, 128)
+    sharded by batch and head (local (b / 16, s, 2, 128)), k and v (b, s,
+    8, 128) replicated over the model axis, so that the local path reads
+    kv head 0 as a ``[:, :, 0:1]`` view and returns a partial dK / dV;
+    seeded random bf16.  The output within ATOL + RTOL |plain|; dQ and
+    dK / dV of kv head 0 within BWD_REL_TOL of max |plain|, the other kv
+    heads' zero.  The shards are laid out as the kernel takes them, so
+    no collective runs (the fake group moves no data)."""
+    import dataclasses
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.models import attention
+    cfg = dataclasses.replace(get_arch("qwen3-4b"), num_layers=1)
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator().manual_seed(seed)
+    with dryrun.cell_mesh(cfg, device=dev) as (mesh, _):
+        nb, nh = b // mesh.size(0), h // mesh.size(1)
+        ql, kl, vl, dol = (torch.randn((nb, s, n, hd), generator=gen)
+                           .to(dev, torch.bfloat16)
+                           for n in (nh, kvh, kvh, nh))
+        qpl, kvpl = [Shard(0), Shard(2)], [Shard(0), Replicate()]
+
+        def dt(x, placements, heads, grad=True):
+            shape = (b, s, heads, hd)
+            t = DTensor.from_local(x, mesh, placements, run_check=False,
+                                   shape=shape, stride=(s * heads * hd,
+                                                        heads * hd, hd, 1))
+            return t.detach().requires_grad_() if grad else t
+
+        q, k, v = dt(ql, qpl, h), dt(kl, kvpl, kvh), dt(vl, kvpl, kvh)
+        out = attention._flash_sharded(q, k, v, 0)
+        assert tuple(out.placements) == tuple(qpl), out.placements
+        out.backward(dt(dol, qpl, h, grad=False))
+        got = out.to_local().detach()
+        grads = [x.grad.to_local() for x in (q, k, v)]
+    kv0, vv0 = kl[:, :, 0:1], vl[:, :, 0:1]
+    errors = {"out": check_close("dryrun flash_dense", got,
+                                 plain_attention(ql, kv0, vv0))}
+    want = fa.flash_attention_dense_bwd_plain(ql, kv0, vv0, dol)
+    for nm, x, y in zip(("dq", "dk", "dv"), grads, want):
+        if nm != "dq":
+            assert not bool(x[:, :, 1:].any()), f"{nm}: other kv heads"
+            x = x[:, :, 0:1]
+        top = float(y.abs().max())
+        err = float((x.float() - y).abs().max())
+        errors[nm] = {"max_abs_err": err, "max_abs_plain": top,
+                      "rel": err / top}
+        assert err <= BWD_REL_TOL * top, (nm, err, top)
+    return dict(q_local=list(ql.shape), kv_local=list(kl.shape),
+                kv_read="[:, :, 0:1]", errors=errors,
+                tolerance=f"fwd {ATOL} + {RTOL}*|plain|; bwd "
+                          f"{BWD_REL_TOL}*max|plain| per gradient")
+
+
+def phase_dryrun(dev):
+    """The multi-pod dry run (``repro_torch.launch.dryrun``) on the card's
+    machine: DRYRUN_META_CELLS on meta shards over the fake group, then
+    the card cell (``dryrun_card_cell``): counts from 0 just before it and
+    read just after, and exactly DRYRUN_CARD_LAUNCHES; its collectives
+    and tracked peak those of its meta twin's production run (the first
+    meta cell), its ``max_memory_allocated`` beside them; then its flash
+    attention on rank 0's shards against the plain version
+    (``dryrun_flash_check``).  The fake group moves no data, so the card
+    cell's values gate nothing.  Returns the card cell's launches."""
+    import torch
+    from repro_torch.kernels import _build
+    import traceback
+    t0 = time.perf_counter()
+    cells = []
+    for cell in DRYRUN_META_CELLS:
+        try:
+            cells.append(dryrun_cell(*cell))
+        except Exception as e:          # every cell runs; the phase fails
+            print(traceback.format_exc(), file=sys.stderr, flush=True)
+            cells.append(dict(zip(("arch", "shape", "multi_pod", "variant",
+                                   "layers"), cell), status="error",
+                              error=f"{type(e).__name__}: {e}"[:2000]))
+    assert DRYRUN_META_CELLS[0] == ("qwen3-4b", "train_4k", False,
+                                    "baseline", DRYRUN_CARD_LAYERS)
+    meta = cells[0]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    _build.reset_launches()
+    card = dryrun_card_cell(dev)
+    torch.cuda.synchronize()
+    launches = {n: kern.launches for n, kern in _build.KERNELS.items()
+                if kern.launches}
+    card.update(launches=launches,
+                max_memory_allocated=torch.cuda.max_memory_allocated(dev)
+                - base,
+                meta_argument_bytes=meta.get("memory", {}).get(
+                    "argument_size_in_bytes"),
+                meta_peak_bytes=meta.get("memory", {}).get(
+                    "peak_memory_in_bytes"))
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    flash = dryrun_flash_check(dev)
+    flash["seconds"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    emit("dryrun", seconds=time.perf_counter() - t0, cells=cells, card=card,
+         flash_check=flash,
+         note="fake process group: no data moves; the card cell's values "
+              "are not checked, its flash attention is (flash_check); "
+              "meta cells and the card cell at the depth given in layers")
+    assert all(c["status"] == "ok" for c in cells), [
+        c["error"] for c in cells if c["status"] != "ok"]
+    assert launches == DRYRUN_CARD_LAUNCHES, launches
+    assert card["collectives"] == meta["production"]["collectives"], (
+        card["collectives"], meta["production"]["collectives"])
+    assert (card["memory"]["argument_size_in_bytes"],
+            card["memory"]["peak_memory_in_bytes"]) == (
+        card["meta_argument_bytes"], card["meta_peak_bytes"]), card
+    return launches
+
+
+def dryrun_alone(dev):
+    """The dryrun phase and the general path (with flash_sched_simt timed
+    at hd 256) after building the kernels, TF32 off."""
+    import torch
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return dict(dryrun_launches=phase_dryrun(dev),
+                general_path=general_path(dev, n_sm))
+
+
 def phase_examples(dev):
     """The seven example twins on the card, each in its own process at its
     default arguments, launch counts from 0 at its start and read at its
@@ -4331,7 +4559,7 @@ def main(argv) -> int:
     # --dense-digest / --hd80-digest / --sched-digest / --dense-times /
     # --bwd-times / --moe-bwd-times / --yardsticks / --serve-times /
     # --gmm-digest / --gmm-times / --flash32-digest / --flash32-times /
-    # --sdpa32-kernels / --bwd-digest / --flash16-times [SRC]:
+    # --sdpa32-kernels / --bwd-digest / --flash16-times / --dryrun [SRC]:
     # print only that function's result
     # for the package under SRC (default: this checkout's src), to hold two
     # trees' builds against each other
@@ -4343,7 +4571,8 @@ def main(argv) -> int:
              "--flash32-digest": flash32_digests,
              "--flash32-times": flash32_times,
              "--sdpa32-kernels": sdpa32_kernels,
-             "--bwd-digest": bwd_digest, "--flash16-times": flash16_times}
+             "--bwd-digest": bwd_digest, "--flash16-times": flash16_times,
+             "--dryrun": dryrun_alone}
     mode = modes.get(argv[0]) if argv else None
     src = ROOT / "src"
     if mode is not None and len(argv) > 1:
@@ -4705,11 +4934,14 @@ def main(argv) -> int:
 
     # ---- this slice: every dtype and shape, and the examples ------------
     (simt_gmm, simt_flash, fp16_flash, fp32_launches, any_launches,
-     general_launches) = phase_kernels_any_dtype(dev, n_sm)
+     general_launches, general_sched_256) = phase_kernels_any_dtype(dev, n_sm)
     fp16_launches = fp16_flash["launches"]
     torch.cuda.empty_cache()
     examples = phase_examples(dev)
     demo_launches = examples["torch_moe_balance_demo"]["launches"]
+
+    # ---- this slice: the multi-pod dry run on DTensors ------------------
+    dryrun_launches = phase_dryrun(dev)
 
     def simt_entry(name, source, replaces, row, launches_by_path, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -4814,7 +5046,8 @@ def main(argv) -> int:
                       + train_launches["flash_dense"]
                       + moe_train_launches["flash_dense"]
                       + fp16_launches["flash_dense"]
-                      + arch_prefill["flash_dense"]),
+                      + arch_prefill["flash_dense"]
+                      + dryrun_launches["flash_dense"]),
          "launches_by_path": {
              "prefill": prefill_launches["flash_dense"],
              "moe_prefill": moe_launches["flash_dense"],
@@ -4824,7 +5057,8 @@ def main(argv) -> int:
              "train": train_launches["flash_dense"],
              "moe_train": moe_train_launches["flash_dense"],
              "fp16": fp16_launches["flash_dense"],
-             "archs_prefill": arch_prefill["flash_dense"]},
+             "archs_prefill": arch_prefill["flash_dense"],
+             "dryrun": dryrun_launches["flash_dense"]},
          "tolerance": f"{ATOL} + {RTOL}*|plain|", **dense,
          "by_arch": arch_fwd,
          "fp16": fp16_summary(fp16_flash["dense"]),
@@ -4837,15 +5071,18 @@ def main(argv) -> int:
          "launches": (train_launches["flash_dense_bwd_dkdv"]
                       + moe_train_launches["flash_dense_bwd_dkdv"]
                       + fp16_launches["flash_dense_bwd_dkdv"]
-                      + arch_train["flash_dense_bwd_dkdv"]),
+                      + arch_train["flash_dense_bwd_dkdv"]
+                      + dryrun_launches["flash_dense_bwd_dkdv"]),
          "launches_by_kernel": {n: train_launches[n] + moe_train_launches[n]
                                 + fp16_launches[n] + arch_train[n]
+                                + dryrun_launches.get(n, 0)
                                 for n in BWD_KERNELS},
          "launches_by_path": {
              "train": train_launches["flash_dense_bwd_dkdv"],
              "moe_train": moe_train_launches["flash_dense_bwd_dkdv"],
              "fp16": fp16_launches["flash_dense_bwd_dkdv"],
-             "archs_train": arch_train["flash_dense_bwd_dkdv"]},
+             "archs_train": arch_train["flash_dense_bwd_dkdv"],
+             "dryrun": dryrun_launches["flash_dense_bwd_dkdv"]},
          "tolerance": f"{BWD_REL_TOL}*max|plain| per gradient", **bwd,
          "by_arch": arch_bwd,
          "fp16": fp16_summary(fp16_flash["bwd"])},
@@ -4986,7 +5223,8 @@ def main(argv) -> int:
             {"general": general_launches["flash_sched_simt"]},
             shape=fp16_flash["sched"]["shape"],
             bound_ms_fp32_fma=fp16_flash["sched"]["simt"]["bound_ms_fp32_fma"],
-            fp32=tf32x3_summary(simt_flash["sched"])["simt"]),
+            fp32=tf32x3_summary(simt_flash["sched"])["simt"],
+            fp32_hd256=general_sched_256),
         simt_entry(
             "flash_simt_bwd", simt_src + "flash_simt_bwd.cu",
             "src/repro/models/attention.py:191", fp16_flash["bwd"]["simt"],

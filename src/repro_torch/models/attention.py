@@ -28,7 +28,8 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels.flash_attention.ops import flash_attention
-from ..sharding import Ax, shard_as
+from ..kernels.stand_ins import flash_meta
+from ..sharding import Ax, is_dtensor, merge_last, shard_as, split_last
 from .layers import apply_rope, dense_init, rms_norm, use_weight
 
 NEG_INF = -1e30
@@ -144,9 +145,9 @@ def _project_qkv(params, cfg, x, sin, cos):
     wq = use_weight(params["wq"].to(dt), cfg, None, "heads")
     wk = use_weight(params["wk"].to(dt), cfg, None, "kv_heads")
     wv = use_weight(params["wv"].to(dt), cfg, None, "kv_heads")
-    q = (x @ wq).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ wk).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ wv).reshape(b, s, cfg.num_kv_heads, hd)
+    q = split_last(x @ wq, cfg.num_heads, "batch", "seq", "heads")
+    k = split_last(x @ wk, cfg.num_kv_heads, "batch", "seq", "kv_heads")
+    v = split_last(x @ wv, cfg.num_kv_heads, "batch", "seq", "kv_heads")
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -232,18 +233,80 @@ def _attend_flash(q, k, v, cfg, window: int, block: int = 1024):
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def _flash_local(q, k, v, window: int):
+    """The dense flash kernel on one shard: launched on the card, its
+    plain version on the CPU, its shape-only stand-in on meta."""
+    if q.is_meta:
+        return flash_meta(q, k, v, window)
+    return flash_attention(q, k, v, causal=True, window=window)
+
+
+def _flash_sharded(q, k, v, window: int):
+    """Flash attention on DTensors: the kernel on each rank's local shard
+    (``local_map``).  The kernel takes whole sequences (no causal offset)
+    and all kv heads of its q heads, so q keeps only its batch and head
+    shards (a sequence shard is gathered); kv heads are sharded with the
+    q heads where their count allows, else replicated, and each rank
+    slices the kv heads its q heads read."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    h, kvh = q.shape[2], k.shape[2]
+    g = h // kvh
+    qpl = [p if p in (Shard(0), Shard(2)) else Replicate()
+           for p in q.placements]
+    n_head = math.prod(mesh.size(i) for i, p in enumerate(qpl)
+                       if p == Shard(2))
+    hq = h // n_head
+    kv_split = kvh % n_head == 0
+    if not kv_split:
+        # every rank's q heads must read a run of kv heads that the
+        # kernel's own grouping (hq / n_kv q heads a kv head) maps right
+        for q0 in range(0, h, hq):
+            kv0, kv1 = q0 // g, (q0 + hq - 1) // g + 1
+            if hq % (kv1 - kv0) or any(
+                    (q0 + j) // g - kv0 != j // (hq // (kv1 - kv0))
+                    for j in range(hq)):
+                qpl = [Replicate() if p == Shard(2) else p for p in qpl]
+                break
+    kvpl = [p if p == Shard(0) or (p == Shard(2) and kv_split)
+            else Replicate() for p in qpl]
+    shape, offset = compute_local_shape_and_global_offset(q.shape, mesh,
+                                                          qpl)
+    q0, hq = offset[2], shape[2]
+
+    def local(ql, kl, vl):
+        if kl.shape[2] == kvh and hq < h:
+            kv0, kv1 = q0 // g, (q0 + hq - 1) // g + 1
+            kl, vl = kl[:, :, kv0:kv1], vl[:, :, kv0:kv1]
+        return _flash_local(ql, kl, vl, window)
+
+    # a kv head shared by the q heads of several ranks gets a partial
+    # gradient on each
+    kv_grad = [Partial() if p == Shard(2) and kp == Replicate() else kp
+               for p, kp in zip(qpl, kvpl)]
+    return local_map(local, out_placements=list(qpl),
+                     in_placements=(qpl, kvpl, kvpl),
+                     in_grad_placements=(qpl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def attention(params, cfg, x, sin, cos, *, window: int = 0):
     """Train/prefill attention.  x: (b, s, d) -> (b, s, d)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, sin, cos)
     if s > cfg.flash_threshold:
-        if q.device.type == "cuda":
+        if is_dtensor(q):
+            ctx = _flash_sharded(q, k, v, window)
+        elif q.device.type == "cuda":
             ctx = flash_attention(q, k, v, causal=True, window=window)
         else:
             ctx = _attend_flash(q, k, v, cfg, window)
     else:
         ctx = _attend_full(q, k, v, cfg, window)
-    ctx = ctx.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
+    ctx = merge_last(ctx, "batch", "seq", "heads")
     wo = use_weight(params["wo"].to(x.dtype), cfg, "heads", None)
     out = ctx @ wo
     return shard_as(out, "batch", "seq", "embed_act")
@@ -252,10 +315,44 @@ def attention(params, cfg, x, sin, cos, *, window: int = 0):
 def _set_slot(buf, lanes, slot, inside, val):
     """``buf[lanes, slot] = val`` in place, keeping the old entry of every
     lane where ``inside`` is False (``None``: every lane writes)."""
+    if is_dtensor(buf):
+        return _set_slot_sharded(buf, slot, inside, val)
     if inside is not None:
         keep = inside.view(-1, *([1] * (val.dim() - 1)))
         val = torch.where(keep, val, buf[lanes, slot])
     buf[lanes, slot] = val
+
+
+def _set_slot_sharded(buf, slot, inside, val):
+    """``_set_slot`` on a DTensor cache (batch x ``seq_cache`` shards):
+    under ``local_map`` each rank writes the slots its shard holds, the
+    slot less the shard's offset; the cache's layout does not move."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh, pl = buf.device_mesh, tuple(buf.placements)
+    lane_pl = tuple(p if p == Shard(0) else Replicate() for p in pl)
+    val_pl = tuple(p if p == Shard(0) else
+                   Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+                   else Replicate() for p in pl)
+    _, offset = compute_local_shape_and_global_offset(buf.shape, mesh, pl)
+
+    def write(b, sl, ins, v):
+        here = sl - offset[1]
+        ins = (here >= 0) & (here < b.shape[1]) & (True if ins is None
+                                                   else ins)
+        here = here.clamp(0, b.shape[1] - 1)
+        lanes = torch.arange(b.shape[0], device=b.device)
+        keep = ins.view(-1, *([1] * (v.dim() - 1)))
+        b[lanes, here] = torch.where(keep, v, b[lanes, here])
+        return (b,)
+
+    local_map(write, out_placements=(pl,),
+              in_placements=(pl, lane_pl,
+                             None if inside is None else lane_pl, val_pl),
+              device_mesh=mesh, redistribute_inputs=True)(buf, slot, inside,
+                                                          val)
 
 
 def attention_decode(params, cfg, x, sin, cos, cache, *, window: int = 0):
@@ -296,6 +393,9 @@ def attention_decode(params, cfg, x, sin, cos, cache, *, window: int = 0):
     g = h // kvh
     # decode keeps KV un-repeated (grouped einsum): the cache is the
     # memory-bound object
+    # under a mesh q's heads are first laid out as whole kv groups
+    q = shard_as(q, "batch", "seq", "kv_heads", "head_dim",
+                 shape=(b, 1, kvh, hd))
     qg = q.reshape(b, kvh, g, hd)
     scale = 1.0 / math.sqrt(hd)
     if quant:

@@ -36,7 +36,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..sharding import Ax
+from ..sharding import Ax, is_dtensor
 from ..tree import tree_leaves, tree_map
 from .attention import (
     KVCache,
@@ -329,6 +329,36 @@ def forward(params, cfg, tokens, prefix_embed=None):
     return softcap(logits, cfg.logit_softcap), aux
 
 
+def _pick(logits, labels):
+    """``logits[..., labels]`` (b, s).  Under a mesh each vocab shard picks
+    the labels in its rows (``local_map``), zeros elsewhere, a partial sum
+    over the vocab shards: DTensor's masked gather keeps one mask buffer a
+    placement, which a recomputed chunk's second gather conflicts with."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    pl = [p if isinstance(p, Shard) else Replicate() for p in logits.placements]
+    lab_pl = [Replicate() if p == Shard(last) else p for p in pl]
+    out_pl = [Partial() if p == Shard(last) else q for p, q in zip(pl, lab_pl)]
+    rows, offset = compute_local_shape_and_global_offset(logits.shape, mesh,
+                                                         pl)
+
+    def pick(lg, lab):
+        idx = lab.long() - offset[last]
+        here = (idx >= 0) & (idx < rows[last])
+        got = torch.gather(lg, -1, idx.clamp(0, rows[last] - 1)[..., None])
+        return got[..., 0] * here.to(lg.dtype)
+
+    return local_map(pick, out_placements=out_pl, in_placements=(pl, lab_pl),
+                     in_grad_placements=(pl, lab_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
+
+
 def loss_fn(params, cfg, tokens, labels, prefix_embed=None,
             z_loss: float = 1e-4):
     """Next-token CE over the token body (prefix positions excluded).
@@ -345,7 +375,7 @@ def loss_fn(params, cfg, tokens, labels, prefix_embed=None,
         logits = unembed_logits(xc, table, cfg)
         logits = softcap(logits, cfg.logit_softcap)
         lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        picked = _pick(logits, lc)
         return torch.sum(lse - picked), torch.sum(torch.square(lse))
 
     b, s, _ = x.shape

@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..sharding import Ax, shard_as
+from ..sharding import Ax, is_dtensor, shard_as
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -55,6 +55,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
+    # under a mesh the scale's FSDP shard is gathered, not the activations
+    scale = shard_as(scale, None)
     return (out * scale.float()).to(dt)
 
 
@@ -112,16 +114,55 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 
 def use_weight(w: torch.Tensor, cfg, *logical) -> torch.Tensor:
     """Weight as consumed by a matmul; with cfg.gather_weights, constrained
-    to its logical layout (the identity on one GPU)."""
-    if getattr(cfg, "gather_weights", False):
+    to its logical layout (the identity on one GPU).  Under a mesh every
+    weight is so constrained: its FSDP (``embed``) shard is gathered at
+    use, as the reference's compiler does, where DTensor's own choice
+    gathers the activations instead (internvl2-1b's prefill_32k then
+    held 721 GB a device)."""
+    if getattr(cfg, "gather_weights", False) or is_dtensor(w):
         return shard_as(w, *logical)
     return w
 
 
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    x = embed[tokens.long()].to(compute_dtype)
-    return shard_as(x, "batch", "seq", "embed_act")
+    if is_dtensor(embed):
+        x = _embed_sharded(embed, tokens)
+    else:
+        x = embed[tokens.long()]
+    return shard_as(x.to(compute_dtype), "batch", "seq", "embed_act")
+
+
+def _embed_sharded(embed, tokens):
+    """The lookup on DTensors (``local_map``): each rank gathers its vocab
+    shard's rows whole (the ``embed`` dim over ``data``) and looks up the
+    tokens of its batch shard that fall in its rows, zeros elsewhere, a
+    partial sum over the vocab shards (DTensor's own strategy for the
+    indexing takes no token batch sharded over two mesh axes)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh = embed.device_mesh
+    vocab = [p == Shard(0) for p in embed.placements]
+    table_pl = [Shard(0) if v else Replicate() for v in vocab]
+    tok_pl = [Replicate() if v else p for v, p in zip(vocab, tokens.placements)]
+    out_pl = [Partial() if v else p for v, p in zip(vocab, tok_pl)]
+    grad_pl = [Shard(0) if v else Partial() if p == Shard(0) else Replicate()
+               for v, p in zip(vocab, tok_pl)]
+    rows, offset = compute_local_shape_and_global_offset(embed.shape, mesh,
+                                                         table_pl)
+
+    def lookup(table, tok):
+        idx = tok.long() - offset[0]
+        here = (idx >= 0) & (idx < rows[0])
+        out = table[idx.clamp(0, rows[0] - 1)]
+        return out * here[..., None].to(out.dtype)
+
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(table_pl, tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(embed, tokens)
 
 
 def unembed_logits(x: torch.Tensor, table: torch.Tensor,

@@ -20,7 +20,9 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from ..sharding import Ax, shard_as
+from ..kernels.stand_ins import slstm_scan_meta
+from ..sharding import (Ax, is_dtensor, merge_last, pointwise, shard_as,
+                        split_last)
 from .layers import causal_conv1d, conv1d_init, dense_init
 
 # ---------------------------------------------------------------------------
@@ -76,12 +78,14 @@ def _mlstm_proj(params, cfg, x):
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     dt = x.dtype
-    q = (x @ params["wq"].to(dt)).reshape(b, s, h, hd) / (hd ** 0.5)
-    k = (x @ params["wk"].to(dt)).reshape(b, s, h, hd) / (hd ** 0.5)
-    v = (x @ params["wv"].to(dt)).reshape(b, s, h, hd)
+    q = split_last(x @ params["wq"].to(dt), h, "batch", "seq",
+                   "heads") / (hd ** 0.5)
+    k = split_last(x @ params["wk"].to(dt), h, "batch", "seq",
+                   "heads") / (hd ** 0.5)
+    v = split_last(x @ params["wv"].to(dt), h, "batch", "seq", "heads")
     xf = x.float()
     logi = (xf @ params["wi_gate"]) + params["i_bias"]
-    logf = F.logsigmoid((xf @ params["wf_gate"]) + params["f_bias"])
+    logf = pointwise(F.logsigmoid, (xf @ params["wf_gate"]) + params["f_bias"])
     return q, k, v, logi, logf  # gates: (b, s, h) in log space
 
 
@@ -148,7 +152,7 @@ def mlstm_parallel(params, cfg, x, chunk: int = 256,
         n = n * decay_c[..., None] + torch.einsum("bth,bthd->bhd", kw, kf)
         m = m_end
         ys.append(y.to(x.dtype))
-    y = torch.cat(ys, dim=1)[:, :s].reshape(b, s, h * hd)
+    y = merge_last(torch.cat(ys, dim=1)[:, :s], "batch", "seq", "heads")
     out = y @ params["wo"].to(x.dtype)
     out = shard_as(out, "batch", "seq", "embed_act")
     return out, MLSTMState(c=c, n=n, m=m)
@@ -173,7 +177,8 @@ def mlstm_decode(params, cfg, x, state: MLSTMState):
     num = torch.einsum("bhd,bhde->bhe", qf, c)
     den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", qf, n)),
                         torch.exp(-m_new))
-    y = (num / den[..., None]).to(x.dtype).reshape(b, 1, h * hd)
+    y = merge_last((num / den[..., None]).to(x.dtype)[:, None], "batch",
+                   "seq", "heads")
     out = y @ params["wo"].to(x.dtype)
     out = shard_as(out, "batch", "seq", "embed_act")
     state.c.copy_(c)
@@ -234,7 +239,7 @@ def slstm_state_specs(cfg, batch: int, dtype=torch.float32) -> SLSTMState:
 
 
 def _slstm_step(params, cfg, state: SLSTMState, zx) -> SLSTMState:
-    """zx: (b, 4d) pre-activations from the input projection."""
+    """zx: (b, 4, d) pre-activations from the input projection."""
     b = zx.shape[0]
     d = cfg.d_model
     h = cfg.num_heads
@@ -256,25 +261,55 @@ def _slstm_step(params, cfg, state: SLSTMState, zx) -> SLSTMState:
     return SLSTMState(c=c, n=n, h=hnew, m=m_new)
 
 
-def slstm(params, cfg, x, state: Optional[SLSTMState] = None):
-    """Sequential loop over time (no parallel form exists)."""
-    b, s, d = x.shape
+def _flat(y, state):
+    return (y, *state)
+
+
+def _slstm_loop(r, cfg, zx, state: Optional[SLSTMState]):
+    """The time loop over zx (b, s, 4, d): (y (b, s, d) fp32, state); on
+    meta shards (the dry run) its shape-only stand-in."""
+    if zx.is_meta and state is None:
+        y, *state = slstm_scan_meta(r, zx)
+        return y, SLSTMState(*state)
     if state is None:
-        state = init_slstm_state(cfg, b, device=x.device)
-    zx = x @ params["w"].to(x.dtype) + params["b"].to(x.dtype)
+        state = init_slstm_state(cfg, zx.shape[0], device=zx.device)
     hs = []
-    for t in range(s):
-        state = _slstm_step(params, cfg, state, zx[:, t])
+    for t in range(zx.shape[1]):
+        state = _slstm_step({"r": r}, cfg, state, zx[:, t])
         hs.append(state.h)
-    y = torch.stack(hs, dim=1).to(x.dtype)
-    return shard_as(y, "batch", "seq", "embed_act"), state
+    return torch.stack(hs, dim=1), state
+
+
+def slstm(params, cfg, x, state: Optional[SLSTMState] = None):
+    """Sequential loop over time (no parallel form exists).  Under a mesh
+    the loop runs on each batch shard (``local_map``): the gate inputs
+    laid out by batch alone, the recurrent weights whole."""
+    b, s, d = x.shape
+    zx = x @ params["w"].to(x.dtype) + params["b"].to(x.dtype)
+    zx = split_last(zx, 4, "batch", "seq", None)          # (b, s, 4, d)
+    if is_dtensor(zx) and state is None:
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        rows = [Shard(0) if p == Shard(0) else Replicate()
+                for p in zx.placements]
+        whole = [Replicate()] * len(rows)
+        y, *state = local_map(
+            lambda r_, z_: _flat(*_slstm_loop(r_, cfg, z_, None)),
+            out_placements=(rows,) * 5,
+            in_placements=(whole, rows), device_mesh=zx.device_mesh,
+            redistribute_inputs=True)(params["r"], zx)
+        state = SLSTMState(*state)
+    else:
+        y, state = _slstm_loop(params["r"], cfg, zx, state)
+    return shard_as(y.to(x.dtype), "batch", "seq", "embed_act"), state
 
 
 def slstm_decode(params, cfg, x, state: SLSTMState):
     """One-token update, written into ``state``."""
     b, s, d = x.shape
     assert s == 1
-    zx = (x @ params["w"].to(x.dtype) + params["b"].to(x.dtype))[:, 0]
+    zx = x @ params["w"].to(x.dtype) + params["b"].to(x.dtype)
+    zx = split_last(zx, 4, "batch", "seq", None)[:, 0]   # (b, 4, d)
     st = _slstm_step(params, cfg, state, zx)
     for dst, src in zip(state, st):
         dst.copy_(src)

@@ -18,7 +18,10 @@ the axes of a ``torch.distributed`` ``DeviceMesh`` (named by its
     DTensor's order only when the tuple follows the mesh's own order, as
     ``DEFAULT_RULES``' ``("pod", "data")`` does; another order raises.
 
-On one GPU `shard_as` returns its input: the model code runs unsharded.
+Without a mesh `shard_as` returns its input: the model code runs
+unsharded on one GPU.  Under ``use_rules`` with a mesh it redistributes a
+``DTensor`` to the layout its logical axes name (``launch/dryrun.py`` runs
+the steps so); any other tensor passes through.
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-import threading
 from typing import Any, Optional, Sequence
 
 from .tree import tree_map
@@ -41,6 +43,11 @@ __all__ = [
     "shard_as",
     "logical_to_spec",
     "param_shardings",
+    "mesh_placements",
+    "is_dtensor",
+    "split_last",
+    "merge_last",
+    "pointwise",
 ]
 
 
@@ -107,27 +114,53 @@ DEFAULT_RULES = ShardingRules(rules=(
     ("stack", None),          # stacked layer dim
 ))
 
-_ctx = threading.local()
+# the rules in use, for the whole process: a CUDA backward runs on the
+# autograd engine's device thread, whose recomputed forward (remat) must
+# see the rules its forward saw (the reference keeps them per thread)
+_active: list = [None]
 
 
 def current_rules() -> Optional[ShardingRules]:
-    return getattr(_ctx, "rules", None)
+    return _active[0]
 
 
 @contextlib.contextmanager
 def use_rules(rules: Optional[ShardingRules]):
     prev = current_rules()
-    _ctx.rules = rules
+    _active[0] = rules
     try:
         yield rules
     finally:
-        _ctx.rules = prev
+        _active[0] = prev
 
 
-def shard_as(x, *logical: Optional[str]):
-    """Constrain ``x`` to the layout its logical axes name.  One GPU holds
-    every tensor whole, so this is the identity."""
-    return x
+def is_dtensor(x) -> bool:
+    """Is ``x`` a ``DTensor``?  (False without importing DTensor when no
+    mesh is in use.)"""
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def shard_as(x, *logical: Optional[str], shape=None):
+    """Constrain ``x`` to the layout its logical axes name: under rules
+    with a mesh, a ``DTensor`` is redistributed to the placements of
+    ``logical_to_spec`` (a partial sum is reduced on the way); in every
+    other case ``x`` is returned as it is, so one GPU runs unsharded.
+    ``shape`` (default ``x.shape``) is what divisibility is reckoned on:
+    for a flat heads x head_dim dim about to be split, its heads count,
+    so that the split finds whole heads on every shard."""
+    if not is_dtensor(x):
+        return x
+    rules = current_rules()
+    spec = logical_to_spec(rules, logical,
+                           tuple(x.shape if shape is None else shape))
+    placements = mesh_placements(rules.mesh, spec)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(rules.mesh, placements)
 
 
 def _mesh_axes(mesh) -> dict[str, int]:
@@ -219,6 +252,84 @@ class NamedSharding:
                                  f"not divide into {size} shards")
             out[dim] //= size
         return tuple(out)
+
+
+class _PinGrad:
+    """Identity on a DTensor whose backward lays the gradient out as the
+    forward's value was (a view's backward cannot split or merge a dim
+    that an arbitrary gradient layout shards)."""
+
+    _fn = None
+
+    @classmethod
+    def apply(cls, x):
+        if cls._fn is None:
+            import torch
+
+            class Pin(torch.autograd.Function):
+                @staticmethod
+                def forward(ctx, t):
+                    ctx.layout = (t.device_mesh, tuple(t.placements))
+                    return t.view_as(t)
+
+                @staticmethod
+                def backward(ctx, g):
+                    return g.redistribute(*ctx.layout)
+
+            cls._fn = Pin
+        return cls._fn.apply(x)
+
+
+def split_last(y, n: int, *logical: Optional[str]):
+    """``y`` (..., n * m) -> (..., n, m).  Under a mesh ``y`` is first laid
+    out as its ``n`` leading parts are (``logical`` names ``y``'s dims, the
+    last one for the ``n`` parts), so each shard holds whole parts, and
+    the gradient is laid out so again on the way back."""
+    shape = (*y.shape[:-1], n, y.shape[-1] // n)
+    if not is_dtensor(y):
+        return y.reshape(shape)
+    y = shard_as(y, *logical, shape=(*y.shape[:-1], n))
+    return _PinGrad.apply(y.reshape(shape))
+
+
+def merge_last(x, *logical: Optional[str]):
+    """``x`` (..., n, m) -> (..., n * m), the inverse of ``split_last``:
+    under a mesh ``x`` is first laid out with ``m`` whole (``logical``
+    names ``x``'s dims but the last)."""
+    shape = (*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    x = shard_as(x, *logical, None)
+    return _PinGrad.apply(x.reshape(shape))
+
+
+def pointwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``; under a mesh it runs on each
+    local shard of ``x`` (``local_map``; a partial sum is reduced first),
+    for ops DTensor has no strategy for (``log_sigmoid_backward``)."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = [Replicate() if isinstance(p, Partial) else p for p in x.placements]
+    return local_map(fn, out_placements=pl, in_placements=(pl,),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x)
+
+
+def mesh_placements(mesh, spec: tuple) -> tuple:
+    """DTensor placements of ``spec`` with each tuple entry taken in the
+    mesh's order: where ``NamedSharding.placements`` refuses a tuple out of
+    that order (the dry run's zero3 variant, ``("model", "data")``), this
+    gives every device a shard of the same shape; which piece each device
+    holds differs, which no per-device count can see."""
+    names = list(mesh.mesh_dim_names)
+    ordered = []
+    for entry in spec:
+        if isinstance(entry, tuple):
+            entry = tuple(sorted(entry, key=names.index))
+        ordered.append(entry)
+    return NamedSharding(mesh, tuple(ordered)).placements
 
 
 def param_shardings(rules: ShardingRules, params, axes):

@@ -21,6 +21,7 @@ from ..core.schedule import ScheduleSpec, resolve
 from ..models import decode_step, loss_fn
 from ..optim.adamw import AdamWState, OptimizerConfig, adamw_update
 from ..random import categorical
+from ..sharding import is_dtensor, shard_as
 from ..tree import tree_leaves, tree_unflatten
 
 
@@ -40,6 +41,26 @@ def _grads(params, tokens, labels, prefix, cfg):
              for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
+
+
+def _microbatch(x, i: int, n_mb: int):
+    """Microbatch ``i`` of ``n_mb`` along the batch dim: rows
+    [i mb, (i + 1) mb).  Under a mesh a batch-sharded DTensor gives rows
+    [i m, (i + 1) m) of every shard (m its rows / n_mb): the same examples
+    over the step, and no gather of the batch."""
+    from_shards = False
+    if is_dtensor(x):
+        from torch.distributed.tensor import Shard
+        from_shards = any(p == Shard(0) for p in x.placements)
+    if from_shards:
+        from torch.distributed.tensor.experimental import local_map
+        pl = list(x.placements)
+        return local_map(
+            lambda t: t[i * (t.shape[0] // n_mb):(i + 1) * (t.shape[0] // n_mb)],
+            out_placements=pl, in_placements=(pl,),
+            device_mesh=x.device_mesh)(x)
+    mb = x.shape[0] // n_mb
+    return x[i * mb:(i + 1) * mb]
 
 
 def make_train_step(cfg, opt_cfg: OptimizerConfig,
@@ -82,17 +103,16 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig,
             if b % n_mb:
                 raise ValueError(f"batch {b} not divisible into {n_mb} "
                                  "microbatches")
-            mb = b // n_mb
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in tree_leaves(params)]
             loss = torch.zeros((), dtype=torch.float32,
                                device=tokens.device)
             for i in range(n_mb):
-                z = slice(i * mb, (i + 1) * mb)
                 l_i, _, g_i = _grads(
-                    params, tokens[z], labels[z],
-                    None if prefix is None else prefix[z], cfg)
+                    params, _microbatch(tokens, i, n_mb),
+                    _microbatch(labels, i, n_mb),
+                    None if prefix is None else _microbatch(prefix, i, n_mb),
+                    cfg)
                 for acc, g in zip(grads, g_i):
                     acc.add_(g)
                 loss = loss + l_i
@@ -117,7 +137,9 @@ def make_prefill_step(cfg):
     def prefill_step(params, batch):
         logits, _aux = forward(params, cfg, batch["tokens"],
                                batch.get("prefix_embed"))
-        return logits[:, -1, :]
+        # under a mesh a sequence shard moves to the vocab first (an
+        # all-to-all), so the last position is a local slice
+        return shard_as(logits, "batch", None, "vocab")[:, -1, :]
 
     return prefill_step
 
@@ -132,7 +154,9 @@ def make_serve_step(cfg, sample: bool = False, temperature: float = 1.0):
     @torch.no_grad()
     def serve_step(params, state, tokens, rng=None):
         logits, new_state = decode_step(params, cfg, state, tokens)
-        logits = logits[:, -1, :]
+        # under a mesh the vocab is gathered before the pick (DTensor's
+        # argmax over a vocab shard fails on a three-axis mesh)
+        logits = shard_as(logits[:, -1, :], "batch", None)
         if sample:
             nxt = categorical(rng, logits / temperature, axis=-1)
         else:
