@@ -290,9 +290,16 @@ kernels from ``src/repro_torch/kernels/csrc`` on first use (into
                gradients against the plain attention's and the plain
                grouped matmul's; then counts set to 0 and the general
                kernels' path (``GENERAL_PATH_LAUNCHES``: the schedule-aware
-               fp32 call at recurrentgemma-2b's hd 256, and a dense fp32
-               call there forward and backward on views whose strides TMA
-               cannot describe), each output against its plain version
+               fp32 call at recurrentgemma-2b's hd 256 on the general
+               kernel, and a dense fp32 call there forward and backward on
+               views whose strides TMA cannot describe, copied to TMA's
+               layout by ``tma_pack`` and run on the cluster pairs'
+               kernels), each output against its plain version, the
+               general dense kernels launched directly on the same views,
+               ``tma_pack`` against its plain version, and
+               ``packed_sweep`` (the dense entry on such views at every
+               head dim 1-256 in each dtype, one launch of each pass of
+               the copies' route)
   examples     the seven twins of ``examples/`` (``torch_*.py``), each in
                its own process at its default arguments, launch counts from
                0 at its start and read at its end: exit code, wall seconds
@@ -590,11 +597,6 @@ FP32_PATH_LAUNCHES = {"flash_dense_f32": 8, "flash_f32_bwd_dkdv": 4,
                       "flash_simt_bwd_delta": 5,
                       "flash_simt_bwd_dkdv": 0, "flash_simt_bwd_dq": 0,
                       "flash_f32_bwd256_dkdv": 1, "flash_f32_bwd256_dq": 1}
-# what the tensor-core kernels leave to the general flash kernels, counted
-# on a path of its own: the schedule-aware fp32 call at recurrentgemma-2b's
-# local attention (hd 256; ragged lanes, fac2) and a dense fp32 call there,
-# forward and backward, on q, k, v views whose head stride (hd + 2 floats)
-# TMA cannot describe
 # the dry run's cells on the card's machine: (arch, shape, multi_pod,
 # variant, layers at full width or None for all), on meta shards over the
 # fake group; the train cells cut in depth to keep the phase near a minute
@@ -609,9 +611,28 @@ DRYRUN_META_CELLS = (("qwen3-4b", "train_4k", False, "baseline", 8),
 # and the remat recompute, each flash_dense_bwd pass once
 DRYRUN_CARD_LAYERS = 8
 DRYRUN_CARD_LAUNCHES = {"flash_dense": 64, **{n: 32 for n in BWD_KERNELS}}
-GENERAL_PATH_LAUNCHES = {"flash_sched_simt": 1, "flash_dense_simt": 1,
-                         "flash_simt_bwd_delta": 1, "flash_simt_bwd_dkdv": 1,
-                         "flash_simt_bwd_dq": 1}
+# what the tensor-core flash kernels leave to the general ones, counted
+# on a path of its own: the schedule-aware fp32 call at recurrentgemma-2b's
+# local attention (hd 256; ragged lanes, fac2) on the general kernel, and a
+# dense fp32 call there, forward and backward, on q, k, v views whose head
+# stride (hd + 2 floats) TMA cannot describe: copied to TMA's layout
+# (tma_pack, once forward and once backward), then the cluster pairs'
+# kernels (and the general delta pass every fp32 backward runs); no
+# general dense, dkdv or dq pass
+GENERAL_PATH_LAUNCHES = {"flash_sched_simt": 1, "tma_pack": 2,
+                         "flash_dense_f32_256": 1,
+                         "flash_simt_bwd_delta": 1,
+                         "flash_f32_bwd256_dkdv": 1,
+                         "flash_f32_bwd256_dq": 1, "flash_dense_simt": 0,
+                         "flash_simt_bwd_dkdv": 0, "flash_simt_bwd_dq": 0}
+# packed_sweep(): the dense entry on views TMA cannot describe at every
+# head dim 1-256 in each dtype, (b, s, h, kvh), causal, the window of
+# each case cycling through these
+PACKED_SWEEP_SHAPE = (1, 70, 4, 2)
+PACKED_SWEEP_WINDOWS = (0, 17, 0, 64)
+# --flash16-times' bf16 row at an odd head dim (copied to hd 104):
+# qwen3-4b's prefill heads, (b, s, h, kvh, hd)
+PACKED_BF16_SHAPE = (1, 4096, 32, 8, 100)
 FP32_PATH_GMM = ("gmm_simt", "gmm_dx_simt", "gmm_dw_simt")
 # flash32_digest(): (b, s, h, kvh, hd, window, causal) of the fp32 dense
 # kernels' outputs hashed for later trees to hold bit for bit
@@ -3553,6 +3574,115 @@ def flash32_digests(dev):
             "flash32_sched_digest": sched}
 
 
+def kernels_run(fn):
+    """The names of the kernels one call of ``fn`` launches."""
+    import torch
+    from repro_torch.kernels import _build
+    before = {n: k.launches for n, k in _build.KERNELS.items()}
+    fn()
+    torch.cuda.synchronize()
+    return sorted(n for n, k in _build.KERNELS.items()
+                  if k.launches != before[n])
+
+
+def strided_views(gen, dev, dtype, b, s, h, kvh, hd):
+    """q, k, v (b, s, h|kvh, hd) and do (b, s, h, hd) of ``dtype`` as views
+    of one (b, s, 2 h + 2 kvh, hd + 2) buffer of seeded normal values:
+    heads hd + 2 elements apart, a stride TMA cannot describe."""
+    import torch
+    buf = torch.randn(b, s, 2 * h + 2 * kvh, hd + 2, generator=gen,
+                      device=dev).to(dtype)
+    cuts = (0, h, h + kvh, h + 2 * kvh, 2 * h + 2 * kvh)
+    return tuple(buf[:, :, a:z, :hd] for a, z in zip(cuts, cuts[1:]))
+
+
+def pack_row(fa, tensors, hd):
+    """The copy to TMA's layout of ``tensors`` alone (``_tma_pack``): b2b
+    (about the wrapper's host work where the copy is short), its device
+    time a launch from a profile of 10 calls (``device_ms``; None where
+    the profile saw no launch of it), and its bytes bound: each tensor it
+    copies read once and written once at the head dim rounded up to 8.
+    None on a tree without it."""
+    if not hasattr(fa, "_tma_pack"):
+        return None
+    hd_pad = fa.tma_head_dim(hd)
+    nbytes = sum(x.numel() // x.shape[3] * (x.shape[3] + hd_pad)
+                 * x.element_size() for x in tensors
+                 if x.shape[3] != hd_pad or not fa._tma_ok(x))
+
+    def pack():
+        return fa._tma_pack(hd_pad, *tensors)
+
+    prof = device_profile(lambda: [pack() for _ in range(10)],
+                          watch=("tma_pack",))["tma_pack"]
+    return dict(ms_b2b=cuda_ms_b2b(pack, REPS),
+                device_ms=prof["ms"] / prof["count"] if prof["count"] else None,
+                bytes=nbytes,
+                bound_ms=1e3 * nbytes / PEAK_BYTES)
+
+
+def packed_fwd_times(fa, q, k, v, window):
+    """The dense forward of ``fa`` (this tree's module or an older one's)
+    on q, k, v views TMA cannot describe, b2b, through
+    ``_flash_dense_cuda`` (a copy to TMA's layout, then the tensor-core
+    kernel of the copies' route; on older trees the general kernel),
+    beside the general kernel's on the same views (``simt_ms_b2b``),
+    SDPA's on contiguous copies made beforehand (its kernels refuse these
+    views) and the copy's alone (``pack``), with the kernels the call
+    launched."""
+    b, s, h, hd = q.shape
+
+    def fwd():
+        return fa._flash_dense_cuda(q, k, v, causal=True, window=window)
+
+    def simt():
+        return fa._flash_dense_simt_cuda(q, k, v, causal=True, window=window)
+
+    return dict(shape=[b, s, h, k.shape[2], hd], window=window,
+                dtype=str(q.dtype).replace("torch.", ""),
+                kernels=kernels_run(fwd), ms_b2b=cuda_ms_b2b(fwd, REPS),
+                ms=cuda_ms(fwd, REPS), simt_ms_b2b=cuda_ms_b2b(simt, 5),
+                sdpa_ms_b2b=cuda_ms_b2b(sdpa_fn(
+                    *(x.contiguous() for x in (q, k, v)), window), REPS),
+                pack=pack_row(fa, (q, k, v), hd))
+
+
+def packed_bwd_times(fa, q, k, v, do, window):
+    """The dense backward of ``fa`` on views TMA cannot describe, b2b,
+    through ``_flash_dense_bwd_cuda`` on the forward's residuals (copies
+    to TMA's layout of q, k, v, o and dO, then the route's backward; on
+    older trees the general kernels), beside the general backward's on
+    the general forward's residuals with the contiguous copies the entry
+    made for it (``simt_ms_b2b``), SDPA's on contiguous copies made
+    beforehand (its kernels refuse these views) and the copy's alone
+    (``pack``), with the kernels the call launched."""
+    import torch
+    b, s, h, hd = q.shape
+    o, lse, kw = dense_fwd_res(fa, q, k, v, True, window)
+    o_s, lse_s, *rest = fa._flash_dense_simt_cuda(q, k, v, causal=True,
+                                                  window=window,
+                                                  with_lse=True)
+    kw_s = {"o_lo": rest[0]} if rest and rest[0] is not None else {}
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def bwd():
+        return fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
+                                        window=window, **kw)
+
+    def simt():
+        return fa._flash_simt_bwd_cuda(
+            *(x.contiguous() for x in (q, k, v, o_s, do)), lse_s,
+            causal=True, window=window, stream=stream, **kw_s)
+
+    return dict(shape=[b, s, h, k.shape[2], hd], window=window,
+                dtype=str(q.dtype).replace("torch.", ""),
+                kernels=kernels_run(bwd), ms_b2b=cuda_ms_b2b(bwd, 5),
+                ms=cuda_ms(bwd, 5), simt_ms_b2b=cuda_ms_b2b(simt, 3),
+                sdpa_ms_b2b=cuda_ms_b2b(sdpa_grad_fns(
+                    *(x.contiguous() for x in (q, k, v, do)), window)[0], 5),
+                pack=pack_row(fa, (q, k, v, o, do, *kw.values()), hd))
+
+
 def flash32_times(dev):
     """Back-to-back times of the fp32 flash forward at SIMT_DENSE_SHAPES
     (head dims 64, 80, 128 and 256; the general kernel's on the same
@@ -3563,21 +3693,15 @@ def flash32_times(dev):
     (``_flash_dense_cuda``, ``_flash_dense_bwd_cuda``, ``_flash_sched_cuda``;
     older trees have them too), with SDPA's (forward; backward; the
     boolean mask of the lanes) on the same tensors and the kernels each
-    call launched."""
+    call launched.  Then the dense calls on views TMA cannot describe
+    (``packed_fwd_times`` / ``packed_bwd_times``): at recurrentgemma-2b's
+    hd-256 window forward and backward (``strided_256``,
+    ``strided_256_bwd``), qwen3-4b's prefill forward (``strided_128``) and
+    its training shape's backward (``strided_bwd``)."""
     import numpy as np
     import torch
-    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(31)
-
-    def ran(fn):
-        """The names of the kernels one call of ``fn`` launches."""
-        before = {n: k.launches for n, k in _build.KERNELS.items()}
-        fn()
-        torch.cuda.synchronize()
-        return sorted(n for n, k in _build.KERNELS.items()
-                      if k.launches != before[n])
-
     out = {}
     for key, (b, s, h, kvh, hd, window) in SIMT_DENSE_SHAPES.items():
         q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev)
@@ -3591,7 +3715,8 @@ def flash32_times(dev):
                                              window=window)
 
         out[key] = dict(shape=[b, s, h, kvh, hd], window=window,
-                        kernels=ran(fwd), ms_b2b=cuda_ms_b2b(fwd, REPS),
+                        kernels=kernels_run(fwd),
+                        ms_b2b=cuda_ms_b2b(fwd, REPS),
                         simt_ms_b2b=cuda_ms_b2b(simt, 5),
                         sdpa_ms_b2b=cuda_ms_b2b(sdpa_fn(q, k, v, window),
                                                 REPS))
@@ -3609,10 +3734,25 @@ def flash32_times(dev):
                                             window=window, **kw)
 
         out[name] = dict(shape=[b, s, h, kvh, hd], window=window,
-                         kernels=ran(bwd), ms_b2b=cuda_ms_b2b(bwd, 5),
+                         kernels=kernels_run(bwd), ms_b2b=cuda_ms_b2b(bwd, 5),
                          sdpa_ms_b2b=cuda_ms_b2b(
                              sdpa_grad_fns(q, k, v, do, window)[0], 5))
         del q, k, v, do, o, lse, kw
+    # on views TMA cannot describe (heads hd + 2 apart): recurrentgemma-2b's
+    # hd-256 window forward and backward, qwen3-4b's prefill forward and
+    # its training shape's backward
+    for key, shape, window, parts in (
+            ("strided_256", SIMT_DENSE_SHAPES["256"][:5],
+             SIMT_DENSE_SHAPES["256"][5], ("fwd", "bwd")),
+            ("strided_128", SIMT_DENSE_SHAPES["128"][:5], 0, ("fwd",)),
+            ("strided_bwd", SIMT_BWD_SHAPE, 0, ("bwd",))):
+        q, k, v, do = strided_views(gen, dev, torch.float32, *shape)
+        if "fwd" in parts:
+            out[key] = packed_fwd_times(fa, q, k, v, window)
+        if "bwd" in parts:
+            out[key + ("_bwd" if "fwd" in parts else "")] = \
+                packed_bwd_times(fa, q, k, v, do, window)
+        del q, k, v, do
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     kv_lens = np.random.default_rng(0).integers(64, S + 1, size=B)
     kv_lens[0] = S
@@ -3628,7 +3768,7 @@ def flash32_times(dev):
                                     block_k=512, causal=True, window=0)
 
     out["sched"] = dict(
-        shape=[B, S, H, KVH, HD], kernels=ran(sched),
+        shape=[B, S, H, KVH, HD], kernels=kernels_run(sched),
         ms_b2b=cuda_ms_b2b(sched, 5),
         sdpa_ms_b2b=cuda_ms_b2b(
             sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev)), 3))
@@ -3938,23 +4078,19 @@ def flash16_times(dev):
     on the same tensors beside it, ``simt_ms_b2b``), through the private
     launchers (older trees have them too; ``dense_fwd_res`` passes the
     output's residual where a tree asks for it), with SDPA's in fp16 on
-    the same tensors and the kernels each call launched."""
+    the same tensors and the kernels each call launched.  Then the dense
+    calls on views TMA cannot describe (``packed_fwd_times`` /
+    ``packed_bwd_times``): the prefill forward (``strided_dense``) and the
+    training shape's backward (``strided_bwd``) in fp16, and bf16 at the
+    odd head dim 100, qwen3-4b's heads, forward and backward
+    (``bf16_hd100``, ``bf16_hd100_bwd``)."""
     import numpy as np
     import torch
-    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(161)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).half()
-
-    def ran(fn):
-        """The names of the kernels one call of ``fn`` launches."""
-        before = {n: k.launches for n, k in _build.KERNELS.items()}
-        fn()
-        torch.cuda.synchronize()
-        return sorted(n for n, k in _build.KERNELS.items()
-                      if k.launches != before[n])
 
     out = {}
     b, s, h, kvh, hd, window = SIMT_DENSE_SHAPES["128"]
@@ -3963,7 +4099,7 @@ def flash16_times(dev):
     def fwd():
         return fa._flash_dense_cuda(q, k, v, causal=True, window=window)
 
-    out["dense"] = dict(shape=[b, s, h, kvh, hd], kernels=ran(fwd),
+    out["dense"] = dict(shape=[b, s, h, kvh, hd], kernels=kernels_run(fwd),
                         ms_b2b=cuda_ms_b2b(fwd, REPS),
                         sdpa_ms_b2b=cuda_ms_b2b(sdpa_fn(q, k, v, window),
                                                 REPS))
@@ -3976,11 +4112,27 @@ def flash16_times(dev):
         return fa._flash_dense_bwd_cuda(q, k, v, o, do, lse, causal=True,
                                         window=0, **kw)
 
-    out["bwd"] = dict(shape=[b, s, h, kvh, hd], kernels=ran(bwd),
+    out["bwd"] = dict(shape=[b, s, h, kvh, hd], kernels=kernels_run(bwd),
                       ms_b2b=cuda_ms_b2b(bwd, 5),
                       sdpa_ms_b2b=cuda_ms_b2b(
                           sdpa_grad_fns(q, k, v, do, 0)[0], 5))
     del q, k, v, do, o, lse, kw
+    # on views TMA cannot describe (heads hd + 2 apart): the prefill
+    # forward and the training shape's backward in fp16, and bf16 at the
+    # odd head dim 100 (copied to hd 104), forward and backward
+    for key, dtype, shape, parts in (
+            ("strided_dense", torch.float16, SIMT_DENSE_SHAPES["128"][:5],
+             ("fwd",)),
+            ("strided_bwd", torch.float16, SIMT_BWD_SHAPE, ("bwd",)),
+            ("bf16_hd100", torch.bfloat16, PACKED_BF16_SHAPE,
+             ("fwd", "bwd"))):
+        q, k, v, do = strided_views(gen, dev, dtype, *shape)
+        if "fwd" in parts:
+            out[key] = packed_fwd_times(fa, q, k, v, 0)
+        if "bwd" in parts:
+            out[key + ("_bwd" if "fwd" in parts else "")] = \
+                packed_bwd_times(fa, q, k, v, do, 0)
+        del q, k, v, do
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     kv_lens = np.random.default_rng(0).integers(64, S + 1, size=B)
     kv_lens[0] = S
@@ -3999,7 +4151,7 @@ def flash16_times(dev):
                                          block_k=512, causal=True, window=0)
 
     out["sched"] = dict(
-        shape=[B, S, H, KVH, HD], kernels=ran(sched),
+        shape=[B, S, H, KVH, HD], kernels=kernels_run(sched),
         ms_b2b=cuda_ms_b2b(sched, 5), simt_ms_b2b=cuda_ms_b2b(simt, 3),
         sdpa_ms_b2b=cuda_ms_b2b(
             sdpa_fn(q, k, v, 0, mask=ragged_mask(kv_lens, dev)), 3))
@@ -4134,11 +4286,19 @@ def general_path(dev, n_sm):
     from 0 before it and read after (GENERAL_PATH_LAUNCHES): at
     recurrentgemma-2b's local-attention shape in fp32
     (SIMT_DENSE_SHAPES["256"]), ``flash_attention`` with a schedule on
-    ragged lanes (fac2, sched_p = SM count) and a dense call forward and
-    backward under autograd on q, k, v views of one (b, s, h + 2 kvh,
-    hd + 2) buffer, whose head stride TMA cannot describe.  Then the
-    outputs against the plain versions at SIMT_FLASH_TOL.  Returns the
-    launches and the outputs' max abs errors."""
+    ragged lanes (fac2, sched_p = SM count; the general kernel) and a
+    dense call forward and backward under autograd on q, k, v views of one
+    (b, s, h + 2 kvh, hd + 2) buffer, whose head stride TMA cannot
+    describe (copied to TMA's layout, then the cluster pairs' kernels).
+    Then the outputs against the plain versions at SIMT_FLASH_TOL, the
+    dense call's bits against the route's kernels on contiguous copies,
+    the general dense kernels launched directly on the same views against
+    the plain versions, the copy (``tma_pack``) against its plain version
+    and its times (``pack``), the times of the dense call, the general
+    kernels and SDPA on those views (``packed``), the schedule-aware
+    general kernel's row, and ``packed_sweep``.  Returns the launches
+    (every key of GENERAL_PATH_LAUNCHES), the outputs' max abs errors, the
+    rows and the sweep."""
     import numpy as np
     import torch
     from repro_torch.kernels import _build
@@ -4154,6 +4314,7 @@ def general_path(dev, n_sm):
     views = buf[..., :h, :hd], buf[..., h:h + kvh, :hd], \
         buf[..., h + kvh:, :hd]
     do = torch.randn(b, s, h, hd, generator=gen, device=dev)
+    # the layout's route is still "simt"; the dense entry copies it
     assert fa._check_kernel_inputs("flash_dense", *views) == "simt"
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -4164,25 +4325,87 @@ def general_path(dev, n_sm):
     torch.cuda.synchronize()
     launches = {n: kern.launches for n, kern in _build.KERNELS.items()
                 if kern.launches}
-    assert launches == GENERAL_PATH_LAUNCHES, launches
+    assert launches == {n: c for n, c in GENERAL_PATH_LAUNCHES.items() if c}, \
+        launches
+    launches = {n: launches.get(n, 0) for n in GENERAL_PATH_LAUNCHES}
     plain = fa.flash_attention_sched_plain(
         *fa.broadcast_flatten(q, k, v), kv_lens=np.repeat(kv_lens, h),
         causal=True).reshape(b, h, s, hd).permute(0, 2, 1, 3)
     err = {"sched": check_tol("general sched", ragged, plain,
                               SIMT_FLASH_TOL)}
     views = [x.detach() for x in views]
-    plain = fa.flash_attention_dense_plain(
-        *fa.broadcast_flatten(*views), causal=True,
-        window=window).reshape(b, h, s, hd).permute(0, 2, 1, 3)
+
+    def dense_plain():
+        return fa.flash_attention_dense_plain(
+            *fa.broadcast_flatten(*views), causal=True,
+            window=window).reshape(b, h, s, hd).permute(0, 2, 1, 3)
+
+    def bwd_plain():
+        return fa.flash_attention_dense_bwd_plain(*views, do, window=window)
+
+    plain = dense_plain()
     err["dense"] = check_tol("general dense", dense.detach(), plain,
                              SIMT_FLASH_TOL)
-    grads = fa.flash_attention_dense_bwd_plain(*views, do, window=window)
+    grads = bwd_plain()
     grad = buf.grad
-    for name, got, want in zip(
-            ("dq", "dk", "dv"), (grad[..., :h, :hd],
-                                 grad[..., h:h + kvh, :hd],
-                                 grad[..., h + kvh:, :hd]), grads):
-        err[name] = check_tol(f"general {name}", got, want, SIMT_FLASH_TOL)
+    got = (grad[..., :h, :hd], grad[..., h:h + kvh, :hd],
+           grad[..., h + kvh:, :hd])
+    for name, g, want in zip(("dq", "dk", "dv"), got, grads):
+        err[name] = check_tol(f"general {name}", g, want, SIMT_FLASH_TOL)
+    # the route's kernels on contiguous copies (hd 256: no column to pad)
+    # give the copied call's bits
+    copies = [x.contiguous() for x in views]
+    o_c, lse_c, _ = fa._flash_dense_packed(*copies, hd, causal=True,
+                                           window=window, with_lse=True)
+    assert torch.equal(o_c, dense.detach())
+    for g, want in zip(fa._flash_dense_bwd_packed(
+            *copies, o_c, do, lse_c, None, hd, causal=True, window=window),
+            got):
+        assert torch.equal(g, want)
+    # the general kernels, which no route of the dense entry launches,
+    # held to the plain versions on the same views by direct call
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    o_s, lse_s, _ = fa._flash_dense_simt_cuda(*views, causal=True,
+                                              window=window, with_lse=True)
+    err["dense_simt"] = check_tol("general flash_dense_simt", o_s, plain,
+                                  SIMT_FLASH_TOL)
+    for name, g, want in zip(("dq_simt", "dk_simt", "dv_simt"),
+                             fa._flash_simt_bwd_cuda(
+                                 *copies, o_s, do, lse_s, causal=True,
+                                 window=window, stream=stream), grads):
+        err[name] = check_tol(f"general {name}", g, want, SIMT_FLASH_TOL)
+    del ragged, dense, got, grad, copies, o_c, lse_c, o_s, lse_s, plain, \
+        grads
+    # the copy to TMA's layout alone: one launch for q, k and v, bit for
+    # bit its plain version (torch's copy and fill), timed beside it
+    before = fa.TMA_PACK.launches
+    packs = fa._tma_pack(hd, *views)
+    torch.cuda.synchronize()
+    assert fa.TMA_PACK.launches == before + 1
+    assert all(torch.equal(x, y) for x, y in
+               zip(packs, fa.tma_pack_plain(hd, *views)))
+    del packs
+    pack = dict(pack_row(fa, views, hd), kernel="tma_pack", dtype="float32",
+                max_abs_err=0.0, tolerance="bit-equal", shape=[b, s, h, kvh, hd],
+                ms=cuda_ms(lambda: fa._tma_pack(hd, *views), REPS),
+                plain_ms=cuda_ms(lambda: fa.tma_pack_plain(hd, *views), REPS),
+                plain_ms_b2b=cuda_ms_b2b(
+                    lambda: fa.tma_pack_plain(hd, *views), REPS),
+                library_ms=None, bound_by="bytes")
+    # the dense call's times on the views: the copy and the cluster
+    # pairs' kernels, the copy alone, the general kernels, SDPA; its bound
+    # the copy's bytes plus the kernels' three TF32 products each
+    packed = {"forward": packed_fwd_times(fa, *views, window),
+              "backward": packed_bwd_times(fa, *views, do, window)}
+    pairs = live_pairs(s, window)
+    for key, flops, plain_fn in (("forward", 4 * hd * b * h * pairs,
+                                  dense_plain),
+                                 ("backward", 10 * hd * b * h * pairs,
+                                  bwd_plain)):
+        row = packed[key]
+        row.update(flops=flops, plain_ms=cuda_ms(plain_fn, 2),
+                   bound_ms=row["pack"]["bound_ms"] + tf32x3_bound(flops),
+                   bound_by="bytes and operations")
     # the schedule-aware call's general kernel timed at this shape, on a
     # plan made beforehand, beside SDPA fp32 with the boolean mask
     desc, plan = fa._plan_kv_descriptors(
@@ -4204,9 +4427,115 @@ def general_path(dev, n_sm):
              + 2 * kvh * hd * int(np.minimum(kv_lens, s).sum())),
         torch.float32, SIMT_FLASH_TOL, reps=5)
     sched_256["shape"] = [b, s, h, kvh, hd]
-    del q, k, v, buf, views, do, ragged, dense, plain, grads, grad
+    del q, k, v, buf, views, do
     torch.cuda.empty_cache()
-    return dict(launches=launches, max_abs_err=err, sched_256=sched_256)
+    return dict(launches=launches, max_abs_err=err, sched_256=sched_256,
+                pack=pack, packed=packed, packed_sweep=packed_sweep(dev))
+
+
+def packed_sweep(dev):
+    """The dense entry, forward and backward under autograd, on views TMA
+    cannot describe at every head dim 1-256 in float32, bfloat16 and
+    float16 (PACKED_SWEEP_SHAPE, causal, the window cycling through
+    PACKED_SWEEP_WINDOWS; the layout cycling through q, k, v and dO heads
+    hd + 2 apart, a base one element off 16 bytes, and a contiguous q with
+    k and v heads hd + 2 apart): counts from 0 before each call, one launch
+    of each pass of the route of the head dim rounded up to 8 and no other
+    kernel but ``tma_pack``, once forward and once backward; the output
+    and gradients the bits of the route's kernels on
+    explicitly zero-padded contiguous copies (``_flash_dense_packed``,
+    ``_flash_dense_bwd_packed``) and within the route's gate against the
+    plain versions (fp32 SIMT_FLASH_TOL and fp16 FP16_FLASH_TOL
+    elementwise; bf16 ATOL + RTOL |plain| for the output, BWD_REL_TOL max
+    |plain| + 1e-5 for a gradient).  Returns the calls made and each
+    dtype's largest error."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(33)
+    b, s, h, kvh = PACKED_SWEEP_SHAPE
+    sizes = (h, kvh, kvh, h)
+    errs = {}
+
+    def layout(i, dtype, hd):
+        n = [b * s * x * hd for x in sizes]
+        if i == 1:
+            flat = torch.randn(sum(n) + 1, generator=gen,
+                               device=dev).to(dtype)[1:]
+            cuts = [sum(n[:j]) for j in range(5)]
+            return [flat[a:z].view(b, s, x, hd)
+                    for a, z, x in zip(cuts, cuts[1:], sizes)]
+        xs = strided_views(gen, dev, dtype, b, s, h, kvh, hd)
+        return ([x.contiguous() if j in (0, 3) else x
+                 for j, x in enumerate(xs)] if i == 2 else list(xs))
+
+    def pad(x, hd_pad):
+        y = x.new_zeros(*x.shape[:3], hd_pad)
+        y[..., :x.shape[3]] = x
+        return y
+
+    calls = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        worst = 0.0
+        for hd in range(1, 257):
+            window = PACKED_SWEEP_WINDOWS[hd % len(PACKED_SWEEP_WINDOWS)]
+            q, k, v, do = layout(hd % 3, dtype, hd)
+            where = (str(dtype), hd, hd % 3)
+            assert fa._check_kernel_inputs("flash_dense", q, k, v) == \
+                "simt", where
+            hd_pad = fa.tma_head_dim(hd)
+            route = fa.flash_route(dtype, hd_pad)
+            want = dict.fromkeys(
+                ("flash_dense", "flash_dense_bwd_delta",
+                 "flash_dense_bwd_dkdv", "flash_dense_bwd_dq")
+                if route == "wgmma" else
+                (fa.FLASH_DENSE_BY_ROUTE[route].name, "flash_simt_bwd_delta",
+                 *(x.name for x in fa.FLASH_F32_BWD_BY_ROUTE[route])), 1)
+            want["tma_pack"] = 2
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            out = fa.flash_attention_dense_bshd(*leaves, causal=True,
+                                                window=window)
+            out.backward(do)
+            torch.cuda.synchronize()
+            out = out.detach()
+            launches = {n: kern.launches for n, kern in _build.KERNELS.items()
+                        if kern.launches}
+            assert launches == want, (where, launches)
+            padded = [pad(x, hd_pad) for x in (q, k, v)]
+            o_p, lse_p, o_lo = fa._flash_dense_packed(
+                *padded, hd, causal=True, window=window, with_lse=True)
+            grads_p = fa._flash_dense_bwd_packed(
+                *padded, pad(o_p, hd_pad), pad(do, hd_pad), lse_p, o_lo, hd,
+                causal=True, window=window)
+            grads = [x.grad for x in leaves]
+            assert torch.equal(out, o_p), where
+            assert all(torch.equal(g, w) for g, w in zip(grads, grads_p)), \
+                where
+            plain = fa.flash_attention_dense_plain(
+                *(x.float() for x in fa.broadcast_flatten(q, k, v)),
+                causal=True, window=window).reshape(
+                    b, h, s, hd).permute(0, 2, 1, 3)
+            plain_grads = fa.flash_attention_dense_bwd_plain(
+                q, k, v, do, window=window)
+            if dtype == torch.bfloat16:
+                worst = max(worst, check_tol(f"packed {where}", out, plain,
+                                             ATOL))
+                for g, w in zip(grads, plain_grads):
+                    e = float((g.float() - w).abs().max())
+                    assert e <= BWD_REL_TOL * float(w.abs().max()) + 1e-5, \
+                        (where, e)
+                    worst = max(worst, e)
+            else:
+                tol = (SIMT_FLASH_TOL if dtype == torch.float32
+                       else FP16_FLASH_TOL)
+                for g, w in zip((out, *grads), (plain, *plain_grads)):
+                    worst = max(worst, check_tol(f"packed {where}", g, w,
+                                                 tol))
+            calls += 1
+        errs[str(dtype).replace("torch.", "")] = worst
+    return dict(calls=calls, max_abs_err=errs)
 
 
 def phase_kernels_any_dtype(dev, n_sm):
@@ -4232,7 +4561,7 @@ def phase_kernels_any_dtype(dev, n_sm):
          flash=flash_rows, flash_fp16=fp16_rows, model_path=model,
          general_path=general)
     return (gmm_rows, flash_rows, fp16_rows, model["launches"],
-            off_block["launches"], general["launches"], general["sched_256"])
+            off_block["launches"], general)
 
 
 EXAMPLE_RUNNER = """
@@ -4934,7 +5263,8 @@ def main(argv) -> int:
 
     # ---- this slice: every dtype and shape, and the examples ------------
     (simt_gmm, simt_flash, fp16_flash, fp32_launches, any_launches,
-     general_launches, general_sched_256) = phase_kernels_any_dtype(dev, n_sm)
+     general) = phase_kernels_any_dtype(dev, n_sm)
+    general_launches = general["launches"]
     fp16_launches = fp16_flash["launches"]
     torch.cuda.empty_cache()
     examples = phase_examples(dev)
@@ -5211,11 +5541,18 @@ def main(argv) -> int:
             "src/repro/kernels/flash_attention/flash_attention.py:51",
             simt_flash["dense"]["256"]["simt"],
             {"general": general_launches["flash_dense_simt"]},
+            launches_note="no route of the dense entry launches it: a call "
+                          "whose layout TMA cannot describe is copied to "
+                          "TMA's layout and runs the tensor-core kernels "
+                          "(dense_entry); held to the plain version by "
+                          "direct call",
             shape=simt_flash["dense"]["256"]["shape"],
             window=simt_flash["dense"]["256"]["window"],
             by_head_dim={k: r["simt"]
                          for k, r in simt_flash["dense"].items()},
-            fp16=fp16_flash["dense"]["simt"]),
+            fp16=fp16_flash["dense"]["simt"],
+            dense_entry=general["packed"]["forward"],
+            packed_sweep=general["packed_sweep"]),
         simt_entry(
             "flash_sched_simt", simt_src + "flash_simt.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:168",
@@ -5224,7 +5561,7 @@ def main(argv) -> int:
             shape=fp16_flash["sched"]["shape"],
             bound_ms_fp32_fma=fp16_flash["sched"]["simt"]["bound_ms_fp32_fma"],
             fp32=tf32x3_summary(simt_flash["sched"])["simt"],
-            fp32_hd256=general_sched_256),
+            fp32_hd256=general["sched_256"]),
         simt_entry(
             "flash_simt_bwd", simt_src + "flash_simt_bwd.cu",
             "src/repro/models/attention.py:191", fp16_flash["bwd"]["simt"],
@@ -5233,9 +5570,11 @@ def main(argv) -> int:
              "general": general_launches["flash_simt_bwd_delta"]},
             replaces_note="no Pallas kernel: the reference differentiates "
                           "_attend_flash by autodiff",
-            launches_note="its delta pass serves every fp32 backward; dkdv "
-                          "and dq launch on the general path only (fp32 "
-                          "takes flash_f32_bwd, fp16 flash_dense_bwd)",
+            launches_note="its delta pass serves every fp32 backward; no "
+                          "route of the dense entry launches dkdv or dq "
+                          "(fp32 takes flash_f32_bwd, 2-byte types "
+                          "flash_dense_bwd, on copies in TMA's layout "
+                          "where the inputs' layout is not: dense_entry)",
             launches_by_kernel={n: fp32_launches.get(n, 0)
                                 + fp16_launches.get(n, 0)
                                 + general_launches.get(n, 0) for n in (
@@ -5248,7 +5587,23 @@ def main(argv) -> int:
                 "max_abs_err", "ms", "ms_b2b", "plain_ms", "library_ms_b2b",
                 "bound_ms", "bound_by", "bytes")} for k in ("bwd", "bwd_256")},
             fp32_hd256=tf32x3_summary(simt_flash["bwd_256"])["simt"],
-            fp32_training_shape=simt_flash["bwd"]["simt"]),
+            fp32_training_shape=simt_flash["bwd"]["simt"],
+            dense_entry=general["packed"]["backward"]),
+        {"name": "tma_pack", "route": "cuda",
+         "source": simt_src + "tma_pack.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:51",
+         "replaces_note": "no Pallas kernel: the reference's BlockSpecs read "
+                          "any layout; this copy puts a dense call's tensors "
+                          "in TMA's layout for the tensor-core ports of "
+                          "_flash_kernel and its backward",
+         "launches": general_launches["tma_pack"],
+         "launches_by_path": {"general": general_launches["tma_pack"]},
+         "launches_note": "packed_sweep launches it twice a call outside "
+                          "the counted run",
+         **{k: general["pack"][k] for k in (
+             "max_abs_err", "tolerance", "ms", "ms_b2b", "device_ms",
+             "plain_ms", "plain_ms_b2b", "library_ms", "bound_ms", "bound_by",
+             "bytes", "shape", "dtype")}},
     ]
     for kern in kernels:
         assert all(math.isfinite(kern[x]) for x in

@@ -58,17 +58,29 @@ product split into three TF32 products, fp32-accurate; kernels
 ``flash_dense_f32`` and ``flash_sched_f32``), and its backward
 ``csrc/flash_f32_bwd.cu``.  A dense fp32 call at head dims 136-256 (route
 ``"tf32x3_256"``) runs the same files on cluster pairs of CTAs that split
-the head dim (``flash_dense_f32_256``, ``flash_f32_bwd256_*``).  The rest
-runs the general kernels in plain fp32 FMA, ``csrc/flash_simt.cu`` (dense
-and schedule-aware entries, the same plan walk) and
-``csrc/flash_simt_bwd.cu`` (the backward; its delta pass serves every fp32
-backward): the schedule-aware fp32 call at head dims 136-256
-(``FLASH_SCHED_BY_ROUTE["tf32x3_256"]``), and every dtype at a head dim or
-stride the TMA boxes cannot describe.  ``_check_kernel_inputs`` picks the
-route from the dtype, the head dim and the strides alone, and each entry's
-table (``FLASH_DENSE_BY_ROUTE``, ``FLASH_SCHED_BY_ROUTE``,
-``FLASH_F32_BWD_BY_ROUTE``) names the kernel that takes it; nothing falls
-back on a failure.
+the head dim (``flash_dense_f32_256``, ``flash_f32_bwd256_*``).
+
+A dense call whose head dim or strides the TMA boxes cannot describe
+(route ``"simt"``), forward or backward, first copies its tensors to
+TMA's layout (``_tma_pack``: contiguous, the head dim rounded up to a
+multiple of 8, zeros past it; one launch of ``csrc/tma_pack.cu`` for all
+of a call's tensors) and runs the copies' route on the tensor cores at
+the softmax scale of the real head dim: the zero columns leave S, P V,
+D = rowsum(dO o O) and the lse as they are, and the outputs come back
+sliced to the real head dim.  The copy moves each input's bytes once.
+
+The general kernels in plain fp32 FMA, ``csrc/flash_simt.cu`` (dense and
+schedule-aware entries, the same plan walk) and ``csrc/flash_simt_bwd.cu``
+(the backward; its delta pass serves every fp32 backward), take what is
+left: the schedule-aware call at fp32 head dims 136-256
+(``FLASH_SCHED_BY_ROUTE["tf32x3_256"]``) and at a head dim or strides TMA
+cannot describe.  No route of the dense entry launches
+``flash_dense_simt`` or the general backward's dkdv and dq passes; they
+stay callable (``_flash_dense_simt_cuda``, ``_flash_simt_bwd_cuda``).
+``_check_kernel_inputs`` picks the route from the dtype, the head dim and
+the strides alone, and each entry's table (``FLASH_DENSE_BY_ROUTE``,
+``FLASH_SCHED_BY_ROUTE``, ``FLASH_F32_BWD_BY_ROUTE``) names the kernel
+that takes it; nothing falls back on a failure.
 """
 
 from __future__ import annotations
@@ -178,15 +190,23 @@ FLASH_F32_BWD256_DKDV = Kernel(
 FLASH_F32_BWD256_DQ = Kernel(
     "flash_f32_bwd256_dq", source="flash_f32_bwd",
     symbol="flash_f32_bwd256_dq_launch", argtypes=_F32_BWD_DQ_ARGS)
+#: the copy of a dense call's tensors to TMA's layout
+#: (``csrc/tma_pack.cu``): up to TMA_PACK_MAX tensors of one dtype in one
+#: launch, described by a table of TMA_PACK_FIELDS int64 each (source,
+#: destination, b, s, heads, hd, the source's four strides)
+TMA_PACK = Kernel(
+    "tma_pack", source="tma_pack", symbol="tma_pack_launch",
+    argtypes=[_c.c_void_p] + [_c.c_int] * 3 + [_c.c_void_p])
+TMA_PACK_MAX, TMA_PACK_FIELDS = 6, 10
 #: the transposed copies of the fp32 kernels hold s rounded up to this, a
 #: multiple of their 32-column tiles (the launchers refuse another s_pad)
 F32_COPY_PAD = 32
 #: the dense and the schedule-aware kernel of each route
 #: (:func:`flash_route`); the schedule-aware fp32 call at head dims 136-256
-#: runs the general kernel
+#: runs the general kernel; a dense call of route "simt" runs the route of
+#: its copies in TMA's layout (:func:`_tma_pack`)
 FLASH_DENSE_BY_ROUTE = {"wgmma": FLASH_DENSE, "tf32x3": FLASH_DENSE_F32,
-                        "tf32x3_256": FLASH_DENSE_F32_256,
-                        "simt": FLASH_DENSE_SIMT}
+                        "tf32x3_256": FLASH_DENSE_F32_256}
 FLASH_SCHED_BY_ROUTE = {"wgmma": FLASH_SCHED, "tf32x3": FLASH_SCHED_F32,
                         "tf32x3_256": FLASH_SCHED_SIMT,
                         "simt": FLASH_SCHED_SIMT}
@@ -339,9 +359,12 @@ def flash_route(dtype, hd: int, tma_ok: bool = True) -> str:
     ``flash_dense_bwd``); ``"tf32x3"`` for float32 likewise up to head dim
     128 and ``"tf32x3_256"`` at 136-256 (the fp32 tensor-core kernels;
     at 136-256 the schedule-aware entry's kernel is the general one);
-    ``"simt"`` (the general kernels) for every other float32 / bfloat16 /
-    float16 call with a head dim up to 256.  Each entry's table names the
-    kernel of a route.  Every forward writes the lse its backward reads:
+    ``"simt"`` for every other float32 / bfloat16 / float16 call with a
+    head dim up to 256: the schedule-aware entry runs the general kernel
+    there, the dense entry, forward and backward, the route of the copies
+    :func:`_tma_pack` makes (``flash_route(dtype, tma_head_dim(hd))``).
+    Each entry's table names the kernel of a route.  Every forward writes
+    the lse its backward reads:
     the natural log-sum-exp of the scaled, masked scores, +inf for a row
     with no live column (at 136-256 the pair's rank 0 writes it).  Raises
     for another dtype or head dim, which no kernel takes."""
@@ -365,6 +388,66 @@ def _tma_ok(*tensors) -> bool:
     return all(t.stride(3) == 1 and t.data_ptr() % 16 == 0
                and not any(st * t.element_size() % 16
                            for st in t.stride()[:3]) for t in tensors)
+
+
+def tma_head_dim(hd: int) -> int:
+    """The head dim of a copy to TMA's layout: ``hd`` rounded up to a
+    multiple of 8."""
+    return -(-hd // 8) * 8
+
+
+def _tma_pack(hd_pad: int, *tensors):
+    """Each (b, s, heads, hd) tensor as TMA can describe it at head dim
+    ``hd_pad``: the tensor itself where :func:`_tma_ok` accepts it and its
+    head dim is ``hd_pad``, else a fresh contiguous (b, s, heads, hd_pad)
+    copy holding it in ``[..., :hd]`` and zeros past it.  On CUDA tensors
+    one launch of ``tma_pack`` writes every copy (at most TMA_PACK_MAX, of
+    one dtype); on CPU tensors :func:`tma_pack_plain` does."""
+    todo = [i for i, x in enumerate(tensors)
+            if x.shape[3] != hd_pad or not _tma_ok(x)]
+    if not todo:
+        return tensors
+    srcs = [tensors[i] for i in todo]
+    if srcs[0].device.type != "cuda":
+        outs = tma_pack_plain(hd_pad, *srcs)
+    else:
+        outs = [x.new_empty(*x.shape[:3], hd_pad) for x in srcs]
+        _tma_pack_launch(hd_pad, srcs, outs)
+    result = list(tensors)
+    for i, y in zip(todo, outs):
+        result[i] = y
+    return tuple(result)
+
+
+def _tma_pack_launch(hd_pad: int, srcs, outs) -> None:
+    """One ``tma_pack`` launch copying each (b, s, heads, hd) tensor of
+    ``srcs`` into the fresh contiguous (b, s, heads, hd_pad) tensor of
+    ``outs`` beside it; the launch table lives until the call returns,
+    after the launch is queued."""
+    if len(srcs) > TMA_PACK_MAX or any(
+            x.dtype != srcs[0].dtype or x.device != srcs[0].device
+            for x in srcs):
+        raise ValueError(f"tma_pack takes at most {TMA_PACK_MAX} tensors "
+                         f"of one dtype on one device")
+    table = (_c.c_longlong * (TMA_PACK_FIELDS * len(srcs)))(*(
+        v for x, y in zip(srcs, outs)
+        for v in (x.data_ptr(), y.data_ptr(), *x.shape, *x.stride())))
+    TMA_PACK.launch(_c.addressof(table), len(srcs), hd_pad,
+                    srcs[0].element_size(),
+                    torch.cuda.current_stream(srcs[0].device).cuda_stream)
+
+
+def tma_pack_plain(hd_pad: int, *tensors):
+    """The plain PyTorch version of ``tma_pack``: each (b, s, heads, hd)
+    tensor copied into a fresh contiguous (b, s, heads, hd_pad) tensor,
+    zeros past hd (a copy and a fill on any device)."""
+    outs = []
+    for x in tensors:
+        y = x.new_empty(*x.shape[:3], hd_pad)
+        y[..., :x.shape[3]].copy_(x)
+        y[..., x.shape[3]:].zero_()
+        outs.append(y)
+    return outs
 
 
 def _check_kernel_inputs(name: str, q, k, v) -> str:
@@ -477,22 +560,38 @@ def _flash_dense_cuda(q, k, v, *, causal: bool, window: int,
     row's log-sum-exp (b, h, s) fp32 and, in fp16, the output's rounding
     residual out_fp32 - out (else None), the residuals that
     :func:`_flash_dense_bwd_cuda` takes as they come.  The output is the
-    same bits either way."""
+    same bits either way.  Where the route is "simt" (a head dim or
+    strides TMA cannot describe), q, k and v are first copied to TMA's
+    layout (:func:`_tma_pack`) and the copies' route runs; the output is
+    then a view of the copies' output sliced to ``hd``, and o_lo that
+    output's residual at the copies' head dim."""
+    hd = q.shape[3]
+    if _check_kernel_inputs("flash_dense", q, k, v) == "simt":
+        q, k, v = _tma_pack(tma_head_dim(hd), q, k, v)
+    return _flash_dense_packed(q, k, v, hd, causal=causal, window=window,
+                               with_lse=with_lse)
+
+
+def _flash_dense_packed(q, k, v, hd: int, *, causal: bool, window: int,
+                        with_lse: bool = False):
+    """:func:`_flash_dense_cuda` on q (b, s, h, hd_pad), k/v
+    (b, s, kvh, hd_pad) that TMA can describe and whose columns past the
+    real head dim ``hd`` are zero: the kernel of their route at the
+    softmax scale 1 / sqrt(hd), the output sliced to ``hd``."""
     route = _check_kernel_inputs("flash_dense", q, k, v)
-    if route == "simt":
-        return _flash_dense_simt_cuda(q, k, v, causal=causal, window=window,
-                                      with_lse=with_lse)
-    b, s, h, hd = q.shape
+    b, s, h, hd_pad = q.shape
     kvh = k.shape[2]
     kernel = FLASH_DENSE_BY_ROUTE[route]
     out, res, ptrs, shape, tail = _dense_args(q, k, v, causal, window,
-                                              with_lse)
+                                              with_lse, hd)
     if route == "wgmma":
         kernel.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
     else:
-        kc, vt, s_pad = _f32_copies(b, s, kvh, hd, q.device)
+        kc, vt, s_pad = _f32_copies(b, s, kvh, hd_pad, q.device)
         kernel.launch(*ptrs[:4], ptrs[5], *_ptrs(*kc, *vt), s_pad, *shape,
                       *tail)
+    if hd != hd_pad:
+        out = out[..., :hd]
     return (out, *res) if with_lse else out
 
 
@@ -502,26 +601,26 @@ def _flash_dense_simt_cuda(q, k, v, *, causal: bool, window: int,
     any dtype of ``SIMT_DTYPES``, as :func:`_flash_dense_cuda` returns."""
     q, k, v = _unit_stride(q, k, v)
     out, res, ptrs, shape, tail = _dense_args(q, k, v, causal, window,
-                                              with_lse)
+                                              with_lse, q.shape[3])
     FLASH_DENSE_SIMT.launch(*ptrs, *shape, SIMT_DTYPES[q.dtype], *tail)
     return (out, *res) if with_lse else out
 
 
-def _dense_args(q, k, v, causal, window, with_lse):
+def _dense_args(q, k, v, causal, window, with_lse, hd):
     """The dense kernels' output, residuals (lse, o_lo): each None where
     not written, o_lo written in fp16 only, and their launch arguments:
-    pointers (q, k, v, out, o_lo, lse), shape and the strides, scale and
-    stream."""
-    b, s, h, hd = q.shape
+    pointers (q, k, v, out, o_lo, lse), shape and the strides, the scale
+    of the real head dim ``hd`` and the stream."""
+    b, s, h, width = q.shape
     kvh = k.shape[2]
-    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, s, h, width), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
     o_lo = (torch.empty_like(out)
             if with_lse and q.dtype == torch.float16 else None)
     ptrs = _ptrs(q, k, v, out) + tuple(
         None if x is None else x.data_ptr() for x in (o_lo, lse))
-    shape = (b, s, h, h // kvh, hd, int(causal), int(window))
+    shape = (b, s, h, h // kvh, width, int(causal), int(window))
     tail = (*_strides(q, k, v, out), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     return out, (lse, o_lo), ptrs, shape, tail
@@ -531,45 +630,65 @@ def _flash_dense_bwd_cuda(q, k, v, o, do, lse, o_lo=None, *, causal: bool,
                           window: int):
     """Launch the three backward kernels on the forward's q (b, s, h, hd),
     k/v (b, s, kvh, hd), output o, its gradient do and the residuals of
-    :func:`_flash_dense_cuda`, lse (b, h, s) and o_lo (fp16 only); returns
-    (dq, dk, dv) in the inputs' shapes and dtype.  By the forward's
-    :func:`flash_route`: ``flash_dense_bwd`` ("wgmma"), ``flash_f32_bwd``
-    ("tf32x3", "tf32x3_256") or the general kernels (``flash_simt_bwd``)."""
-    route = _check_kernel_inputs("flash_dense", q, k, v)
+    :func:`_flash_dense_cuda`, lse (b, h, s) and o_lo (fp16 only, at hd or
+    at the forward's copies' head dim); returns (dq, dk, dv) in the
+    inputs' shapes and dtype.  q, k, v, o, do and o_lo are first made
+    contiguous in TMA's layout (:func:`_tma_pack`, then ``.contiguous()``),
+    so every call runs the route of the packed tensors:
+    ``flash_dense_bwd`` ("wgmma") or ``flash_f32_bwd`` ("tf32x3",
+    "tf32x3_256")."""
+    _check_kernel_inputs("flash_dense", q, k, v)
     if (o_lo is None) == (q.dtype == torch.float16):
         raise ValueError(f"the backward of {q.dtype} takes "
                          + ("the forward's o_lo" if o_lo is None
                             else "no o_lo"))
-    b, s, h, hd = q.shape
+    hd = q.shape[3]
+    packed = [x.contiguous() for x in _tma_pack(
+        tma_head_dim(hd), q, k, v, o, do.to(q.dtype),
+        *(() if o_lo is None else (o_lo,)))]
+    return _flash_dense_bwd_packed(*packed[:5], lse.contiguous(),
+                                   packed[5] if len(packed) > 5 else None,
+                                   hd, causal=causal, window=window)
+
+
+def _flash_dense_bwd_packed(q, k, v, o, do, lse, o_lo, hd: int, *,
+                            causal: bool, window: int):
+    """:func:`_flash_dense_bwd_cuda` on contiguous q (b, s, h, hd_pad), k/v
+    (b, s, kvh, hd_pad), o, do and o_lo (or None) at a multiple of 8 whose
+    columns past the real head dim ``hd`` are zero, and lse (b, h, s): the
+    backward kernels of their route at the softmax scale 1 / sqrt(hd),
+    (dq, dk, dv) sliced to ``hd``."""
+    route = _check_kernel_inputs("flash_dense", q, k, v)
+    b, s, h, hd_pad = q.shape
     kvh = k.shape[2]
-    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do.to(q.dtype)))
-    lse = lse.contiguous()
-    o_lo = None if o_lo is None else o_lo.contiguous()
+    scale = 1.0 / math.sqrt(hd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if route == "simt":
-        return _flash_simt_bwd_cuda(q, k, v, o, do, lse, causal=causal,
-                                    window=window, stream=stream, o_lo=o_lo)
     if route != "wgmma":
-        return _flash_f32_bwd_cuda(q, k, v, o, do, lse, causal=causal,
-                                   window=window, stream=stream,
-                                   kernels=FLASH_F32_BWD_BY_ROUTE[route])
-    s_pad = -(-s // BWD_ROW_PAD) * BWD_ROW_PAD
-    # lse log2(e) and D, (b, h, s_pad): +inf and 0 past s
-    lse2, delta = torch.empty((2, b, h, s_pad), dtype=torch.float32,
-                              device=q.device).unbind(0)
-    code = SIMT_DTYPES[q.dtype]
-    FLASH_DENSE_BWD_DELTA.launch(
-        o.data_ptr(), None if o_lo is None else o_lo.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), lse2.data_ptr(), delta.data_ptr(), b,
-        s, s_pad, h, hd, code, stream)
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    shape = (b, s, s_pad, h, h // kvh, hd, int(causal), int(window), code,
-             1.0 / math.sqrt(hd), stream)
-    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           lse2.data_ptr(), delta.data_ptr())
-    FLASH_DENSE_BWD_DKDV.launch(*ins, dk.data_ptr(), dv.data_ptr(), *shape)
-    FLASH_DENSE_BWD_DQ.launch(*ins, dq.data_ptr(), *shape)
-    return dq, dk, dv
+        grads = _flash_f32_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                    window=window, stream=stream,
+                                    kernels=FLASH_F32_BWD_BY_ROUTE[route],
+                                    scale=scale)
+    else:
+        s_pad = -(-s // BWD_ROW_PAD) * BWD_ROW_PAD
+        # lse log2(e) and D, (b, h, s_pad): +inf and 0 past s
+        lse2, delta = torch.empty((2, b, h, s_pad), dtype=torch.float32,
+                                  device=q.device).unbind(0)
+        code = SIMT_DTYPES[q.dtype]
+        FLASH_DENSE_BWD_DELTA.launch(
+            o.data_ptr(), None if o_lo is None else o_lo.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
+            b, s, s_pad, h, hd_pad, code, stream)
+        grads = tuple(torch.empty_like(x) for x in (q, k, v))
+        shape = (b, s, s_pad, h, h // kvh, hd_pad, int(causal), int(window),
+                 code, scale, stream)
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               lse2.data_ptr(), delta.data_ptr())
+        FLASH_DENSE_BWD_DKDV.launch(*ins, grads[1].data_ptr(),
+                                    grads[2].data_ptr(), *shape)
+        FLASH_DENSE_BWD_DQ.launch(*ins, grads[0].data_ptr(), *shape)
+    if hd != hd_pad:
+        grads = tuple(g[..., :hd] for g in grads)
+    return grads
 
 
 def _flash_simt_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int,
@@ -605,11 +724,12 @@ def _simt_delta(o, do, stream, o_lo=None):
 
 
 def _flash_f32_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int,
-                        stream, kernels):
+                        stream, kernels, scale: float):
     """The fp32 backward on the tensor cores on contiguous q (b, s, h, hd),
     k/v (b, s, kvh, hd), o, do and the forward's lse (b, h, s) with
-    ``kernels`` (dkdv, dq) of :data:`FLASH_F32_BWD_BY_ROUTE`: D (the
-    general delta pass), then dK and dV, then dQ.  Each pass first writes
+    ``kernels`` (dkdv, dq) of :data:`FLASH_F32_BWD_BY_ROUTE` at the
+    softmax scale ``scale``: D (the general delta pass), then dK and dV,
+    then dQ.  Each pass first writes
     the split copies of its stage operands into one scratch buffer, which
     the dq pass reuses after the dkdv pass on the same stream."""
     b, s, h, hd = q.shape
@@ -626,8 +746,7 @@ def _flash_f32_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, window: int,
                      device=q.device)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
-    shape = (b, s, h, h // kvh, hd, int(causal), int(window),
-             1.0 / math.sqrt(hd), stream)
+    shape = (b, s, h, h // kvh, hd, int(causal), int(window), scale, stream)
     dkdv_kernel.launch(*ins, dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
                        s_pad, *shape)
     dq_kernel.launch(*ins, dq.data_ptr(), ws.data_ptr(), s_pad, *shape)
@@ -642,9 +761,10 @@ def _unit_stride(*tensors):
 
 class _FlashDense(torch.autograd.Function):
     """The dense kernel under autograd: the forward launches the kernel of
-    the inputs' route and, when a gradient is wanted, keeps q, k, v, the
-    output and the rows' log-sum-exp; the backward launches that route's
-    backward kernels."""
+    the inputs' route (of their copies in TMA's layout where the route is
+    "simt") and, when a gradient is wanted, keeps q, k, v, the output and
+    the rows' log-sum-exp; the backward launches that route's backward
+    kernels on q, k, v, the output and its gradient in TMA's layout."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):

@@ -245,7 +245,7 @@ def test_flash_dense_tile_edges(dev):
     # pairs (route "tf32x3_256": head dim 256 with recurrentgemma's window
     # of 2048 and its 10 / 1 heads, windows narrower than a kv tile, 200
     # and 136, whose second CTA holds 72 and 8 real columns, non-causal,
-    # s 1); then on the general kernel (an odd head dim)
+    # s 1); then an odd head dim, copied to TMA's layout (hd 104)
     for case in ((1, 300, 4, 2, 64, 0, True), (2, 129, 4, 1, 80, 40, True),
                  (1, 300, 4, 2, 128, 1, True), (1, 65, 2, 2, 128, 0, False),
                  (1, 2100, 8, 2, 128, 0, True), (2, 333, 4, 1, 64, 31, True),
@@ -264,7 +264,10 @@ def _check_flash_dense(dev, case, dtype=torch.bfloat16):
     b, s, h, kvh, hd, window, causal = case
     q, k, v = (_randn(dev, b, s, n, hd, seed=i, dtype=dtype)
                for i, n in enumerate((h, kvh, kvh)))
-    kernel = fa.FLASH_DENSE_BY_ROUTE[fa.flash_route(dtype, hd)]
+    # the route of the head dim rounded up to 8: an odd one runs the
+    # tensor-core kernel on copies in TMA's layout
+    kernel = fa.FLASH_DENSE_BY_ROUTE[fa.flash_route(dtype,
+                                                    fa.tma_head_dim(hd))]
     before = kernel.launches
     out = flash_attention(q, k, v, causal=causal, window=window)
     assert kernel.launches == before + 1
@@ -280,7 +283,8 @@ def _check_flash_dense(dev, case, dtype=torch.bfloat16):
 def test_flash_dense_reads_strided_heads(dev):
     """q, k and v as views of one (b, s, 3, h, hd) buffer: the heads are
     not contiguous rows, and the kernel reads them in place (hd 64, 128,
-    and the padded 80 and 256).
+    and the padded 80 and 256); where TMA cannot describe them, the copy
+    to TMA's layout (``tma_pack``) against its plain version.
 
     The cases share one test instead of being parametrize items only while
     the reference's order-dependent ``test_shard_as_applies_constraint``
@@ -300,12 +304,16 @@ def test_flash_dense_reads_strided_heads(dev):
                                            v.contiguous(), causal=True), out)
     # fp32: heads 16-byte multiples apart are read in place on the tensor
     # cores (the same bits as a contiguous copy), at 256 by the cluster
-    # pairs; rows 130 floats apart are not TMA's, and take the general
-    # kernel
+    # pairs; rows 130 floats apart are not TMA's, nor are odd head dims:
+    # those calls copy q, k and v to TMA's layout and run the tensor-core
+    # kernel of the copies' head dim (no general kernel)
+    simt = fa.FLASH_DENSE_SIMT.launches
     for hd, width, kernel in ((128, 128, fa.FLASH_DENSE_F32),
                               (80, 80, fa.FLASH_DENSE_F32),
                               (256, 256, fa.FLASH_DENSE_F32_256),
-                              (128, 130, fa.FLASH_DENSE_SIMT)):
+                              (128, 130, fa.FLASH_DENSE_F32),
+                              (100, 102, fa.FLASH_DENSE_F32),
+                              (250, 252, fa.FLASH_DENSE_F32_256)):
         buf = _randn(dev, b, s, 3, h, width, seed=6, dtype=torch.float32)
         q, k, v = (buf[:, :, i, :n, :hd] for i, n in enumerate((h, kvh, kvh)))
         before = kernel.launches
@@ -315,10 +323,32 @@ def test_flash_dense_reads_strided_heads(dev):
                                               causal=True, window=50)
         _assert_close(out, want.reshape(b, h, s, hd).permute(0, 2, 1, 3),
                       SIMT_TOL[torch.float32][1])
-        if kernel is not fa.FLASH_DENSE_SIMT:
-            assert torch.equal(flash_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-                window=50), out)
+        assert torch.equal(flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+            window=50), out)
+    assert fa.FLASH_DENSE_SIMT.launches == simt
+    # the copy itself (csrc/tma_pack.cu): q, k, v heads hd + 2 apart, a
+    # base one element off 16 bytes, the head dim's stride not 1, and
+    # contiguous at an odd head dim (loads of 2 to 16 bytes), every dtype,
+    # odd and whole head dims, one launch for the three, bit for bit its
+    # plain version
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for hd in (1, 20, 100, 128, 250, 256):
+            buf = _randn(dev, b, s, 3, h, hd + 2, seed=hd, dtype=dt)
+            flat = _randn(dev, 3 * b * s * h * hd + 1, seed=hd,
+                          dtype=dt)[1:].view(3, b, s, h, hd)
+            layouts = [[buf[:, :, i, :, :hd] for i in range(3)],
+                       list(flat.unbind(0)),
+                       list(_randn(dev, 3, b, s, hd, h, seed=hd, dtype=dt)
+                            .transpose(3, 4).unbind(0))]
+            if hd % 8:
+                layouts.append([x.contiguous() for x in layouts[0]])
+            for qkv in layouts:
+                before = fa.TMA_PACK.launches
+                got = fa._tma_pack(fa.tma_head_dim(hd), *qkv)
+                assert fa.TMA_PACK.launches == before + 1
+                want = fa.tma_pack_plain(fa.tma_head_dim(hd), *qkv)
+                assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def test_flash_dense_bhsd_entry_and_errors(dev):
@@ -326,9 +356,10 @@ def test_flash_dense_bhsd_entry_and_errors(dev):
     out = fa.flash_attention_bhsd(q, q, q, window=100)
     _assert_close(out, fa.flash_attention_dense_plain(q, q, q, window=100))
     x = q[:, :, None]
-    # fp32 runs the tensor-core kernel, a bf16 head dim of 84 the general
-    # kernel
-    before = fa.FLASH_DENSE_SIMT.launches, fa.FLASH_DENSE_F32.launches
+    # fp32 runs the tensor-core kernel, a bf16 head dim of 84 flash_dense
+    # on copies in TMA's layout (hd 88), never the general kernel
+    simt = fa.FLASH_DENSE_SIMT.launches
+    before = fa.FLASH_DENSE.launches, fa.FLASH_DENSE_F32.launches
     _assert_close(flash_attention(*(x.float(),) * 3, window=100),
                   fa.flash_attention_dense_plain(*(q.float(),) * 3,
                                                  window=100)[:, :, None],
@@ -336,8 +367,9 @@ def test_flash_dense_bhsd_entry_and_errors(dev):
     y = _randn(dev, 2, 200, 84)
     _assert_close(fa.flash_attention_bhsd(y, y, y),
                   fa.flash_attention_dense_plain(y, y, y))
-    assert (fa.FLASH_DENSE_SIMT.launches, fa.FLASH_DENSE_F32.launches) == (
+    assert (fa.FLASH_DENSE.launches, fa.FLASH_DENSE_F32.launches) == (
         before[0] + 1, before[1] + 1)
+    assert fa.FLASH_DENSE_SIMT.launches == simt
     # any head dim that is a multiple of 8 up to 256 (72: padded to 128)
     y = _randn(dev, 2, 200, 72)
     _assert_close(fa.flash_attention_bhsd(y, y, y),
@@ -575,7 +607,8 @@ def test_build_is_cached_and_counted(dev):
     libs = _build.build_all()
     assert set(libs) == {"flash_dense", "flash_dense_bwd", "flash_sched",
                          "gmm", "gmm_any", "gmm_simt", "flash_simt",
-                         "flash_simt_bwd", "flash_f32", "flash_f32_bwd"}
+                         "flash_simt_bwd", "flash_f32", "flash_f32_bwd",
+                         "tma_pack"}
     assert all(p.is_file() for p in libs.values())
     _build.reset_launches()
     assert all(k.launches == 0 for k in _build.KERNELS.values())

@@ -19,6 +19,11 @@ sums over 64 to 4096 columns average those roundings.  The forward's lse
 is held to the plain log-sum-exp within 1e-3 (the kernel's exp2 is
 ``ex2.approx``).  Two runs of the backward must give the same bits.
 
+A dense call at a head dim or strides TMA cannot describe runs the
+tensor-core kernels of the route of its copies in TMA's layout (the head
+dim rounded up to 8, zeros past it), forward and backward, and must give
+the bits of those kernels on explicitly zero-padded contiguous copies.
+
 fp16 (``flash_dense_bwd`` at T = __half) is held elementwise to the fp16
 gate, |kernel - plain| <= 2^-10 + 2^-10 |plain| (on the gradients divided
 by dO's power-of-two scale where dO is scaled): the kernels split P and dS
@@ -31,8 +36,8 @@ The MoE backward's bf16 dX and dW against ``grouped_matmul_bwd_plain``
 elementwise, about two bf16 steps, the gate of the forward kernels; two
 runs give the same bits.
 
-The general kernels (``flash_simt_bwd.cu``, ``gmm_dx_simt`` /
-``gmm_dw_simt``) in fp32, plain fp32 FMA against the fp32 plain versions
+The general kernels (``flash_simt_bwd.cu``'s delta pass, ``gmm_dx_simt``
+/ ``gmm_dw_simt``) in fp32, plain fp32 FMA against the fp32 plain versions
 with TF32 off: flash gradients within 1e-4 + 1e-4 |plain| elementwise, dX
 and dW within 1e-5 + 1e-5 |plain| (sums in another order).  The fp32
 flash backward on the tensor cores (``flash_f32_bwd.cu``, three TF32
@@ -100,6 +105,60 @@ def _plain_lse(q, k, causal, window):
         mask &= (i[:, None] - i[None, :]) < window
     sc = torch.where(mask, sc, -1e30)
     return torch.logsumexp(sc, dim=-1).reshape(b, h, s)
+
+
+def _strided(*xs):
+    """The same values as views whose heads lie hd + 2 apart, a stride
+    TMA cannot describe (the dense entry copies them to TMA's layout)."""
+    out = []
+    for x in xs:
+        buf = torch.zeros(*x.shape[:3], x.shape[3] + 2, dtype=x.dtype,
+                          device=x.device)
+        buf[..., :x.shape[3]] = x
+        out.append(buf[..., :x.shape[3]])
+    return out
+
+
+def _padded_bwd(q, k, v, do, causal, window):
+    """What :func:`_bwd` returns, from the route's kernels on explicitly
+    zero-padded contiguous copies (the head dim rounded up to 8), launched
+    through the packed launchers at the real head dim's scale."""
+    hd = q.shape[3]
+
+    def pad(x):
+        y = torch.zeros(*x.shape[:3], fa.tma_head_dim(hd), dtype=x.dtype,
+                        device=x.device)
+        y[..., :hd] = x
+        return y
+
+    qp, kp, vp = map(pad, (q, k, v))
+    out, lse, o_lo = fa._flash_dense_packed(qp, kp, vp, hd, causal=causal,
+                                            window=window, with_lse=True)
+    return (out, lse, *fa._flash_dense_bwd_packed(
+        qp, kp, vp, pad(out), pad(do), lse, o_lo, hd, causal=causal,
+        window=window))
+
+
+def _autograd_launches(q, k, v, do, causal, window):
+    """``flash_attention_dense_bshd`` under autograd on leaves with q's,
+    k's and v's strides: the output, the leaves' gradients and the
+    launches of every kernel that ran."""
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    _build.reset_launches()
+    out = fa.flash_attention_dense_bshd(*leaves, causal=causal,
+                                        window=window)
+    out.backward(do)
+    torch.cuda.synchronize()
+    return out.detach(), [x.grad for x in leaves], {
+        n: kern.launches for n, kern in _build.KERNELS.items()
+        if kern.launches}
+
+
+def _pack_launches(hd, strided):
+    """``tma_pack``'s launches under autograd: one copy of q, k and v in
+    the forward and one in the backward (with dO) where TMA cannot
+    describe them, none where it can."""
+    return {"tma_pack": 2} if hd % 8 or strided else {}
 
 
 def _bwd(q, k, v, do, causal, window):
@@ -225,45 +284,54 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
         want = fa.flash_attention_dense_bwd_plain(q, k, v, do, window=window)
         _check_grads(got[2:], want, (b, s, h, kvh, hd, window))
     # fp16 on the tensor cores at head dims 64, 80, 128 and 256 (P and dS
-    # as hi + lo, D from the output and its rounding residual) and at the
-    # odd head dim 100 on the general kernels (D likewise): under
-    # autograd one launch of each pass, the leaves' gradients the bits of
-    # the launchers', two runs bit-identical, the forward's output within
-    # the fp16 gate and its lse within LSE_TOL, each gradient within the
-    # fp16 gate; GQA, MQA, windows narrower and wider than a tile, ragged s,
+    # as hi + lo, D from the output and its rounding residual), and at the
+    # odd head dims 20, 100 and 250 and on views TMA cannot describe
+    # (strided) through the copy to TMA's layout (``tma_pack``, once
+    # forward and once backward): under autograd one launch of each pass
+    # of flash_dense and flash_dense_bwd and no other kernel, the leaves'
+    # gradients the bits of the launchers', those the
+    # bits of the route's kernels on explicitly zero-padded contiguous
+    # copies, two runs bit-identical, the forward's output within the fp16
+    # gate and its lse within LSE_TOL, each gradient within the fp16 gate;
+    # GQA, MQA, windows narrower and wider than a tile, ragged s,
     # non-causal, and one case with dO scaled by 2^8 (dS 256 times larger,
     # within fp16's range: see the note of csrc/flash_dense_bwd.cu)
-    for i, (b, s, h, kvh, hd, window, causal, scale) in enumerate((
-            (2, 300, 4, 2, 64, 0, True, 1.0),
-            (1, 1000, 4, 2, 80, 100, True, 1.0),
-            (1, 129, 4, 1, 128, 0, True, 2.0 ** 8),
-            (1, 200, 2, 2, 128, 0, False, 1.0),
-            (1, 2100, 4, 1, 128, 300, True, 1.0),
-            (2, 520, 10, 1, 256, 130, True, 1.0),
-            (1, 700, 5, 1, 256, 2048, True, 1.0),
-            (1, 150, 2, 1, 100, 30, True, 1.0))):
+    for i, (b, s, h, kvh, hd, window, causal, scale, strided) in enumerate((
+            (2, 300, 4, 2, 64, 0, True, 1.0, False),
+            (1, 1000, 4, 2, 80, 100, True, 1.0, False),
+            (1, 129, 4, 1, 128, 0, True, 2.0 ** 8, False),
+            (1, 200, 2, 2, 128, 0, False, 1.0, False),
+            (1, 2100, 4, 1, 128, 300, True, 1.0, False),
+            (2, 520, 10, 1, 256, 130, True, 1.0, False),
+            (1, 700, 5, 1, 256, 2048, True, 1.0, False),
+            (1, 150, 2, 1, 100, 30, True, 1.0, False),
+            (2, 300, 4, 2, 64, 0, True, 1.0, True),
+            (1, 1000, 8, 2, 128, 0, True, 1.0, True),
+            (1, 700, 5, 1, 256, 2048, True, 1.0, True),
+            (1, 150, 2, 1, 100, 30, True, 1.0, True),
+            (2, 200, 4, 2, 20, 0, False, 1.0, True),
+            (1, 300, 2, 1, 250, 64, True, 1.0, False))):
         q, k, v, do = _inputs(dev, b, s, h, kvh, hd, seed=80 + i,
                               dtype=torch.float16)
         do = do * scale
-        where = (b, s, h, kvh, hd, window, causal, scale)
+        if strided:
+            q, k, v, do = _strided(q, k, v, do)
+        where = (b, s, h, kvh, hd, window, causal, scale, strided)
         assert fa.flash_route(torch.float16, hd) == (
             "simt" if hd % 8 else "wgmma")
-        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        _build.reset_launches()
-        out = fa.flash_attention_dense_bshd(*leaves, causal=causal,
-                                            window=window)
-        out.backward(do)
-        torch.cuda.synchronize()
-        launches = {n: _build.KERNELS[n].launches for n in (
-            ("flash_dense_simt", "flash_simt_bwd_delta",
-             "flash_simt_bwd_dkdv", "flash_simt_bwd_dq") if hd % 8 else
-            ("flash_dense", "flash_dense_bwd_delta", "flash_dense_bwd_dkdv",
-             "flash_dense_bwd_dq"))}
-        assert launches == dict.fromkeys(launches, 1), (where, launches)
+        assert fa._check_kernel_inputs("flash_dense", q, k, v) == (
+            "simt" if hd % 8 or strided else "wgmma")
+        out, grads, launches = _autograd_launches(q, k, v, do, causal,
+                                                  window)
+        assert launches == dict(dict.fromkeys((
+            "flash_dense", "flash_dense_bwd_delta", "flash_dense_bwd_dkdv",
+            "flash_dense_bwd_dq"), 1), **_pack_launches(hd, strided)), \
+            (where, launches)
         got = _bwd(q, k, v, do, causal, window)
-        assert torch.equal(out.detach(), got[0])
+        assert torch.equal(out, got[0])
+        assert all(torch.equal(a, g) for a, g in zip(grads, got[2:]))
         assert all(torch.equal(a, g) for a, g in
-                   zip((l.grad for l in leaves), got[2:]))
+                   zip(got, _padded_bwd(q, k, v, do, causal, window)))
         assert all(torch.equal(a, g) for a, g in
                    zip(got, _bwd(q, k, v, do, causal, window)))
         assert float((got[1] - _plain_lse(q, k, causal, window)).abs().max()) \
@@ -281,37 +349,52 @@ def test_flash_dense_bwd_padded_and_wide_head_dims(dev):
     # dV over 4 heads x 2100 rows); at head dims 136-256 forward and
     # backward on the tensor cores' cluster pairs ("tf32x3_256": 256, 200
     # and 136, non-causal, and recurrentgemma-2b's MQA 10 / 1 at window
-    # 2048, dK and dV summing 10 heads x ~2048 rows); an odd head dim on
-    # the general kernels; under autograd one launch of each pass, two
+    # 2048, dK and dV summing 10 heads x ~2048 rows); the odd head dims
+    # 20, 100, 130 and 250 and views TMA cannot describe (strided) through
+    # the copy to TMA's layout (``tma_pack``), on the route of the copies'
+    # head dim; under autograd one launch of each pass and no other
+    # kernel, the bits of
+    # the route's kernels on explicitly zero-padded contiguous copies, two
     # runs bit-identical, the forward's output within the gate
-    for i, (b, s, h, kvh, hd, window, causal) in enumerate((
-            (2, 300, 4, 2, 64, 0, True), (1, 200, 4, 1, 80, 70, True),
-            (1, 129, 4, 2, 128, 0, True), (2, 100, 2, 2, 128, 0, False),
-            (1, 1000, 8, 2, 128, 200, True), (2, 333, 4, 1, 64, 40, True),
-            (1, 300, 4, 4, 72, 0, True), (2, 17, 4, 2, 16, 0, True),
-            (1, 2100, 4, 1, 128, 0, True),
-            (1, 700, 5, 1, 256, 2048, True), (2, 300, 4, 2, 200, 50, True),
-            (1, 150, 2, 2, 136, 0, False), (1, 3000, 10, 1, 256, 2048, True),
-            (1, 150, 2, 1, 100, 30, True))):
+    for i, (b, s, h, kvh, hd, window, causal, strided) in enumerate((
+            (2, 300, 4, 2, 64, 0, True, False),
+            (1, 200, 4, 1, 80, 70, True, False),
+            (1, 129, 4, 2, 128, 0, True, False),
+            (2, 100, 2, 2, 128, 0, False, False),
+            (1, 1000, 8, 2, 128, 200, True, False),
+            (2, 333, 4, 1, 64, 40, True, False),
+            (1, 300, 4, 4, 72, 0, True, False),
+            (2, 17, 4, 2, 16, 0, True, False),
+            (1, 2100, 4, 1, 128, 0, True, False),
+            (1, 700, 5, 1, 256, 2048, True, False),
+            (2, 300, 4, 2, 200, 50, True, False),
+            (1, 150, 2, 2, 136, 0, False, False),
+            (1, 3000, 10, 1, 256, 2048, True, False),
+            (1, 150, 2, 1, 100, 30, True, False),
+            (1, 300, 4, 2, 128, 0, True, True),
+            (1, 1100, 10, 1, 256, 300, True, True),
+            (1, 150, 2, 1, 100, 30, True, True),
+            (2, 100, 4, 2, 20, 0, False, True),
+            (1, 200, 2, 2, 130, 0, True, False),
+            (1, 300, 2, 1, 250, 50, True, True))):
         q, k, v, do = _inputs(dev, b, s, h, kvh, hd, seed=60 + i,
                               dtype=torch.float32)
-        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        _build.reset_launches()
-        out = fa.flash_attention_dense_bshd(*leaves, causal=causal,
-                                            window=window)
-        out.backward(do)
-        torch.cuda.synchronize()
-        names = (("flash_dense_simt", "flash_simt_bwd_delta",
-                  "flash_simt_bwd_dkdv", "flash_simt_bwd_dq") if hd % 8 else
-                 ("flash_dense_f32", "flash_simt_bwd_delta",
-                  "flash_f32_bwd_dkdv", "flash_f32_bwd_dq") if hd <= 128 else
-                 ("flash_dense_f32_256", "flash_simt_bwd_delta",
-                  "flash_f32_bwd256_dkdv", "flash_f32_bwd256_dq"))
-        launches = {n: _build.KERNELS[n].launches for n in names}
-        assert launches == dict.fromkeys(launches, 1), launches
+        if strided:
+            q, k, v, do = _strided(q, k, v, do)
+        route = fa.flash_route(torch.float32, fa.tma_head_dim(hd))
+        assert fa._check_kernel_inputs("flash_dense", q, k, v) == (
+            "simt" if hd % 8 or strided else route)
+        out, grads, launches = _autograd_launches(q, k, v, do, causal,
+                                                  window)
+        assert launches == dict(dict.fromkeys((
+            fa.FLASH_DENSE_BY_ROUTE[route].name, "flash_simt_bwd_delta",
+            *(kern.name for kern in fa.FLASH_F32_BWD_BY_ROUTE[route])),
+            1), **_pack_launches(hd, strided)), (hd, strided, launches)
         got = _bwd(q, k, v, do, causal, window)
+        assert torch.equal(out, got[0])
+        assert all(torch.equal(a, g) for a, g in zip(grads, got[2:]))
         assert all(torch.equal(a, g) for a, g in
-                   zip((l.grad for l in leaves), got[2:]))
+                   zip(got, _padded_bwd(q, k, v, do, causal, window)))
         assert all(torch.equal(a, g) for a, g in
                    zip(got, _bwd(q, k, v, do, causal, window)))
         assert float((got[1] - _plain_lse(q, k, causal, window)).abs().max()) \

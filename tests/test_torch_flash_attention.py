@@ -251,7 +251,10 @@ def test_dense_sliding_window_matches_jax_kernel(window):
 
 @pytest.mark.parametrize("causal", (True, False))
 def test_dense_causality_matches_jax_kernel(causal):
-    """Causal and not, with a window of 20, at head dims 32, 80 and 256."""
+    """Causal and not, with a window of 20, at head dims 32, 80 and 256;
+    then at the odd head dims 20, 100 and 250 (the card copies such a call
+    to TMA's layout first) with q, k and v views of one (b, s, h + 2 kvh,
+    hd + 2) buffer, GQA, with and without a window."""
     for hd in (32, 80, 256):
         got, want = _dense_both(*_inputs(6, 2, 100, 4, 1, hd), causal=causal,
                                 window=20, block_q=32, block_k=32)
@@ -259,6 +262,18 @@ def test_dense_causality_matches_jax_kernel(causal):
     got, want = _dense_both(*_inputs(6, 1, 200, 2, 2, 80), causal=causal,
                             block_q=64, block_k=64)
     np.testing.assert_allclose(got, want, atol=ATOL)
+    b, s, h, kvh = 2, 100, 4, 2
+    for hd, window in ((20, 0), (100, 30), (250, 0)):
+        buf = np.random.default_rng(hd).normal(
+            size=(b, s, h + 2 * kvh, hd + 2)).astype(np.float32)
+        cuts = ((0, h), (h, kvh), (h + kvh, kvh))
+        got = flash_attention(*(torch.from_numpy(buf)[:, :, a:a + n, :hd]
+                                for a, n in cuts),
+                              causal=causal, window=window).numpy()
+        want = _jax(*(np.ascontiguousarray(buf[:, :, a:a + n, :hd])
+                      for a, n in cuts), causal=causal, window=window,
+                    block_q=32, block_k=32)
+        np.testing.assert_allclose(got, want, atol=ATOL)
 
 
 @pytest.mark.parametrize("blocks", [(64, 128), (128, 64), (256, 256)])

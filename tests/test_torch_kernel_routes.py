@@ -14,14 +14,23 @@ bf16 and fp16 call of the grouped matmul family goes to ``gmm_any`` / ``gmm_dx_a
 multiples of 8, 16-byte aligned data: "wgmma_any") and by the producer
 warpgroup's copies otherwise ("wgmma_ld"); the rest of fp32 goes to the
 general kernels ("simt"); what none takes raises, on the CPU as on the
-card.  The kernels themselves are held to their plain versions on the
+card.  A dense flash call of route "simt" (a head dim or strides TMA
+cannot describe), forward and backward, runs the tensor-core route of
+its copies in TMA's layout (``_tma_pack``) at the softmax scale of its
+real head dim.  The kernels themselves are held to their plain versions on the
 card (``tests/test_torch_cuda_kernels.py``,
 ``tests/test_torch_cuda_train.py``).
 """
 
+import ctypes
+import math
+import types
+
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.grouped_matmul import grouped_matmul as gm
 
@@ -152,9 +161,14 @@ def test_flash_routes_by_dtype_head_dim_and_strides():
     assert fa.FLASH_SCHED_BY_ROUTE == {
         "wgmma": fa.FLASH_SCHED, "tf32x3": fa.FLASH_SCHED_F32,
         "tf32x3_256": fa.FLASH_SCHED_SIMT, "simt": fa.FLASH_SCHED_SIMT}
+    # the dense entry has no kernel of route "simt": such a call runs the
+    # route of its copies in TMA's layout, at the head dim rounded up to 8
     assert fa.FLASH_DENSE_BY_ROUTE == {
         "wgmma": fa.FLASH_DENSE, "tf32x3": fa.FLASH_DENSE_F32,
-        "tf32x3_256": fa.FLASH_DENSE_F32_256, "simt": fa.FLASH_DENSE_SIMT}
+        "tf32x3_256": fa.FLASH_DENSE_F32_256}
+    assert [fa.tma_head_dim(hd) for hd in (1, 7, 8, 9, 20, 100, 121, 129,
+                                           250, 256)] == [
+        8, 8, 8, 16, 24, 104, 128, 136, 256, 256]
     assert fa.FLASH_F32_BWD_BY_ROUTE == {
         "tf32x3": (fa.FLASH_F32_BWD_DKDV, fa.FLASH_F32_BWD_DQ),
         "tf32x3_256": (fa.FLASH_F32_BWD256_DKDV, fa.FLASH_F32_BWD256_DQ)}
@@ -219,3 +233,130 @@ def test_flash_kernel_check_reads_layout_and_strides():
     with pytest.raises(ValueError, match="GQA layout"):
         fa._check_kernel_inputs("flash_dense", torch.zeros(1, 16, 3, 128),
                                 kv.float(), kv.float())
+
+
+def _layouts(dt, hd, gen):
+    """q, k, v (b, s, h, hd) in the layouts the dense entry may be given:
+    contiguous, heads hd + 2 apart, a base one element off, and GQA / MQA
+    k and v (each with heads hd + 2 apart where hd % 8 == 0, so that every
+    case but the contiguous ones needs a copy)."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dt)
+
+    b, s, h = 1, 3, 4
+    buf = rnd(b, s, 3 * h, hd + 2)
+    flat = rnd(3 * b * s * h * hd + 1)[1:]
+    off = [flat[i * b * s * h * hd:(i + 1) * b * s * h * hd].view(b, s, h, hd)
+           for i in range(3)]
+    yield "contiguous", rnd(b, s, h, hd), rnd(b, s, h, hd), rnd(b, s, h, hd)
+    yield "head stride hd + 2", *(buf[:, :, i * h:(i + 1) * h, :hd]
+                                  for i in range(3))
+    yield "base one element off", *off
+    for kvh in (2, 1):
+        yield f"kv heads {kvh}", rnd(b, s, h, hd), *(
+            buf[:, :, i * h:i * h + kvh, :hd] for i in (1, 2))
+
+
+def _emulate_tma_pack(self, table, n, hd_pad, elem_bytes, stream):
+    """What ``csrc/tma_pack.cu`` does with its launch table, on host
+    memory: each row (source, destination, b, s, heads, hd, four strides
+    in elements) copied through its strides, zeros past hd."""
+    rows = np.ctypeslib.as_array(
+        (ctypes.c_longlong * (fa.TMA_PACK_FIELDS * n)).from_address(table))
+    word = {2: ctypes.c_uint16, 4: ctypes.c_uint32}[elem_bytes]
+    for src, dst, b, s, h, hd, *st in rows.reshape(n, -1).tolist():
+        span = 1 + sum((d - 1) * x for d, x in zip((b, s, h, hd), st))
+        mem = np.ctypeslib.as_array(ctypes.cast(src, ctypes.POINTER(word)),
+                                    shape=(span,))
+        out = np.ctypeslib.as_array(ctypes.cast(dst, ctypes.POINTER(word)),
+                                    shape=(b, s, h, hd_pad))
+        out[...] = 0
+        out[..., :hd] = np.lib.stride_tricks.as_strided(
+            mem, (b, s, h, hd), [x * elem_bytes for x in st])
+
+
+def test_tma_pack_makes_every_dense_layout_tma_ready(monkeypatch):
+    """For float32, bfloat16 and float16, every head dim 1-256 and each
+    layout of ``_layouts``: the copy to TMA's layout is one ``_tma_ok``
+    accepts at the head dim rounded up to 8, equal to the input before
+    ``hd`` and zero past it, and the input itself where nothing needed
+    copying; the dense entry's route after it is never "simt" and is
+    ``flash_route(dtype, hd_pad)``.  The ``tma_pack`` launch's table,
+    read as the kernel reads it (``_emulate_tma_pack``), gives the same
+    bits for all of a call's tensors in one launch."""
+    monkeypatch.setattr(_build.Kernel, "launch", _emulate_tma_pack)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    gen = torch.Generator().manual_seed(0)
+    n = 0
+    for dt in (F32, BF16, F16):
+        for hd in range(1, 257):
+            hd_pad = fa.tma_head_dim(hd)
+            for name, *qkv in _layouts(dt, hd, gen):
+                packed = fa._tma_pack(hd_pad, *qkv)
+                for x, y in zip(qkv, packed):
+                    same = hd % 8 == 0 and fa._tma_ok(x)
+                    assert (y is x) == same, (dt, hd, name)
+                    assert fa._tma_ok(y) and y.shape == (*x.shape[:3], hd_pad)
+                    assert y.dtype == dt and torch.equal(y[..., :hd], x)
+                    assert not y[..., hd:].any()
+                    assert same or y.is_contiguous()
+                route = fa._check_kernel_inputs("flash_dense", *packed)
+                assert route == fa.flash_route(dt, hd_pad) != "simt"
+                pairs = [(x, y) for x, y in zip(qkv, packed) if y is not x]
+                if pairs:
+                    launched = [torch.full_like(y, 7) for _, y in pairs]
+                    fa._tma_pack_launch(hd_pad, [x for x, _ in pairs],
+                                        launched)
+                    assert all(torch.equal(a, y) for a, (_, y) in
+                               zip(launched, pairs))
+                assert (fa._check_kernel_inputs("flash_dense", *qkv)
+                        == "simt") == (hd % 8 > 0 or name != "contiguous")
+                n += 1
+    assert n == 3 * 256 * 5
+
+
+def test_dense_launches_carry_the_real_head_dims_scale(monkeypatch):
+    """The dense entry's launches on CPU tensors, recorded instead of
+    run: at odd head dims and on views TMA cannot describe, the forward
+    and the three backward passes launch the packed route's kernels once
+    each on 16-byte aligned data, never a general kernel but the fp32
+    delta pass, with the softmax scale 1 / sqrt(hd), not 1 / sqrt(hd_pad);
+    the outputs come back at hd."""
+    calls = []
+    monkeypatch.setattr(_build.Kernel, "launch",
+                        lambda self, *args: calls.append((self, args)))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    gen = torch.Generator().manual_seed(1)
+    for dt in (F32, BF16, F16):
+        for hd in (1, 20, 64, 100, 121, 130, 250, 256):
+            hd_pad = fa.tma_head_dim(hd)
+            route = fa.flash_route(dt, hd_pad)
+            want = ([fa.FLASH_DENSE, fa.FLASH_DENSE_BWD_DELTA,
+                     fa.FLASH_DENSE_BWD_DKDV, fa.FLASH_DENSE_BWD_DQ]
+                    if route == "wgmma" else
+                    [fa.FLASH_DENSE_BY_ROUTE[route], fa.FLASH_SIMT_BWD_DELTA,
+                     *fa.FLASH_F32_BWD_BY_ROUTE[route]])
+            for name, q, k, v in _layouts(dt, hd, gen):
+                if name == "contiguous" and hd % 8 == 0:
+                    continue
+                calls.clear()
+                out, lse, o_lo = fa._flash_dense_cuda(
+                    q, k, v, causal=True, window=0, with_lse=True)
+                do = torch.randn(q.shape, generator=gen).to(dt)
+                grads = fa._flash_dense_bwd_cuda(q, k, v, out, do, lse, o_lo,
+                                                 causal=True, window=0)
+                assert [c[0] for c in calls] == want, (dt, hd, name)
+                assert out.shape == q.shape and lse.shape == (1, 4, 3)
+                assert (o_lo is None) == (dt != F16)
+                assert o_lo is None or o_lo.shape[3] == hd_pad
+                assert [g.shape for g in grads] == [x.shape for x in (q, k, v)]
+                # the first pointer of each pass (q, or o for a delta pass)
+                assert all(args[0] % 16 == 0 for _, args in calls)
+                scales = [a for kern, args in calls
+                          for a, t in zip(args, kern.argtypes)
+                          if t is ctypes.c_float]
+                assert scales == [1.0 / math.sqrt(hd)] * 3, (dt, hd, scales)
